@@ -1,0 +1,208 @@
+"""The port's measured shapes, and where their device time goes.
+
+Three cells, each at full size, from the JAX package's own defaults:
+
+- :func:`reference_scene`: the README quick start, the Rust app's
+  800x264 cylinder channel with default parameters and solver options
+  (up to 20 outer corrector rounds; the rounds-kernel route);
+- :func:`fast_scene`: ``bench.py --mode fast`` at 2048² (a fixed
+  50-sweep Jacobi, no outer rounds; the fused route);
+- :func:`reference_mode_scene`: ``bench.py --mode reference`` at 2048²
+  (the fused route with outer rounds and tolerance exits).
+
+``chip_smoke.py`` drives the first two. On a CUDA card,
+
+    python3 -m cfd_demo_tpu_torch.cells [--out FILE.json]
+
+runs each cell for a timed rollout after its warm-up, then 10 more steps
+under ``torch.profiler``, and prints the rate, the device
+time per step by kernel and the device's busy share of the unprofiled
+wall time. For the 800x264 scene it also prints how many outer rounds
+and Jacobi sweeps the rounds kernel ran in a step.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+from .core.config import (Cylinder, Grid, Semantics, SimulationParams,
+                          default_grid, solver_options_for)
+from .kernels.rounds import solve_correct_rounds
+from .kernels.substep import correct_bc, predict_div, predict_div_plain
+from .solver.piso import (_use_fused_substep, make_run, make_scene,
+                          make_step, ramped_inlet)
+
+
+def reference_scene():
+    """The README quick start: the Rust app's 800x264 cylinder channel
+    with default parameters and solver options."""
+    return make_scene(default_grid())
+
+
+def _bench_grid(n):
+    """bench.py's grid (bench.py:78-80)."""
+    return Grid(nx=n, ny=n, lx=30.0, ly=30.0,
+                obstacles=(Cylinder(7.5, 15.0, 0.75),))
+
+
+def fast_scene(n: int = 2048):
+    """bench.py --mode fast (bench.py:78-86)."""
+    opts = solver_options_for(
+        Semantics.RUST, ramp_up_steps=10, jacobi_tol=0.0, jacobi_iters=50,
+        outer_corrector_rounds=0, early_exit=False)
+    return make_scene(_bench_grid(n), SimulationParams(dt=0.002, viscosity=1e-4),
+                      opts)
+
+
+def reference_mode_scene(n: int = 2048):
+    """bench.py --mode reference (bench.py:117-120)."""
+    return make_scene(_bench_grid(n), SimulationParams(dt=0.002, viscosity=1e-4),
+                      solver_options_for(Semantics.RUST, ramp_up_steps=10))
+
+
+def rounds_args(scene, state):
+    """What the rounds route feeds the rounds kernel in the next step
+    from ``state``: the plain predictor's u*, v* and rhs, with p, p' and
+    the step's dt and inlet."""
+    g = scene.grid
+    u_star, v_star, rhs = predict_div_plain(
+        state.u, state.v, state.dt, state.nu, g,
+        scene.params.velocity_scheme, scene.opts.semantics)
+    return (u_star, v_star, state.p, state.p_prime, rhs, state.dt,
+            ramped_inlet(scene.opts, state), scene)
+
+
+PROFILED_STEPS = 10
+# (scene, warm-up steps, timed steps). 55 warm-up steps bring the 800x264
+# scene to where every step runs all its outer rounds.
+CELLS = {
+    "800x264 default": (reference_scene, 55, 50),
+    "2048^2 fast": (fast_scene, 5, 100),
+    "2048^2 reference": (reference_mode_scene, 5, 20),
+}
+
+
+# Wrappers whose every launch is one kernel of this name: the trace must
+# hold as many of them as the wrappers counted.
+TRACED = {predict_div: "predict_div_kernel(", correct_bc: "correct_bc_kernel(",
+          solve_correct_rounds: "rounds_kernel("}
+
+
+def _busy_us(spans):
+    """Length of the union of (start, end) intervals."""
+    busy, end = 0.0, float("-inf")
+    for s, t in sorted(spans):
+        if t > end:
+            busy += t - max(s, end)
+            end = t
+    return busy
+
+
+def device_breakdown(scene, state, steps):
+    """Device time by kernel over ``steps`` steps under torch.profiler:
+    (busy µs per step, [(kernel, µs per step, launches per step)]). A
+    first, unrecorded rollout warms the tracer up, and each step waits
+    for the device: traces of rollouts that queued many steps ahead of
+    the device lost some of their launches."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    step = make_step(scene)
+    events = []
+
+    def keep(prof):  # device work: kernels and copies, not the step marker
+        events.extend(e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.name.startswith("ProfilerStep"))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=keep) as prof:
+        for _ in range(2):
+            before = {w: w.launches for w in TRACED}
+            s = state
+            for _ in range(steps):
+                s, _ = step(s)
+                torch.cuda.synchronize()
+            prof.step()
+    if not events:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    for w, kernel in TRACED.items():
+        traced = sum(kernel in e.name for e in events)
+        if traced != w.launches - before[w]:
+            raise RuntimeError(f"the trace holds {traced} of "
+                               f"{w.launches - before[w]} {kernel[:-1]} launches")
+    total, calls = collections.Counter(), collections.Counter()
+    for e in events:
+        total[e.name] += e.time_range.elapsed_us()
+        calls[e.name] += 1
+    busy = _busy_us([(e.time_range.start, e.time_range.end) for e in events])
+    rows = [(name, us / steps, calls[name] / steps) for name, us in total.most_common()]
+    return busy / steps, rows
+
+
+def measure(name, make, warmup, timed, dev):
+    scene = make()
+    g = scene.grid
+    state, _ = make_run(scene, warmup)(scene.init_state(dev))
+    out = {}
+    if not _use_fused_substep(scene):  # the rounds-kernel route
+        counts = solve_correct_rounds(*rounds_args(scene, state))[5].tolist()
+        out["rounds_per_step"], out["sweeps_per_step"] = counts
+    run = make_run(scene, timed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = run(state)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    if not bool(torch.isfinite(state.u).all()):
+        raise RuntimeError(f"{name}: u is not finite")
+    out["steps_per_s"] = timed / sec
+    out["cell_updates_per_s"] = g.nx * g.ny * timed / sec
+    busy_us, rows = device_breakdown(scene, state, PROFILED_STEPS)
+    wall_us = 1e6 * sec / timed
+    out["wall_us_per_step"] = wall_us
+    out["device_busy_us_per_step"] = busy_us
+    out["device_busy_share"] = busy_us / wall_us
+    out["kernels"] = [{"name": n, "us_per_step": us, "launches_per_step": c}
+                      for n, us, c in rows]
+    print(f"{name}: {out['steps_per_s']:.2f} steps/s, "
+          f"{out['cell_updates_per_s']:.4e} cell-updates/s; device busy "
+          f"{busy_us:.1f} of {wall_us:.1f} us per step "
+          f"({100 * busy_us / wall_us:.1f}%)"
+          + (f"; rounds kernel: {out['rounds_per_step']} rounds, "
+             f"{out['sweeps_per_step']} sweeps" if "sweeps_per_step" in out else ""),
+          flush=True)
+    for n, us, c in rows[:8]:
+        print(f"    {us:10.1f} us/step {100 * us / busy_us:5.1f}%  x{c:g}  {n[:90]}",
+              flush=True)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", help="also write every number to this JSON file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("cells: needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    report = {"nvidia_smi": smi}
+    for name, (make, warmup, timed) in CELLS.items():
+        report[name] = measure(name, make, warmup, timed, dev)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,67 @@
+"""Obstacle masks built on the device from index tensors
+(↔ cfd_demo_tpu/core/masks.py ``masks_traced``, Rust branch).
+
+Rust semantics (model.rs:232-261): a cell whose *centre* lies strictly
+inside a cylinder marks both adjacent u faces and both adjacent v faces
+for the predictor; the end-of-substep BCs zero only the west u face and
+the south v face of each such cell (model.rs:869-874).
+
+Coordinates are computed in f32 exactly as the JAX package does,
+``(i + off) * dx`` with ``dx`` rounded to f32, and compared against
+``f32(r**2)``: a face on the cylinder's rim flips if any of these
+roundings differ, so the CUDA kernels use the same operations
+(csrc/common.cuh ``inside_any``).
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .config import Cylinder, Grid, Semantics
+from .unported import WIDEN_STEP, unported
+
+
+def _inside_any(grid: Grid, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    acc = torch.zeros(torch.broadcast_shapes(x.shape, y.shape),
+                      dtype=torch.bool, device=x.device)
+    for obs in grid.obstacles:
+        if not isinstance(obs, Cylinder):
+            raise unported(f"obstacle {type(obs).__name__}", WIDEN_STEP)
+        dxo = x - float(np.float32(obs.center_x))
+        dyo = y - float(np.float32(obs.center_y))
+        acc |= (dxo * dxo + dyo * dyo) < float(np.float32(obs.radius ** 2))
+    return acc
+
+
+@functools.lru_cache(maxsize=16)
+def masks_traced(grid: Grid, semantics: Semantics, device):
+    """(mask_u, mask_v, mask_u_bc, mask_v_bc) as bool tensors in the
+    storage shapes (ny, nx+1) and (ny, nx) on ``device``; a tuple of
+    None when the scene has no obstacles. Cached per (grid, semantics,
+    device): callers must not write into the returned tensors."""
+    if semantics != Semantics.RUST:
+        raise unported("JS semantics (face-position masks)", WIDEN_STEP)
+    if not grid.obstacles:
+        return None, None, None, None
+    ny, nx = grid.ny, grid.nx
+    dx = float(np.float32(grid.dx))
+    dy = float(np.float32(grid.dy))
+    f32 = torch.float32
+    iu = torch.arange(nx + 1, device=device)[None, :]
+    iv = torch.arange(nx, device=device)[None, :]
+    jj = torch.arange(ny, device=device)[:, None]
+    # u face f: cells west (i-1) and east (i) of it, on row j.
+    yc = (jj.to(f32) + 0.5) * dy
+    in_w = _inside_any(grid, (iu.to(f32) + (-0.5)) * dx, yc) & (iu >= 1)
+    in_e = _inside_any(grid, (iu.to(f32) + 0.5) * dx, yc) & (iu <= nx - 1)
+    mask_u = in_w | (in_e & (iu >= 1))   # cell 0 never marks face 0
+    mask_u_bc = in_e                     # west face of each inside cell
+    # v face r: cells south (j-1) and north (j) of it, on column i.
+    xc = (iv.to(f32) + 0.5) * dx
+    in_s = _inside_any(grid, xc, (jj.to(f32) + (-0.5)) * dy) & (jj >= 1)
+    in_n = _inside_any(grid, xc, yc)
+    mask_v = in_s | (in_n & (jj >= 1))
+    mask_v_bc = in_n
+    return mask_u, mask_v, mask_u_bc, mask_v_bc

@@ -1,0 +1,235 @@
+// The whole pressure projection of one scene in one launch: exact
+// do-while Jacobi, corrector, up to `rounds` outer corrector rounds with an
+// exact exit, then the velocity BCs (CHANNEL, UNIFORM inlet, Rust masks).
+// Replaces cfd_demo_tpu/kernels/rounds_pallas.py solve_correct_rounds_pallas
+// (_kernel_rounds) with its in-kernel solver ensemble_pallas.make_jacobi_solve.
+// See kernels/rounds.py for the design note.
+//
+// A persistent cooperative kernel: at most one resident block per SM, and
+// a grid-wide barrier (cooperative_groups grid.sync) wherever the next
+// phase reads what other blocks wrote. Data written inside the kernel is
+// read with __ldcg (L2, bypassing the non-coherent L1).
+#include <cooperative_groups.h>
+
+#include "common.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kThreads = 1024;
+
+struct RoundsArgs {
+    const float* us;    // u* (ny, nx+1)
+    const float* vs;    // v* (ny, nx)
+    const float* p_in;  // (ny, nx)
+    const float* pp0;   // BC-consistent warm start (ny, nx)
+    const float* rhs0;  // (ny, nx)
+    const float* scal;  // device [dt_sub, inlet]
+    float* u;           // out (ny, nx+1)
+    float* v;           // out (ny, nx)
+    float* p;           // out (ny, nx)
+    float* pp;          // out p' (ny, nx)
+    float* pp_tmp;      // scratch (ny, nx)
+    float* rhs_w;       // scratch (ny, nx): the rounds' divergence
+    float* slots;       // scratch [3]: per-sweep grid max, used in rotation
+    float* err_out;     // out [1]
+    int* counts;        // out [2]: outer rounds run, Jacobi sweeps run
+    int ny, nx;
+    float dx, dy, ax, ay, ar, ac;
+    int iters;
+    float tol;
+    int rounds;
+    float outer_tol;
+    Cyl cyl;
+};
+
+// The grid's warps take (row, 32-column chunk) segments in turn, so a
+// warp reads consecutive addresses. The body runs for cell (j, i).
+#define FOR_CELLS(j0, j1, i0, i1)                                                 \
+    for (int nch_ = ((i1) - (i0) + 31) / 32, seg_ = gwarp;                        \
+         seg_ < ((j1) - (j0)) * nch_; seg_ += nwarps)                            \
+        if (const int j = (j0) + seg_ / nch_, i = (i0) + (seg_ % nch_) * 32 + lane; \
+            i < (i1))
+
+struct Ctx {
+    cg::grid_group grid;
+    float* sh;
+    int gwarp, nwarps, lane, gtid, gthreads;
+    int sweep;  // sweeps run so far: picks the rotating max slot
+};
+
+// Max of m over the whole grid. Slot s % 3 collects this sweep's block
+// maxima; slot (s+1) % 3, last read before the previous barrier, is
+// cleared for the next sweep. m >= 0 (or +NaN), so the float order is
+// the order of the bit patterns as ints.
+__device__ float grid_max(const RoundsArgs& A, Ctx& c, float m) {
+    m = block_max(m, c.sh);
+    const int s = c.sweep++;
+    if (threadIdx.x == 0) {
+        atomicMax(reinterpret_cast<int*>(A.slots + s % 3), __float_as_int(m));
+        if (blockIdx.x == 0) A.slots[(s + 1) % 3] = 0.0f;
+    }
+    c.grid.sync();
+    return __ldcg(A.slots + s % 3);
+}
+
+// ensemble_pallas.make_jacobi_solve: do-while `it == 0 or (it < iters and
+// err >= tol)`, folded boundary reads, p' BCs once after the loop. The
+// result lands in cur; other is the ping-pong buffer.
+__device__ float jacobi_solve(const RoundsArgs& A, Ctx& c, const float* rhs,
+                              float*& cur, float*& other) {
+    const int ny = A.ny, nx = A.nx;
+    const int gwarp = c.gwarp, nwarps = c.nwarps, lane = c.lane;
+    float err;
+    int it = 0;
+    do {
+        float m = 0.0f;
+        FOR_CELLS(1, ny - 1, 1, nx - 1) {
+            const size_t k = (size_t)j * nx + i;
+            const float C = __ldcg(cur + k);
+            const float E = (i == nx - 2) ? 0.0f : __ldcg(cur + k + 1);
+            const float W = (i == 1) ? C : __ldcg(cur + k - 1);
+            const float N = (j == ny - 2) ? C : __ldcg(cur + k + nx);
+            const float S = (j == 1) ? C : __ldcg(cur + k - nx);
+            const float nv = A.ax * (E + W) + A.ay * (N + S) + A.ac * C - A.ar * __ldcg(rhs + k);
+            other[k] = nv;
+            m = pmax(m, fabsf(nv - C));
+        }
+        err = grid_max(A, c, m);  // its barrier also publishes `other`
+        float* t = cur; cur = other; other = t;
+        ++it;
+    } while (it < A.iters && err >= A.tol);
+    // p' BCs, rows then columns, from interior values only.
+    for (int b = c.gtid; b < 2 * nx + 2 * (ny - 2); b += c.gthreads) {
+        int j, i;
+        if (b < 2 * nx) { j = (b < nx) ? 0 : ny - 1; i = b % nx; }
+        else { const int q = b - 2 * nx; j = 1 + q % (ny - 2); i = (q < ny - 2) ? 0 : nx - 1; }
+        float val = 0.0f;
+        if (i != nx - 1) {
+            const int ii = (i == 0) ? 1 : i;
+            const int jj = (j == 0) ? 1 : (j == ny - 1) ? ny - 2 : j;
+            val = __ldcg(cur + (size_t)jj * nx + ii);
+        }
+        cur[(size_t)j * nx + i] = val;
+    }
+    c.grid.sync();
+    return err;
+}
+
+// ops/corrector.py in place on (u, v, p).
+__device__ void correct_inplace(const RoundsArgs& A, Ctx& c, const float* pp, float dt) {
+    const int ny = A.ny, nx = A.nx;
+    const int gwarp = c.gwarp, nwarps = c.nwarps, lane = c.lane;
+    FOR_CELLS(0, ny, 1, nx) {
+        const size_t kp = (size_t)j * nx + i;
+        const size_t ku = (size_t)j * (nx + 1) + i;
+        A.u[ku] = __ldcg(A.u + ku) - dt * (__ldcg(pp + kp) - __ldcg(pp + kp - 1)) / A.dx;
+    }
+    FOR_CELLS(0, ny, 0, nx) {
+        const size_t k = (size_t)j * nx + i;
+        const float ppk = __ldcg(pp + k);
+        if (j >= 1) A.v[k] = __ldcg(A.v + k) - dt * (ppk - __ldcg(pp + k - nx)) / A.dy;
+        A.p[k] = __ldcg(A.p + k) + ppk;
+    }
+    c.grid.sync();
+}
+
+// ops/divergence.py into rhs_w.
+__device__ void divergence(const RoundsArgs& A, Ctx& c, float dt) {
+    const int ny = A.ny, nx = A.nx;
+    const int gwarp = c.gwarp, nwarps = c.nwarps, lane = c.lane;
+    FOR_CELLS(0, ny, 0, nx) {
+        const size_t k = (size_t)j * nx + i;
+        const size_t ku = (size_t)j * (nx + 1) + i;
+        const float du = (__ldcg(A.u + ku + 1) - __ldcg(A.u + ku)) / A.dx;
+        const float vN = (j + 1 < ny) ? __ldcg(A.v + k + nx) : 0.0f;
+        const float dv = (vN - __ldcg(A.v + k)) / A.dy;
+        A.rhs_w[k] = (du + dv) / dt;
+    }
+    c.grid.sync();
+}
+
+__global__ void __launch_bounds__(kThreads) rounds_kernel(RoundsArgs A) {
+    __shared__ float sh[33];
+    Ctx c{cg::this_grid(), sh, 0, 0, 0, 0, 0, 0};
+    c.lane = threadIdx.x & 31;
+    c.gwarp = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+    c.nwarps = gridDim.x * (kThreads / 32);
+    c.gtid = blockIdx.x * kThreads + threadIdx.x;
+    c.gthreads = gridDim.x * kThreads;
+    const int gwarp = c.gwarp, nwarps = c.nwarps, lane = c.lane;
+    const int ny = A.ny, nx = A.nx;
+    const float dt = A.scal[0], inlet = A.scal[1];
+    for (int k = c.gtid; k < ny * (nx + 1); k += c.gthreads) A.u[k] = A.us[k];
+    for (int k = c.gtid; k < ny * nx; k += c.gthreads) {
+        A.v[k] = A.vs[k];
+        A.p[k] = A.p_in[k];
+        A.pp[k] = A.pp0[k];
+    }
+    if (c.gtid < 3) A.slots[c.gtid] = 0.0f;
+    c.grid.sync();
+    float* cur = A.pp;
+    float* other = A.pp_tmp;
+    float err = jacobi_solve(A, c, A.rhs0, cur, other);
+    correct_inplace(A, c, cur, dt);
+    // Outer rounds (piso.py _outer_rounds): `it < rounds and err >= outer_tol`.
+    int rounds_run = 0;
+    for (; rounds_run < A.rounds && err >= A.outer_tol; ++rounds_run) {
+        divergence(A, c, dt);
+        err = jacobi_solve(A, c, A.rhs_w, cur, other);
+        correct_inplace(A, c, cur, dt);
+    }
+    if (cur != A.pp) {
+        for (int k = c.gtid; k < ny * nx; k += c.gthreads) A.pp[k] = __ldcg(cur + k);
+    }
+    // BCs (ops/bc.py). The outlet copies the corrected u[:, nx-1] before the
+    // solid mask may zero it, so stage that column first.
+    for (int j = c.gtid; j < ny; j += c.gthreads)
+        A.rhs_w[j] = __ldcg(A.u + (size_t)j * (nx + 1) + nx - 1);
+    c.grid.sync();
+    FOR_CELLS(0, ny, 0, nx + 1) {
+        const size_t ku = (size_t)j * (nx + 1) + i;
+        float val = (i == 0) ? inlet : (i == nx) ? __ldcg(A.rhs_w + j) : __ldcg(A.u + ku);
+        if (j == 0 || j == ny - 1) val = 0.0f;
+        if (mask_u_bc(A.cyl, j, i, nx, A.dx, A.dy)) val = 0.0f;
+        A.u[ku] = val;
+    }
+    FOR_CELLS(0, ny, 0, nx) {
+        const size_t k = (size_t)j * nx + i;
+        if (j == 0 || mask_v_bc(A.cyl, j, i, A.dx, A.dy)) A.v[k] = 0.0f;
+    }
+    if (c.gtid == 0) {
+        A.err_out[0] = err;
+        A.counts[0] = rounds_run;
+        A.counts[1] = c.sweep;
+    }
+}
+
+}  // namespace
+
+// One block per SM, all resident as the grid-wide barrier requires.
+extern "C" int cfd_rounds(const float* us, const float* vs, const float* p_in,
+                          const float* pp0, const float* rhs0, const float* scal,
+                          float* u, float* v, float* p, float* pp, float* pp_tmp,
+                          float* rhs_w, float* slots, float* err_out, int* counts,
+                          int ny, int nx, float dx, float dy, float ax, float ay,
+                          float ar, float ac, int iters, float tol, int rounds,
+                          float outer_tol, int n_cyl, const float* cyl_host,
+                          void* stream) {
+    RoundsArgs A{us, vs, p_in, pp0, rhs0, scal, u, v, p, pp, pp_tmp, rhs_w, slots,
+                 err_out, counts, ny, nx, dx, dy, ax, ay, ar, ac, iters, tol, rounds,
+                 outer_tol, make_cyl(n_cyl, cyl_host)};
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rounds_kernel, kThreads, 0);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    void* args[] = {&A};
+    e = cudaLaunchCooperativeKernel((const void*)rounds_kernel, dim3(sms), dim3(kThreads),
+                                    args, 0, (cudaStream_t)stream);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+}

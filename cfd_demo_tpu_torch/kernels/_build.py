@@ -1,0 +1,178 @@
+"""Build the CUDA kernels with nvcc and load them with ctypes.
+
+``load()`` compiles every ``csrc/*.cu`` at first use into one shared
+library with a plain C interface,
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
+         -shared -Xcompiler -fPIC -Xptxas -v
+
+and caches it under ``cfd_demo_tpu_torch/_build/`` (git-ignored). The
+file name carries a hash of the sources and flags, so a changed source
+rebuilds. nvcc's output (ptxas register and spill counts included) is
+kept beside the library as ``.log``. A failed build raises with that
+output. ``-fmad=false`` keeps every multiply and add separately rounded,
+as the JAX reference computes them (csrc/common.cuh).
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` turns a non-zero code into an
+exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+from ..core.config import Cylinder
+from ..core.unported import WIDEN_STEP, unported
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
+# (name, argtypes) of every C entry point; all return int.
+_SIGNATURES = {
+    "cfd_predict_div": [P, P, P, P, P, P, I, I, F, F, F, F, I, P, P],
+    "cfd_jacobi_partials": [I, I],
+    "cfd_jacobi_fused_k": [P, P, P, P, P, P, I, I, I, F, F, F, F, P],
+    "cfd_correct_bc_partials": [I, I],
+    "cfd_correct_bc": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, F, F, I, P, P],
+    "cfd_rounds": [P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, F, F, F,
+                   F, F, F, I, F, I, F, I, P, P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+    return path
+
+
+def _sources():
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libcfdkernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the library if it is not built yet; returns its path."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *FLAGS, "-o", tmp, *cu],
+                          capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    lib.with_suffix(".log").write_text(
+        f"built in {time.perf_counter() - t0:.1f} s\n{log}")
+    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    return lib
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use, with typed entry points."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.cfd_error_string.argtypes = [I]
+    lib.cfd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if rc != 0:
+        text = load().cfd_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({text})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The raw handle of the current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def cylinders(grid):
+    """(count, ctypes float array of (cx, cy, f32(r**2)) triples) of the
+    grid's obstacles, which must be cylinders."""
+    obs = grid.obstacles
+    for o in obs:
+        if not isinstance(o, Cylinder):
+            raise unported(f"obstacle {type(o).__name__}", WIDEN_STEP)
+    if len(obs) > 4:  # CFD_MAX_CYL in csrc/common.cuh
+        raise ValueError(f"at most 4 cylinders per scene, got {len(obs)}")
+    vals = [x for o in obs for x in (o.center_x, o.center_y, o.radius ** 2)]
+    return len(obs), (ctypes.c_float * max(1, len(vals)))(*vals)
+
+
+# ---------------------------------------------------------------------------
+# Wrapper helpers
+# ---------------------------------------------------------------------------
+
+def on_cpu(what: str, shape_of: dict) -> bool:
+    """Validate a kernel wrapper's inputs and say where they lie.
+
+    ``shape_of`` maps an argument name to (tensor, expected shape). All
+    must be contiguous f32 on one device, CPU or CUDA; True means CPU,
+    where the wrapper runs its plain version."""
+    device = None
+    for name, (t, shape) in shape_of.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{what}: {name} must be a tensor, got {type(t)}")
+        if t.dtype != torch.float32:
+            raise unported(f"{what}: {name} of dtype {t.dtype}", WIDEN_STEP)
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+        if device is None:
+            device = t.device
+        elif t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, not {device}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: tensors on {device}; expected cpu or cuda")
+    return device.type == "cpu"
+
+
+def device_scalars(device, *xs) -> torch.Tensor:
+    """A contiguous f32 vector of the scalars ``xs`` (floats or 0-d
+    tensors already on ``device``) on ``device``, built without a host
+    synchronisation."""
+    return torch.stack([
+        x.to(torch.float32).reshape(()) if isinstance(x, torch.Tensor)
+        else torch.full((), float(x), dtype=torch.float32, device=device)
+        for x in xs])

@@ -1,0 +1,110 @@
+"""The whole projection of one scene in one CUDA launch
+(↔ cfd_demo_tpu/kernels/rounds_pallas.py with ensemble_pallas.make_jacobi_solve).
+
+``solve_correct_rounds`` replaces ``solve_correct_rounds_pallas``
+(rounds_pallas.py:132, body ``_kernel_rounds`` :59, in-kernel solver
+``make_jacobi_solve`` ensemble_pallas.py:69), csrc/rounds.cu. After the
+predictor, a Rust substep runs a do-while Jacobi that exits at the exact
+sweep its error drops below tol, the corrector, then up to 20 outer
+rounds of divergence, warm-started Jacobi and corrector, each exiting
+exactly, then the BCs (model.rs:696-724). On the reference's 800x264
+scene that is about a hundred sweeps per step, and each sweep needs a
+barrier across the whole field and a global max.
+
+What bounds it on the H100 is those barriers, not bytes: a field is
+0.84 MB, so the whole working set (about 6 fields) sits in the 50 MB L2,
+and a sweep is a few microseconds of work spread over the card. The
+kernel is persistent and cooperative: one block of 1024 threads per SM,
+all resident, looping over the field, with a grid-wide barrier
+(``grid.sync``) between phases and a rotating three-slot ``atomicMax``
+for each sweep's max, so the exits are decided on the device with one
+barrier per sweep and no host read. A single-block form (one SM doing
+all the work) measured 30x slower; PERF.md has both times.
+
+Both versions also return how many outer rounds and Jacobi sweeps ran,
+so a check can hold the kernel's exits against the plain version's.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.masks import masks_traced
+from ..ops.bc import apply_bcs
+from ..ops.corrector import correct
+from ..ops.divergence import divergence_rhs
+from ..ops.poisson import jacobi
+from ._build import check, cylinders, device_scalars, load, on_cpu, stream_of
+from .jacobi import _multipliers
+from .substep import _check_slice
+
+
+def solve_correct_rounds_plain(u_star, v_star, p, pp0, rhs, dt_sub, inlet,
+                               scene):
+    """ops.poisson.jacobi (exact exit) + correct + outer rounds +
+    apply_bcs, as tests/test_ensemble_pallas.py builds the reference.
+    The exits read the error on the host."""
+    g, opts = scene.grid, scene.opts
+    sweeps = 0
+
+    def solve(pp, rhs_):
+        nonlocal sweeps
+        pp, err, n = jacobi(pp, rhs_, g.dx, g.dy, opts.jacobi_omega,
+                            opts.jacobi_tol, opts.jacobi_iters)
+        sweeps += n
+        return pp, err
+
+    pp, err = solve(pp0, rhs)
+    u, v, p = correct(u_star, v_star, p, pp, dt_sub, g.dx, g.dy)
+    it = 0
+    while it < opts.outer_corrector_rounds and bool(err >= opts.outer_corrector_tol):
+        pp, err = solve(pp, divergence_rhs(u, v, dt_sub, g.dx, g.dy))
+        u, v, p = correct(u, v, p, pp, dt_sub, g.dx, g.dy)
+        it += 1
+    _, _, mask_u_bc, mask_v_bc = masks_traced(g, opts.semantics, u.device)
+    u, v = apply_bcs(u, v, g, scene.params.inlet_profile, inlet, mask_u_bc,
+                     mask_v_bc, scene.params.flow_case)
+    counts = torch.tensor([it, sweeps], dtype=torch.int32, device=u.device)
+    return u, v, p, pp, err, counts
+
+
+def solve_correct_rounds(u_star, v_star, p, pp0, rhs, dt_sub, inlet, scene):
+    """Fused solve + corrector + outer rounds + BCs for one scene.
+    ``u_star`` (ny, nx+1); ``v_star``, ``p``, ``pp0`` (BC-consistent),
+    ``rhs`` (ny, nx). Returns (u, v, p, p_prime, err, counts), where
+    ``counts`` is an int32 (2,) tensor: outer rounds run, Jacobi sweeps
+    run."""
+    g, opts = scene.grid, scene.opts
+    _check_slice(scene.params.velocity_scheme, opts.semantics,
+                 scene.params.inlet_profile, scene.params.flow_case)
+    ny, nx = g.ny, g.nx
+    shapes = {"u_star": (u_star, (ny, nx + 1)), "v_star": (v_star, (ny, nx)),
+              "p": (p, (ny, nx)), "pp0": (pp0, (ny, nx)), "rhs": (rhs, (ny, nx))}
+    if on_cpu("solve_correct_rounds", shapes):
+        return solve_correct_rounds_plain(u_star, v_star, p, pp0, rhs, dt_sub,
+                                          inlet, scene)
+    lib = load()
+    u, v = torch.empty_like(u_star), torch.empty_like(v_star)
+    p_out, pp, pp_tmp, rhs_w = (torch.empty_like(p) for _ in range(4))
+    slots = torch.empty(3, dtype=torch.float32, device=p.device)
+    err = torch.empty((), dtype=torch.float32, device=p.device)
+    counts = torch.empty(2, dtype=torch.int32, device=p.device)
+    scal = device_scalars(p.device, dt_sub, inlet)
+    n_cyl, cyl = cylinders(g)
+    f32 = lambda x: float(np.float32(x))
+    with torch.cuda.device(p.device):
+        check(lib.cfd_rounds(
+            u_star.data_ptr(), v_star.data_ptr(), p.data_ptr(), pp0.data_ptr(),
+            rhs.data_ptr(), scal.data_ptr(), u.data_ptr(), v.data_ptr(),
+            p_out.data_ptr(), pp.data_ptr(), pp_tmp.data_ptr(),
+            rhs_w.data_ptr(), slots.data_ptr(), err.data_ptr(),
+            counts.data_ptr(), ny, nx, f32(g.dx), f32(g.dy),
+            *_multipliers(g.dx, g.dy, opts.jacobi_omega),
+            opts.jacobi_iters, opts.jacobi_tol, opts.outer_corrector_rounds,
+            opts.outer_corrector_tol, n_cyl, cyl, stream_of(p)),
+            "solve_correct_rounds")
+    solve_correct_rounds.launches += 1
+    return u, v, p_out, pp, err, counts
+
+
+solve_correct_rounds.launches = 0

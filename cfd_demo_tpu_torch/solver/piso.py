@@ -1,0 +1,358 @@
+"""The PISO time step in PyTorch (↔ cfd_demo_tpu/solver/piso.py).
+
+Reference call stack (Rust semantics): Model::update (model.rs:304-379)
+-> piso_step (model.rs:529-730): predictor -> divergence -> Jacobi ->
+corrector -> up to 20 extra corrector rounds (model.rs:696-724) ->
+boundary conditions (model.rs:826-875); then CFL dt control.
+
+The step is plain Python over tensors on one device. Every scalar the
+step carries (dt, t, step, the residuals, the inlet ramp) is a 0-d
+tensor on that device, and the routes below read nothing back to the
+host except where noted.
+
+Route table (``piso_substep``), mirroring the JAX package's routing on
+the TPU. Each kernel wrapper runs its plain version on CPU tensors.
+
+==============================================  =========================================
+condition                                       route
+==============================================  =========================================
+substep_impl "pallas", or "auto" at >= 2M       fused: ``predict_div`` kernel ->
+cells (the benchmark's 2048² shape)             ``_solve_pressure`` -> with no outer
+                                                rounds, ``correct_bc`` kernel (res_u,
+                                                res_v, max|vel| reduced in-pass); with
+                                                rounds, plain correct -> ``_outer_rounds``
+                                                -> plain apply_bcs
+otherwise, substep_impl and pressure_impl in    ``_substep_jnp``: plain predictor and
+("auto", "pallas") (the 800x264 default scene)  divergence, then the ``rounds`` kernel
+                                                (solve + corrector + rounds + BCs)
+otherwise                                       plain predictor, divergence,
+                                                ``_solve_pressure``, corrector,
+                                                ``_outer_rounds``, BCs
+==============================================  =========================================
+
+``_solve_pressure``: pressure_impl "auto" resolves to "pallas" at >= 2M
+cells or jacobi_tol == 0, else "jnp". "pallas" runs the Jacobi chain
+kernel (K-granularity exit, k = ``resolve_fuse_k``); "jnp" runs
+ops.poisson.jacobi (exact per-sweep exit, or the masked fixed-trip form
+when early_exit is False).
+
+Convergence semantics: the rounds kernel and the plain solve exit at the
+exact sweep and round (rounds_pallas.py:11-24); the chain checks its
+tolerance every k sweeps (jacobi_pallas.py:28-30). Host reads: the chain
+with tol > 0 reads its error once per k-launch, and the fused route with
+outer rounds and early_exit reads it once per round; the fixed schedule
+(tol == 0, no rounds) and the rounds kernel read nothing.
+
+The TPU gates (``_pallas_ok``'s ny % 8 and backend test, ``_tile_rows``,
+``rounds_pallas_ok``'s VMEM bound) are not carried over; each kernel
+checks its own limits. Nor are the lane padding of u, buffer donation
+and the VMEM budgets. What the slice does not cover raises
+NotImplementedError naming the ROADMAP item that ports it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.config import (Cylinder, FlowCase, Grid, InletProfile,
+                           PressureSolver, Semantics, SimulationParams,
+                           SolverOptions, VelocityScheme)
+from ..core.masks import masks_traced
+from ..core.state import State, init_state
+from ..core.unported import (BATCHED, DIFFERENTIABLE, OTHER_SOLVERS,
+                             ROUND_KERNEL, WIDEN_STEP, unported)
+from ..kernels.jacobi import jacobi_chain
+from ..kernels.rounds import solve_correct_rounds
+from ..kernels.substep import correct_bc, predict_div
+from ..ops.bc import apply_bcs
+from ..ops.corrector import correct
+from ..ops.divergence import divergence_rhs
+from ..ops.poisson import jacobi
+from ..ops.predictor import predict
+
+FUSED_MIN_CELLS = 2_000_000
+
+
+class StepDiagnostics(NamedTuple):
+    """Per-step residual record (model.rs:23-32 Residuals)."""
+
+    step: torch.Tensor
+    t: torch.Tensor
+    dt: torch.Tensor
+    res_u: torch.Tensor
+    res_v: torch.Tensor
+    res_p: torch.Tensor
+    substeps: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class Scene:
+    """A simulation setup: grid + static numerics. Build with
+    :func:`make_scene`; runtime scalars flow through ``State``."""
+
+    grid: Grid
+    params: SimulationParams
+    opts: SolverOptions
+
+    def init_state(self, device="cpu", dtype=torch.float32) -> State:
+        return init_state(self.grid, self.params, self.opts, device, dtype)
+
+    @functools.cached_property
+    def _masks(self):
+        """Host copies of the masks, for diagnostics (float32 0/1)."""
+        g = self.grid
+        shapes = ((g.ny, g.nx + 1), (g.ny, g.nx)) * 2
+        masks = masks_traced(g, self.opts.semantics, torch.device("cpu"))
+        return tuple(np.zeros(s, np.float32) if m is None
+                     else m.to(torch.float32).numpy() for m, s in zip(masks, shapes))
+
+    @property
+    def mask_u(self) -> np.ndarray:
+        return self._masks[0]
+
+    @property
+    def mask_v(self) -> np.ndarray:
+        return self._masks[1]
+
+    @property
+    def mask_u_bc(self) -> np.ndarray:
+        return self._masks[2]
+
+    @property
+    def mask_v_bc(self) -> np.ndarray:
+        return self._masks[3]
+
+
+def make_scene(grid: Grid, params: Optional[SimulationParams] = None,
+               opts: Optional[SolverOptions] = None) -> Scene:
+    """Validate that the configuration lies in the ported slice."""
+    params = params or SimulationParams()
+    opts = opts or SolverOptions()
+    if grid.nx < 3 or grid.ny < 3:
+        raise ValueError(f"the grid needs at least 3x3 cells, got "
+                         f"{grid.nx}x{grid.ny}")
+    if opts.semantics != Semantics.RUST:
+        raise unported("JS semantics", WIDEN_STEP)
+    if (opts.extrapolate or opts.residual_dt_scaling or opts.substeps_adaptive
+            or opts.substeps_init != 1):
+        raise unported("extrapolation, residual dt scaling and substeps",
+                       WIDEN_STEP)
+    if params.velocity_scheme != VelocityScheme.FIRST:
+        raise unported(f"the {params.velocity_scheme.value} velocity scheme",
+                       WIDEN_STEP)
+    if params.inlet_profile != InletProfile.UNIFORM:
+        raise unported(f"the {params.inlet_profile.value} inlet profile",
+                       WIDEN_STEP)
+    if params.flow_case != FlowCase.CHANNEL:
+        raise unported(f"{params.flow_case.value} flow", WIDEN_STEP)
+    for obs in grid.obstacles:
+        if not isinstance(obs, Cylinder):
+            raise unported(f"obstacle {type(obs).__name__}", WIDEN_STEP)
+    if params.pressure_solver != PressureSolver.JACOBI:
+        raise unported(f"the {params.pressure_solver.value} pressure solver",
+                       OTHER_SOLVERS)
+    if opts.differentiable:
+        raise unported("SolverOptions.differentiable", DIFFERENTIABLE)
+    return Scene(grid=grid, params=params, opts=opts)
+
+
+# ---------------------------------------------------------------------------
+# PISO substep
+# ---------------------------------------------------------------------------
+
+def _use_fused_substep(scene: Scene) -> bool:
+    impl = scene.opts.substep_impl
+    if impl == "auto":
+        return scene.grid.nx * scene.grid.ny >= FUSED_MIN_CELLS
+    return impl == "pallas"
+
+
+def resolve_fuse_k(opts: SolverOptions) -> int:
+    """Sweeps per Jacobi-chain launch: pallas_fuse_k, or 16 when 0 (the
+    JAX package's auto value, piso.py:184-212). Not yet tuned for the
+    H100."""
+    return opts.pallas_fuse_k or 16
+
+
+def _solve_pressure(scene: Scene, pp0, rhs):
+    """The JACOBI branch of the JAX package's ``_solve_pressure``.
+    Returns (p', err, iterations run)."""
+    g, opts = scene.grid, scene.opts
+    impl = opts.pressure_impl
+    if impl == "auto":
+        impl = ("pallas" if (g.nx * g.ny >= FUSED_MIN_CELLS
+                             or opts.jacobi_tol == 0.0) else "jnp")
+    if impl == "pallas":
+        return jacobi_chain(pp0, rhs, g.dx, g.dy, opts.jacobi_omega,
+                            opts.jacobi_tol, opts.jacobi_iters,
+                            k=resolve_fuse_k(opts),
+                            early_exit=opts.early_exit)
+    return jacobi(pp0, rhs, g.dx, g.dy, opts.jacobi_omega, opts.jacobi_tol,
+                  opts.jacobi_iters, early_exit=opts.early_exit)
+
+
+def _outer_rounds(scene: Scene, u, v, p, pp, err, dt_sub):
+    """Rust outer corrector rounds (model.rs:696-724): repeat
+    div -> solve -> correct until the pressure residual drops below
+    outer_corrector_tol, at most outer_corrector_rounds times."""
+    g, opts = scene.grid, scene.opts
+    rounds, tol = opts.outer_corrector_rounds, opts.outer_corrector_tol
+
+    def round_body(u, v, p, pp):
+        rhs = divergence_rhs(u, v, dt_sub, g.dx, g.dy)
+        pp, err, _ = _solve_pressure(scene, pp, rhs)
+        u, v, p = correct(u, v, p, pp, dt_sub, g.dx, g.dy)
+        return u, v, p, pp, err
+
+    if opts.early_exit:
+        # One host read of err per round; a device-side loop is later work.
+        it = 0
+        while it < rounds and bool(err >= tol):
+            u, v, p, pp, err = round_body(u, v, p, pp)
+            it += 1
+        return u, v, p, pp, err
+    # Masked fixed trip count: rounds after convergence are computed and
+    # discarded, the same fields as the exact exit with no host read.
+    done = err < tol
+    for _ in range(rounds):
+        u2, v2, p2, pp2, err2 = round_body(u, v, p, pp)
+        u, v, p = (torch.where(done, a, b) for a, b in ((u, u2), (v, v2), (p, p2)))
+        pp, err = torch.where(done, pp, pp2), torch.where(done, err, err2)
+        done = done | (err < tol)
+    return u, v, p, pp, err
+
+
+def _substep_jnp(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet):
+    """Plain predictor and divergence, then the rounds kernel (or, with
+    substep_impl or pressure_impl "jnp", the plain projection).
+    Returns (u, v, p, pp, err)."""
+    g, opts = scene.grid, scene.opts
+    mask_u, mask_v, mask_u_bc, mask_v_bc = masks_traced(g, opts.semantics,
+                                                        u.device)
+    u_star, v_star = predict(u, v, dt_sub, nu, g.dx, g.dy, g.nx, g.ny,
+                             scene.params.velocity_scheme, False, mask_u, mask_v)
+    rhs = divergence_rhs(u_star, v_star, dt_sub, g.dx, g.dy)
+    if (opts.pressure_impl in ("auto", "pallas")
+            and opts.substep_impl in ("auto", "pallas")):
+        return solve_correct_rounds(u_star, v_star, p, p_prime, rhs, dt_sub,
+                                    inlet, scene)[:5]
+    pp, err, _ = _solve_pressure(scene, p_prime, rhs)
+    u, v, p = correct(u_star, v_star, p, pp, dt_sub, g.dx, g.dy)
+    u, v, p, pp, err = _outer_rounds(scene, u, v, p, pp, err, dt_sub)
+    u, v = apply_bcs(u, v, g, scene.params.inlet_profile, inlet, mask_u_bc,
+                     mask_v_bc, scene.params.flow_case)
+    return u, v, p, pp, err
+
+
+def piso_substep(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet,
+                 entry=None):
+    """One PISO substep (model.rs:529-730).
+
+    Returns (u, v, p, p_prime, p_residual, extras): extras is None, or on
+    the fused route without outer rounds, when ``entry`` carries the
+    step-entry (u, v), the in-kernel (res_u, res_v, max_vel)."""
+    g, opts = scene.grid, scene.opts
+    if not _use_fused_substep(scene):
+        return (*_substep_jnp(scene, u, v, p, p_prime, dt_sub, nu, inlet), None)
+    sem, profile, flow = (opts.semantics, scene.params.inlet_profile,
+                          scene.params.flow_case)
+    u_star, v_star, rhs = predict_div(u, v, dt_sub, nu, g,
+                                      scene.params.velocity_scheme, sem)
+    pp, err, _ = _solve_pressure(scene, p_prime, rhs)
+    rounds = opts.outer_corrector_rounds
+    if rounds == 0 and entry is not None:
+        u, v, p, res_u, res_v, max_vel = correct_bc(
+            u_star, v_star, p, pp, entry[0], entry[1], dt_sub, inlet, g,
+            profile, flow, sem)
+        return u, v, p, pp, err, (res_u, res_v, max_vel)
+    if rounds > 0 and opts.early_exit and opts.rounds_impl == "pallas":
+        raise unported('rounds_impl="pallas" (the correct_div kernel)',
+                       ROUND_KERNEL)
+    _, _, mask_u_bc, mask_v_bc = masks_traced(g, sem, u.device)
+    u, v, p = correct(u_star, v_star, p, pp, dt_sub, g.dx, g.dy)
+    u, v, p, pp, err = _outer_rounds(scene, u, v, p, pp, err, dt_sub)
+    u, v = apply_bcs(u, v, g, profile, inlet, mask_u_bc, mask_v_bc, flow)
+    return u, v, p, pp, err, None
+
+
+# ---------------------------------------------------------------------------
+# Step-level scalar controls
+# ---------------------------------------------------------------------------
+
+def ramped_inlet(opts: SolverOptions, state: State):
+    """Inlet ramp (model.rs:311-316)."""
+    ramp = torch.clamp(state.step.to(state.u.dtype) / float(opts.ramp_up_steps),
+                       max=1.0)
+    return ramp * state.target_inlet
+
+
+def dt_control(grid: Grid, opts: SolverOptions, state: State, max_vel):
+    """CFL dt control with the 1.1x growth cap (model.rs:877-889)."""
+    cap = state.dt
+    safe_vel = torch.where(max_vel == 0.0, 1.0, max_vel)
+    # f32(cfl * h) / v, rounded as the JAX package divides (a Python
+    # scalar on the left would become a reciprocal and a multiply).
+    cfl_h = torch.full_like(safe_vel, opts.cfl * min(grid.dx, grid.dy))
+    dt_cfl = torch.where(max_vel == 0.0, cap,
+                         torch.minimum(cfl_h / safe_vel, cap))
+    return torch.where(dt_cfl > state.dt,
+                       torch.minimum(dt_cfl, state.dt * opts.dt_growth_cap),
+                       dt_cfl)
+
+
+# ---------------------------------------------------------------------------
+# Full outer step
+# ---------------------------------------------------------------------------
+
+def step_fn(scene: Scene, state: State) -> Tuple[State, StepDiagnostics]:
+    """One Model::update: a single Rust substep plus the step controls."""
+    g, opts = scene.grid, scene.opts
+    if state.u.dim() != 2:
+        raise unported("batched state", BATCHED)
+    u_old, v_old = state.u, state.v
+    inlet = ramped_inlet(opts, state)
+    # One substep: dt_sub is dt and the executed count is 1.
+    dt_sub = state.dt
+    substeps = torch.ones_like(state.substeps)
+    fused_red = _use_fused_substep(scene) and opts.outer_corrector_rounds == 0
+    entry = (u_old, v_old) if fused_red else None
+    u, v, p, pp, res_p, red = piso_substep(scene, u_old, v_old, state.p,
+                                           state.p_prime, dt_sub, state.nu,
+                                           inlet, entry=entry)
+    if red is not None:
+        res_u, res_v, max_vel = red
+    else:
+        res_u = torch.amax(torch.abs(u - u_old))
+        res_v = torch.amax(torch.abs(v - v_old))
+        max_vel = torch.maximum(torch.amax(torch.abs(u)), torch.amax(torch.abs(v)))
+    new_step = state.step + 1
+    new_t = state.t + state.dt
+    new_dt = dt_control(g, opts, state, max_vel)
+    new_state = dataclasses.replace(
+        state, u=u, v=v, p=p, p_prime=pp, dt=new_dt, t=new_t, step=new_step,
+        substeps=substeps, res_u=res_u, res_v=res_v, res_p=res_p)
+    diag = StepDiagnostics(step=new_step, t=new_t, dt=state.dt, res_u=res_u,
+                           res_v=res_v, res_p=res_p, substeps=substeps)
+    return new_state, diag
+
+
+def make_step(scene: Scene):
+    """state -> (state, diagnostics)."""
+    return functools.partial(step_fn, scene)
+
+
+def make_run(scene: Scene, n_steps: int):
+    """n steps in a Python loop (the JAX package's lax.scan):
+    state -> (state, StepDiagnostics of (n_steps,) tensors)."""
+    def run(state: State):
+        diags = []
+        for _ in range(n_steps):
+            state, d = step_fn(scene, state)
+            diags.append(d)
+        return state, StepDiagnostics(*(torch.stack(x) for x in zip(*diags)))
+
+    return run

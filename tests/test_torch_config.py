@@ -1,0 +1,126 @@
+"""The port's copied config against the JAX package's, and the port's
+import-time independence from jax."""
+import dataclasses
+import enum
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import cfd_demo_tpu.core.config as jcfg
+import cfd_demo_tpu_torch as ct
+import cfd_demo_tpu_torch.core.config as tcfg
+
+torch.set_num_threads(1)
+
+ENUMS = ["VelocityScheme", "PressureSolver", "InletProfile", "Semantics",
+         "FlowCase"]
+DATACLASSES = ["Cylinder", "Box", "Grid", "SimulationParams", "SolverOptions"]
+
+
+def _plain(x):
+    """Dataclass/enum values as comparable plain data."""
+    if isinstance(x, enum.Enum):
+        return (type(x).__name__, x.name, x.value)
+    if dataclasses.is_dataclass(x):
+        return (type(x).__name__,
+                {f.name: _plain(getattr(x, f.name)) for f in dataclasses.fields(x)})
+    if isinstance(x, tuple):
+        return tuple(_plain(v) for v in x)
+    return x
+
+
+@pytest.mark.parametrize("name", ENUMS)
+def test_enum_members_match(name):
+    j, t = getattr(jcfg, name), getattr(tcfg, name)
+    assert [(m.name, m.value) for m in t] == [(m.name, m.value) for m in j]
+
+
+@pytest.mark.parametrize("name", DATACLASSES)
+def test_dataclass_fields_and_defaults_match(name):
+    j, t = getattr(jcfg, name), getattr(tcfg, name)
+
+    def spec(cls):
+        return [(f.name, str(f.type), _plain(f.default), f.default_factory)
+                for f in dataclasses.fields(cls)]
+
+    assert spec(t) == spec(j)
+    assert t.__dataclass_params__.frozen == j.__dataclass_params__.frozen
+
+
+@pytest.mark.parametrize("semantics", ["RUST", "JS"])
+def test_solver_options_for_matches(semantics):
+    j = jcfg.solver_options_for(jcfg.Semantics[semantics], jacobi_iters=7)
+    t = tcfg.solver_options_for(tcfg.Semantics[semantics], jacobi_iters=7)
+    assert _plain(t) == _plain(j)
+
+
+@pytest.mark.parametrize("fn,args", [("default_grid", ()),
+                                     ("default_js_grid", ()),
+                                     ("cavity_grid", (64,))])
+def test_grid_factories_match(fn, args):
+    j, t = getattr(jcfg, fn)(*args), getattr(tcfg, fn)(*args)
+    assert _plain(t) == _plain(j)
+    assert (t.dx, t.dy, t.shape_u, t.shape_v) == (j.dx, j.dy, j.shape_u, j.shape_v)
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import sys, cfd_demo_tpu_torch; "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'cfd_demo_tpu' or m.startswith('cfd_demo_tpu.')]; "
+            "assert not bad, bad")
+    root = Path(__file__).resolve().parent.parent
+    subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
+                   timeout=120)
+
+
+def test_no_jax_import_in_sources():
+    pkg = Path(ct.__file__).resolve().parent
+    bad = re.compile(r"^\s*(from|import)\s+(jax|cfd_demo_tpu)(\.|\s|$)", re.M)
+    for path in pkg.rglob("*.py"):
+        if "_build" not in path.relative_to(pkg).parts:  # the build cache
+            assert not bad.search(path.read_text()), path
+
+
+_G = tcfg.Grid(nx=24, ny=16, lx=4.0, ly=1.5,
+               obstacles=(tcfg.Cylinder(1.0, 0.75, 0.3),))
+_RUST = tcfg.solver_options_for(tcfg.Semantics.RUST)
+_UNPORTED = [
+    (_G, tcfg.SimulationParams(), tcfg.solver_options_for(tcfg.Semantics.JS)),
+    (_G, tcfg.SimulationParams(velocity_scheme=tcfg.VelocityScheme.SECOND), _RUST),
+    (_G, tcfg.SimulationParams(velocity_scheme=tcfg.VelocityScheme.QUICK), _RUST),
+    (_G, tcfg.SimulationParams(pressure_solver=tcfg.PressureSolver.SOR), _RUST),
+    (_G, tcfg.SimulationParams(pressure_solver=tcfg.PressureSolver.MULTIGRID), _RUST),
+    (_G, tcfg.SimulationParams(pressure_solver=tcfg.PressureSolver.MG_PRODUCTION), _RUST),
+    (_G, tcfg.SimulationParams(pressure_solver=tcfg.PressureSolver.FDM), _RUST),
+    (_G, tcfg.SimulationParams(flow_case=tcfg.FlowCase.CAVITY), _RUST),
+    (_G, tcfg.SimulationParams(inlet_profile=tcfg.InletProfile.PARABOLIC), _RUST),
+    (tcfg.Grid(nx=24, ny=16, lx=4.0, ly=1.5,
+               obstacles=(tcfg.Box(1.0, 0.75, 0.2, 0.2),)),
+     tcfg.SimulationParams(), _RUST),
+    (_G, tcfg.SimulationParams(),
+     tcfg.solver_options_for(tcfg.Semantics.RUST, differentiable=True,
+                             early_exit=False, outer_corrector_rounds=0)),
+]
+
+
+@pytest.mark.parametrize("grid,params,opts", _UNPORTED,
+                         ids=["js", "second", "quick", "sor", "multigrid",
+                              "mg-production", "fdm", "cavity", "parabolic",
+                              "box", "differentiable"])
+def test_outside_the_slice_raises(grid, params, opts):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ct.make_scene(grid, params, opts)
+
+
+def test_float64_and_batched_state_raise():
+    scene = ct.make_scene(_G, tcfg.SimulationParams(), _RUST)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        scene.init_state(dtype=torch.float64)
+    state = scene.init_state()
+    batched = dataclasses.replace(state, u=state.u[None], v=state.v[None])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ct.make_step(scene)(batched)

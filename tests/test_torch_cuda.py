@@ -1,0 +1,132 @@
+"""The port's CUDA kernels against their plain versions, on a CUDA card.
+
+Every test here needs a card and nvcc and skips without them. The file
+imports no jax, so it also runs where jax is not installed:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+(``--noconftest`` skips tests/conftest.py, which imports jax.)
+"""
+import dataclasses
+
+import pytest
+import torch
+
+import cfd_demo_tpu_torch as tc
+from cfd_demo_tpu_torch.kernels import jacobi as kjac
+from cfd_demo_tpu_torch.kernels import rounds as krounds
+from cfd_demo_tpu_torch.kernels import substep as ksub
+from cfd_demo_tpu_torch.ops.poisson import _apply_pprime_bcs
+
+pytestmark = pytest.mark.cuda
+
+DT, NU, INLET = 0.003, 1e-4, 1.0
+GRID = tc.Grid(nx=96, ny=64, lx=3.0, ly=2.0, obstacles=(tc.Cylinder(0.8, 1.0, 0.3),))
+RUST, FIRST = tc.Semantics.RUST, tc.VelocityScheme.FIRST
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def fields(seed, grid, device, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    ny, nx = grid.ny, grid.nx
+    mk = lambda *shape: (scale * torch.randn(*shape, generator=g)).to(device)
+    return mk(ny, nx + 1), mk(ny, nx), mk(ny, nx), mk(ny, nx)
+
+
+def assert_close(got, ref, rtol=1e-6):
+    ref = ref.cpu()
+    atol = rtol * max(1.0, float(ref.abs().max()))
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=atol)
+
+
+def test_predict_div(cuda):
+    u, v, _, _ = fields(0, GRID, cuda)
+    got = ksub.predict_div(u, v, DT, NU, GRID, FIRST, RUST)
+    ref = ksub.predict_div_plain(u.cpu(), v.cpu(), DT, NU, GRID, FIRST, RUST)
+    assert_close(got[0], ref[0])
+    assert_close(got[1], ref[1])
+    # rhs divides u* differences by dx*dt: an ulp of u* is ~eps/(dx*dt) there
+    assert_close(got[2], ref[2], rtol=1e-6 / (GRID.dx * DT))
+
+
+def test_correct_bc(cuda):
+    args = fields(1, GRID, cuda) + fields(2, GRID, cuda)[:2]
+    rest = (DT, INLET, GRID, tc.InletProfile.UNIFORM, tc.FlowCase.CHANNEL, RUST)
+    got = ksub.correct_bc(*args, *rest)
+    ref = ksub.correct_bc_plain(*(a.cpu() for a in args), *rest)
+    for a, b in zip(got, ref):
+        assert_close(a, b)
+
+
+@pytest.mark.parametrize("shape,k", [((64, 96), 5), ((37, 53), 1), ((40, 96), 16)])
+def test_jacobi_fused_k(cuda, shape, k):
+    ny, nx = shape
+    g = torch.Generator().manual_seed(3)
+    pp = _apply_pprime_bcs(0.1 * torch.randn(shape, generator=g))
+    rhs = torch.randn(shape, generator=g)
+    got = kjac.jacobi_fused_k(pp.to(cuda), rhs.to(cuda), 1 / nx, 1 / ny, 0.75, k)
+    ref = kjac.jacobi_fused_k_plain(pp, rhs, 1 / nx, 1 / ny, 0.75, k)
+    assert_close(got[0], ref[0], rtol=1e-5)
+    assert_close(got[1], ref[1], rtol=1e-5)
+
+
+def _rounds_scene():
+    grid = tc.Grid(nx=40, ny=24, lx=3.0, ly=1.5, obstacles=(tc.Cylinder(0.9, 0.75, 0.3),))
+    return tc.make_scene(grid, tc.SimulationParams(dt=0.002, viscosity=1e-4),
+                         tc.solver_options_for(RUST))
+
+
+def test_rounds(cuda):
+    scene = _rounds_scene()
+    u, v, p, rhs = fields(4, scene.grid, cuda, scale=0.1)
+    args = (u, v, p, torch.zeros_like(p), 10 * rhs)
+    got = krounds.solve_correct_rounds(*args, 0.002, 1.0, scene)
+    ref = krounds.solve_correct_rounds_plain(*(a.cpu() for a in args), 0.002,
+                                             1.0, scene)
+    for name, a, b in zip(("u", "v", "p", "pp", "err"), got, ref):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=5e-5, msg=name)
+    # The same exits: as many outer rounds and Jacobi sweeps.
+    assert got[5].tolist() == ref[5].tolist()
+    assert ref[5][0] > 0  # outer rounds ran
+
+
+@pytest.mark.parametrize("route", ["rounds", "fused"])
+def test_steps_match_cpu_path(cuda, route):
+    """Five steps of the slice on the card and on the CPU path."""
+    scene = _rounds_scene()
+    if route == "fused":
+        scene = dataclasses.replace(scene, opts=dataclasses.replace(
+            scene.opts, substep_impl="pallas", jacobi_tol=0.0,
+            outer_corrector_rounds=0, early_exit=False))
+    run = tc.make_run(scene, 5)
+    a, _ = run(scene.init_state(cuda))
+    b, _ = run(scene.init_state("cpu"))
+    for f in ("u", "v"):
+        assert_close(getattr(a, f), getattr(b, f), rtol=1e-5)
+    d = (a.p.cpu() - b.p).double()
+    assert float((d - d.mean()).abs().max()) <= 1e-5 * max(1.0, float(b.p.abs().max()))
+
+
+def test_fast_rollout_never_syncs(cuda):
+    """The fixed-schedule fused rollout reads nothing back to the host."""
+    grid = tc.Grid(nx=128, ny=128, lx=30.0, ly=30.0, obstacles=(tc.Cylinder(7.5, 15.0, 3.0),))
+    scene = tc.make_scene(grid, tc.SimulationParams(dt=0.002, viscosity=1e-4),
+                          tc.solver_options_for(
+                              RUST, ramp_up_steps=10, jacobi_tol=0.0,
+                              outer_corrector_rounds=0, early_exit=False,
+                              substep_impl="pallas"))
+    state = scene.init_state(cuda)
+    state, _ = tc.make_run(scene, 2)(state)  # warm the allocator
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, _ = tc.make_run(scene, 3)(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(state.u).all())

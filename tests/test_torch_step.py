@@ -1,0 +1,250 @@
+"""The port's whole step against the NumPy oracle and cfd_demo_tpu on the CPU.
+
+The bounds are the golden ones of tests/test_golden.py: per-field L2
+<= 1e-5 per step with every tolerance at zero (identical iteration
+counts), and, with the reference's real constants, L2 on u and v, grad p
+and mean-removed p (an outer-round count that differs by one at a float
+knife edge shifts p by a near-uniform gauge, tests/test_golden.py:14-24).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import cfd_demo_tpu as jc
+from cfd_demo_tpu.oracle.reference import NumpyModel
+
+import cfd_demo_tpu_torch as tc
+from cfd_demo_tpu_torch import cells
+from cfd_demo_tpu_torch.solver import piso as tpiso
+
+from conftest import l2
+
+torch.set_num_threads(1)
+
+FIELDS = ("u", "v", "p", "p_prime")
+
+
+def golden_setup(**opt_overrides):
+    """The rust-first-jacobi config of tests/test_golden.py:53 on its grid."""
+    def grid(m):
+        return m.Grid(nx=24, ny=16, lx=4.0, ly=1.5,
+                      obstacles=(m.Cylinder(center_x=1.0, center_y=0.75,
+                                            radius=0.3),))
+
+    def params(m):
+        return m.SimulationParams(dt=0.004, viscosity=1e-4,
+                                  target_inlet_velocity=1.0)
+
+    scenes = [m.make_scene(grid(m), params(m),
+                           m.solver_options_for(m.Semantics.RUST, **opt_overrides))
+              for m in (jc, tc)]
+    oracle = NumpyModel(grid(jc), params(jc),
+                        jc.solver_options_for(jc.Semantics.RUST, **opt_overrides))
+    return scenes[0], scenes[1], oracle
+
+
+def oracle_field(oracle, name):
+    f = getattr(oracle, name)
+    return f[:-1] if name == "v" else f
+
+
+def t_field(state, name):
+    return getattr(state, name).numpy()
+
+
+def test_fixed_iters_matches_oracle_and_jax():
+    """Golden layer 1 (tests/test_golden.py:74-99): zero tolerances."""
+    jscene, tscene, oracle = golden_setup(
+        ramp_up_steps=3, jacobi_tol=0.0, outer_corrector_tol=0.0,
+        jacobi_iters=10, outer_corrector_rounds=4)
+    jstep, tstep = jc.make_step(jscene, donate=False), tc.make_step(tscene)
+    js, ts = jscene.init_state(), tscene.init_state()
+    for k in range(3):
+        oracle.update()
+        js, _ = jstep(js)
+        ts, _ = tstep(ts)
+        for f in FIELDS:
+            got = t_field(ts, f)
+            assert l2(got, oracle_field(oracle, f)) <= 1e-5, (k, f, "oracle")
+            assert l2(got, np.asarray(getattr(js, f))) <= 1e-5, (k, f, "jax")
+        assert np.isclose(float(ts.dt), float(oracle.dt), rtol=1e-5, atol=1e-8)
+        assert np.isclose(float(ts.dt), float(js.dt), rtol=1e-5, atol=1e-8)
+
+
+def _assert_golden(ts, want, dx, dy, what):
+    """tests/test_golden.py:116-141 against one reference."""
+    for f in ("u", "v"):
+        w = want[f]
+        scale = max(1.0, float(np.sqrt(np.mean(np.asarray(w, np.float64) ** 2))))
+        assert l2(t_field(ts, f), w) <= 1e-5 * scale, (what, f)
+    gp = t_field(ts, "p").astype(np.float64)
+    op = np.asarray(want["p"], np.float64)
+    gscale = max(1.0, float(np.sqrt(np.mean((np.diff(op, axis=1) / dx) ** 2))))
+    gx = l2(np.diff(gp, axis=1) / dx, np.diff(op, axis=1) / dx)
+    gy = l2(np.diff(gp, axis=0) / dy, np.diff(op, axis=0) / dy)
+    assert max(gx, gy) <= 1e-4 * gscale, (what, "grad p")
+    d = gp - op
+    d -= d.mean()
+    pscale = max(1.0, float(np.sqrt(np.mean(op ** 2))))
+    assert float(np.sqrt(np.mean(d ** 2))) <= 1e-5 * pscale, (what, "p")
+    assert np.isclose(float(ts.dt), float(want["dt"]), rtol=1e-5, atol=1e-8), what
+
+
+def test_real_constants_match_oracle_and_jax():
+    """Golden layer 2 (tests/test_golden.py:103-146): the reference's
+    tolerances, early exits and 20 outer rounds."""
+    jscene, tscene, oracle = golden_setup(ramp_up_steps=4)
+    jstep, tstep = jc.make_step(jscene, donate=False), tc.make_step(tscene)
+    js, ts = jscene.init_state(), tscene.init_state()
+    g = tscene.grid
+    for k in range(4):
+        oracle.update()
+        js, _ = jstep(js)
+        ts, diag = tstep(ts)
+        _assert_golden(ts, {"u": oracle_field(oracle, "u"),
+                            "v": oracle_field(oracle, "v"),
+                            "p": oracle.p, "dt": oracle.dt}, g.dx, g.dy,
+                       f"oracle step {k}")
+        _assert_golden(ts, {"u": js.u, "v": js.v, "p": js.p, "dt": js.dt},
+                       g.dx, g.dy, f"jax step {k}")
+        assert int(ts.substeps) == oracle.substeps == int(diag.substeps)
+
+
+def _fast_scenes(n=64):
+    """The benchmark's fast mode (bench.py:78-86) on a small grid, with
+    the fused route forced; the cylinder is widened to span a few cells."""
+    out = []
+    for m in (jc, tc):
+        grid = m.Grid(nx=n, ny=n, lx=30.0, ly=30.0,
+                      obstacles=(m.Cylinder(7.5, 15.0, 3.0),))
+        opts = m.solver_options_for(
+            m.Semantics.RUST, ramp_up_steps=10, jacobi_tol=0.0,
+            jacobi_iters=50, outer_corrector_rounds=0, early_exit=False,
+            substep_impl="pallas")
+        out.append(m.make_scene(grid, m.SimulationParams(dt=0.002,
+                                                         viscosity=1e-4), opts))
+    return out
+
+
+def test_fast_shape_run_matches_jax():
+    jscene, tscene = _fast_scenes()
+    js, jd = jc.make_run(jscene, 5, donate=False)(jscene.init_state())
+    ts, td = tc.make_run(tscene, 5)(tscene.init_state())
+    for f in FIELDS:
+        assert l2(t_field(ts, f), np.asarray(getattr(js, f))) <= 1e-5, f
+    for f in ("dt", "res_u", "res_v", "res_p"):
+        np.testing.assert_allclose(getattr(td, f).numpy(),
+                                   np.asarray(getattr(jd, f)), rtol=1e-5,
+                                   atol=1e-7, err_msg=f)
+    np.testing.assert_array_equal(td.step.numpy(), np.asarray(jd.step))
+    assert float(ts.u.abs().max()) >= 0.4  # the inlet ramp reached 4/10
+
+
+def _spy(monkeypatch, name, calls):
+    fn = getattr(tpiso, name)
+
+    def wrapped(*a, **kw):
+        calls.append(name)
+        return fn(*a, **kw)
+
+    monkeypatch.setattr(tpiso, name, wrapped)
+
+
+@pytest.mark.parametrize("route", ["fused", "rounds", "fused-with-rounds",
+                                   "plain"])
+def test_route_table(monkeypatch, route):
+    """piso.py's route table: which kernel wrappers one step calls."""
+    calls = []
+    for name in ("predict_div", "jacobi_chain", "correct_bc",
+                 "solve_correct_rounds", "jacobi"):
+        _spy(monkeypatch, name, calls)
+    if route == "rounds":
+        _, scene, _ = golden_setup()
+        want = {"solve_correct_rounds"}
+    elif route == "plain":
+        _, scene, _ = golden_setup(substep_impl="jnp")
+        want = {"jacobi"}
+    else:
+        _, scene = _fast_scenes(32)
+        want = {"predict_div", "jacobi_chain", "correct_bc"}
+        if route == "fused-with-rounds":
+            scene = dataclasses.replace(scene, opts=dataclasses.replace(
+                scene.opts, outer_corrector_rounds=2, jacobi_tol=1e-4,
+                early_exit=True, pressure_impl="pallas"))
+            want = {"predict_div", "jacobi_chain"}
+    tc.make_step(scene)(scene.init_state())
+    assert set(calls) == want
+
+
+def test_state_round_trip_and_resume_from_jax():
+    """state_from_numpy/state_to_numpy carry a JAX state into the port,
+    and both packages continue from it to the same fields."""
+    jscene, tscene, _ = golden_setup(ramp_up_steps=4)
+    jstep = jc.make_step(jscene, donate=False)
+    js = jscene.init_state()
+    for _ in range(2):
+        js, _ = jstep(js)
+    d = {f.name: (None if getattr(js, f.name) is None
+                  else np.asarray(getattr(js, f.name)))
+         for f in dataclasses.fields(js)}
+    ts = tc.state_from_numpy(d, "cpu")
+    back = tc.state_to_numpy(ts)
+    assert set(back) == set(d)
+    for k, a in d.items():
+        if a is None:
+            assert back[k] is None
+        else:
+            assert back[k].dtype == a.dtype and back[k].shape == a.shape, k
+            np.testing.assert_array_equal(back[k], a)
+    tstep = tc.make_step(tscene)
+    for _ in range(2):
+        js, _ = jstep(js)
+        ts, _ = tstep(ts)
+    g = tscene.grid
+    _assert_golden(ts, {"u": js.u, "v": js.v, "p": js.p, "dt": js.dt},
+                   g.dx, g.dy, "resumed")
+    assert int(ts.step) == int(js.step) == 4
+
+
+def _bench_jax_scene(mode, n):
+    """bench.py:78-120's scene for ``mode`` at n², in the JAX package."""
+    grid = jc.Grid(nx=n, ny=n, lx=30.0, ly=30.0,
+                   obstacles=(jc.Cylinder(7.5, 15.0, 0.75),))
+    if mode == "fast":
+        opts = jc.solver_options_for(
+            jc.Semantics.RUST, ramp_up_steps=10, jacobi_tol=0.0,
+            jacobi_iters=50, outer_corrector_rounds=0, early_exit=False,
+            pressure_impl="auto", pallas_fuse_k=0)
+    else:
+        opts = jc.solver_options_for(jc.Semantics.RUST, ramp_up_steps=10,
+                                     pressure_impl="auto", pallas_fuse_k=0)
+    return jc.make_scene(grid, jc.SimulationParams(dt=0.002, viscosity=1e-4),
+                         opts)
+
+
+@pytest.mark.parametrize("cell", ["800x264 default", "2048^2 fast",
+                                  "2048^2 reference"])
+def test_cells_are_the_reference_configs(cell):
+    """cells.py's scenes are the README quick start and bench.py's modes,
+    and each takes the route its cell is meant to exercise."""
+    make, _, _ = cells.CELLS[cell]
+    scene = make()
+    if cell == "800x264 default":
+        want = jc.make_scene(jc.default_grid())
+    else:
+        want = _bench_jax_scene(cell.split()[1], 2048)
+    for part in ("grid", "params", "opts"):
+        assert repr(getattr(scene, part)) == repr(getattr(want, part)), part
+    fused = tpiso._use_fused_substep(scene)
+    assert fused == (cell != "800x264 default")
+    assert (scene.opts.outer_corrector_rounds > 0) == (cell != "2048^2 fast")
+
+
+def test_cells_rounds_args_and_busy_time():
+    scene = cells.reference_scene()
+    state = scene.init_state()
+    out = tpiso.solve_correct_rounds(*cells.rounds_args(scene, state))
+    assert out[5].tolist() == [0, 1]  # a field at rest converges at once
+    assert cells._busy_us([(5, 6), (0, 2), (1, 3)]) == 4.0
