@@ -2,14 +2,13 @@
 
 The port of ``cfd_demo_tpu`` (JAX/Pallas), which stays beside it as the
 reference. Ported so far: one scene's Rust-semantics PISO step with
-FIRST upwinding, the Jacobi solver and a channel with cylinders
-(``make_scene`` -> ``make_step`` / ``make_run``). Kernels are built
-from ``csrc/`` with nvcc at first use on a CUDA device; on CPU tensors
-each kernel wrapper runs its plain PyTorch version. This package never
-imports jax.
+FIRST upwinding, the Jacobi and MG_PRODUCTION (aligned) solvers and a
+channel with cylinders (``make_scene`` -> ``make_step`` / ``make_run``).
+State lives on the card unless ``init_state(device="cpu")`` asks for the
+CPU. Kernels are built from ``csrc/`` with nvcc at first use on a CUDA
+device; on CPU tensors each kernel wrapper runs its plain PyTorch
+version. This package never imports jax.
 """
-import torch
-
 from .core.config import (Box, Cylinder, FlowCase, Grid, InletProfile,
                           PressureSolver, Semantics, SimulationParams,
                           SolverOptions, VelocityScheme, cavity_grid,
@@ -18,10 +17,5 @@ from .core.state import (State, init_state, set_params, state_from_numpy,
                          state_to_numpy)
 from .solver.piso import (Scene, StepDiagnostics, make_run, make_scene,
                           make_step, piso_substep, step_fn)
-
-# Full f32 everywhere: nothing in the step multiplies matrices yet, but
-# later solvers (FDM) rely on f32 matmuls and convolutions.
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"

@@ -1,6 +1,6 @@
 """The port's measured shapes, and where their device time goes.
 
-Three cells, each at full size, from the JAX package's own defaults:
+Four cells, each at full size, from the JAX package's own defaults:
 
 - :func:`reference_scene`: the README quick start, the Rust app's
   800x264 cylinder channel with default parameters and solver options
@@ -8,9 +8,12 @@ Three cells, each at full size, from the JAX package's own defaults:
 - :func:`fast_scene`: ``bench.py --mode fast`` at 2048² (a fixed
   50-sweep Jacobi, no outer rounds; the fused route);
 - :func:`reference_mode_scene`: ``bench.py --mode reference`` at 2048²
-  (the fused route with outer rounds and tolerance exits).
+  (the fused route with outer rounds and tolerance exits);
+- :func:`production_scene`: ``bench.py --mode production`` at 2048²
+  (the fused route with the MG_PRODUCTION projection, aligned V-cycles
+  to the divergence tolerance or the f32 noise floor).
 
-``chip_smoke.py`` drives the first two. On a CUDA card,
+``chip_smoke.py`` drives the first, second and fourth. On a CUDA card,
 
     python3 -m cfd_demo_tpu_torch.cells [--out FILE.json]
 
@@ -18,7 +21,8 @@ runs each cell for a timed rollout after its warm-up, then 10 more steps
 under ``torch.profiler``, and prints the rate, the device
 time per step by kernel and the device's busy share of the unprofiled
 wall time. For the 800x264 scene it also prints how many outer rounds
-and Jacobi sweeps the rounds kernel ran in a step.
+and Jacobi sweeps the rounds kernel ran in a step, and for the
+production scene how many V-cycles a step ran.
 """
 from __future__ import annotations
 
@@ -31,8 +35,9 @@ import time
 
 import torch
 
-from .core.config import (Cylinder, Grid, Semantics, SimulationParams,
-                          default_grid, solver_options_for)
+from .core.config import (Cylinder, Grid, PressureSolver, Semantics,
+                          SimulationParams, default_grid, solver_options_for)
+from .kernels import mgp
 from .kernels.rounds import solve_correct_rounds
 from .kernels.substep import correct_bc, predict_div, predict_div_plain
 from .solver.piso import (_use_fused_substep, make_run, make_scene,
@@ -66,6 +71,16 @@ def reference_mode_scene(n: int = 2048):
                       solver_options_for(Semantics.RUST, ramp_up_steps=10))
 
 
+def production_scene(n: int = 2048):
+    """bench.py --mode production (bench.py:87-96)."""
+    return make_scene(
+        _bench_grid(n),
+        SimulationParams(dt=0.002, viscosity=1e-4,
+                         pressure_solver=PressureSolver.MG_PRODUCTION),
+        solver_options_for(Semantics.RUST, ramp_up_steps=10,
+                           outer_corrector_rounds=0))
+
+
 def rounds_args(scene, state):
     """What the rounds route feeds the rounds kernel in the next step
     from ``state``: the plain predictor's u*, v* and rhs, with p, p' and
@@ -78,6 +93,15 @@ def rounds_args(scene, state):
             ramped_inlet(scene.opts, state), scene)
 
 
+def vcycles_launched() -> float:
+    """V-cycles the fine-level kernels have run on the card: one corr
+    launch a cycle on an even grid, two res launches on another. (A
+    cycle on an interior of at most mgp_coarse_stop a side is FDM alone
+    and launches neither.)"""
+    return (mgp.jacobi_fused_k_corr.launches
+            + mgp.jacobi_fused_k_res.launches / 2)
+
+
 PROFILED_STEPS = 10
 # (scene, warm-up steps, timed steps). 55 warm-up steps bring the 800x264
 # scene to where every step runs all its outer rounds.
@@ -85,13 +109,17 @@ CELLS = {
     "800x264 default": (reference_scene, 55, 50),
     "2048^2 fast": (fast_scene, 5, 100),
     "2048^2 reference": (reference_mode_scene, 5, 20),
+    "2048^2 production": (production_scene, 5, 20),
 }
 
 
 # Wrappers whose every launch is one kernel of this name: the trace must
-# hold as many of them as the wrappers counted.
+# hold as many of them as the wrappers counted. (jacobi_fused_k_res and
+# cc_sweeps launch kernels that others launch too, or k of them a call.)
 TRACED = {predict_div: "predict_div_kernel(", correct_bc: "correct_bc_kernel(",
-          solve_correct_rounds: "rounds_kernel("}
+          solve_correct_rounds: "rounds_kernel(",
+          mgp.jacobi_fused_k_restrict: "restrict_kernel(",
+          mgp.jacobi_fused_k_corr: "corr_add_kernel("}
 
 
 def _busy_us(spans):
@@ -155,11 +183,14 @@ def measure(name, make, warmup, timed, dev):
         counts = solve_correct_rounds(*rounds_args(scene, state))[5].tolist()
         out["rounds_per_step"], out["sweeps_per_step"] = counts
     run = make_run(scene, timed)
+    cycles0 = vcycles_launched()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, _ = run(state)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
+    if scene.params.pressure_solver == PressureSolver.MG_PRODUCTION:
+        out["vcycles_per_step"] = (vcycles_launched() - cycles0) / timed
     if not bool(torch.isfinite(state.u).all()):
         raise RuntimeError(f"{name}: u is not finite")
     out["steps_per_s"] = timed / sec
@@ -176,7 +207,9 @@ def measure(name, make, warmup, timed, dev):
           f"{busy_us:.1f} of {wall_us:.1f} us per step "
           f"({100 * busy_us / wall_us:.1f}%)"
           + (f"; rounds kernel: {out['rounds_per_step']} rounds, "
-             f"{out['sweeps_per_step']} sweeps" if "sweeps_per_step" in out else ""),
+             f"{out['sweeps_per_step']} sweeps" if "sweeps_per_step" in out else "")
+          + (f"; {out['vcycles_per_step']} V-cycles per step"
+             if "vcycles_per_step" in out else ""),
           flush=True)
     for n, us, c in rows[:8]:
         print(f"    {us:10.1f} us/step {100 * us / busy_us:5.1f}%  x{c:g}  {n[:90]}",

@@ -57,8 +57,9 @@ class State:
 
 
 def init_state(grid: Grid, params: SimulationParams, opts: SolverOptions,
-               device="cpu", dtype=torch.float32) -> State:
-    """Zero-initialized state (model.rs:219-299)."""
+               device="cuda", dtype=torch.float32) -> State:
+    """Zero-initialized state (model.rs:219-299), on the card unless
+    ``device`` says otherwise (``device="cpu"`` for the CPU path)."""
     if dtype != torch.float32:
         raise unported(f"dtype {dtype}", WIDEN_STEP)
     if opts.semantics != Semantics.RUST:

@@ -52,6 +52,10 @@ _SIGNATURES = {
     "cfd_correct_bc": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, F, F, I, P, P],
     "cfd_rounds": [P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, F, F, F,
                    F, F, F, I, F, I, F, I, P, P],
+    "cfd_mgp_res": [P] * 7 + [I] * 3 + [F] * 7 + [P],
+    "cfd_mgp_restrict": [P] * 7 + [I] * 3 + [F] * 7 + [P],
+    "cfd_mgp_corr": [P] * 9 + [I] * 3 + [F] * 7 + [P],
+    "cfd_cc_sweeps": [P] * 5 + [I] * 3 + [F] * 8 + [P],
 }
 
 

@@ -1,16 +1,26 @@
-"""Damped-Jacobi pressure-correction solve, CHANNEL flow
-(↔ the Jacobi slice of cfd_demo_tpu/ops/poisson.py).
+"""Pressure-correction solves, CHANNEL flow (↔ the Jacobi and
+MG_PRODUCTION slices of cfd_demo_tpu/ops/poisson.py).
 
-model.rs:733-824: a whole-array damped sweep with the per-iteration p'
-BCs (model.rs:807-815: Neumann bottom/top/left, Dirichlet 0 at the
-outlet column), looped as a do-while that exits after the first sweep
-whose max interior change is below ``tol``.
+Jacobi, model.rs:733-824: a whole-array damped sweep with the
+per-iteration p' BCs (model.rs:807-815: Neumann bottom/top/left,
+Dirichlet 0 at the outlet column), looped as a do-while that exits after
+the first sweep whose max interior change is below ``tol``.
+
+MG_PRODUCTION (``multigrid_production``): V-cycles of the aligned
+cell-centred hierarchy until max|rhs - A p'| falls below the
+divergence-calibrated tolerance or the f32 noise floor; see the section
+below.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
+
+from ..core.unported import OTHER_SOLVERS, unported
+from .fdm import fdm_solve_interior
 
 
 def _apply_pprime_bcs(pp: torch.Tensor) -> torch.Tensor:
@@ -68,3 +78,350 @@ def jacobi(pp0: torch.Tensor, rhs: torch.Tensor, dx: float, dy: float,
         n = n + (~done).to(torch.int32)
         done = done | (err < tol)
     return pp, err, n
+
+
+# ---------------------------------------------------------------------------
+# Production projection (PressureSolver.MG_PRODUCTION, aligned scheme)
+#
+# The aligned cell-centred hierarchy of the JAX package
+# (ops/poisson.py:668-696): the unknowns of every coarse level are
+# interior cells, with the boundary slaving folded into the stencil
+# (Neumann mirror: ghost = self; outlet: a 0-valued ghost at the tracked
+# centre-to-wall distance d, d_0 = 1.5 h_fine on the first coarse level,
+# d_{l+1} = d_l + h_l / 2); 2x2-average restriction and bilinear
+# prolongation, odd sizes mirror-padding or aggregating on the west and
+# south sides; levels at or below mgp_coarse_stop cells a side solve
+# exactly by FDM (ops.fdm). The fine level keeps the full-array damped
+# sweeps with the p' BCs, through the fused smoother kernels
+# (kernels.mgp).
+# ---------------------------------------------------------------------------
+
+def _mg_residual(p, rhs, dx, dy):
+    """r = rhs - A p on the interior, 0 on the boundary ring."""
+    dx2, dy2 = dx * dx, dy * dy
+    denom = 2.0 / dx2 + 2.0 / dy2
+    ap = ((p[1:-1, 2:] + p[1:-1, :-2]) / dx2
+          + (p[2:, 1:-1] + p[:-2, 1:-1]) / dy2 - denom * p[1:-1, 1:-1])
+    r = torch.zeros_like(p)
+    r[1:-1, 1:-1] = rhs[1:-1, 1:-1] - ap
+    return r
+
+
+def _mgp_smooth(p, rhs, dx, dy, omega, iterations):
+    """Damped-Jacobi sweeps with the p' BCs re-applied every sweep."""
+    for _ in range(iterations):
+        p, _ = _jacobi_sweep(p, rhs, dx, dy, omega)
+    return p
+
+
+def _cc_neighbors(p):
+    """Folded neighbour reads (E, W, N, S) on an interior-unknown array:
+    Neumann edges mirror (ghost = self), the outlet (east) edge reads
+    the 0-valued Dirichlet ghost."""
+    e = torch.cat([p[:, 1:], torch.zeros_like(p[:, -1:])], dim=1)
+    w = torch.cat([p[:, :1], p[:, :-1]], dim=1)
+    n = torch.cat([p[1:], p[-1:]], dim=0)
+    s = torch.cat([p[:1], p[:-1]], dim=0)
+    return e, w, n, s
+
+
+def _cc_diag(shape, dx, dy, d_wall, device):
+    """Diagonal of -A: 2/dx^2 + 2/dy^2, and in the outlet column, when
+    the wall sits at d != dx from the last centre, (1 + dx/d)/dx^2 in
+    place of the x part. A float, or an f32 (1, nx) row."""
+    denom = 2.0 / (dx * dx) + 2.0 / (dy * dy)
+    if d_wall == dx:
+        return denom
+    extra = (dx / d_wall - 1.0) / (dx * dx)
+    dg = torch.full((1, shape[1]), denom, dtype=torch.float32, device=device)
+    dg[0, -1] = denom + extra
+    return dg
+
+
+def _cc_residual(p, rhs, dx, dy, d_wall):
+    dx2, dy2 = dx * dx, dy * dy
+    e, w, n, s = _cc_neighbors(p)
+    dg = _cc_diag(p.shape, dx, dy, d_wall, p.device)
+    return rhs - ((e + w) / dx2 + (n + s) / dy2 - dg * p)
+
+
+def _cc_sweeps(p, rhs, dx, dy, omega, iters, d_wall):
+    """Damped-Jacobi sweeps on the folded cell-centred operator."""
+    dx2, dy2 = dx * dx, dy * dy
+    dg = _cc_diag(p.shape, dx, dy, d_wall, p.device)
+    for _ in range(iters):
+        e, w, n, s = _cc_neighbors(p)
+        upd = ((e + w) / dx2 + (n + s) / dy2 - rhs) / dg
+        p = (1.0 - omega) * p + omega * upd
+    return p
+
+
+def _cc_coarse_size(m: int) -> int:
+    """Coarse cells along one axis: even m halves; odd m takes whichever
+    of (m+1)/2 (mirror-pad a ghost on the west/south side) and (m-1)/2
+    (the first coarse cell aggregates three fine ones) is even; m == 1
+    saturates at 1 (the transfers are the identity along that axis)."""
+    if m <= 1:
+        return max(m, 1)
+    if m % 2 == 0:
+        return m // 2
+    return (m + 1) // 2 if ((m + 1) // 2) % 2 == 0 else m // 2
+
+
+def _cc_restrict_x(f):
+    """2-average restriction along x with the odd-size rule."""
+    nx = f.shape[1]
+    if nx % 2 == 0:
+        return 0.5 * (f[:, 0::2] + f[:, 1::2])
+    if _cc_coarse_size(nx) == (nx + 1) // 2:   # mirror-pad west
+        g = torch.cat([f[:, :1], f], dim=1)
+        return 0.5 * (g[:, 0::2] + g[:, 1::2])
+    g = f[:, 1:]                               # aggregate west
+    t = 0.5 * (g[:, 0::2] + g[:, 1::2])
+    t[:, :1] = (f[:, :1] + f[:, 1:2] + f[:, 2:3]) / 3.0
+    return t
+
+
+def _cc_restrict_y(f):
+    """As _cc_restrict_x, along y."""
+    ny = f.shape[0]
+    if ny % 2 == 0:
+        return 0.5 * (f[0::2] + f[1::2])
+    if _cc_coarse_size(ny) == (ny + 1) // 2:   # mirror-pad south
+        g = torch.cat([f[:1], f], dim=0)
+        return 0.5 * (g[0::2] + g[1::2])
+    g = f[1:]                                  # aggregate south
+    t = 0.5 * (g[0::2] + g[1::2])
+    t[:1] = (f[:1] + f[1:2] + f[2:3]) / 3.0
+    return t
+
+
+def _cc_restrict(fine):
+    """Cell-centred averaging restriction, x first, then y."""
+    return _cc_restrict_y(_cc_restrict_x(fine))
+
+
+def _cc_prolong_x(coarse, nx_f):
+    """The x pass of _cc_prolong: coarse columns interpolated to nx_f
+    fine columns, at coarse rows. The Neumann west edge clamps, the
+    outlet edge interpolates toward the 0 ghost."""
+    ny_c, nx_c = coarse.shape
+    if nx_f == nx_c:  # saturated axis (width 1): identity
+        return coarse
+    left = torch.cat([coarse[:, :1], coarse[:, :-1]], dim=1)
+    rightn = torch.cat([coarse[:, 1:], torch.zeros_like(coarse[:, -1:])], dim=1)
+    rw = 0.75 * coarse + 0.25 * rightn
+    if nx_f == 2 * nx_c + 1:  # aggregate west: first coarse = 3 fine
+        lw = 0.75 * coarse + 0.25 * left
+        lw[:, 1] = 0.8 * coarse[:, 1] + 0.2 * left[:, 1]
+        pairs = torch.stack([lw[:, 1:], rw[:, 1:]], dim=2)
+        head = torch.cat([coarse[:, :1], coarse[:, :1],
+                          0.6 * coarse[:, :1] + 0.4 * coarse[:, 1:2]], dim=1)
+        return torch.cat([head, pairs.reshape(ny_c, 2 * (nx_c - 1))], dim=1)
+    # even (nx_f == 2 nx_c) or mirror-pad west (nx_f == 2 nx_c - 1)
+    even = 0.75 * coarse + 0.25 * left
+    row = torch.stack([even, rw], dim=2).reshape(ny_c, 2 * nx_c)
+    return row[:, 2 * nx_c - nx_f:]
+
+
+def _cc_prolong_y(row, ny_f):
+    """The y pass of _cc_prolong: coarse rows of ``row`` interpolated to
+    ny_f fine rows; both edges clamp."""
+    ny_c, width = row.shape
+    if ny_f == ny_c:  # saturated axis (height 1): identity
+        return row
+    dnv = torch.cat([row[:1], row[:-1]], dim=0)
+    upv = torch.cat([row[1:], row[-1:]], dim=0)
+    uw = 0.75 * row + 0.25 * upv
+    if ny_f == 2 * ny_c + 1:  # aggregate south
+        lw = 0.75 * row + 0.25 * dnv
+        lw[1] = 0.8 * row[1] + 0.2 * dnv[1]
+        pairs = torch.stack([lw[1:], uw[1:]], dim=1)
+        head = torch.cat([row[:1], row[:1], 0.6 * row[:1] + 0.4 * row[1:2]],
+                         dim=0)
+        return torch.cat([head, pairs.reshape(2 * (ny_c - 1), width)], dim=0)
+    evr = 0.75 * row + 0.25 * dnv
+    out = torch.stack([evr, uw], dim=1).reshape(2 * ny_c, width)
+    return out[2 * ny_c - ny_f:]
+
+
+def _cc_prolong(coarse, ny_f, nx_f):
+    """Cell-centred bilinear prolongation, the per-axis inverse of
+    _cc_restrict's even, mirror-pad and aggregate cases."""
+    return _cc_prolong_y(_cc_prolong_x(coarse, nx_f), ny_f)
+
+
+def _cc_vcycle(rhs, dx, dy, opts, d_wall, smoothers):
+    """Solve A e = rhs from a zero guess on one coarse level. FDM at or
+    below mgp_coarse_stop cells on the longer side; otherwise pre-smooth
+    with the residual (the cc kernel), recurse, prolong, post-smooth.
+    A saturated axis keeps its own h and d_wall on the coarser level."""
+    ny, nx = rhs.shape
+    if max(ny, nx) <= opts.mgp_coarse_stop:
+        return fdm_solve_interior(rhs, dx, dy, d_wall)
+    omega, nu = opts.jacobi_omega, opts.mgp_smooth
+    p, r = smoothers.cc(torch.zeros_like(rhs), rhs, dx, dy, omega, nu, d_wall,
+                        True)
+    x_sat = _cc_coarse_size(nx) == nx
+    y_sat = _cc_coarse_size(ny) == ny
+    e_c = _cc_vcycle(_cc_restrict(r), dx if x_sat else 2 * dx,
+                     dy if y_sat else 2 * dy, opts,
+                     d_wall if x_sat else d_wall + dx / 2, smoothers)
+    p = p + _cc_prolong(e_c, ny, nx)
+    return smoothers.cc(p, rhs, dx, dy, omega, nu, d_wall, False)[0]
+
+
+def _mgp_aligned_correction(r_full, dx, dy, opts, smoothers):
+    """Full-size correction (zero ring) from a full residual array with
+    a zero ring: FDM of the interior when it is at most mgp_coarse_stop
+    on its shorter side, else restrict, coarse V-cycle, prolong."""
+    ny, nx = r_full.shape
+    r_int = r_full[1:-1, 1:-1]
+    if min(ny - 2, nx - 2) <= opts.mgp_coarse_stop:
+        e_int = fdm_solve_interior(r_int, dx, dy, dx)
+    else:
+        e_c = _cc_vcycle(_cc_restrict(r_int), 2 * dx, 2 * dy, opts, 1.5 * dx,
+                         smoothers)
+        e_int = _cc_prolong(e_c, ny - 2, nx - 2)
+    return torch.nn.functional.pad(e_int, (1, 1, 1, 1))
+
+
+def _mgp_vcycle_aligned(p, rhs, dx, dy, opts, smoothers):
+    """One aligned V-cycle on the full array; returns (p, max|rhs - A p|,
+    max|p| or None).
+
+    Interiors of at most mgp_coarse_stop on the shorter side take the
+    FDM correction alone (exact in one cycle). Even grids run the
+    restrict kernel (sweeps, residual, first restriction), the coarse
+    cycle, the x pass of the last prolongation, and the corr kernel (y
+    pass, add, sweeps, max|r|, max|p|); other grids the res kernel
+    before and after the full correction."""
+    ny, nx = p.shape
+    if min(ny - 2, nx - 2) <= opts.mgp_coarse_stop:
+        r = _mg_residual(p, rhs, dx, dy)
+        p = _apply_pprime_bcs(p + _mgp_aligned_correction(r, dx, dy, opts,
+                                                          smoothers))
+        return p, torch.amax(torch.abs(_mg_residual(p, rhs, dx, dy))), None
+    omega, nu = opts.jacobi_omega, opts.mgp_smooth
+    if ny % 2 == 0 and nx % 2 == 0:
+        p, r_c, _ = smoothers.restrict(p, rhs, dx, dy, omega, nu)
+        e_c = _cc_vcycle(r_c, 2 * dx, 2 * dy, opts, 1.5 * dx, smoothers)
+        row = _cc_prolong_x(e_c, nx - 2).contiguous()
+        return smoothers.corr(p, rhs, row, dx, dy, omega, nu)
+    p, r, _ = smoothers.res(p, rhs, dx, dy, omega, nu, True)
+    p = _apply_pprime_bcs(p + _mgp_aligned_correction(r, dx, dy, opts,
+                                                      smoothers))
+    p, _, err = smoothers.res(p, rhs, dx, dy, omega, nu, False)
+    return p, err, None
+
+
+def _mgp_noise_floor(opts, dx, dy):
+    """floor(max|p|, max|rhs|) = mgp_floor * eps * (denom max|p| +
+    max|rhs|), below which the f32 residual cannot resolve; None when
+    mgp_floor is 0."""
+    f = opts.mgp_floor
+    if not f:
+        return None
+    eps = float(np.finfo(np.float32).eps)
+    denom = 2.0 / (dx * dx) + 2.0 / (dy * dy)
+
+    def floor(p_abs_max, rhs_abs_max):
+        return (f * eps) * (denom * p_abs_max + rhs_abs_max)
+
+    return floor
+
+
+def _exact_while(cycle, p0, tol, iters):
+    """Do-while: at least one cycle, then until err < max(tol, the
+    cycle's extra tolerance) or ``iters`` cycles. The exit test reads one
+    bool on the host per cycle; returns (p, err, cycles run)."""
+    p, it = p0, 0
+    while True:
+        p, err, extra = cycle(p)
+        it += 1
+        tol_eff = tol if extra is None else torch.maximum(tol, extra)
+        if not (it < iters and bool(err >= tol_eff)):
+            return p, err, it
+
+
+def _masked_while(cycle, p0, tol, iters):
+    """The same fields, err and count as _exact_while at a fixed trip
+    count of max(1, iters): cycles after the exit are computed and
+    discarded, and nothing is read back. The count is a 0-d tensor."""
+    p = p0
+    err = torch.full((), float("inf"), dtype=p0.dtype, device=p0.device)
+    done = torch.zeros((), dtype=torch.bool, device=p0.device)
+    n = torch.zeros((), dtype=torch.int32, device=p0.device)
+    for _ in range(max(1, iters)):
+        p2, err2, extra = cycle(p)
+        tol_eff = tol if extra is None else torch.maximum(tol, extra)
+        p = torch.where(done, p, p2)
+        err = torch.where(done, err, err2)
+        n = n + (~done).to(torch.int32)
+        done = done | (err < tol_eff)
+    return p, err, n
+
+
+def check_mgp_scheme(opts) -> None:
+    """Only the aligned scheme is ported; "auto" resolves to it at every
+    size, the JAX package's own rule wherever its whole-cycle legacy
+    kernel is absent (ops/poisson.py:1139-1149)."""
+    if opts.mgp_scheme not in ("auto", "aligned"):
+        raise unported(f'mgp_scheme="{opts.mgp_scheme}" (the legacy V-cycle '
+                       "and its whole-cycle smoother, queue 2 kernel 19)",
+                       OTHER_SOLVERS)
+
+
+def _smoothers(opts):
+    """The aligned cycle's four smoothers: the kernel wrappers (each runs
+    its plain version on CPU tensors), or with pressure_impl "jnp" the
+    plain versions on any device."""
+    from ..kernels import mgp  # kernels.mgp imports this module
+    if opts.pressure_impl == "jnp":
+        return mgp.Smoothers(mgp.jacobi_fused_k_res_plain,
+                             mgp.jacobi_fused_k_restrict_plain,
+                             mgp.jacobi_fused_k_corr_plain, mgp.cc_sweeps_plain)
+    return mgp.Smoothers(mgp.jacobi_fused_k_res, mgp.jacobi_fused_k_restrict,
+                         mgp.jacobi_fused_k_corr, mgp.cc_sweeps)
+
+
+def multigrid_production(pp0, rhs, dx: float, dy: float, opts, tol_r):
+    """PressureSolver.MG_PRODUCTION, aligned scheme, CHANNEL p' BCs.
+
+    Aligned V-cycles, warm-started from ``pp0``, until max|rhs - A p'| <=
+    ``tol_r`` (a float or a 0-d tensor; projection_div_tol / dt_sub
+    bounds the post-correction max|div u| by projection_div_tol), widened
+    to mgp_rtol x the warm-start residual when mgp_rtol > 0 and to the
+    f32 noise floor when mgp_floor > 0, at most mgp_max_cycles; or
+    exactly mgp_fixed_cycles cycles when that is > 0. early_exit takes
+    the exact do-while (one host read per cycle), otherwise the masked
+    fixed-trip loop. Returns (p', max|residual|, cycles run)."""
+    check_mgp_scheme(opts)
+    if opts.mgp_smooth == 3 and pp0.shape[-2] * pp0.shape[-1] >= 48_000_000:
+        # The JAX package's size rule (ops/poisson.py:1113-1121): five
+        # sweeps a position from 48M cells, unless set explicitly.
+        opts = dataclasses.replace(opts, mgp_smooth=5)
+    smoothers = _smoothers(opts)
+
+    def cycle(p):
+        p, err, pmax = _mgp_vcycle_aligned(p, rhs, dx, dy, opts, smoothers)
+        if floor is None:
+            return p, err, None
+        if pmax is None:
+            pmax = torch.amax(torch.abs(p))
+        return p, err, floor(pmax, rhs_max)
+
+    p0 = _apply_pprime_bcs(pp0)
+    if opts.mgp_fixed_cycles > 0:
+        err = torch.zeros((), dtype=p0.dtype, device=p0.device)
+        for _ in range(opts.mgp_fixed_cycles):
+            p0, err, _ = _mgp_vcycle_aligned(p0, rhs, dx, dy, opts, smoothers)
+        return p0, err, opts.mgp_fixed_cycles
+    tol = torch.as_tensor(tol_r, dtype=torch.float32, device=pp0.device)
+    if opts.mgp_rtol > 0.0:
+        err0 = torch.amax(torch.abs(_mg_residual(p0, rhs, dx, dy)))
+        tol = torch.maximum(tol, opts.mgp_rtol * err0)
+    floor = _mgp_noise_floor(opts, dx, dy)
+    rhs_max = torch.amax(torch.abs(rhs)) if floor is not None else None
+    loop = _exact_while if opts.early_exit else _masked_while
+    return loop(cycle, p0, tol, opts.mgp_max_cycles)

@@ -17,31 +17,58 @@ the TPU. Each kernel wrapper runs its plain version on CPU tensors.
 condition                                       route
 ==============================================  =========================================
 substep_impl "pallas", or "auto" at >= 2M       fused: ``predict_div`` kernel ->
-cells (the benchmark's 2048² shape)             ``_solve_pressure`` -> with no outer
+cells (bench.py's 2048² shapes)                 ``_solve_pressure`` -> with no outer
                                                 rounds, ``correct_bc`` kernel (res_u,
                                                 res_v, max|vel| reduced in-pass); with
                                                 rounds, plain correct -> ``_outer_rounds``
                                                 -> plain apply_bcs
-otherwise, substep_impl and pressure_impl in    ``_substep_jnp``: plain predictor and
-("auto", "pallas") (the 800x264 default scene)  divergence, then the ``rounds`` kernel
-                                                (solve + corrector + rounds + BCs)
-otherwise                                       plain predictor, divergence,
-                                                ``_solve_pressure``, corrector,
+otherwise, JACOBI with substep_impl and         ``_substep_jnp``: plain predictor and
+pressure_impl in ("auto", "pallas") (the        divergence, then the ``rounds`` kernel
+800x264 default scene)                          (solve + corrector + rounds + BCs)
+otherwise (MG_PRODUCTION below 2M cells, or     plain predictor, divergence,
+"jnp")                                          ``_solve_pressure``, corrector,
                                                 ``_outer_rounds``, BCs
 ==============================================  =========================================
 
-``_solve_pressure``: pressure_impl "auto" resolves to "pallas" at >= 2M
-cells or jacobi_tol == 0, else "jnp". "pallas" runs the Jacobi chain
-kernel (K-granularity exit, k = ``resolve_fuse_k``); "jnp" runs
+``_solve_pressure``, JACOBI: pressure_impl "auto" resolves to "pallas"
+at >= 2M cells or jacobi_tol == 0, else "jnp". "pallas" runs the Jacobi
+chain kernel (K-granularity exit, k = ``resolve_fuse_k``); "jnp" runs
 ops.poisson.jacobi (exact per-sweep exit, or the masked fixed-trip form
 when early_exit is False).
 
-Convergence semantics: the rounds kernel and the plain solve exit at the
-exact sweep and round (rounds_pallas.py:11-24); the chain checks its
-tolerance every k sweeps (jacobi_pallas.py:28-30). Host reads: the chain
-with tol > 0 reads its error once per k-launch, and the fused route with
-outer rounds and early_exit reads it once per round; the fixed schedule
-(tol == 0, no rounds) and the rounds kernel read nothing.
+``_solve_pressure``, MG_PRODUCTION: ops.poisson.multigrid_production
+with tol_r = projection_div_tol / dt_sub (dt_sub a 0-d device tensor),
+the aligned scheme at every size ("auto" resolves to it, as the JAX
+package does wherever its legacy whole-cycle kernel is absent;
+"legacy" raises). Its smoothers, at any size (the TPU's 2M-cell, ny % 8,
+ny % 16 and k <= 14 gates are not carried over):
+
+==============================================  =========================================
+level                                           kernel
+==============================================  =========================================
+fine level, even ny and nx                      ``jacobi_fused_k_restrict`` (pre-smooth,
+                                                residual, first restriction) and
+                                                ``jacobi_fused_k_corr`` (y pass of the
+                                                prolongation, add, post-smooth, max|r|,
+                                                max|p'|)
+fine level, odd ny or nx                        ``jacobi_fused_k_res``, before (with r)
+                                                and after (without) the correction
+coarse levels above mgp_coarse_stop             ``cc_sweeps`` (pre with r, post without)
+levels at or below mgp_coarse_stop              FDM (ops.fdm, f64 products: never TF32)
+an interior at most mgp_coarse_stop a side      FDM alone, no smoothing
+==============================================  =========================================
+
+pressure_impl "jnp" runs the plain versions of the four smoothers.
+
+Convergence semantics: the rounds kernel and the plain Jacobi solve exit
+at the exact sweep and round (rounds_pallas.py:11-24); the chain checks
+its tolerance every k sweeps (jacobi_pallas.py:28-30); MG_PRODUCTION
+exits at the exact V-cycle (``_exact_while`` with the noise floor as a
+dynamic tolerance), or with early_exit False runs the masked fixed-trip
+loop. Host reads: the chain with tol > 0 reads its error once per
+k-launch, MG_PRODUCTION with early_exit once per V-cycle, and the fused
+route with outer rounds and early_exit once per round; the fixed
+schedules and the rounds kernel read nothing.
 
 The TPU gates (``_pallas_ok``'s ny % 8 and backend test, ``_tile_rows``,
 ``rounds_pallas_ok``'s VMEM bound) are not carried over; each kernel
@@ -71,7 +98,7 @@ from ..kernels.substep import correct_bc, predict_div
 from ..ops.bc import apply_bcs
 from ..ops.corrector import correct
 from ..ops.divergence import divergence_rhs
-from ..ops.poisson import jacobi
+from ..ops.poisson import check_mgp_scheme, jacobi, multigrid_production
 from ..ops.predictor import predict
 
 FUSED_MIN_CELLS = 2_000_000
@@ -98,7 +125,7 @@ class Scene:
     params: SimulationParams
     opts: SolverOptions
 
-    def init_state(self, device="cpu", dtype=torch.float32) -> State:
+    def init_state(self, device="cuda", dtype=torch.float32) -> State:
         return init_state(self.grid, self.params, self.opts, device, dtype)
 
     @functools.cached_property
@@ -152,9 +179,12 @@ def make_scene(grid: Grid, params: Optional[SimulationParams] = None,
     for obs in grid.obstacles:
         if not isinstance(obs, Cylinder):
             raise unported(f"obstacle {type(obs).__name__}", WIDEN_STEP)
-    if params.pressure_solver != PressureSolver.JACOBI:
+    if params.pressure_solver not in (PressureSolver.JACOBI,
+                                      PressureSolver.MG_PRODUCTION):
         raise unported(f"the {params.pressure_solver.value} pressure solver",
                        OTHER_SOLVERS)
+    if params.pressure_solver == PressureSolver.MG_PRODUCTION:
+        check_mgp_scheme(opts)
     if opts.differentiable:
         raise unported("SolverOptions.differentiable", DIFFERENTIABLE)
     return Scene(grid=grid, params=params, opts=opts)
@@ -178,10 +208,15 @@ def resolve_fuse_k(opts: SolverOptions) -> int:
     return opts.pallas_fuse_k or 16
 
 
-def _solve_pressure(scene: Scene, pp0, rhs):
-    """The JACOBI branch of the JAX package's ``_solve_pressure``.
-    Returns (p', err, iterations run)."""
+def _solve_pressure(scene: Scene, pp0, rhs, dt_sub):
+    """The JACOBI and MG_PRODUCTION branches of the JAX package's
+    ``_solve_pressure``. Returns (p', err, iterations or V-cycles run)."""
     g, opts = scene.grid, scene.opts
+    if scene.params.pressure_solver == PressureSolver.MG_PRODUCTION:
+        # tol_r = div_tol / dt bounds the post-correction max|div u| by
+        # div_tol (JAX piso.py:220-243).
+        return multigrid_production(pp0, rhs, g.dx, g.dy, opts,
+                                    opts.projection_div_tol / dt_sub)
     impl = opts.pressure_impl
     if impl == "auto":
         impl = ("pallas" if (g.nx * g.ny >= FUSED_MIN_CELLS
@@ -204,7 +239,7 @@ def _outer_rounds(scene: Scene, u, v, p, pp, err, dt_sub):
 
     def round_body(u, v, p, pp):
         rhs = divergence_rhs(u, v, dt_sub, g.dx, g.dy)
-        pp, err, _ = _solve_pressure(scene, pp, rhs)
+        pp, err, _ = _solve_pressure(scene, pp, rhs, dt_sub)
         u, v, p = correct(u, v, p, pp, dt_sub, g.dx, g.dy)
         return u, v, p, pp, err
 
@@ -227,20 +262,21 @@ def _outer_rounds(scene: Scene, u, v, p, pp, err, dt_sub):
 
 
 def _substep_jnp(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet):
-    """Plain predictor and divergence, then the rounds kernel (or, with
-    substep_impl or pressure_impl "jnp", the plain projection).
-    Returns (u, v, p, pp, err)."""
+    """Plain predictor and divergence, then for JACOBI the rounds kernel,
+    or else (another solver, or substep_impl or pressure_impl "jnp") the
+    plain projection. Returns (u, v, p, pp, err)."""
     g, opts = scene.grid, scene.opts
     mask_u, mask_v, mask_u_bc, mask_v_bc = masks_traced(g, opts.semantics,
                                                         u.device)
     u_star, v_star = predict(u, v, dt_sub, nu, g.dx, g.dy, g.nx, g.ny,
                              scene.params.velocity_scheme, False, mask_u, mask_v)
     rhs = divergence_rhs(u_star, v_star, dt_sub, g.dx, g.dy)
-    if (opts.pressure_impl in ("auto", "pallas")
+    if (scene.params.pressure_solver == PressureSolver.JACOBI
+            and opts.pressure_impl in ("auto", "pallas")
             and opts.substep_impl in ("auto", "pallas")):
         return solve_correct_rounds(u_star, v_star, p, p_prime, rhs, dt_sub,
                                     inlet, scene)[:5]
-    pp, err, _ = _solve_pressure(scene, p_prime, rhs)
+    pp, err, _ = _solve_pressure(scene, p_prime, rhs, dt_sub)
     u, v, p = correct(u_star, v_star, p, pp, dt_sub, g.dx, g.dy)
     u, v, p, pp, err = _outer_rounds(scene, u, v, p, pp, err, dt_sub)
     u, v = apply_bcs(u, v, g, scene.params.inlet_profile, inlet, mask_u_bc,
@@ -262,7 +298,7 @@ def piso_substep(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet,
                           scene.params.flow_case)
     u_star, v_star, rhs = predict_div(u, v, dt_sub, nu, g,
                                       scene.params.velocity_scheme, sem)
-    pp, err, _ = _solve_pressure(scene, p_prime, rhs)
+    pp, err, _ = _solve_pressure(scene, p_prime, rhs, dt_sub)
     rounds = opts.outer_corrector_rounds
     if rounds == 0 and entry is not None:
         u, v, p, res_u, res_v, max_vel = correct_bc(

@@ -14,9 +14,11 @@ import torch
 
 import cfd_demo_tpu_torch as tc
 from cfd_demo_tpu_torch.kernels import jacobi as kjac
+from cfd_demo_tpu_torch.kernels import mgp as kmgp
 from cfd_demo_tpu_torch.kernels import rounds as krounds
 from cfd_demo_tpu_torch.kernels import substep as ksub
-from cfd_demo_tpu_torch.ops.poisson import _apply_pprime_bcs
+from cfd_demo_tpu_torch.ops import fdm
+from cfd_demo_tpu_torch.ops.poisson import _apply_pprime_bcs, _cc_prolong_x
 
 pytestmark = pytest.mark.cuda
 
@@ -130,3 +132,118 @@ def test_fast_rollout_never_syncs(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(state.u).all())
+
+
+def _fine(shape, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    pp = _apply_pprime_bcs(0.1 * torch.randn(shape, generator=g))
+    return pp, torch.randn(shape, generator=g), 1 / shape[1], 1 / shape[0]
+
+
+def _res_tol(p, rhs, dx, dy):
+    """The residual's f32 cancellation floor (tests/test_projection.py:320)."""
+    eps = torch.finfo(torch.float32).eps
+    return 30 * eps * ((2 / dx ** 2 + 2 / dy ** 2) * float(p.abs().max())
+                       + float(rhs.abs().max()))
+
+
+@pytest.mark.parametrize("shape,k,emit_res", [((64, 97), 3, True), ((37, 53), 3, False),
+                                              ((40, 96), 0, True), ((128, 130), 5, True)])
+def test_mgp_res(cuda, shape, k, emit_res):
+    pp, rhs, dx, dy = _fine(shape)
+    got = kmgp.jacobi_fused_k_res(pp.to(cuda), rhs.to(cuda), dx, dy, 0.75, k, emit_res)
+    ref = kmgp.jacobi_fused_k_res_plain(pp, rhs, dx, dy, 0.75, k, emit_res)
+    tol = _res_tol(ref[0], rhs, dx, dy)
+    assert_close(got[0], ref[0], rtol=1e-5)
+    if emit_res:
+        torch.testing.assert_close(got[1].cpu(), ref[1], rtol=0, atol=tol)
+    else:
+        assert got[1] is None
+    torch.testing.assert_close(got[2].cpu(), ref[2], rtol=1e-3, atol=tol)
+
+
+@pytest.mark.parametrize("shape,k", [((64, 96), 3), ((38, 130), 4), ((40, 96), 0)])
+def test_mgp_restrict_and_corr(cuda, shape, k):
+    ny, nx = shape
+    pp, rhs, dx, dy = _fine(shape)
+    got = kmgp.jacobi_fused_k_restrict(pp.to(cuda), rhs.to(cuda), dx, dy, 0.75, k)
+    ref = kmgp.jacobi_fused_k_restrict_plain(pp, rhs, dx, dy, 0.75, k)
+    tol = _res_tol(ref[0], rhs, dx, dy)
+    assert_close(got[0], ref[0], rtol=1e-5)
+    torch.testing.assert_close(got[1].cpu(), ref[1], rtol=0, atol=tol)
+    torch.testing.assert_close(got[2].cpu(), ref[2], rtol=1e-3, atol=tol)
+    g = torch.Generator().manual_seed(6)
+    e_c = 0.05 * torch.randn(((ny - 2) // 2, (nx - 2) // 2), generator=g)
+    row = _cc_prolong_x(e_c, nx - 2).contiguous()
+    got = kmgp.jacobi_fused_k_corr(ref[0].to(cuda), rhs.to(cuda), row.to(cuda),
+                                   dx, dy, 0.75, k)
+    ref = kmgp.jacobi_fused_k_corr_plain(ref[0], rhs, row, dx, dy, 0.75, k)
+    assert_close(got[0], ref[0], rtol=1e-5)
+    torch.testing.assert_close(got[1].cpu(), ref[1], rtol=1e-3,
+                               atol=_res_tol(ref[0], rhs, dx, dy))
+    assert float(got[2]) == float(got[0].abs().max())
+    torch.testing.assert_close(got[2].cpu(), ref[2], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(64, 96), (63, 97), (9, 1), (1, 9)])
+@pytest.mark.parametrize("d_mult", [1.0, 1.5, 16.5 / 32])
+def test_cc_sweeps(cuda, shape, d_mult):
+    g = torch.Generator().manual_seed(7)
+    p = 0.1 * torch.randn(shape, generator=g)
+    rhs = torch.randn(shape, generator=g)
+    dx, dy = 1 / max(shape), 1 / min(shape)
+    for emit_res in (True, False):
+        got = kmgp.cc_sweeps(p.to(cuda), rhs.to(cuda), dx, dy, 0.75, 3, d_mult * dx,
+                             emit_res)
+        ref = kmgp.cc_sweeps_plain(p, rhs, dx, dy, 0.75, 3, d_mult * dx, emit_res)
+        torch.testing.assert_close(got[0].cpu(), ref[0], rtol=1e-5, atol=1e-5)
+        if emit_res:
+            torch.testing.assert_close(got[1].cpu(), ref[1], rtol=0,
+                                       atol=_res_tol(ref[0], rhs, dx, dy))
+        else:
+            assert got[1] is None
+
+
+def test_fdm_is_full_f32_whatever_the_flags(cuda):
+    """The bottom solve against an f64 solve with TF32 turned on for f32
+    matmuls: its products never take TF32 (ops/fdm.py)."""
+    g = torch.Generator().manual_seed(8)
+    r = torch.randn((64, 64), generator=g)
+    args = (0.23, 0.23, 0.23 * 16.5 / 32)
+    qy, qx, s = (t.double() for t in fdm._fdm_bases(64, 64, *args, torch.device("cpu")))
+    want = -(qy @ ((qy.T @ r.double() @ qx) * s) @ qx.T)
+    before = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")  # TF32 for f32 matmuls
+        got = fdm.fdm_solve_interior(r.to(cuda), *args)
+    finally:
+        torch.set_float32_matmul_precision(before)
+    err = float((got.cpu().double() - want).abs().max() / want.abs().max())
+    assert err <= 1e-5, err  # TF32 would be ~1e-3
+
+
+@pytest.mark.parametrize("nx,ny,substep_impl", [(64, 48, "pallas"), (65, 47, "auto")])
+def test_production_steps_match_cpu_path(cuda, nx, ny, substep_impl):
+    """Three MG_PRODUCTION steps on the card and on the CPU path: u and v
+    to 1e-5, p' to its noise-floor spread (the solve amplifies rounding
+    in its smoothest modes, tests/test_torch_mgp.py)."""
+    grid = tc.Grid(nx=nx, ny=ny, lx=4.0 * nx / 24, ly=1.5 * ny / 16,
+                   obstacles=(tc.Cylinder(1.0, 0.75 * ny / 16, 0.3),))
+    scene = tc.make_scene(grid, tc.SimulationParams(
+        dt=0.004, viscosity=1e-4, pressure_solver=tc.PressureSolver.MG_PRODUCTION),
+        tc.solver_options_for(RUST, ramp_up_steps=2, outer_corrector_rounds=0,
+                              mgp_coarse_stop=8, substep_impl=substep_impl))
+    before = (kmgp.jacobi_fused_k_restrict.launches, kmgp.jacobi_fused_k_res.launches,
+              kmgp.cc_sweeps.launches)
+    run = tc.make_run(scene, 3)
+    a, _ = run(scene.init_state(cuda))
+    b, _ = run(scene.init_state("cpu"))
+    after = (kmgp.jacobi_fused_k_restrict.launches, kmgp.jacobi_fused_k_res.launches,
+             kmgp.cc_sweeps.launches)
+    even = nx % 2 == 0 and ny % 2 == 0
+    assert (after[0] > before[0]) == even and (after[1] > before[1]) != even
+    assert after[2] > before[2]
+    for f in ("u", "v"):
+        assert_close(getattr(a, f), getattr(b, f), rtol=1e-5)
+    d = (a.p_prime.cpu() - b.p_prime).double()
+    assert float((d - d.mean()).abs().max()) <= 1e-3 * max(1.0, float(b.p_prime.abs().max()))

@@ -60,7 +60,7 @@ def test_fixed_iters_matches_oracle_and_jax():
         ramp_up_steps=3, jacobi_tol=0.0, outer_corrector_tol=0.0,
         jacobi_iters=10, outer_corrector_rounds=4)
     jstep, tstep = jc.make_step(jscene, donate=False), tc.make_step(tscene)
-    js, ts = jscene.init_state(), tscene.init_state()
+    js, ts = jscene.init_state(), tscene.init_state(device="cpu")
     for k in range(3):
         oracle.update()
         js, _ = jstep(js)
@@ -97,7 +97,7 @@ def test_real_constants_match_oracle_and_jax():
     tolerances, early exits and 20 outer rounds."""
     jscene, tscene, oracle = golden_setup(ramp_up_steps=4)
     jstep, tstep = jc.make_step(jscene, donate=False), tc.make_step(tscene)
-    js, ts = jscene.init_state(), tscene.init_state()
+    js, ts = jscene.init_state(), tscene.init_state(device="cpu")
     g = tscene.grid
     for k in range(4):
         oracle.update()
@@ -131,7 +131,7 @@ def _fast_scenes(n=64):
 def test_fast_shape_run_matches_jax():
     jscene, tscene = _fast_scenes()
     js, jd = jc.make_run(jscene, 5, donate=False)(jscene.init_state())
-    ts, td = tc.make_run(tscene, 5)(tscene.init_state())
+    ts, td = tc.make_run(tscene, 5)(tscene.init_state(device="cpu"))
     for f in FIELDS:
         assert l2(t_field(ts, f), np.asarray(getattr(js, f))) <= 1e-5, f
     for f in ("dt", "res_u", "res_v", "res_p"):
@@ -153,19 +153,26 @@ def _spy(monkeypatch, name, calls):
 
 
 @pytest.mark.parametrize("route", ["fused", "rounds", "fused-with-rounds",
-                                   "plain"])
+                                   "plain", "production", "production-plain"])
 def test_route_table(monkeypatch, route):
     """piso.py's route table: which kernel wrappers one step calls."""
     calls = []
     for name in ("predict_div", "jacobi_chain", "correct_bc",
-                 "solve_correct_rounds", "jacobi"):
+                 "solve_correct_rounds", "jacobi", "multigrid_production"):
         _spy(monkeypatch, name, calls)
+    production = dict(pressure_solver=tc.PressureSolver.MG_PRODUCTION)
     if route == "rounds":
         _, scene, _ = golden_setup()
         want = {"solve_correct_rounds"}
     elif route == "plain":
         _, scene, _ = golden_setup(substep_impl="jnp")
         want = {"jacobi"}
+    elif route == "production-plain":
+        # below 2M cells: plain predictor, the production solve, no rounds kernel
+        _, scene, _ = golden_setup(outer_corrector_rounds=0)
+        scene = dataclasses.replace(scene, params=dataclasses.replace(
+            scene.params, **production))
+        want = {"multigrid_production"}
     else:
         _, scene = _fast_scenes(32)
         want = {"predict_div", "jacobi_chain", "correct_bc"}
@@ -174,8 +181,31 @@ def test_route_table(monkeypatch, route):
                 scene.opts, outer_corrector_rounds=2, jacobi_tol=1e-4,
                 early_exit=True, pressure_impl="pallas"))
             want = {"predict_div", "jacobi_chain"}
-    tc.make_step(scene)(scene.init_state())
+        elif route == "production":
+            scene = dataclasses.replace(scene, params=dataclasses.replace(
+                scene.params, **production))
+            want = {"predict_div", "multigrid_production", "correct_bc"}
+    tc.make_step(scene)(scene.init_state(device="cpu"))
     assert set(calls) == want
+
+
+def test_reference_shaped_production_scene_skips_the_rounds_kernel(monkeypatch):
+    """The 800x264 scene with MG_PRODUCTION (and the default 20 outer
+    rounds) takes the plain projection: the rounds kernel is Jacobi's
+    alone (JAX piso.py:573)."""
+    calls = []
+    for name in ("solve_correct_rounds", "multigrid_production", "jacobi",
+                 "jacobi_chain"):
+        _spy(monkeypatch, name, calls)
+    scene = tc.make_scene(tc.default_grid(), tc.SimulationParams(
+        pressure_solver=tc.PressureSolver.MG_PRODUCTION))
+    assert not tpiso._use_fused_substep(scene)
+    state = scene.init_state(device="cpu")
+    state = dataclasses.replace(state, step=torch.tensor(50, dtype=torch.int32))
+    state, _ = tc.make_step(scene)(state)
+    assert "solve_correct_rounds" not in calls
+    assert set(calls) == {"multigrid_production"}
+    assert bool(torch.isfinite(state.u).all()) and float(state.u.abs().max()) > 0
 
 
 def test_state_round_trip_and_resume_from_jax():
@@ -212,20 +242,28 @@ def _bench_jax_scene(mode, n):
     """bench.py:78-120's scene for ``mode`` at n², in the JAX package."""
     grid = jc.Grid(nx=n, ny=n, lx=30.0, ly=30.0,
                    obstacles=(jc.Cylinder(7.5, 15.0, 0.75),))
+    params = jc.SimulationParams(dt=0.002, viscosity=1e-4)
     if mode == "fast":
         opts = jc.solver_options_for(
             jc.Semantics.RUST, ramp_up_steps=10, jacobi_tol=0.0,
             jacobi_iters=50, outer_corrector_rounds=0, early_exit=False,
             pressure_impl="auto", pallas_fuse_k=0)
+    elif mode == "production":
+        params = jc.SimulationParams(
+            dt=0.002, viscosity=1e-4,
+            pressure_solver=jc.PressureSolver.MG_PRODUCTION)
+        opts = jc.solver_options_for(
+            jc.Semantics.RUST, ramp_up_steps=10, outer_corrector_rounds=0,
+            pressure_impl="auto", pallas_fuse_k=0, mgp_rtol=0.0,
+            mgp_scheme="auto")
     else:
         opts = jc.solver_options_for(jc.Semantics.RUST, ramp_up_steps=10,
                                      pressure_impl="auto", pallas_fuse_k=0)
-    return jc.make_scene(grid, jc.SimulationParams(dt=0.002, viscosity=1e-4),
-                         opts)
+    return jc.make_scene(grid, params, opts)
 
 
 @pytest.mark.parametrize("cell", ["800x264 default", "2048^2 fast",
-                                  "2048^2 reference"])
+                                  "2048^2 reference", "2048^2 production"])
 def test_cells_are_the_reference_configs(cell):
     """cells.py's scenes are the README quick start and bench.py's modes,
     and each takes the route its cell is meant to exercise."""
@@ -239,12 +277,13 @@ def test_cells_are_the_reference_configs(cell):
         assert repr(getattr(scene, part)) == repr(getattr(want, part)), part
     fused = tpiso._use_fused_substep(scene)
     assert fused == (cell != "800x264 default")
-    assert (scene.opts.outer_corrector_rounds > 0) == (cell != "2048^2 fast")
+    assert ((scene.opts.outer_corrector_rounds > 0)
+            == (cell in ("800x264 default", "2048^2 reference")))
 
 
 def test_cells_rounds_args_and_busy_time():
     scene = cells.reference_scene()
-    state = scene.init_state()
+    state = scene.init_state(device="cpu")
     out = tpiso.solve_correct_rounds(*cells.rounds_args(scene, state))
     assert out[5].tolist() == [0, 1]  # a field at rest converges at once
     assert cells._busy_us([(5, 6), (0, 2), (1, 3)]) == 4.0
