@@ -1,6 +1,6 @@
 """The port's measured shapes, and where their device time goes.
 
-Four cells, each at full size, from the JAX package's own defaults:
+Six cells, each at full size, from the JAX package's own defaults:
 
 - :func:`reference_scene`: the README quick start, the Rust app's
   800x264 cylinder channel with default parameters and solver options
@@ -11,9 +11,15 @@ Four cells, each at full size, from the JAX package's own defaults:
   (the fused route with outer rounds and tolerance exits);
 - :func:`production_scene`: ``bench.py --mode production`` at 2048²
   (the fused route with the MG_PRODUCTION projection, aligned V-cycles
-  to the divergence tolerance or the f32 noise floor).
+  to the divergence tolerance or the f32 noise floor);
+- **ensemble 64x256x96**: ``python -m cfd_demo_tpu.apps.ensemble --batch
+  64`` (BASELINE config 5), 64 scenes of the app's 256x96 channel, a
+  viscosity sweep (the whole-substep kernel's route);
+- **ensemble 8x800x264**: the same app with ``--nx 800 --ny 264 --batch
+  8``, eight scenes of the reference's grid (too large for that kernel:
+  the batched Jacobi kernel's route).
 
-``chip_smoke.py`` drives the first, second and fourth. On a CUDA card,
+``chip_smoke.py`` drives all but the reference mode. On a CUDA card,
 
     python3 -m cfd_demo_tpu_torch.cells [--out FILE.json]
 
@@ -21,8 +27,10 @@ runs each cell for a timed rollout after its warm-up, then 10 more steps
 under ``torch.profiler``, and prints the rate, the device
 time per step by kernel and the device's busy share of the unprofiled
 wall time. For the 800x264 scene it also prints how many outer rounds
-and Jacobi sweeps the rounds kernel ran in a step, and for the
-production scene how many V-cycles a step ran.
+and Jacobi sweeps the rounds kernel ran in a step, for the ensembles
+the mean and the most of those over their scenes in the first profiled
+step, and for the production scene how many V-cycles a step ran. An ensemble's cell-updates count every scene's
+cells.
 """
 from __future__ import annotations
 
@@ -37,11 +45,14 @@ import torch
 
 from .core.config import (Cylinder, Grid, PressureSolver, Semantics,
                           SimulationParams, default_grid, solver_options_for)
+from .apps.ensemble import ensemble_scene, ensemble_state
 from .kernels import mgp
+from .kernels.ensemble import substep_batch, substep_batch_fits
+from .kernels.jacobi_batch import jacobi_batch
 from .kernels.rounds import solve_correct_rounds
 from .kernels.substep import correct_bc, predict_div, predict_div_plain
-from .solver.piso import (_use_fused_substep, make_run, make_scene,
-                          make_step, ramped_inlet)
+from .solver.piso import (_substep_jnp, _use_fused_substep, make_run,
+                          make_scene, make_step, ramped_inlet)
 
 
 def reference_scene():
@@ -93,6 +104,22 @@ def rounds_args(scene, state):
             ramped_inlet(scene.opts, state), scene)
 
 
+def ensemble_args(scene, state):
+    """What the next step from a batched ``state`` feeds the substep:
+    (u, v, p, p', dt_sub, nu, inlet, scene)."""
+    return (state.u, state.v, state.p, state.p_prime, state.dt, state.nu,
+            ramped_inlet(scene.opts, state), scene)
+
+
+def ensemble_counts(scene, state):
+    """(outer rounds, Jacobi sweeps) each scene runs in the next step, by
+    the route the step takes: an int32 (B, 2) tensor."""
+    args = ensemble_args(scene, state)
+    if substep_batch_fits(scene.grid):
+        return substep_batch(*args)[5]
+    return _substep_jnp(scene, *args[:7])[5]
+
+
 def vcycles_launched() -> float:
     """V-cycles the fine-level kernels have run on the card: one corr
     launch a cycle on an even grid, two res launches on another. (A
@@ -103,13 +130,15 @@ def vcycles_launched() -> float:
 
 
 PROFILED_STEPS = 10
-# (scene, warm-up steps, timed steps). 55 warm-up steps bring the 800x264
-# scene to where every step runs all its outer rounds.
+# (scene, warm-up steps, timed steps, batch or None). 55 warm-up steps
+# bring the 800x264 scene to where every step runs all its outer rounds.
 CELLS = {
-    "800x264 default": (reference_scene, 55, 50),
-    "2048^2 fast": (fast_scene, 5, 100),
-    "2048^2 reference": (reference_mode_scene, 5, 20),
-    "2048^2 production": (production_scene, 5, 20),
+    "800x264 default": (reference_scene, 55, 50, None),
+    "2048^2 fast": (fast_scene, 5, 100, None),
+    "2048^2 reference": (reference_mode_scene, 5, 20, None),
+    "2048^2 production": (production_scene, 5, 20, None),
+    "ensemble 64x256x96": (ensemble_scene, 20, 50, 64),
+    "ensemble 8x800x264": (lambda: ensemble_scene(800, 264), 5, 20, 8),
 }
 
 
@@ -118,6 +147,8 @@ CELLS = {
 # cc_sweeps launch kernels that others launch too, or k of them a call.)
 TRACED = {predict_div: "predict_div_kernel(", correct_bc: "correct_bc_kernel(",
           solve_correct_rounds: "rounds_kernel(",
+          substep_batch: "ensemble_substep_kernel(",
+          jacobi_batch: "jacobi_batch_kernel(",
           mgp.jacobi_fused_k_restrict: "restrict_kernel(",
           mgp.jacobi_fused_k_corr: "corr_add_kernel("}
 
@@ -132,39 +163,50 @@ def _busy_us(spans):
     return busy
 
 
+# Traces taken before device_breakdown gives up on one that lost launches.
+TRACE_ATTEMPTS = 3
+
+
 def device_breakdown(scene, state, steps):
     """Device time by kernel over ``steps`` steps under torch.profiler:
     (busy µs per step, [(kernel, µs per step, launches per step)]). A
     first, unrecorded rollout warms the tracer up, and each step waits
     for the device: traces of rollouts that queued many steps ahead of
-    the device lost some of their launches."""
+    the device lost some of their launches. A trace that still misses a
+    launch the wrappers counted (why the profiler drops one is not
+    known) is taken again, up to TRACE_ATTEMPTS times, and then raises."""
     from torch.profiler import ProfilerActivity, profile, schedule
     step = make_step(scene)
-    events = []
+    for attempt in range(TRACE_ATTEMPTS):
+        events = []
 
-    def keep(prof):  # device work: kernels and copies, not the step marker
-        events.extend(e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and not e.name.startswith("ProfilerStep"))
+        def keep(prof):  # device work: kernels and copies, not the step marker
+            events.extend(e for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and not e.name.startswith("ProfilerStep"))
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=keep) as prof:
-        for _ in range(2):
-            before = {w: w.launches for w in TRACED}
-            s = state
-            for _ in range(steps):
-                s, _ = step(s)
-                torch.cuda.synchronize()
-            prof.step()
-    if not events:
-        raise RuntimeError("torch.profiler recorded no device activity")
-    for w, kernel in TRACED.items():
-        traced = sum(kernel in e.name for e in events)
-        if traced != w.launches - before[w]:
-            raise RuntimeError(f"the trace holds {traced} of "
-                               f"{w.launches - before[w]} {kernel[:-1]} launches")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=keep) as prof:
+            for _ in range(2):
+                before = {w: w.launches for w in TRACED}
+                s = state
+                for _ in range(steps):
+                    s, _ = step(s)
+                    torch.cuda.synchronize()
+                prof.step()
+        if not events:
+            raise RuntimeError("torch.profiler recorded no device activity")
+        lost = [f"the trace holds {sum(kernel in e.name for e in events)} of "
+                f"{w.launches - before[w]} {kernel[:-1]} launches"
+                for w, kernel in TRACED.items()
+                if sum(kernel in e.name for e in events) != w.launches - before[w]]
+        if not lost:
+            break
+        print(f"    trace {attempt + 1}: " + "; ".join(lost), flush=True)
+    else:
+        raise RuntimeError("; ".join(lost))
     total, calls = collections.Counter(), collections.Counter()
     for e in events:
         total[e.name] += e.time_range.elapsed_us()
@@ -174,12 +216,14 @@ def device_breakdown(scene, state, steps):
     return busy / steps, rows
 
 
-def measure(name, make, warmup, timed, dev):
+def measure(name, make, warmup, timed, batch, dev):
     scene = make()
     g = scene.grid
-    state, _ = make_run(scene, warmup)(scene.init_state(dev))
+    init = (scene.init_state(dev) if batch is None
+            else ensemble_state(scene, batch, dev))
+    state, _ = make_run(scene, warmup)(init)
     out = {}
-    if not _use_fused_substep(scene):  # the rounds-kernel route
+    if batch is None and not _use_fused_substep(scene):  # the rounds-kernel route
         counts = solve_correct_rounds(*rounds_args(scene, state))[5].tolist()
         out["rounds_per_step"], out["sweeps_per_step"] = counts
     run = make_run(scene, timed)
@@ -194,7 +238,14 @@ def measure(name, make, warmup, timed, dev):
     if not bool(torch.isfinite(state.u).all()):
         raise RuntimeError(f"{name}: u is not finite")
     out["steps_per_s"] = timed / sec
-    out["cell_updates_per_s"] = g.nx * g.ny * timed / sec
+    out["cell_updates_per_s"] = (batch or 1) * g.nx * g.ny * timed / sec
+    if batch is not None:
+        # In the first profiled step, per scene: the mean over the batch,
+        # and the most any scene ran (a launch lasts as long as its
+        # slowest scene).
+        counts = ensemble_counts(scene, state).double()
+        out["rounds_per_step"], out["sweeps_per_step"] = counts.mean(dim=0).tolist()
+        out["max_rounds"], out["max_sweeps"] = counts.max(dim=0).values.tolist()
     busy_us, rows = device_breakdown(scene, state, PROFILED_STEPS)
     wall_us = 1e6 * sec / timed
     out["wall_us_per_step"] = wall_us
@@ -206,8 +257,10 @@ def measure(name, make, warmup, timed, dev):
           f"{out['cell_updates_per_s']:.4e} cell-updates/s; device busy "
           f"{busy_us:.1f} of {wall_us:.1f} us per step "
           f"({100 * busy_us / wall_us:.1f}%)"
-          + (f"; rounds kernel: {out['rounds_per_step']} rounds, "
-             f"{out['sweeps_per_step']} sweeps" if "sweeps_per_step" in out else "")
+          + (f"; {out['rounds_per_step']:g} rounds, {out['sweeps_per_step']:g} "
+             f"sweeps per scene" if "sweeps_per_step" in out else "")
+          + (f" (at most {out['max_rounds']:g} and {out['max_sweeps']:g})"
+             if "max_sweeps" in out else "")
           + (f"; {out['vcycles_per_step']} V-cycles per step"
              if "vcycles_per_step" in out else ""),
           flush=True)
@@ -229,8 +282,8 @@ def main() -> int:
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     report = {"nvidia_smi": smi}
-    for name, (make, warmup, timed) in CELLS.items():
-        report[name] = measure(name, make, warmup, timed, dev)
+    for name, (make, warmup, timed, batch) in CELLS.items():
+        report[name] = measure(name, make, warmup, timed, batch, dev)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)

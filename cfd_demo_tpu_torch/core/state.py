@@ -8,6 +8,11 @@ never reads a value back to the host. Field layout (rows=y, cols=x):
       reference's top face row j=ny is identically zero and stored
       implicitly (Grid.shape_v, State.v_full)
   p, p_prime: (ny, nx) pressure and its warm-started correction
+
+A batch of B independent scenes (the ensemble) is one State whose fields
+carry a leading batch dimension, (B, ny, nx+1) and (B, ny, nx), and
+whose scalars are (B,) tensors: the JAX package's vmapped State, field
+for field (:func:`batch_state`, :func:`state_from_numpy`).
 """
 from __future__ import annotations
 
@@ -87,6 +92,25 @@ def set_params(state: State, params: SimulationParams) -> State:
         state, dt=f(params.dt, state.dt), dt_user=f(params.dt, state.dt),
         nu=f(params.viscosity, state.nu),
         target_inlet=f(params.target_inlet_velocity, state.target_inlet))
+
+
+def batch_state(state: State, batch: int, **per_scene) -> State:
+    """B copies of a one-scene ``state`` as one batched State, as the JAX
+    ensemble app broadcasts its state (apps/ensemble.py:44-48); keyword
+    arguments replace whole fields, e.g. ``nu=`` a (B,) tensor of
+    viscosities."""
+    out = {}
+    for k in _FIELDS:
+        x = getattr(state, k)
+        out[k] = None if x is None else x.expand((batch,) + x.shape).clone()
+    for k, x in per_scene.items():
+        if k not in out:
+            raise TypeError(f"batch_state: State has no field {k!r}")
+        if tuple(x.shape[:1]) != (batch,):
+            raise ValueError(f"batch_state: {k} has shape {tuple(x.shape)}, "
+                             f"expected a leading {batch}")
+        out[k] = x.to(getattr(state, k).device).contiguous()
+    return State(**out)
 
 
 def state_from_numpy(d: Dict[str, Optional[np.ndarray]], device) -> State:

@@ -56,6 +56,9 @@ _SIGNATURES = {
     "cfd_mgp_restrict": [P] * 7 + [I] * 3 + [F] * 7 + [P],
     "cfd_mgp_corr": [P] * 9 + [I] * 3 + [F] * 7 + [P],
     "cfd_cc_sweeps": [P] * 5 + [I] * 3 + [F] * 8 + [P],
+    "cfd_substep_batch_smem": [I, I],
+    "cfd_substep_batch": [P] * 12 + [I] * 3 + [F] * 8 + [I, F, I, F, I, P, P],
+    "cfd_jacobi_batch": [P] * 8 + [I] * 4 + [F] * 5 + [P],
 }
 
 
@@ -180,3 +183,22 @@ def device_scalars(device, *xs) -> torch.Tensor:
         x.to(torch.float32).reshape(()) if isinstance(x, torch.Tensor)
         else torch.full((), float(x), dtype=torch.float32, device=device)
         for x in xs])
+
+
+def scene_scalars(device, batch: int, *xs) -> torch.Tensor:
+    """A contiguous f32 (batch, len(xs)) tensor on ``device``: column c
+    holds ``xs[c]`` for every scene, a float, a 0-d tensor (the same for
+    all) or a (batch,) tensor (one per scene) already on ``device``.
+    Built without a host synchronisation; :func:`device_scalars` is the
+    one-scene form."""
+    cols = []
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            if x.dim() > 1 or (x.dim() == 1 and x.shape[0] != batch):
+                raise ValueError(f"a per-scene scalar has shape {tuple(x.shape)}; "
+                                 f"expected () or ({batch},)")
+            cols.append(x.to(torch.float32).reshape(-1).expand(batch))
+        else:
+            cols.append(torch.full((batch,), float(x), dtype=torch.float32,
+                                   device=device))
+    return torch.stack(cols, dim=1).contiguous()

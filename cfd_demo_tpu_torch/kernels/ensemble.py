@@ -1,0 +1,120 @@
+"""The whole substep of every scene of a batch in one CUDA launch
+(↔ cfd_demo_tpu/kernels/ensemble_pallas.py).
+
+``substep_batch`` replaces ``substep_batch_pallas`` (ensemble_pallas.py:322,
+body ``_kernel_sub`` :241, in-kernel solver ``make_jacobi_solve`` :69),
+csrc/ensemble.cu, for Rust semantics, FIRST upwinding, the Jacobi solver
+and CHANNEL flow. For each scene: the predictor, the divergence, a
+do-while Jacobi warm-started from the scene's p' that exits at the exact
+sweep its own error drops below ``jacobi_tol``, the corrector, then up
+to ``outer_corrector_rounds`` rounds of divergence, warm-started Jacobi
+and corrector while the error stays at or above ``outer_corrector_tol``,
+then the BCs. Every scene runs its own trip counts, so its fields equal
+an unbatched early-exit run of that scene (tests/test_sharding.py:167-173).
+
+An ensemble scene is small (24,576 cells at the app's 256x96) and a
+substep is a thousand or so sweeps, each needing the whole field of the
+last: what bounds it is the barrier per sweep. One thread block per
+scene makes that barrier a ``__syncthreads()`` and keeps the scene on
+one SM: p' in shared memory (two buffers, 192 KB at 256x96, under the
+227 KB a block may opt in to), u, v, p and the divergence in global
+memory; the fields it updates (u, v, p and the divergence: 25 MB for
+64 scenes) stay in the 50 MB L2. A batch
+of 64 fills 64 of the 132 SMs; clusters of blocks per scene sharing
+their shared memory would use the rest (later work). A block has 1024
+threads: a sweep waits on its rhs reads from L2, and 32 warps hide more
+of them than 16 (9.04 ms a launch against 13.5 on the 64x256x96 state
+after 20 steps, NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py phase 3;
+rhs kept in registers instead spilled and ran slower, PERF.md).
+
+The TPU gate, a VMEM bound, is not carried over; the port's is
+:func:`substep_batch_fits`, the two p' buffers in one block's shared
+memory. Beyond it the ensemble takes the solver's plain batched
+substep with the batched solve kernel (kernels.jacobi_batch), as the JAX
+package takes its vmapped substep with ``jacobi_pallas_batch`` beyond
+its gate.
+
+Both versions also return how many outer rounds and Jacobi sweeps each
+scene ran, so a check can hold the kernel's exits against the plain
+version's.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core.config import PressureSolver
+from ..core.unported import OTHER_SOLVERS, unported
+from ._build import check, cylinders, load, on_cpu, scene_scalars, stream_of
+from .jacobi import _multipliers
+from .substep import _check_slice
+
+# Shared memory one block may opt in to on the H100 (227 KB), less the
+# kernel's 33-float reduction scratch.
+SMEM_OPTIN_BYTES = 232_448
+_SMEM_STATIC = 33 * 4
+
+
+def substep_batch_fits(grid) -> bool:
+    """Whether the whole-substep kernel takes ``grid``: both p' buffers
+    of a scene in one block's shared memory (up to 29,039 cells)."""
+    return (grid.nx >= 3 and grid.ny >= 3
+            and 2 * 4 * grid.ny * grid.nx + _SMEM_STATIC <= SMEM_OPTIN_BYTES)
+
+
+def substep_batch_plain(u, v, p, pp0, dt_sub, nu, inlet, scene):
+    """The solver's plain batched substep (solver.piso._substep_jnp) with
+    the plain masked Jacobi: each scene freezes at its own Jacobi sweep
+    and outer round, with no host read on the card."""
+    from ..solver.piso import _substep_jnp  # the solver imports this module
+    plain = dataclasses.replace(
+        scene, opts=dataclasses.replace(scene.opts, pressure_impl="jnp"))
+    return _substep_jnp(plain, u, v, p, pp0, dt_sub, nu, inlet)
+
+
+def substep_batch(u, v, p, pp0, dt_sub, nu, inlet, scene):
+    """One substep of every scene: ``u`` (B, ny, nx+1); ``v``, ``p``,
+    ``pp0`` (BC-consistent) (B, ny, nx); ``dt_sub``, ``nu``, ``inlet``
+    (B,) tensors or scalars. Returns (u, v, p, p', err (B,), counts
+    (B, 2) int32: outer rounds and Jacobi sweeps each scene ran)."""
+    g, opts = scene.grid, scene.opts
+    _check_slice(scene.params.velocity_scheme, opts.semantics,
+                 scene.params.inlet_profile, scene.params.flow_case)
+    if scene.params.pressure_solver != PressureSolver.JACOBI:
+        raise unported(f"the whole-substep kernel with the "
+                       f"{scene.params.pressure_solver.value} solver", OTHER_SOLVERS)
+    if not substep_batch_fits(g):
+        raise ValueError(f"substep_batch: a {g.nx}x{g.ny} scene does not fit one "
+                         f"block's shared memory (substep_batch_fits)")
+    if u.dim() != 3:
+        raise ValueError(f"substep_batch takes (B, ny, nx+1) u, got {tuple(u.shape)}")
+    B, ny, nx = u.shape[0], g.ny, g.nx
+    shapes = {"u": (u, (B, ny, nx + 1)), "v": (v, (B, ny, nx)),
+              "p": (p, (B, ny, nx)), "pp0": (pp0, (B, ny, nx))}
+    if on_cpu("substep_batch", shapes):
+        return substep_batch_plain(u, v, p, pp0, dt_sub, nu, inlet, scene)
+    lib = load()
+    u_out, v_out = torch.empty_like(u), torch.empty_like(v)
+    p_out, pp, rhs = (torch.empty_like(p) for _ in range(3))
+    err = torch.empty(B, dtype=torch.float32, device=u.device)
+    counts = torch.empty((B, 2), dtype=torch.int32, device=u.device)
+    scal = scene_scalars(u.device, B, dt_sub, nu, inlet)
+    n_cyl, cyl = cylinders(g)
+    f32 = lambda x: float(np.float32(x))
+    with torch.cuda.device(u.device):
+        check(lib.cfd_substep_batch(
+            u.data_ptr(), v.data_ptr(), p.data_ptr(), pp0.data_ptr(),
+            scal.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
+            p_out.data_ptr(), pp.data_ptr(), rhs.data_ptr(), err.data_ptr(),
+            counts.data_ptr(), B, ny, nx, f32(g.dx), f32(g.dy),
+            f32(g.dx * g.dx), f32(g.dy * g.dy),
+            *_multipliers(g.dx, g.dy, opts.jacobi_omega), opts.jacobi_iters,
+            opts.jacobi_tol, opts.outer_corrector_rounds,
+            opts.outer_corrector_tol, n_cyl, cyl, stream_of(u)), "substep_batch")
+    substep_batch.launches += 1
+    return u_out, v_out, p_out, pp, err, counts
+
+
+substep_batch.launches = 0

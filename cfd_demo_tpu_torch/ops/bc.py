@@ -28,23 +28,27 @@ def _check(profile: InletProfile, flow_case: FlowCase):
 def inlet_profile_column(grid: Grid, profile: InletProfile, inlet_velocity,
                          device, dtype=torch.float32) -> torch.Tensor:
     """Per-row inlet u value (model.rs:833-848); ``inlet_velocity`` may
-    be a 0-d tensor (the ramp)."""
+    be a 0-d tensor (the ramp), or a ``(B,)`` tensor of per-scene speeds,
+    which gives a ``(B, ny)`` column."""
     _check(profile, FlowCase.CHANNEL)
+    if isinstance(inlet_velocity, torch.Tensor):
+        inlet_velocity = inlet_velocity[..., None]
     return inlet_velocity * torch.ones((grid.ny,), dtype=dtype, device=device)
 
 
 def apply_bcs(u: torch.Tensor, v: torch.Tensor, grid: Grid,
               profile: InletProfile, inlet_velocity, mask_u_bc, mask_v_bc,
               flow_case: FlowCase = FlowCase.CHANNEL):
-    """Returns (u, v) with the boundary conditions enforced."""
+    """Returns (u, v) with the boundary conditions enforced. Fields may
+    carry leading batch dimensions, with a ``(B,)`` inlet speed."""
     _check(profile, flow_case)
     ny, nx = grid.ny, grid.nx
     u = u.clone()
-    u[:, 0] = inlet_profile_column(grid, profile, inlet_velocity, u.device,
-                                   u.dtype)
-    u[:, nx] = u[:, nx - 1]
-    u[0] = 0.0
-    u[ny - 1] = 0.0
+    u[..., :, 0] = inlet_profile_column(grid, profile, inlet_velocity,
+                                        u.device, u.dtype)
+    u[..., :, nx] = u[..., :, nx - 1]
+    u[..., 0, :] = 0.0
+    u[..., ny - 1, :] = 0.0
     v = v.clone()
-    v[0] = 0.0
+    v[..., 0, :] = 0.0
     return apply_solid_mask(u, mask_u_bc), apply_solid_mask(v, mask_v_bc)

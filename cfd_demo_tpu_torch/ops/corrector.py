@@ -10,12 +10,18 @@ from __future__ import annotations
 
 import torch
 
+from .stencil import per_scene
+
 
 def correct(u_star: torch.Tensor, v_star: torch.Tensor, p: torch.Tensor,
             p_prime: torch.Tensor, dt_sub, dx: float, dy: float):
-    """Returns (u, v, p); v in the implicit-top-row layout."""
+    """Returns (u, v, p); v in the implicit-top-row layout. Fields may
+    carry leading batch dimensions, with ``dt_sub`` of shape ``(B,)``."""
+    dt_sub = per_scene(dt_sub)
     u = u_star.clone()
-    u[:, 1:-1] = u_star[:, 1:-1] - dt_sub * (p_prime[:, 1:] - p_prime[:, :-1]) / dx
+    u[..., 1:-1] = (u_star[..., 1:-1]
+                    - dt_sub * (p_prime[..., 1:] - p_prime[..., :-1]) / dx)
     v = v_star.clone()
-    v[1:] = v_star[1:] - dt_sub * (p_prime[1:] - p_prime[:-1]) / dy
+    v[..., 1:, :] = (v_star[..., 1:, :]
+                     - dt_sub * (p_prime[..., 1:, :] - p_prime[..., :-1, :]) / dy)
     return u, v, p + p_prime

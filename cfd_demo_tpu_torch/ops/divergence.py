@@ -10,11 +10,11 @@ from __future__ import annotations
 
 import torch
 
-from .stencil import shifted
+from .stencil import per_scene, shifted
 
 
 def divergence_rhs(u_star: torch.Tensor, v_star: torch.Tensor, dt_sub,
                    dx: float, dy: float) -> torch.Tensor:
-    du = (u_star[:, 1:] - u_star[:, :-1]) / dx
+    du = (u_star[..., 1:] - u_star[..., :-1]) / dx
     dv = (shifted(v_star, v_star.shape, 1, 0) - v_star) / dy
-    return (du + dv) / dt_sub
+    return (du + dv) / per_scene(dt_sub)

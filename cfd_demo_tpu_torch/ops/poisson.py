@@ -24,56 +24,70 @@ from .fdm import fdm_solve_interior
 
 
 def _apply_pprime_bcs(pp: torch.Tensor) -> torch.Tensor:
-    """Rows first, then columns (the corner values depend on the order)."""
-    ny, nx = pp.shape
+    """Rows first, then columns (the corner values depend on the order).
+    Leading batch dimensions carry over."""
+    ny, nx = pp.shape[-2:]
     pp = pp.clone()
-    pp[0] = pp[1]            # bottom
-    pp[ny - 1] = pp[ny - 2]  # top
-    pp[:, 0] = pp[:, 1]      # left
-    pp[:, nx - 1] = 0.0      # outlet
+    pp[..., 0, :] = pp[..., 1, :]            # bottom
+    pp[..., ny - 1, :] = pp[..., ny - 2, :]  # top
+    pp[..., :, 0] = pp[..., :, 1]            # left
+    pp[..., :, nx - 1] = 0.0                 # outlet
     return pp
 
 
 def _jacobi_sweep(pp, rhs, dx, dy, omega) -> Tuple[torch.Tensor, torch.Tensor]:
     """One damped-Jacobi iteration incl. p' BCs; returns (pp, max_err)
-    with max_err over the interior cells."""
+    with max_err over the interior cells, one per scene of a batch (a
+    0-d tensor for one scene)."""
     dx2, dy2 = dx * dx, dy * dy
     denom = 2.0 / dx2 + 2.0 / dy2
-    c = pp[1:-1, 1:-1]
-    update = ((pp[1:-1, 2:] + pp[1:-1, :-2]) / dx2
-              + (pp[2:, 1:-1] + pp[:-2, 1:-1]) / dy2 - rhs[1:-1, 1:-1]) / denom
+    c = pp[..., 1:-1, 1:-1]
+    update = ((pp[..., 1:-1, 2:] + pp[..., 1:-1, :-2]) / dx2
+              + (pp[..., 2:, 1:-1] + pp[..., :-2, 1:-1]) / dy2
+              - rhs[..., 1:-1, 1:-1]) / denom
     new_val = omega * update + (1.0 - omega) * c
-    err = torch.amax(torch.abs(new_val - c))
+    err = torch.amax(torch.abs(new_val - c), dim=(-2, -1))
     out = pp.clone()
-    out[1:-1, 1:-1] = new_val
+    out[..., 1:-1, 1:-1] = new_val
     return _apply_pprime_bcs(out), err
 
 
 def jacobi(pp0: torch.Tensor, rhs: torch.Tensor, dx: float, dy: float,
-           omega: float, tol: float, iters: int, early_exit: bool = True):
+           omega: float, tol: float, iters: int, early_exit: bool = True,
+           done=None):
     """Returns (p_prime, max_error_of_last_sweep, iterations_run).
 
     ``early_exit`` (``_exact_while``): a do-while on the host that stops
     after the first sweep whose error is below ``tol``; it reads the
-    error back once per sweep. Otherwise (``_masked_while`` at fixed
-    trip count): max(1, iters) sweeps whose results freeze once
+    error back once per sweep, and takes one scene. Otherwise
+    (``_masked_while``): max(1, iters) sweeps whose results freeze once
     converged -- the same fields, with no host read, and the count
-    returned as a 0-d tensor.
+    returned as a tensor. On a batch ``(B, ny, nx)`` each scene freezes
+    at its own sweep, with err and the count of shape ``(B,)``; the
+    scenes a bool ``done`` marks start frozen (p' = pp0, err inf, 0
+    sweeps), as the masked outer rounds' converged scenes do.
     """
     if early_exit:
+        if pp0.dim() != 2:
+            raise ValueError("jacobi: the exact exit takes one scene; a batch "
+                             "takes early_exit=False")
         pp, it = pp0, 0
         while True:
             pp, err = _jacobi_sweep(pp, rhs, dx, dy, omega)
             it += 1
             if not (it < iters and bool(err >= tol)):
                 return pp, err, it
+    lead = pp0.shape[:-2]
     pp = pp0
-    err = torch.full((), float("inf"), dtype=pp0.dtype, device=pp0.device)
-    done = torch.zeros((), dtype=torch.bool, device=pp0.device)
-    n = torch.zeros((), dtype=torch.int32, device=pp0.device)
+    err = torch.full(lead, float("inf"), dtype=pp0.dtype, device=pp0.device)
+    done = (torch.zeros(lead, dtype=torch.bool, device=pp0.device) if done is None
+            else done.clone())
+    n = torch.zeros(lead, dtype=torch.int32, device=pp0.device)
     for _ in range(max(1, iters)):
+        if done.device.type == "cpu" and bool(done.all()):
+            break  # the JAX loop's own exit; on the card it reads nothing
         pp2, err2 = _jacobi_sweep(pp, rhs, dx, dy, omega)
-        pp = torch.where(done, pp, pp2)
+        pp = torch.where(done[..., None, None], pp, pp2)
         err = torch.where(done, err, err2)
         n = n + (~done).to(torch.int32)
         done = done | (err < tol)

@@ -15,13 +15,15 @@ import torch
 
 from ..core.config import VelocityScheme
 from .schemes import u_faces, v_faces
-from .stencil import Shifts, apply_solid_mask, col_index, row_index
+from .stencil import Shifts, apply_solid_mask, col_index, per_scene, row_index
 
 
 def predict(u, v, dt_sub, nu, dx, dy, nx: int, ny: int,
             scheme: VelocityScheme, avg_conv_v: bool, mask_u, mask_v):
-    """Returns (u_star, v_star). ``dt_sub``/``nu`` are floats or 0-d
-    tensors on the fields' device."""
+    """Returns (u_star, v_star). ``dt_sub``/``nu`` are floats, 0-d
+    tensors or, for a batch of scenes ``(B, ny, *)``, ``(B,)`` tensors on
+    the fields' device."""
+    dt_sub, nu = per_scene(dt_sub), per_scene(nu)
     # ---- u momentum ---------------------------------------------------
     fu = u_faces(u, v, nx, ny, scheme, avg_conv_v)
     conv_u = ((fu.e * fu.e - fu.w * fu.w) / dx

@@ -28,7 +28,26 @@ pressure_impl in ("auto", "pallas") (the        divergence, then the ``rounds`` 
 otherwise (MG_PRODUCTION below 2M cells, or     plain predictor, divergence,
 "jnp")                                          ``_solve_pressure``, corrector,
                                                 ``_outer_rounds``, BCs
+a batch (B, ny, *), JACOBI, substep_impl and    ``substep_batch`` kernel: the whole
+pressure_impl in ("auto", "pallas"), and the    substep of every scene, one block per
+scene fits one block's shared memory            scene
+(``substep_batch_fits``: the app's 256x96)
+another batch, JACOBI                           ``_substep_jnp``: plain predictor and
+                                                divergence, ``_solve_pressure`` (the
+                                                ``jacobi_batch`` kernel, or with
+                                                pressure_impl "jnp" the plain masked
+                                                jacobi), corrector, masked outer rounds
+                                                whose solves skip converged scenes, BCs
+                                                (the 800x264 ensemble)
+a batch with another solver                     NotImplementedError (queue 1 item 7)
 ==============================================  =========================================
+
+A batch is never handed to a single-scene route (the fused kernels, the
+rounds kernel), as the JAX package's ``_pallas_ok`` refuses batched
+tracers (piso.py:147-157). Each scene of a batch freezes at its own
+Jacobi sweep and outer round, for either early_exit: the JAX package's
+batched rules are masked (piso.py:323-332), and a scene's fields equal
+an unbatched run of it.
 
 ``_solve_pressure``, JACOBI: pressure_impl "auto" resolves to "pallas"
 at >= 2M cells or jacobi_tol == 0, else "jnp". "pallas" runs the Jacobi
@@ -68,7 +87,7 @@ dynamic tolerance), or with early_exit False runs the masked fixed-trip
 loop. Host reads: the chain with tol > 0 reads its error once per
 k-launch, MG_PRODUCTION with early_exit once per V-cycle, and the fused
 route with outer rounds and early_exit once per round; the fixed
-schedules and the rounds kernel read nothing.
+schedules, the rounds kernel and the batch routes read nothing.
 
 The TPU gates (``_pallas_ok``'s ny % 8 and backend test, ``_tile_rows``,
 ``rounds_pallas_ok``'s VMEM bound) are not carried over; each kernel
@@ -90,9 +109,11 @@ from ..core.config import (Cylinder, FlowCase, Grid, InletProfile,
                            SolverOptions, VelocityScheme)
 from ..core.masks import masks_traced
 from ..core.state import State, init_state
-from ..core.unported import (BATCHED, DIFFERENTIABLE, OTHER_SOLVERS,
-                             ROUND_KERNEL, WIDEN_STEP, unported)
+from ..core.unported import (DIFFERENTIABLE, OTHER_SOLVERS, ROUND_KERNEL,
+                             WIDEN_STEP, unported)
+from ..kernels.ensemble import substep_batch, substep_batch_fits
 from ..kernels.jacobi import jacobi_chain
+from ..kernels.jacobi_batch import jacobi_batch, jacobi_batch_plain
 from ..kernels.rounds import solve_correct_rounds
 from ..kernels.substep import correct_bc, predict_div
 from ..ops.bc import apply_bcs
@@ -208,15 +229,22 @@ def resolve_fuse_k(opts: SolverOptions) -> int:
     return opts.pallas_fuse_k or 16
 
 
-def _solve_pressure(scene: Scene, pp0, rhs, dt_sub):
+def _solve_pressure(scene: Scene, pp0, rhs, dt_sub, done=None):
     """The JACOBI and MG_PRODUCTION branches of the JAX package's
-    ``_solve_pressure``. Returns (p', err, iterations or V-cycles run)."""
+    ``_solve_pressure``, and for a JACOBI batch its batched rule
+    (piso.py:335-360): the ``jacobi_batch`` kernel, or with pressure_impl
+    "jnp" the plain masked jacobi, neither sweeping the scenes a (B,)
+    ``done`` marks. Returns (p', err, iterations or V-cycles run)."""
     g, opts = scene.grid, scene.opts
     if scene.params.pressure_solver == PressureSolver.MG_PRODUCTION:
         # tol_r = div_tol / dt bounds the post-correction max|div u| by
         # div_tol (JAX piso.py:220-243).
         return multigrid_production(pp0, rhs, g.dx, g.dy, opts,
                                     opts.projection_div_tol / dt_sub)
+    if pp0.dim() == 3:
+        solve = jacobi_batch if opts.pressure_impl in ("auto", "pallas") else jacobi_batch_plain
+        return solve(pp0, rhs, g.dx, g.dy, opts.jacobi_omega, opts.jacobi_tol,
+                     opts.jacobi_iters, done=done)
     impl = opts.pressure_impl
     if impl == "auto":
         impl = ("pallas" if (g.nx * g.ny >= FUSED_MIN_CELLS
@@ -233,55 +261,88 @@ def _solve_pressure(scene: Scene, pp0, rhs, dt_sub):
 def _outer_rounds(scene: Scene, u, v, p, pp, err, dt_sub):
     """Rust outer corrector rounds (model.rs:696-724): repeat
     div -> solve -> correct until the pressure residual drops below
-    outer_corrector_tol, at most outer_corrector_rounds times."""
+    outer_corrector_tol, at most outer_corrector_rounds times. Returns
+    (u, v, p, pp, err, rounds run, solver iterations run); on a batch
+    each scene stops at its own round, with the counts (B,) tensors."""
     g, opts = scene.grid, scene.opts
     rounds, tol = opts.outer_corrector_rounds, opts.outer_corrector_tol
 
-    def round_body(u, v, p, pp):
+    def round_body(u, v, p, pp, done=None):
         rhs = divergence_rhs(u, v, dt_sub, g.dx, g.dy)
-        pp, err, _ = _solve_pressure(scene, pp, rhs, dt_sub)
+        pp, err, n = _solve_pressure(scene, pp, rhs, dt_sub, done)
         u, v, p = correct(u, v, p, pp, dt_sub, g.dx, g.dy)
-        return u, v, p, pp, err
+        return u, v, p, pp, err, n
 
-    if opts.early_exit:
+    if opts.early_exit and err.dim() == 0:
         # One host read of err per round; a device-side loop is later work.
-        it = 0
+        it = iters = 0
         while it < rounds and bool(err >= tol):
-            u, v, p, pp, err = round_body(u, v, p, pp)
-            it += 1
-        return u, v, p, pp, err
-    # Masked fixed trip count: rounds after convergence are computed and
-    # discarded, the same fields as the exact exit with no host read.
+            u, v, p, pp, err, n = round_body(u, v, p, pp)
+            it, iters = it + 1, iters + n
+        return u, v, p, pp, err, it, iters
+    # Masked fixed trip count: the rounds after a scene converges are
+    # discarded, the same fields as the exact exit with no host read. A
+    # batch's solves skip its converged scenes; on the CPU the loop stops
+    # once all are done, the JAX package's masked loop's own exit.
     done = err < tol
+    it = torch.zeros(err.shape, dtype=torch.int32, device=err.device)
+    iters = torch.zeros_like(it)
     for _ in range(rounds):
-        u2, v2, p2, pp2, err2 = round_body(u, v, p, pp)
-        u, v, p = (torch.where(done, a, b) for a, b in ((u, u2), (v, v2), (p, p2)))
-        pp, err = torch.where(done, pp, pp2), torch.where(done, err, err2)
+        if done.device.type == "cpu" and bool(done.all()):
+            break
+        u2, v2, p2, pp2, err2, n = round_body(u, v, p, pp,
+                                              done if err.dim() else None)
+        keep = done[..., None, None]  # (B, 1, 1): per scene, never per column
+        u, v, p, pp = (torch.where(keep, a, b)
+                       for a, b in ((u, u2), (v, v2), (p, p2), (pp, pp2)))
+        err = torch.where(done, err, err2)
+        active = (~done).to(torch.int32)
+        it, iters = it + active, iters + active * n
         done = done | (err < tol)
-    return u, v, p, pp, err
+    return u, v, p, pp, err, it, iters
 
 
 def _substep_jnp(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet):
-    """Plain predictor and divergence, then for JACOBI the rounds kernel,
-    or else (another solver, or substep_impl or pressure_impl "jnp") the
-    plain projection. Returns (u, v, p, pp, err)."""
+    """Plain predictor and divergence, then for one JACOBI scene the
+    rounds kernel, or else (another solver, substep_impl or pressure_impl
+    "jnp", or a batch) the plain projection: ``_solve_pressure``,
+    corrector, ``_outer_rounds``, BCs. Returns (u, v, p, pp, err,
+    counts): int32 counts (..., 2) of the outer rounds and solver
+    iterations run, (B, 2) on a batch."""
     g, opts = scene.grid, scene.opts
     mask_u, mask_v, mask_u_bc, mask_v_bc = masks_traced(g, opts.semantics,
                                                         u.device)
     u_star, v_star = predict(u, v, dt_sub, nu, g.dx, g.dy, g.nx, g.ny,
                              scene.params.velocity_scheme, False, mask_u, mask_v)
     rhs = divergence_rhs(u_star, v_star, dt_sub, g.dx, g.dy)
-    if (scene.params.pressure_solver == PressureSolver.JACOBI
+    if (u.dim() == 2 and scene.params.pressure_solver == PressureSolver.JACOBI
             and opts.pressure_impl in ("auto", "pallas")
             and opts.substep_impl in ("auto", "pallas")):
         return solve_correct_rounds(u_star, v_star, p, p_prime, rhs, dt_sub,
-                                    inlet, scene)[:5]
-    pp, err, _ = _solve_pressure(scene, p_prime, rhs, dt_sub)
+                                    inlet, scene)
+    pp, err, n = _solve_pressure(scene, p_prime, rhs, dt_sub)
     u, v, p = correct(u_star, v_star, p, pp, dt_sub, g.dx, g.dy)
-    u, v, p, pp, err = _outer_rounds(scene, u, v, p, pp, err, dt_sub)
+    u, v, p, pp, err, it, iters = _outer_rounds(scene, u, v, p, pp, err, dt_sub)
     u, v = apply_bcs(u, v, g, scene.params.inlet_profile, inlet, mask_u_bc,
                      mask_v_bc, scene.params.flow_case)
-    return u, v, p, pp, err
+    counts = torch.stack([torch.as_tensor(c, device=u.device).to(torch.int32)
+                          for c in (it, n + iters)], dim=-1)
+    return u, v, p, pp, err, counts
+
+
+def _substep_batched(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet):
+    """A substep of a batch (B, ny, *) with (B,) dt_sub, nu and inlet: the
+    JAX package's custom_vmap rules (piso.py:610-642, :335-360). JACOBI
+    only. Returns (u, v, p, pp, err, counts) with err (B,), counts (B, 2)."""
+    opts = scene.opts
+    if scene.params.pressure_solver != PressureSolver.JACOBI:
+        raise unported(f"a batched {scene.params.pressure_solver.value} scene",
+                       OTHER_SOLVERS)
+    if (opts.pressure_impl in ("auto", "pallas")
+            and opts.substep_impl in ("auto", "pallas")
+            and substep_batch_fits(scene.grid)):
+        return substep_batch(u, v, p, p_prime, dt_sub, nu, inlet, scene)
+    return _substep_jnp(scene, u, v, p, p_prime, dt_sub, nu, inlet)
 
 
 def piso_substep(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet,
@@ -292,8 +353,12 @@ def piso_substep(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet,
     the fused route without outer rounds, when ``entry`` carries the
     step-entry (u, v), the in-kernel (res_u, res_v, max_vel)."""
     g, opts = scene.grid, scene.opts
+    if u.dim() == 3:
+        return (*_substep_batched(scene, u, v, p, p_prime, dt_sub, nu,
+                                  inlet)[:5], None)
     if not _use_fused_substep(scene):
-        return (*_substep_jnp(scene, u, v, p, p_prime, dt_sub, nu, inlet), None)
+        return (*_substep_jnp(scene, u, v, p, p_prime, dt_sub, nu, inlet)[:5],
+                None)
     sem, profile, flow = (opts.semantics, scene.params.inlet_profile,
                           scene.params.flow_case)
     u_star, v_star, rhs = predict_div(u, v, dt_sub, nu, g,
@@ -310,7 +375,7 @@ def piso_substep(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet,
                        ROUND_KERNEL)
     _, _, mask_u_bc, mask_v_bc = masks_traced(g, sem, u.device)
     u, v, p = correct(u_star, v_star, p, pp, dt_sub, g.dx, g.dy)
-    u, v, p, pp, err = _outer_rounds(scene, u, v, p, pp, err, dt_sub)
+    u, v, p, pp, err = _outer_rounds(scene, u, v, p, pp, err, dt_sub)[:5]
     u, v = apply_bcs(u, v, g, profile, inlet, mask_u_bc, mask_v_bc, flow)
     return u, v, p, pp, err, None
 
@@ -345,16 +410,21 @@ def dt_control(grid: Grid, opts: SolverOptions, state: State, max_vel):
 # ---------------------------------------------------------------------------
 
 def step_fn(scene: Scene, state: State) -> Tuple[State, StepDiagnostics]:
-    """One Model::update: a single Rust substep plus the step controls."""
+    """One Model::update: a single Rust substep plus the step controls.
+    On a batched state (fields (B, ny, *), scalars (B,)) every scene
+    steps on its own: the residuals and the CFL control per scene."""
     g, opts = scene.grid, scene.opts
-    if state.u.dim() != 2:
-        raise unported("batched state", BATCHED)
+    if state.u.dim() not in (2, 3):
+        raise ValueError(f"step_fn: u of shape {tuple(state.u.shape)}; expected "
+                         f"(ny, nx+1) or (B, ny, nx+1)")
+    batched = state.u.dim() == 3
     u_old, v_old = state.u, state.v
     inlet = ramped_inlet(opts, state)
     # One substep: dt_sub is dt and the executed count is 1.
     dt_sub = state.dt
     substeps = torch.ones_like(state.substeps)
-    fused_red = _use_fused_substep(scene) and opts.outer_corrector_rounds == 0
+    fused_red = (not batched and _use_fused_substep(scene)
+                 and opts.outer_corrector_rounds == 0)
     entry = (u_old, v_old) if fused_red else None
     u, v, p, pp, res_p, red = piso_substep(scene, u_old, v_old, state.p,
                                            state.p_prime, dt_sub, state.nu,
@@ -362,9 +432,11 @@ def step_fn(scene: Scene, state: State) -> Tuple[State, StepDiagnostics]:
     if red is not None:
         res_u, res_v, max_vel = red
     else:
-        res_u = torch.amax(torch.abs(u - u_old))
-        res_v = torch.amax(torch.abs(v - v_old))
-        max_vel = torch.maximum(torch.amax(torch.abs(u)), torch.amax(torch.abs(v)))
+        last2 = (-2, -1)  # per scene on a batch
+        res_u = torch.amax(torch.abs(u - u_old), dim=last2)
+        res_v = torch.amax(torch.abs(v - v_old), dim=last2)
+        max_vel = torch.maximum(torch.amax(torch.abs(u), dim=last2),
+                                torch.amax(torch.abs(v), dim=last2))
     new_step = state.step + 1
     new_t = state.t + state.dt
     new_dt = dt_control(g, opts, state, max_vel)
@@ -383,7 +455,8 @@ def make_step(scene: Scene):
 
 def make_run(scene: Scene, n_steps: int):
     """n steps in a Python loop (the JAX package's lax.scan):
-    state -> (state, StepDiagnostics of (n_steps,) tensors)."""
+    state -> (state, StepDiagnostics of (n_steps,) tensors, or (n_steps,
+    B) on a batched state)."""
     def run(state: State):
         diags = []
         for _ in range(n_steps):

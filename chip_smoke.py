@@ -15,8 +15,12 @@ Phases, one line each; any failure raises and exits non-zero:
    same count of rounds and sweeps required; on the 2048^2 production
    state after a few steps, the restrict and corr kernels at 2048^2 and
    the cc kernel on the 1023^2 level (with and without the residual);
-   the res kernel on the 2047^2 production state; and the FDM bottom
-   solve against an f64 solve with TF32 turned on for f32 matmuls;
+   the res kernel on the 2047^2 production state; the FDM bottom
+   solve against an f64 solve with TF32 turned on for f32 matmuls; the
+   whole-substep ensemble kernel on the 64x256x96 ensemble after 20
+   steps and the batched Jacobi kernel on the 8x800x264 ensemble's next
+   rhs after 5, each with the same per-scene exits required, and the
+   latter again with scenes flagged done, as the masked rounds call it;
 4. run the 800x264 default scene (the Rust app's) for 50 steps with
    make_run, print steps/s and check its physical invariants;
 5. run the benchmark's fast shape at 2048^2 (bench.py --mode fast):
@@ -27,9 +31,15 @@ Phases, one line each; any failure raises and exits non-zero:
    V-cycles per step, and require each step's res_p <= max(tol_r, the
    noise floor) or the cycle cap, naming which; 3 steps at 2047^2 (odd:
    the res kernel); 3 steps of the 800x264 scene with MG_PRODUCTION,
-   which must not launch the Jacobi rounds kernel;
-7. from the end states of 4, 5 and 6, run 3 steps on CUDA and on the
-   port's CPU path and compare u, v, grad p and mean-removed p;
+   which must not launch the Jacobi rounds kernel; the ensembles
+   (apps/ensemble.py): 64 scenes of 256x96, 5 warm-up steps, then 50
+   timed steps under set_sync_debug_mode("error"); 8 scenes of 800x264,
+   10 steps; print scene-steps/s and aggregate cell-updates/s; and
+   scene k of the 64-batch after 3 steps against an unbatched run of
+   that scene on the card;
+7. from the end states of 4, 5, 6 and the ensembles (2 of the 8
+   800x264 scenes), run 3 steps on CUDA and on the port's CPU path and
+   compare u, v, grad p and mean-removed p;
 8. require every kernel of each path to have launched in that path's
    run (counts set to 0 just before it, read just after).
 
@@ -40,6 +50,7 @@ network. ``--out`` also writes every number to a JSON file.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -49,12 +60,15 @@ import numpy as np
 import torch
 
 import cfd_demo_tpu_torch as tc
-from cfd_demo_tpu_torch.cells import (fast_scene, production_scene,
-                                      reference_scene, rounds_args,
-                                      vcycles_launched)
+from cfd_demo_tpu_torch.apps.ensemble import ensemble_scene, ensemble_state
+from cfd_demo_tpu_torch.cells import (ensemble_args, fast_scene,
+                                      production_scene, reference_scene,
+                                      rounds_args, vcycles_launched)
 from cfd_demo_tpu_torch.kernels import _build
 from cfd_demo_tpu_torch.kernels import mgp
+from cfd_demo_tpu_torch.kernels.ensemble import substep_batch, substep_batch_plain
 from cfd_demo_tpu_torch.kernels.jacobi import jacobi_fused_k, jacobi_fused_k_plain
+from cfd_demo_tpu_torch.kernels.jacobi_batch import jacobi_batch, jacobi_batch_plain
 from cfd_demo_tpu_torch.kernels.rounds import (solve_correct_rounds,
                                                solve_correct_rounds_plain)
 from cfd_demo_tpu_torch.kernels.substep import (correct_bc, correct_bc_plain,
@@ -72,6 +86,7 @@ EPS32 = float(np.finfo(np.float32).eps)
 GRAD_P_ULPS = 6
 FAST, REF, PROD = "2048^2 fast", "800x264", "2048^2 production"
 ODD, REF_PROD = "2047^2 production", "800x264 production"
+ENS64, ENS8 = "ensemble 64x256x96", "ensemble 8x800x264"
 # name -> (wrapper, source, the Pallas call site it replaces, the path
 # whose launches the JSON line reports)
 KERNELS = {
@@ -92,6 +107,10 @@ KERNELS = {
                             "cfd_demo_tpu/kernels/jacobi_pallas.py:746", PROD),
     "cc_sweeps": (mgp.cc_sweeps, "cfd_demo_tpu_torch/csrc/mgp.cu",
                   "cfd_demo_tpu/kernels/jacobi_pallas.py:1786", PROD),
+    "substep_batch": (substep_batch, "cfd_demo_tpu_torch/csrc/ensemble.cu",
+                      "cfd_demo_tpu/kernels/ensemble_pallas.py:354", ENS64),
+    "jacobi_batch": (jacobi_batch, "cfd_demo_tpu_torch/csrc/jacobi_batch.cu",
+                     "cfd_demo_tpu/kernels/jacobi_pallas.py:1599", ENS8),
 }
 # The kernels each path must launch.
 PATHS = {
@@ -101,6 +120,8 @@ PATHS = {
            "jacobi_fused_k_corr", "cc_sweeps"),
     ODD: ("predict_div", "correct_bc", "jacobi_fused_k_res", "cc_sweeps"),
     REF_PROD: ("jacobi_fused_k_restrict", "jacobi_fused_k_corr", "cc_sweeps"),
+    ENS64: ("substep_batch",),
+    ENS8: ("jacobi_batch",),
 }
 # The card's peaks (NVIDIA's H100 SXM data sheet, at the 700 W limit):
 # device-memory bytes/s and f32 FLOP/s outside the tensor cores.
@@ -110,8 +131,10 @@ F32_FLOPS = 67e12
 # damped sweep 9 and its |change| max 3; a folded residual 8 and its
 # |r| max 2; the 2x2 restriction 1.5; the corr add 3; a cell-centred
 # sweep 10; predict_div about 100 (u* and v*: 25 each, rhs 6, the two
-# cylinder tests, the recomputed neighbours); correct_bc about 20.
+# cylinder tests, the recomputed neighbours); correct_bc about 20; a
+# round's divergence 6 and corrector 9.
 SWEEP, SWEEP_ERR, RES, RES_MAX, RESTRICT, CORR_ADD, CC_SWEEP = 9, 3, 8, 2, 1.5, 3, 10
+PREDICT, DIV_CORRECT = 100, 15
 
 
 def require(ok: bool, msg: str) -> None:
@@ -166,8 +189,8 @@ def grad_p_l2(pa, pb, g):
     golden bound (tests/test_golden.py:116-141) plus GRAD_P_ULPS units."""
     pa, pb = (np.asarray(x, np.float64) for x in (pa, pb))
     l2 = lambda x: float(np.sqrt(np.mean(x ** 2)))
-    dx = lambda p: np.diff(p, axis=1) / g.dx
-    dy = lambda p: np.diff(p, axis=0) / g.dy
+    dx = lambda p: np.diff(p, axis=-1) / g.dx  # a batch: over all scenes
+    dy = lambda p: np.diff(p, axis=-2) / g.dy
     unit = float(np.spacing(np.float32(np.abs(pb).max()))) / min(g.dx, g.dy)
     x = max(l2(dx(pa) - dx(pb)), l2(dy(pa) - dy(pb)))
     return x, 1e-4 * max(1.0, l2(dx(pb))) + GRAD_P_ULPS * unit, unit
@@ -288,6 +311,100 @@ def check_kernels(dev, results):
         bound(nbytes(*args[:5], *got[:4]),
               (counts[1] * (SWEEP + SWEEP_ERR) + (counts[0] + 1) * 15)
               * g.nx * g.ny))
+
+
+def check_ensemble_kernels(dev, results):
+    """Kernels 20 and 12 on the ensembles' own states: the whole-substep
+    kernel on the 64x256x96 ensemble after 20 steps, fed what the step
+    feeds it; the batched Jacobi kernel on the next rhs of the 8x800x264
+    ensemble after 5 steps. Both exits are exact on both sides, so each
+    scene must run the same sweeps (and rounds) as the plain version."""
+    scene = ensemble_scene()
+    g = scene.grid
+    state, _ = tc.make_run(scene, 20)(ensemble_state(scene, 64, dev))
+    args = ensemble_args(scene, state)
+    got = substep_batch(*args)
+    ref = substep_batch_plain(*args)
+    counts, ref_counts = got[5].cpu(), ref[5].cpu()
+    require(torch.equal(counts, ref_counts), f"substep_batch: the kernel ran "
+            f"{counts.tolist()} (rounds, sweeps per scene), the plain version "
+            f"{ref_counts.tolist()}")
+    err_k, err_p = got[4].cpu().double(), ref[4].cpu().double()
+    require(bool(torch.allclose(err_k, err_p, rtol=1e-2, atol=0)),
+            f"substep_batch: err {err_k.tolist()} vs plain {err_p.tolist()}")
+    rounds, sweeps = (int(x) for x in counts.sum(dim=0))
+    print(f"[3] substep_batch 64x256x96: the same exits on both sides, per scene "
+          f"{int(counts[:, 0].min())}-{int(counts[:, 0].max())} rounds and "
+          f"{int(counts[:, 1].min())}-{int(counts[:, 1].max())} sweeps ({sweeps} "
+          f"sweeps in all)", flush=True)
+    demean = lambda a, b: a - (a - b).mean(dim=(-2, -1), keepdim=True)
+    cells = g.nx * g.ny
+    # u and v at the rounds kernel's bound; p and p' per scene with the
+    # mean difference removed (the rounds row explains why).
+    compare("substep_batch", [
+        ("u", got[0], ref[0], 5e-5 + 1e-4 * float(ref[0].abs().max())),
+        ("v", got[1], ref[1], 5e-5 + 1e-4 * float(ref[1].abs().max())),
+        ("p-mean", demean(got[2], ref[2]), ref[2], scaled(ref[2], 1e-4)),
+        ("p'-mean", demean(got[3], ref[3]), ref[3], scaled(ref[3], 1e-4))],
+        results,
+        (time_ms(lambda: substep_batch(*args), 5, warmup=1),
+         time_ms(lambda: substep_batch_plain(*args), 2, warmup=1)),
+        # this state's sweeps and rounds, and every scene's predictor
+        bound(nbytes(*args[:4], *got),
+              (sweeps * (SWEEP + SWEEP_ERR) + (rounds + 64) * DIV_CORRECT
+               + 64 * PREDICT) * cells))
+    results["substep_batch"]["sweeps_per_scene"] = counts[:, 1].tolist()
+    results["substep_batch"]["rounds_per_scene"] = counts[:, 0].tolist()
+
+    scene = ensemble_scene(800, 264)
+    g, opts = scene.grid, scene.opts
+    state, _ = tc.make_run(scene, 5)(ensemble_state(scene, 8, dev))
+    rhs = predict_div_plain(state.u, state.v, state.dt, state.nu, g,
+                            scene.params.velocity_scheme, opts.semantics)[2]
+    jargs = (state.p_prime, rhs, g.dx, g.dy, opts.jacobi_omega, opts.jacobi_tol,
+             opts.jacobi_iters)
+    got = jacobi_batch(*jargs)
+    ref = jacobi_batch_plain(*jargs)
+    n, n_ref = got[2].cpu(), ref[2].cpu()
+    require(torch.equal(n, n_ref), f"jacobi_batch: the kernel ran {n.tolist()} "
+            f"sweeps per scene, the plain version {n_ref.tolist()}")
+    print(f"[3] jacobi_batch 8x800x264: sweeps per scene {n.tolist()} on both "
+          f"sides", flush=True)
+    compare("jacobi_batch", [
+        ("p'", got[0], ref[0], scaled(ref[0], 1e-5)),
+        ("err", got[1], ref[1], scaled(ref[0], 1e-5))], results,
+        (time_ms(lambda: jacobi_batch(*jargs), 10),
+         time_ms(lambda: jacobi_batch_plain(*jargs), 3)),
+        bound(nbytes(state.p_prime, rhs, got[0]),
+              int(n.sum()) * (SWEEP + SWEEP_ERR) * g.nx * g.ny))
+    results["jacobi_batch"]["sweeps_per_scene"] = n.tolist()
+    # As a masked outer round calls it: the scenes flagged done are not
+    # swept, and with all of them flagged the launch sweeps nothing.
+    done = torch.arange(8, device=dev) % 2 == 0
+    got = jacobi_batch(*jargs, done=done)
+    ref = jacobi_batch_plain(*jargs, done=done)
+    require(got[2].tolist() == ref[2].tolist() == torch.where(done.cpu(), 0, n).tolist(),
+            f"jacobi_batch with done flags: the kernel ran {got[2].tolist()} sweeps, "
+            f"the plain version {ref[2].tolist()}")
+    require(bool(torch.equal(got[0][done], state.p_prime[done])),
+            "jacobi_batch: a scene flagged done was changed")
+    d = max_abs(got[0], ref[0])
+    require(d <= scaled(ref[0], 1e-5), f"jacobi_batch with done flags: p' max|d| {d}")
+    # What a round costs once few scenes are left: every scene flagged, and
+    # all but the last (nu 1e-2, the one that runs the most rounds).
+    every = torch.ones_like(done)
+    ms_done = time_ms(lambda: jacobi_batch(*jargs, done=every), 10)
+    require(jacobi_batch(*jargs, done=every)[2].sum().item() == 0,
+            "jacobi_batch: a launch with every scene done swept")
+    last = every.clone()
+    last[-1] = False
+    ms_last = time_ms(lambda: jacobi_batch(*jargs, done=last), 10)
+    results["jacobi_batch"]["ms_all_done"] = ms_done
+    results["jacobi_batch"]["ms_last_scene_only"] = ms_last
+    print(f"[3] jacobi_batch with scenes 0, 2, 4, 6 flagged done: sweeps "
+          f"{got[2].tolist()} on both sides, p' max|d|={d:.3e}; a launch with "
+          f"every scene done {ms_done:.4f} ms, with only scene 7 active "
+          f"{ms_last:.4f} ms ({int(n[-1])} sweeps)", flush=True)
 
 
 def res_floor(p, rhs, denom) -> float:
@@ -429,9 +546,10 @@ def check_invariants(scene, state, label):
     u, v = state.u.cpu().numpy(), state.v.cpu().numpy()
     for name, a in (("u", u), ("v", v), ("p", state.p.cpu().numpy())):
         require(bool(np.isfinite(a).all()), f"{label}: {name} not finite")
-    require(not u[0].any() and not u[-1].any(), f"{label}: u rows 0/ny-1 not 0")
-    require(not v[0].any(), f"{label}: v row 0 not 0")
-    require(not u[scene.mask_u_bc > 0].any(), f"{label}: u on mask_u_bc not 0")
+    require(not u[..., 0, :].any() and not u[..., -1, :].any(),
+            f"{label}: u rows 0/ny-1 not 0")
+    require(not v[..., 0, :].any(), f"{label}: v row 0 not 0")
+    require(not u[..., scene.mask_u_bc > 0].any(), f"{label}: u on mask_u_bc not 0")
     return float(u.min()), float(u.max())
 
 
@@ -443,7 +561,7 @@ def lambda_min(g) -> float:
     return 4 * float(np.sin(np.pi / (2 * (2 * m + 1)))) ** 2 / g.dx ** 2
 
 
-def compare_with_cpu(scene, state_dev, label, steps=3):
+def compare_with_cpu(scene, state_dev, label, steps=3, knife_edge=False):
     """steps of the slice on the card and on the port's CPU path from the
     same state: u, v, grad p and mean-removed p at the golden bounds
     (tests/test_golden.py:116-141), grad p with p's f32 resolution
@@ -456,7 +574,16 @@ def compare_with_cpu(scene, state_dev, label, steps=3):
     sqrt(lambda_min). Summed over the steps from both runs' res_p, these
     are added to the mean-removed p and grad p bounds, and dt times the
     grad term to the u and v bounds (the corrector subtracts dt grad
-    p'). They are the solver's own guarantee, not a fit to a reading."""
+    p'). They are the solver's own guarantee, not a fit to a reading.
+
+    With ``knife_edge`` (the ensembles), a Jacobi solve with tolerance
+    exits may stop one sweep apart on the two runs, at a float knife
+    edge (ROADMAP.md section 3). That sweep moves p' by its own max
+    change, below jacobi_tol; p sums every solve's p', so steps x (1 +
+    outer rounds) x jacobi_tol is added to the mean-removed p bound.
+    It matters where p is small: the 8x800x264 ensemble after 13 steps
+    (rms p ~14). The 800x264 default scene (p in the thousands) is held
+    to the golden bound alone."""
     state_cpu = tc.state_from_numpy(tc.state_to_numpy(state_dev), "cpu")
     run = tc.make_run(scene, steps)
     a, da = run(state_dev)
@@ -470,6 +597,8 @@ def compare_with_cpu(scene, state_dev, label, steps=3):
         lam = lambda_min(g)
         slack_p, slack_grad = e.sum() / lam, e.sum() / np.sqrt(lam)
         slack_uv = float((da.dt.cpu().double().numpy() * e).sum()) / np.sqrt(lam)
+    elif knife_edge:
+        slack_p = steps * (1 + scene.opts.outer_corrector_rounds) * scene.opts.jacobi_tol
     out = {}
     for f in ("u", "v"):
         x, y = (getattr(s, f).cpu().double().numpy() for s in (a, b))
@@ -478,7 +607,8 @@ def compare_with_cpu(scene, state_dev, label, steps=3):
     gp, gp_bound, unit = grad_p_l2(pa, pb, g)
     out["grad_p"] = (gp, gp_bound + slack_grad)
     d = pa - pb
-    out["p_demeaned"] = (l2(d - d.mean(), 0.0), 1e-5 * rms(pb) + slack_p)
+    d = d - d.mean(axis=(-2, -1), keepdims=True)  # each scene's own mean
+    out["p_demeaned"] = (l2(d, 0.0), 1e-5 * rms(pb) + slack_p)
     print(f"[7] {label}: {steps} steps CUDA vs CPU, L2 "
           + ", ".join(f"{k}={x:.3e} (bound {t:.2e})" for k, (x, t) in out.items())
           + f"; grad p {gp / unit:.2f} ulp(max|p|)/h"
@@ -487,6 +617,76 @@ def compare_with_cpu(scene, state_dev, label, steps=3):
     for k, (x, t) in out.items():
         require(x <= t, f"{label}: CUDA vs CPU {k} L2 {x} > {t}")
     return {k: x for k, (x, _) in out.items()}
+
+
+def take_scenes(state, idx):
+    """The scenes ``idx`` of a batched state, as a batched state."""
+    d = tc.state_to_numpy(state)
+    return tc.state_from_numpy({k: None if a is None else a[idx]
+                                for k, a in d.items()}, state.u.device)
+
+
+def run_ensembles(dev, launches, report):
+    """The ensemble app's two shapes (apps/ensemble.py), each path's
+    launches counted; returns the end states."""
+    scene = ensemble_scene()
+    g, B = scene.grid, 64
+    state, _ = tc.make_run(scene, 5)(ensemble_state(scene, B, dev))
+    run = tc.make_run(scene, 50)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, _ = run(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches[ENS64] = read_counts()
+    check_invariants(scene, state, ENS64)
+    rate = B * g.nx * g.ny * 50 / sec
+    report[ENS64] = {"scene_steps_per_s": B * 50 / sec, "cell_updates_per_s": rate}
+    print(f"[6] {ENS64}: 50 steps in {sec:.4f} s = {B * 50 / sec:.1f} scene-steps/s, "
+          f"{rate:.4e} cell-updates/s aggregate, no host sync "
+          f"(set_sync_debug_mode error)", flush=True)
+
+    # Scene k of the batch against an unbatched run of it (the rounds route).
+    k = 32
+    batch3, _ = tc.make_run(scene, 3)(ensemble_state(scene, B, dev))
+    one = dataclasses.replace(scene.init_state(dev), nu=batch3.nu[k].clone())
+    one, _ = tc.make_run(scene, 3)(one)
+    diffs = {f: max_abs(getattr(batch3, f)[k], getattr(one, f))
+             for f in ("u", "v")}
+    for f, d in diffs.items():
+        tol = scaled(getattr(one, f), 1e-5)
+        require(d <= tol, f"{ENS64}: scene {k} {f} max|d| {d} > {tol} against "
+                f"its unbatched run")
+    dp = (batch3.p[k] - one.p).double()
+    diffs["p-mean"] = float((dp - dp.mean()).abs().max())
+    require(diffs["p-mean"] <= scaled(one.p, 1e-4),
+            f"{ENS64}: scene {k} p-mean max|d| {diffs['p-mean']} too large")
+    report[ENS64]["scene_k_vs_unbatched"] = diffs
+    print(f"[6] {ENS64}: scene {k} (nu {float(one.nu):.3e}) after 3 steps against "
+          f"its unbatched run on the card: "
+          + ", ".join(f"{f} max|d|={d:.3e}" for f, d in diffs.items()), flush=True)
+
+    scene8 = ensemble_scene(800, 264)
+    g8, B8 = scene8.grid, 8
+    init = ensemble_state(scene8, B8, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state8, _ = tc.make_run(scene8, 10)(init)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches[ENS8] = read_counts()
+    check_invariants(scene8, state8, ENS8)
+    rate = B8 * g8.nx * g8.ny * 10 / sec
+    report[ENS8] = {"scene_steps_per_s": B8 * 10 / sec, "cell_updates_per_s": rate}
+    print(f"[6] {ENS8}: 10 steps in {sec:.4f} s = {B8 * 10 / sec:.1f} scene-steps/s, "
+          f"{rate:.4e} cell-updates/s aggregate", flush=True)
+    return (scene, state), (scene8, state8)
 
 
 def reset_counts():
@@ -560,6 +760,7 @@ def main() -> int:
     check_kernels(dev, results)
     check_mgp_kernels(dev, results)
     check_fdm(dev, report)
+    check_ensemble_kernels(dev, results)
     launches = {}
 
     scene_a = reference_scene()
@@ -660,11 +861,16 @@ def main() -> int:
     print(f"[6] 800x264 production: 3 steps, no rounds-kernel launch, res_p "
           f"{float(state_e.res_p):.3e}", flush=True)
 
+    (scene_f, state_f), (scene_g, state_g) = run_ensembles(dev, launches, report)
+
     report["cpu_compare"] = {
         "800x264": compare_with_cpu(scene_a, state_a, "800x264"),
         f"{n}^2 fast": compare_with_cpu(scene_b, state_b, f"{n}^2 fast"),
         f"{n}^2 production": compare_with_cpu(scene_c, state_c,
-                                              f"{n}^2 production")}
+                                              f"{n}^2 production"),
+        ENS64: compare_with_cpu(scene_f, state_f, ENS64, knife_edge=True),
+        ENS8: compare_with_cpu(scene_g, take_scenes(state_g, [0, 7]),
+                               f"{ENS8}, scenes 0 and 7", knife_edge=True)}
 
     for path, names in PATHS.items():
         counts = {k: launches[path][k] for k in names}

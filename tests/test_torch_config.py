@@ -122,7 +122,9 @@ def test_float64_and_batched_state_raise():
     scene = ct.make_scene(_G, tcfg.SimulationParams(), _RUST)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         scene.init_state(device="cpu", dtype=torch.float64)
-    state = scene.init_state(device="cpu")
-    batched = dataclasses.replace(state, u=state.u[None], v=state.v[None])
+    # A batch steps with the Jacobi solver only (tests/test_torch_ensemble.py).
+    scene = ct.make_scene(_G, tcfg.SimulationParams(
+        pressure_solver=tcfg.PressureSolver.MG_PRODUCTION), _RUST)
+    batched = ct.batch_state(scene.init_state(device="cpu"), 2)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ct.make_step(scene)(batched)

@@ -13,7 +13,9 @@ import pytest
 import torch
 
 import cfd_demo_tpu_torch as tc
+from cfd_demo_tpu_torch.kernels import ensemble as kens
 from cfd_demo_tpu_torch.kernels import jacobi as kjac
+from cfd_demo_tpu_torch.kernels import jacobi_batch as kjb
 from cfd_demo_tpu_torch.kernels import mgp as kmgp
 from cfd_demo_tpu_torch.kernels import rounds as krounds
 from cfd_demo_tpu_torch.kernels import substep as ksub
@@ -247,3 +249,80 @@ def test_production_steps_match_cpu_path(cuda, nx, ny, substep_impl):
         assert_close(getattr(a, f), getattr(b, f), rtol=1e-5)
     d = (a.p_prime.cpu() - b.p_prime).double()
     assert float((d - d.mean()).abs().max()) <= 1e-3 * max(1.0, float(b.p_prime.abs().max()))
+
+
+def _ensemble_scene(nx, ny):
+    grid = tc.Grid(nx=nx, ny=ny, lx=3.0 * nx / 40, ly=1.5 * ny / 24,
+                   obstacles=(tc.Cylinder(0.9, 0.75, 0.3),))
+    return tc.make_scene(grid, tc.SimulationParams(dt=0.002, viscosity=1e-4),
+                         tc.solver_options_for(RUST, early_exit=False))
+
+
+def _ensemble_inputs(scene, B, seed):
+    """B noisy scenes; scene 0 at rest with a zero inlet, so that its
+    solve exits on its first sweep."""
+    g = torch.Generator().manual_seed(seed)
+    ny, nx = scene.grid.ny, scene.grid.nx
+    mk = lambda s, *shape: s * torch.randn(B, *shape, generator=g)
+    u, v, p = mk(0.05, ny, nx + 1), mk(0.05, ny, nx), mk(0.01, ny, nx)
+    u[0], v[0], p[0] = 0.0, 0.0, 0.0
+    pp = torch.zeros(B, ny, nx)
+    dt = torch.full((B,), 0.002)
+    nu = torch.logspace(-5, -3, B)
+    inlet = torch.linspace(0.5, 1.5, B)
+    inlet[0] = 0.0
+    return u, v, p, pp, dt, nu, inlet
+
+
+@pytest.mark.parametrize("nx,ny,B", [(40, 24, 4), (53, 37, 3)])
+def test_substep_batch(cuda, nx, ny, B):
+    """The whole-substep kernel against its plain version, twice (the
+    second warm-started): the same exits, fields at the bound of
+    tests/test_ensemble_pallas.py."""
+    scene = _ensemble_scene(nx, ny)
+    args = _ensemble_inputs(scene, B, seed=9)
+    for _ in range(2):
+        got = kens.substep_batch(*(a.to(cuda) for a in args), scene)
+        ref = kens.substep_batch_plain(*args, scene)
+        assert got[5].tolist() == ref[5].tolist()
+        assert ref[5][0].tolist()[1] == 1  # scene 0 exits on its first sweep
+        for name, a, b in zip(("u", "v", "p", "pp", "err"), got, ref):
+            torch.testing.assert_close(a.cpu(), b, rtol=2e-5, atol=2e-5, msg=name)
+        args = (*ref[:4], *args[4:])
+
+
+@pytest.mark.parametrize("shape,tol", [((3, 16, 24), 0.0), ((3, 37, 53), 1e-4),
+                                       ((5, 64, 96), 1e-3)])
+def test_jacobi_batch(cuda, shape, tol):
+    g = torch.Generator().manual_seed(10)
+    pp = _apply_pprime_bcs(0.1 * torch.randn(shape, generator=g))
+    rhs = torch.randn(shape, generator=g)
+    rhs[0] = 0.0
+    pp[0] = 0.0  # scene 0 exits on its first sweep when tol > 0
+    dx, dy = 1 / shape[2], 1 / shape[1]
+    got = kjb.jacobi_batch(pp.to(cuda), rhs.to(cuda), dx, dy, 0.75, tol, 30)
+    ref = kjb.jacobi_batch_plain(pp, rhs, dx, dy, 0.75, tol, 30)
+    assert got[2].tolist() == ref[2].tolist()
+    if tol > 0:
+        assert ref[2][0] == 1
+    assert_close(got[0], ref[0], rtol=1e-5)
+    assert_close(got[1], ref[1], rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(4, 16, 24), (3, 37, 53)])
+def test_jacobi_batch_done_flags(cuda, shape):
+    """Scenes flagged done on entry are not swept; the others run as
+    without the flags; with every scene flagged the launch sweeps none."""
+    g = torch.Generator().manual_seed(11)
+    pp = _apply_pprime_bcs(0.1 * torch.randn(shape, generator=g))
+    rhs = torch.randn(shape, generator=g)
+    dx, dy = 1 / shape[2], 1 / shape[1]
+    done = torch.arange(shape[0]) % 2 == 1
+    for flags in (done, torch.ones_like(done)):
+        got = kjb.jacobi_batch(pp.to(cuda), rhs.to(cuda), dx, dy, 0.75, 1e-4, 30,
+                               done=flags.to(cuda))
+        ref = kjb.jacobi_batch_plain(pp, rhs, dx, dy, 0.75, 1e-4, 30, done=flags)
+        assert got[2].tolist() == ref[2].tolist()
+        assert not got[2][flags.to(cuda)].any()
+        assert torch.equal(got[0].cpu()[flags], pp[flags])
+        assert_close(got[0], ref[0], rtol=1e-5)
