@@ -2,10 +2,11 @@
 
 The port of ``cfd_demo_tpu`` (JAX/Pallas), which stays beside it as the
 reference. Ported so far: one scene's Rust-semantics PISO step with
-FIRST upwinding, the Jacobi and MG_PRODUCTION (aligned) solvers and a
-channel with cylinders (``make_scene`` -> ``make_step`` / ``make_run``),
-and with Jacobi a batch of such scenes stepped as one state
-(``batch_state``; the ensemble app, ``apps/ensemble.py``).
+FIRST upwinding, the Jacobi, red/black and lexicographic SOR, FDM and
+MG_PRODUCTION (aligned) solvers and a channel with cylinders
+(``make_scene`` -> ``make_step`` / ``make_run``), and with Jacobi or SOR
+a batch of such scenes stepped as one state (``batch_state``; the
+ensemble app, ``apps/ensemble.py``).
 State lives on the card unless ``init_state(device="cpu")`` asks for the
 CPU. Kernels are built from ``csrc/`` with nvcc at first use on a CUDA
 device; on CPU tensors each kernel wrapper runs its plain PyTorch

@@ -6,10 +6,12 @@ scene converges on its own (↔ cfd_demo_tpu/apps/ensemble.py).
 
     python -m cfd_demo_tpu_torch.apps.ensemble --batch 64 --steps 200
     python -m cfd_demo_tpu_torch.apps.ensemble --nx 800 --ny 264 --batch 8
+    python -m cfd_demo_tpu_torch.apps.ensemble --batch 16 --solver sor
 
 The first runs the whole-substep kernel, the second (a scene too large
-for it) the batched Jacobi kernel. ``--device cpu`` runs the plain
-PyTorch versions instead.
+for it) the batched Jacobi kernel, the third the whole-substep kernel's
+red/black SOR form (a SOR scene too large for it takes the plain masked
+SOR). ``--device cpu`` runs the plain PyTorch versions instead.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """The port's measured shapes, and where their device time goes.
 
-Six cells, each at full size, from the JAX package's own defaults:
+Eight cells, each at full size, from the JAX package's own defaults:
 
 - :func:`reference_scene`: the README quick start, the Rust app's
   800x264 cylinder channel with default parameters and solver options
@@ -17,9 +17,17 @@ Six cells, each at full size, from the JAX package's own defaults:
   viscosity sweep (the whole-substep kernel's route);
 - **ensemble 8x800x264**: the same app with ``--nx 800 --ny 264 --batch
   8``, eight scenes of the reference's grid (too large for that kernel:
-  the batched Jacobi kernel's route).
+  the batched Jacobi kernel's route);
+- :func:`sor_scene`: ``bench.py --mode sor`` at 2048² (a fixed
+  50-iteration red/black SOR, no outer rounds; the fused route with the
+  colour-split SOR chain);
+- **ensemble 16x256x96 sor**: ``python -m cfd_demo_tpu.apps.ensemble
+  --batch 16 --solver sor``, the largest batch the JAX package sends to
+  its kernel's SOR form (piso.py:624-632).
 
-``chip_smoke.py`` drives all but the reference mode. On a CUDA card,
+:func:`fdm_scene` is ``bench.py --mode fdm`` (the exact FDM projection),
+a shape without a kernel of its own. ``chip_smoke.py`` drives all but
+the reference mode. On a CUDA card,
 
     python3 -m cfd_demo_tpu_torch.cells [--out FILE.json]
 
@@ -47,7 +55,7 @@ from .core.config import (Cylinder, Grid, PressureSolver, Semantics,
                           SimulationParams, default_grid, solver_options_for)
 from .apps.ensemble import ensemble_scene, ensemble_state
 from .kernels import mgp
-from .kernels.ensemble import substep_batch, substep_batch_fits
+from .kernels.ensemble import substep_batch, substep_batch_fits, substep_batch_sor
 from .kernels.jacobi_batch import jacobi_batch
 from .kernels.rounds import solve_correct_rounds
 from .kernels.substep import correct_bc, predict_div, predict_div_plain
@@ -92,6 +100,29 @@ def production_scene(n: int = 2048):
                            outer_corrector_rounds=0))
 
 
+def sor_scene(n: int = 2048):
+    """bench.py --mode sor (bench.py:105-116)."""
+    opts = solver_options_for(
+        Semantics.RUST, ramp_up_steps=10, jacobi_tol=0.0, jacobi_iters=50,
+        outer_corrector_rounds=0, early_exit=False)
+    return make_scene(_bench_grid(n), SimulationParams(
+        dt=0.002, viscosity=1e-4, pressure_solver=PressureSolver.SOR), opts)
+
+
+def fdm_scene(n: int = 2048):
+    """bench.py --mode fdm (bench.py:97-104)."""
+    return make_scene(_bench_grid(n), SimulationParams(
+        dt=0.002, viscosity=1e-4, pressure_solver=PressureSolver.FDM),
+        solver_options_for(Semantics.RUST, ramp_up_steps=10,
+                           outer_corrector_rounds=0))
+
+
+def sor_ensemble_scene(nx: int = 256, ny: int = 96):
+    """The ensemble app's scene with ``--solver sor``."""
+    return ensemble_scene(nx, ny, SimulationParams(
+        dt=0.004, viscosity=1e-4, pressure_solver=PressureSolver.SOR))
+
+
 def rounds_args(scene, state):
     """What the rounds route feeds the rounds kernel in the next step
     from ``state``: the plain predictor's u*, v* and rhs, with p, p' and
@@ -112,8 +143,8 @@ def ensemble_args(scene, state):
 
 
 def ensemble_counts(scene, state):
-    """(outer rounds, Jacobi sweeps) each scene runs in the next step, by
-    the route the step takes: an int32 (B, 2) tensor."""
+    """(outer rounds, solver iterations) each scene runs in the next step,
+    by the route the step takes: an int32 (B, 2) tensor."""
     args = ensemble_args(scene, state)
     if substep_batch_fits(scene.grid):
         return substep_batch(*args)[5]
@@ -139,18 +170,20 @@ CELLS = {
     "2048^2 production": (production_scene, 5, 20, None),
     "ensemble 64x256x96": (ensemble_scene, 20, 50, 64),
     "ensemble 8x800x264": (lambda: ensemble_scene(800, 264), 5, 20, 8),
+    "2048^2 sor": (sor_scene, 5, 100, None),
+    "ensemble 16x256x96 sor": (sor_ensemble_scene, 20, 50, 16),
 }
 
 
-# Wrappers whose every launch is one kernel of this name: the trace must
-# hold as many of them as the wrappers counted. (jacobi_fused_k_res and
-# cc_sweeps launch kernels that others launch too, or k of them a call.)
-TRACED = {predict_div: "predict_div_kernel(", correct_bc: "correct_bc_kernel(",
-          solve_correct_rounds: "rounds_kernel(",
-          substep_batch: "ensemble_substep_kernel(",
-          jacobi_batch: "jacobi_batch_kernel(",
-          mgp.jacobi_fused_k_restrict: "restrict_kernel(",
-          mgp.jacobi_fused_k_corr: "corr_add_kernel("}
+# Kernels each launch of these wrappers runs one of: the trace must hold
+# as many as the wrappers counted. (jacobi_fused_k_res, cc_sweeps and the
+# SOR chains launch kernels that others launch too, or k of them a call.)
+TRACED = {"predict_div_kernel(": (predict_div,), "correct_bc_kernel(": (correct_bc,),
+          "rounds_kernel(": (solve_correct_rounds,),
+          "ensemble_substep_kernel(": (substep_batch, substep_batch_sor),
+          "jacobi_batch_kernel(": (jacobi_batch,),
+          "restrict_kernel(": (mgp.jacobi_fused_k_restrict,),
+          "corr_add_kernel(": (mgp.jacobi_fused_k_corr,)}
 
 
 def _busy_us(spans):
@@ -190,7 +223,7 @@ def device_breakdown(scene, state, steps):
                      schedule=schedule(wait=0, warmup=1, active=1),
                      on_trace_ready=keep) as prof:
             for _ in range(2):
-                before = {w: w.launches for w in TRACED}
+                before = {k: sum(w.launches for w in ws) for k, ws in TRACED.items()}
                 s = state
                 for _ in range(steps):
                     s, _ = step(s)
@@ -198,10 +231,11 @@ def device_breakdown(scene, state, steps):
                 prof.step()
         if not events:
             raise RuntimeError("torch.profiler recorded no device activity")
+        counted = {k: sum(w.launches for w in ws) - before[k] for k, ws in TRACED.items()}
         lost = [f"the trace holds {sum(kernel in e.name for e in events)} of "
-                f"{w.launches - before[w]} {kernel[:-1]} launches"
-                for w, kernel in TRACED.items()
-                if sum(kernel in e.name for e in events) != w.launches - before[w]]
+                f"{n} {kernel[:-1]} launches"
+                for kernel, n in counted.items()
+                if sum(kernel in e.name for e in events) != n]
         if not lost:
             break
         print(f"    trace {attempt + 1}: " + "; ".join(lost), flush=True)

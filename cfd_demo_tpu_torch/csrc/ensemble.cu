@@ -1,13 +1,14 @@
 // A whole PISO substep of every scene of a batch in one launch: predictor,
-// divergence, do-while Jacobi with an exact per-scene exit, corrector, up
-// to `rounds` outer corrector rounds with an exact exit, then the velocity
-// BCs (Rust semantics, FIRST upwind, CHANNEL flow, UNIFORM inlet).
-// Replaces cfd_demo_tpu/kernels/ensemble_pallas.py substep_batch_pallas
-// (_kernel_sub, with make_jacobi_solve). See kernels/ensemble.py for the
-// design note.
+// divergence, a do-while Jacobi or red/black SOR solve with an exact
+// per-scene exit, corrector, up to `rounds` outer corrector rounds with an
+// exact exit, then the velocity BCs (Rust semantics, FIRST upwind, CHANNEL
+// flow, UNIFORM inlet). Replaces cfd_demo_tpu/kernels/ensemble_pallas.py
+// substep_batch_pallas (_kernel_sub, with make_jacobi_solve or
+// make_sor_solve). See kernels/ensemble.py for the design note.
 //
 // One thread block per scene. The block keeps the scene's p' in shared
-// memory, in two buffers it ping-pongs between sweeps, and u, v, p and the
+// memory: Jacobi in two buffers it ping-pongs between sweeps, SOR in place
+// in one (the other stages the outlet column for the BCs); u, v, p and the
 // divergence in global memory (L2). A scene never reads another scene's
 // data, so __syncthreads() is the only barrier it needs; global writes of a
 // block are visible to that block after it, so in-kernel data is read with
@@ -33,7 +34,10 @@ struct EnsArgs {
     int* counts;         // out (B, 2): outer rounds run, Jacobi sweeps run
     int ny, nx;
     float dx, dy, dx2, dy2;
-    float ax, ay, ar, ac;
+    // Jacobi: (ax, ay, ar, ac) of jacobi_pallas.py:87-94. SOR: (bx, by, br,
+    // 1 - omega) of ensemble_pallas.py:174-179, and om = omega.
+    float ax, ay, ar, ac, om;
+    int sor;  // 1: the red/black SOR solve, 0: Jacobi
     int iters;
     float tol;
     int rounds;
@@ -67,6 +71,24 @@ __device__ void divergence(const EnsArgs& A, const Sc& s, float dt) {
     __syncthreads();
 }
 
+// The p' BCs once on s.cur, rows then columns, from interior values only.
+__device__ void pprime_bcs(const EnsArgs& A, Sc& s) {
+    const int ny = A.ny, nx = A.nx;
+    for (int b = threadIdx.x; b < 2 * nx + 2 * (ny - 2); b += blockDim.x) {
+        int j, i;
+        if (b < 2 * nx) { j = (b < nx) ? 0 : ny - 1; i = b % nx; }
+        else { const int q = b - 2 * nx; j = 1 + q % (ny - 2); i = (q < ny - 2) ? 0 : nx - 1; }
+        float val = 0.0f;  // outlet (Dirichlet)
+        if (i != nx - 1) {
+            const int ii = (i == 0) ? 1 : i;
+            const int jj = (j == 0) ? 1 : (j == ny - 1) ? ny - 2 : j;
+            val = s.cur[jj * nx + ii];
+        }
+        s.cur[j * nx + i] = val;
+    }
+    __syncthreads();
+}
+
 // ensemble_pallas.make_jacobi_solve: do-while `it == 0 or (it < iters and
 // err >= tol)` over the interior with folded boundary reads, then the p'
 // BCs once, rows then columns, from interior values only.
@@ -93,19 +115,46 @@ __device__ float jacobi_solve(const EnsArgs& A, Sc& s) {
         ++it;
     } while (it < A.iters && err >= A.tol);
     s.sweeps += it;
-    for (int b = threadIdx.x; b < 2 * nx + 2 * (ny - 2); b += blockDim.x) {
-        int j, i;
-        if (b < 2 * nx) { j = (b < nx) ? 0 : ny - 1; i = b % nx; }
-        else { const int q = b - 2 * nx; j = 1 + q % (ny - 2); i = (q < ny - 2) ? 0 : nx - 1; }
-        float val = 0.0f;  // outlet (Dirichlet)
-        if (i != nx - 1) {
-            const int ii = (i == 0) ? 1 : i;
-            const int jj = (j == 0) ? 1 : (j == ny - 1) ? ny - 2 : j;
-            val = s.cur[jj * nx + ii];
+    pprime_bcs(A, s);
+    return err;
+}
+
+// ensemble_pallas.make_sor_solve: the same do-while, each iteration the red
+// half (j + i even) in place, a barrier, then the black half, which reads
+// the red half's updates; boundary reads folded as in jacobi_solve. A cell
+// of one colour reads only the other colour and itself, so a half is
+// race-free in shared memory. Err is the block max of each cell's |change|
+// at its own update.
+__device__ float sor_solve(const EnsArgs& A, Sc& s) {
+    const int ny = A.ny, nx = A.nx;
+    const int hw = (nx - 1) / 2, n_slots = (ny - 2) * hw;  // a colour's cells a row, at most
+    float err;
+    int it = 0;
+    do {
+        float m = 0.0f;
+        for (int colour = 0; colour < 2; ++colour) {
+            for (int q = threadIdx.x; q < n_slots; q += blockDim.x) {
+                const int j = 1 + q / hw;
+                const int i = 1 + ((1 + j + colour) & 1) + 2 * (q % hw);
+                if (i > nx - 2) continue;
+                const int k = j * nx + i;
+                const float C = s.cur[k];
+                const float E = (i == nx - 2) ? 0.0f : s.cur[k + 1];
+                const float W = (i == 1) ? C : s.cur[k - 1];
+                const float N = (j == ny - 2) ? C : s.cur[k + nx];
+                const float S = (j == 1) ? C : s.cur[k - nx];
+                const float upd = A.ax * (E + W) + A.ay * (N + S) - A.ar * s.rhs[k];
+                const float nv = A.ac * C + A.om * upd;
+                s.cur[k] = nv;
+                m = pmax(m, fabsf(nv - C));
+            }
+            __syncthreads();
         }
-        s.cur[j * nx + i] = val;
-    }
-    __syncthreads();
+        err = block_max(m, s.sh);
+        ++it;
+    } while (it < A.iters && err >= A.tol);
+    s.sweeps += it;
+    pprime_bcs(A, s);
     return err;
 }
 
@@ -146,13 +195,13 @@ __global__ void __launch_bounds__(kThreads) ensemble_substep_kernel(EnsArgs A) {
     }
     __syncthreads();
     divergence(A, s, dt);
-    float err = jacobi_solve(A, s);
+    float err = A.sor ? sor_solve(A, s) : jacobi_solve(A, s);
     correct(A, s, dt, A.p_in + off);
     // Outer rounds (model.rs:696-724): `it < rounds and err >= outer_tol`.
     int rounds_run = 0;
     for (; rounds_run < A.rounds && err >= A.outer_tol; ++rounds_run) {
         divergence(A, s, dt);
-        err = jacobi_solve(A, s);
+        err = A.sor ? sor_solve(A, s) : jacobi_solve(A, s);
         correct(A, s, dt, s.p);
     }
     for (int k = threadIdx.x; k < ny * nx; k += blockDim.x) A.pp[off + k] = s.cur[k];
@@ -190,11 +239,11 @@ extern "C" int cfd_substep_batch(const float* u_in, const float* v_in, const flo
                                  float* p, float* pp, float* rhs, float* err_out,
                                  int* counts, int B, int ny, int nx, float dx, float dy,
                                  float dx2, float dy2, float ax, float ay, float ar,
-                                 float ac, int iters, float tol, int rounds,
-                                 float outer_tol, int n_cyl, const float* cyl_host,
-                                 void* stream) {
+                                 float ac, float om, int sor, int iters, float tol,
+                                 int rounds, float outer_tol, int n_cyl,
+                                 const float* cyl_host, void* stream) {
     EnsArgs A{u_in, v_in, p_in, pp_in, scal, u, v, p, pp, rhs, err_out, counts, ny, nx,
-              dx, dy, dx2, dy2, ax, ay, ar, ac, iters, tol, rounds, outer_tol,
+              dx, dy, dx2, dy2, ax, ay, ar, ac, om, sor, iters, tol, rounds, outer_tol,
               make_cyl(n_cyl, cyl_host)};
     const int smem = cfd_substep_batch_smem(ny, nx);
     int dev = 0, optin = 0;

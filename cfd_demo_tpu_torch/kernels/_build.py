@@ -57,8 +57,12 @@ _SIGNATURES = {
     "cfd_mgp_corr": [P] * 9 + [I] * 3 + [F] * 7 + [P],
     "cfd_cc_sweeps": [P] * 5 + [I] * 3 + [F] * 8 + [P],
     "cfd_substep_batch_smem": [I, I],
-    "cfd_substep_batch": [P] * 12 + [I] * 3 + [F] * 8 + [I, F, I, F, I, P, P],
+    "cfd_substep_batch": [P] * 12 + [I] * 3 + [F] * 9 + [I, I, F, I, F, I, P, P],
     "cfd_jacobi_batch": [P] * 8 + [I] * 4 + [F] * 5 + [P],
+    "cfd_sor_partials": [I, I],
+    "cfd_sor_fused_k": [P] * 4 + [I] * 3 + [F] * 5 + [P],
+    "cfd_sor_rb2_partials": [I, I],
+    "cfd_sor_fused_k_rb2": [P] * 6 + [I] * 3 + [F] * 5 + [P],
 }
 
 

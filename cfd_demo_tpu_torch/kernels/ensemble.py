@@ -4,13 +4,16 @@
 ``substep_batch`` replaces ``substep_batch_pallas`` (ensemble_pallas.py:322,
 body ``_kernel_sub`` :241, in-kernel solver ``make_jacobi_solve`` :69),
 csrc/ensemble.cu, for Rust semantics, FIRST upwinding, the Jacobi solver
-and CHANNEL flow. For each scene: the predictor, the divergence, a
-do-while Jacobi warm-started from the scene's p' that exits at the exact
-sweep its own error drops below ``jacobi_tol``, the corrector, then up
-to ``outer_corrector_rounds`` rounds of divergence, warm-started Jacobi
-and corrector while the error stays at or above ``outer_corrector_tol``,
-then the BCs. Every scene runs its own trip counts, so its fields equal
-an unbatched early-exit run of that scene (tests/test_sharding.py:167-173).
+and CHANNEL flow; ``substep_batch_sor`` is the same kernel with the
+red/black SOR solve ``make_sor_solve`` (ensemble_pallas.py:152-238,
+omega = ``sor_omega``, the multipliers of :174-179). For each scene: the
+predictor, the divergence, a do-while solve warm-started from the
+scene's p' that exits at the exact iteration its own error drops below
+``jacobi_tol``, the corrector, then up to ``outer_corrector_rounds``
+rounds of divergence, warm-started solve and corrector while the error
+stays at or above ``outer_corrector_tol``, then the BCs. Every scene
+runs its own trip counts, so its fields equal an unbatched early-exit
+run of that scene (tests/test_sharding.py:167-173).
 
 An ensemble scene is small (24,576 cells at the app's 256x96) and a
 substep is a thousand or so sweeps, each needing the whole field of the
@@ -32,10 +35,16 @@ The TPU gate, a VMEM bound, is not carried over; the port's is
 memory. Beyond it the ensemble takes the solver's plain batched
 substep with the batched solve kernel (kernels.jacobi_batch), as the JAX
 package takes its vmapped substep with ``jacobi_pallas_batch`` beyond
-its gate.
+its gate; a SOR batch there takes the plain masked ``sor``, as the JAX
+package vmaps ``sor``. The SOR form sweeps its one p' buffer in place,
+red half, barrier, black half (a cell reads only the other colour), and
+keeps the two-buffer gate. The JAX package sends a SOR batch to its
+kernel only at B <= 16 (piso.py:624-632), a TPU reading that is not
+carried over: chip_smoke.py times the SOR form against the plain batched
+SOR at B = 16 and 64 (PERF.md).
 
-Both versions also return how many outer rounds and Jacobi sweeps each
-scene ran, so a check can hold the kernel's exits against the plain
+Both versions also return how many outer rounds and solver iterations
+each scene ran, so a check can hold the kernel's exits against the plain
 version's.
 """
 from __future__ import annotations
@@ -49,6 +58,7 @@ from ..core.config import PressureSolver
 from ..core.unported import OTHER_SOLVERS, unported
 from ._build import check, cylinders, load, on_cpu, scene_scalars, stream_of
 from .jacobi import _multipliers
+from .sor import _coefficients
 from .substep import _check_slice
 
 # Shared memory one block may opt in to on the H100 (227 KB), less the
@@ -66,25 +76,20 @@ def substep_batch_fits(grid) -> bool:
 
 def substep_batch_plain(u, v, p, pp0, dt_sub, nu, inlet, scene):
     """The solver's plain batched substep (solver.piso._substep_jnp) with
-    the plain masked Jacobi: each scene freezes at its own Jacobi sweep
-    and outer round, with no host read on the card."""
+    the plain masked Jacobi or SOR: each scene freezes at its own
+    iteration and outer round, with no host read on the card."""
     from ..solver.piso import _substep_jnp  # the solver imports this module
     plain = dataclasses.replace(
         scene, opts=dataclasses.replace(scene.opts, pressure_impl="jnp"))
     return _substep_jnp(plain, u, v, p, pp0, dt_sub, nu, inlet)
 
 
-def substep_batch(u, v, p, pp0, dt_sub, nu, inlet, scene):
-    """One substep of every scene: ``u`` (B, ny, nx+1); ``v``, ``p``,
-    ``pp0`` (BC-consistent) (B, ny, nx); ``dt_sub``, ``nu``, ``inlet``
-    (B,) tensors or scalars. Returns (u, v, p, p', err (B,), counts
-    (B, 2) int32: outer rounds and Jacobi sweeps each scene ran)."""
+def _launch(u, v, p, pp0, dt_sub, nu, inlet, scene, sor: bool):
+    """Check the inputs and launch the kernel on CUDA tensors; None on
+    CPU tensors."""
     g, opts = scene.grid, scene.opts
     _check_slice(scene.params.velocity_scheme, opts.semantics,
                  scene.params.inlet_profile, scene.params.flow_case)
-    if scene.params.pressure_solver != PressureSolver.JACOBI:
-        raise unported(f"the whole-substep kernel with the "
-                       f"{scene.params.pressure_solver.value} solver", OTHER_SOLVERS)
     if not substep_batch_fits(g):
         raise ValueError(f"substep_batch: a {g.nx}x{g.ny} scene does not fit one "
                          f"block's shared memory (substep_batch_fits)")
@@ -94,7 +99,7 @@ def substep_batch(u, v, p, pp0, dt_sub, nu, inlet, scene):
     shapes = {"u": (u, (B, ny, nx + 1)), "v": (v, (B, ny, nx)),
               "p": (p, (B, ny, nx)), "pp0": (pp0, (B, ny, nx))}
     if on_cpu("substep_batch", shapes):
-        return substep_batch_plain(u, v, p, pp0, dt_sub, nu, inlet, scene)
+        return None
     lib = load()
     u_out, v_out = torch.empty_like(u), torch.empty_like(v)
     p_out, pp, rhs = (torch.empty_like(p) for _ in range(3))
@@ -103,18 +108,61 @@ def substep_batch(u, v, p, pp0, dt_sub, nu, inlet, scene):
     scal = scene_scalars(u.device, B, dt_sub, nu, inlet)
     n_cyl, cyl = cylinders(g)
     f32 = lambda x: float(np.float32(x))
+    if sor:  # (bx, by, br, 1 - omega), omega
+        bx, by, br, om, omc = _coefficients(g.dx, g.dy, opts.sor_omega)
+        coef = (bx, by, br, omc, om)
+    else:
+        coef = (*_multipliers(g.dx, g.dy, opts.jacobi_omega), 0.0)
     with torch.cuda.device(u.device):
         check(lib.cfd_substep_batch(
             u.data_ptr(), v.data_ptr(), p.data_ptr(), pp0.data_ptr(),
             scal.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
             p_out.data_ptr(), pp.data_ptr(), rhs.data_ptr(), err.data_ptr(),
             counts.data_ptr(), B, ny, nx, f32(g.dx), f32(g.dy),
-            f32(g.dx * g.dx), f32(g.dy * g.dy),
-            *_multipliers(g.dx, g.dy, opts.jacobi_omega), opts.jacobi_iters,
-            opts.jacobi_tol, opts.outer_corrector_rounds,
+            f32(g.dx * g.dx), f32(g.dy * g.dy), *coef, int(sor),
+            opts.jacobi_iters, opts.jacobi_tol, opts.outer_corrector_rounds,
             opts.outer_corrector_tol, n_cyl, cyl, stream_of(u)), "substep_batch")
-    substep_batch.launches += 1
     return u_out, v_out, p_out, pp, err, counts
 
 
+def substep_batch(u, v, p, pp0, dt_sub, nu, inlet, scene):
+    """One substep of every scene: ``u`` (B, ny, nx+1); ``v``, ``p``,
+    ``pp0`` (BC-consistent) (B, ny, nx); ``dt_sub``, ``nu``, ``inlet``
+    (B,) tensors or scalars. Returns (u, v, p, p', err (B,), counts
+    (B, 2) int32: outer rounds and solver iterations each scene ran). A
+    SOR scene goes to :func:`substep_batch_sor`, which counts its own
+    launches."""
+    solver = scene.params.pressure_solver
+    if solver == PressureSolver.SOR:
+        return substep_batch_sor(u, v, p, pp0, dt_sub, nu, inlet, scene)
+    if solver != PressureSolver.JACOBI:
+        raise unported(f"the whole-substep kernel with the {solver.value} solver",
+                       OTHER_SOLVERS)
+    out = _launch(u, v, p, pp0, dt_sub, nu, inlet, scene, sor=False)
+    if out is None:
+        return substep_batch_plain(u, v, p, pp0, dt_sub, nu, inlet, scene)
+    substep_batch.launches += 1
+    return out
+
+
 substep_batch.launches = 0
+
+
+def substep_batch_sor(u, v, p, pp0, dt_sub, nu, inlet, scene):
+    """:func:`substep_batch` with the red/black SOR solve
+    (sor_ordering "redblack"); the counts are (outer rounds, SOR
+    iterations) per scene."""
+    if scene.params.pressure_solver != PressureSolver.SOR:
+        raise ValueError("substep_batch_sor takes a SOR scene, got "
+                         f"{scene.params.pressure_solver.value}")
+    if scene.opts.sor_ordering != "redblack":
+        raise ValueError(f'the whole-substep kernel sweeps red/black, not '
+                         f'sor_ordering="{scene.opts.sor_ordering}"')
+    out = _launch(u, v, p, pp0, dt_sub, nu, inlet, scene, sor=True)
+    if out is None:
+        return substep_batch_plain(u, v, p, pp0, dt_sub, nu, inlet, scene)
+    substep_batch_sor.launches += 1
+    return out
+
+
+substep_batch_sor.launches = 0

@@ -9,9 +9,9 @@ dense products per side and an elementwise scale:
 
     e = -Qy @ ((Qy^T r Qx) * S) @ Qx^T,   S = 1/(ly + lx)
 
-Here it is the exact bottom solve of the aligned MG_PRODUCTION
-hierarchy (ops.poisson); the standalone PressureSolver.FDM is not ported
-yet. The bases are built once per (shape, h, d_wall, device) on the CPU,
+It is the exact bottom solve of the aligned MG_PRODUCTION hierarchy
+(ops.poisson) and, on the whole interior, PressureSolver.FDM
+(solver.piso ``_solve_fdm``). The bases are built once per (shape, h, d_wall, device) on the CPU,
 as the JAX package builds them at trace time, and cached.
 
 Precision: the four products take f32 operands and round each result to
@@ -22,6 +22,9 @@ APIs, and reading the flags raises once both have been used; an f64
 product never uses TF32, whatever the flags say. FDM's exactness rests
 on it (docs/PERF.md:471-478). The bottom level is at most
 ``mgp_coarse_stop`` cells a side, so the f64 products cost nothing there.
+The same products serve ``fdm_precision`` "highest" and "high" (the
+JAX package's bf16x3 form): the port never computes below the f32
+result.
 
 Sign convention: the residual is r = rhs - A p with A = +Laplacian
 (ops.poisson._mg_residual); the 1-D matrices here are the positive

@@ -1,10 +1,14 @@
-"""Pressure-correction solves, CHANNEL flow (↔ the Jacobi and
+"""Pressure-correction solves, CHANNEL flow (↔ the Jacobi, SOR and
 MG_PRODUCTION slices of cfd_demo_tpu/ops/poisson.py).
 
 Jacobi, model.rs:733-824: a whole-array damped sweep with the
 per-iteration p' BCs (model.rs:807-815: Neumann bottom/top/left,
 Dirichlet 0 at the outlet column), looped as a do-while that exits after
 the first sweep whose max interior change is below ``tol``.
+
+SOR, index.html:741-774: red/black over-relaxed sweeps (the parallel
+form), or the JS-exact lexicographic ordering as a wavefront; the same
+BCs and loop as Jacobi.
 
 MG_PRODUCTION (``multigrid_production``): V-cycles of the aligned
 cell-centred hierarchy until max|rhs - A p'| falls below the
@@ -52,28 +56,28 @@ def _jacobi_sweep(pp, rhs, dx, dy, omega) -> Tuple[torch.Tensor, torch.Tensor]:
     return _apply_pprime_bcs(out), err
 
 
-def jacobi(pp0: torch.Tensor, rhs: torch.Tensor, dx: float, dy: float,
-           omega: float, tol: float, iters: int, early_exit: bool = True,
-           done=None):
-    """Returns (p_prime, max_error_of_last_sweep, iterations_run).
+def _sweep_loop(sweep, pp0, tol, iters, early_exit, done=None):
+    """The solvers' shared convergence loop (JAX ops/poisson.py:375-393):
+    ``sweep(pp) -> (pp, err)``. Returns (p', last sweep's error,
+    sweeps run).
 
-    ``early_exit`` (``_exact_while``): a do-while on the host that stops
-    after the first sweep whose error is below ``tol``; it reads the
-    error back once per sweep, and takes one scene. Otherwise
-    (``_masked_while``): max(1, iters) sweeps whose results freeze once
-    converged -- the same fields, with no host read, and the count
-    returned as a tensor. On a batch ``(B, ny, nx)`` each scene freezes
-    at its own sweep, with err and the count of shape ``(B,)``; the
-    scenes a bool ``done`` marks start frozen (p' = pp0, err inf, 0
-    sweeps), as the masked outer rounds' converged scenes do.
+    ``early_exit``: a do-while on the host that stops after the first
+    sweep whose error is below ``tol``; it reads the error back once per
+    sweep, and takes one scene. Otherwise (``_masked_while``): max(1,
+    iters) sweeps whose results freeze once converged -- the same
+    fields, with no host read, and the count returned as a tensor. On a
+    batch ``(B, ny, nx)`` each scene freezes at its own sweep, with err
+    and the count of shape ``(B,)``; the scenes a bool ``done`` marks
+    start frozen (p' = pp0, err inf, 0 sweeps), as the masked outer
+    rounds' converged scenes do.
     """
     if early_exit:
         if pp0.dim() != 2:
-            raise ValueError("jacobi: the exact exit takes one scene; a batch "
-                             "takes early_exit=False")
+            raise ValueError("the exact exit takes one scene; a batch takes "
+                             "early_exit=False")
         pp, it = pp0, 0
         while True:
-            pp, err = _jacobi_sweep(pp, rhs, dx, dy, omega)
+            pp, err = sweep(pp)
             it += 1
             if not (it < iters and bool(err >= tol)):
                 return pp, err, it
@@ -86,12 +90,112 @@ def jacobi(pp0: torch.Tensor, rhs: torch.Tensor, dx: float, dy: float,
     for _ in range(max(1, iters)):
         if done.device.type == "cpu" and bool(done.all()):
             break  # the JAX loop's own exit; on the card it reads nothing
-        pp2, err2 = _jacobi_sweep(pp, rhs, dx, dy, omega)
+        pp2, err2 = sweep(pp)
         pp = torch.where(done[..., None, None], pp, pp2)
         err = torch.where(done, err, err2)
         n = n + (~done).to(torch.int32)
         done = done | (err < tol)
     return pp, err, n
+
+
+def jacobi(pp0: torch.Tensor, rhs: torch.Tensor, dx: float, dy: float,
+           omega: float, tol: float, iters: int, early_exit: bool = True,
+           done=None):
+    """Damped Jacobi; returns (p_prime, max_error_of_last_sweep,
+    iterations_run), looped by :func:`_sweep_loop`."""
+    return _sweep_loop(lambda pp: _jacobi_sweep(pp, rhs, dx, dy, omega), pp0,
+                       tol, iters, early_exit, done)
+
+
+# ---------------------------------------------------------------------------
+# Red/black SOR (PressureSolver.SOR) and the JS-exact lexicographic ordering
+# ---------------------------------------------------------------------------
+
+def _interior(shape, device):
+    """Bool (ny, nx) mask of the interior cells, and the parity (r + c) % 2
+    of the global row and column (0: red, 1: black)."""
+    ny, nx = shape[-2:]
+    r = torch.arange(ny, device=device)[:, None]
+    c = torch.arange(nx, device=device)[None, :]
+    interior = (r >= 1) & (r <= ny - 2) & (c >= 1) & (c <= nx - 2)
+    return interior, (r + c) % 2
+
+
+def _sor_sweep(pp, rhs, dx, dy, omega) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One red/black SOR iteration incl. p' BCs (JAX ops/poisson.py:352):
+    the red half (r + c even) then the black half, which reads the red
+    half's updates; returns (pp, max|change| over the interior), one err
+    per scene of a batch."""
+    dx2, dy2 = dx * dx, dy * dy
+    denom = 2.0 / dx2 + 2.0 / dy2
+    interior, parity = _interior(pp.shape, pp.device)
+    par = parity[1:-1, 1:-1]
+    r = rhs[..., 1:-1, 1:-1]
+    old = pp
+
+    def half(pp, colour):
+        c = pp[..., 1:-1, 1:-1]
+        update = ((pp[..., 1:-1, 2:] + pp[..., 1:-1, :-2]) / dx2
+                  + (pp[..., 2:, 1:-1] + pp[..., :-2, 1:-1]) / dy2 - r) / denom
+        new_val = (1.0 - omega) * c + omega * update
+        out = pp.clone()
+        out[..., 1:-1, 1:-1] = torch.where(par == colour, new_val, c)
+        return out
+
+    pp = half(half(pp, 0), 1)
+    err = torch.amax(torch.where(interior, torch.abs(pp - old), 0.0), dim=(-2, -1))
+    return _apply_pprime_bcs(pp), err
+
+
+def sor(pp0, rhs, dx: float, dy: float, omega: float, tol: float, iters: int,
+        early_exit: bool = True, done=None):
+    """Red/black SOR, the parallel form of index.html:741-774 (JAX
+    ops/poisson.py:396); returns (p', last error, iterations run), looped
+    by :func:`_sweep_loop`."""
+    return _sweep_loop(lambda pp: _sor_sweep(pp, rhs, dx, dy, omega), pp0, tol,
+                       iters, early_exit, done)
+
+
+def _sor_sweep_lex(pp, rhs, dx, dy, omega) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One JS-exact lexicographic SOR sweep (index.html:747-773; JAX
+    ops/poisson.py:410) as a wavefront over anti-diagonals d = r + c: a
+    cell reads its updated west and south neighbours (diagonal d - 1) and
+    its stale east and north ones (d + 1), so whole diagonals in
+    increasing d reproduce the sequential sweep. Constants in f32 as the
+    JAX sweep rounds them. Each diagonal gathers its own cells: (nx + ny)
+    small steps a sweep, a parity mode, not a fast path."""
+    F = np.float32
+    dx2 = float(F(dx) * F(dx))
+    dy2 = float(F(dy) * F(dy))
+    denom = float(F(2.0) / F(dx2) + F(2.0) / F(dy2))
+    om = F(omega)
+    one_m = float(F(1.0) - om)
+    ny, nx = pp.shape[-2:]
+    flat = pp.reshape(*pp.shape[:-2], ny * nx).clone()
+    rflat = rhs.reshape(*rhs.shape[:-2], ny * nx)
+    old = pp
+    for d in range(2, (ny - 2) + (nx - 2) + 1):
+        j = torch.arange(max(1, d - (nx - 2)), min(ny - 2, d - 1) + 1,
+                         device=pp.device)
+        k = j * nx + (d - j)
+        upd = ((flat[..., k + 1] + flat[..., k - 1]) / dx2
+               + (flat[..., k + nx] + flat[..., k - nx]) / dy2
+               - rflat[..., k]) / denom
+        flat[..., k] = one_m * flat[..., k] + float(om) * upd
+    pp = flat.reshape(pp.shape)
+    interior, _ = _interior(pp.shape, pp.device)
+    err = torch.amax(torch.where(interior, torch.abs(pp - old), 0.0), dim=(-2, -1))
+    return _apply_pprime_bcs(pp), err
+
+
+def sor_lexicographic(pp0, rhs, dx: float, dy: float, omega: float, tol: float,
+                      iters: int, early_exit: bool = True, done=None):
+    """JS-ordering-exact SOR (SolverOptions.sor_ordering="lexicographic";
+    JAX ops/poisson.py:459) through the wavefront sweep, looped by
+    :func:`_sweep_loop`. Plain PyTorch only: the JAX package never routes
+    it to a kernel (solver/piso.py:364-375)."""
+    return _sweep_loop(lambda pp: _sor_sweep_lex(pp, rhs, dx, dy, omega), pp0,
+                       tol, iters, early_exit, done)
 
 
 # ---------------------------------------------------------------------------

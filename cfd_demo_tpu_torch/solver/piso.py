@@ -25,20 +25,22 @@ cells (bench.py's 2048² shapes)                 ``_solve_pressure`` -> with no 
 otherwise, JACOBI with substep_impl and         ``_substep_jnp``: plain predictor and
 pressure_impl in ("auto", "pallas") (the        divergence, then the ``rounds`` kernel
 800x264 default scene)                          (solve + corrector + rounds + BCs)
-otherwise (MG_PRODUCTION below 2M cells, or     plain predictor, divergence,
-"jnp")                                          ``_solve_pressure``, corrector,
+otherwise (SOR, FDM or MG_PRODUCTION below      plain predictor, divergence,
+2M cells, or "jnp")                             ``_solve_pressure``, corrector,
                                                 ``_outer_rounds``, BCs
-a batch (B, ny, *), JACOBI, substep_impl and    ``substep_batch`` kernel: the whole
-pressure_impl in ("auto", "pallas"), and the    substep of every scene, one block per
-scene fits one block's shared memory            scene
-(``substep_batch_fits``: the app's 256x96)
-another batch, JACOBI                           ``_substep_jnp``: plain predictor and
+a batch (B, ny, *), JACOBI or red/black SOR,    ``substep_batch`` kernel (the SOR form:
+substep_impl and pressure_impl in ("auto",      ``substep_batch_sor``): the whole
+"pallas"), and the scene fits one block's       substep of every scene, one block per
+shared memory (``substep_batch_fits``: the      scene
+app's 256x96)
+another batch, JACOBI or SOR                    ``_substep_jnp``: plain predictor and
                                                 divergence, ``_solve_pressure`` (the
                                                 ``jacobi_batch`` kernel, or with
                                                 pressure_impl "jnp" the plain masked
-                                                jacobi), corrector, masked outer rounds
-                                                whose solves skip converged scenes, BCs
-                                                (the 800x264 ensemble)
+                                                jacobi; SOR: the plain masked sor),
+                                                corrector, masked outer rounds whose
+                                                solves skip converged scenes, BCs (the
+                                                800x264 ensemble)
 a batch with another solver                     NotImplementedError (queue 1 item 7)
 ==============================================  =========================================
 
@@ -54,6 +56,23 @@ at >= 2M cells or jacobi_tol == 0, else "jnp". "pallas" runs the Jacobi
 chain kernel (K-granularity exit, k = ``resolve_fuse_k``); "jnp" runs
 ops.poisson.jacobi (exact per-sweep exit, or the masked fixed-trip form
 when early_exit is False).
+
+``_solve_pressure``, SOR (red/black, ``sor_omega``; the JAX package's
+routing, piso.py:423-472): pressure_impl "auto" resolves to "pallas" at
+>= 2M cells or jacobi_tol == 0, else "jnp". "pallas" runs, with k =
+max(resolve_fuse_k // 2, 1) (the TPU kernel's halo spans two rings an
+iteration), the colour-split chain (``sor_chain_rb2``, kernel 15) at >=
+2M cells with nx even, else the full-layout chain (``sor_chain``, kernel
+13); "jnp" runs ops.poisson.sor. The TPU's tile gates (``_pallas_ok``'s
+ny % 8, ``sor_pallas_ok``, ``sor_rb2_ok``) and its measured 25/12 "big
+k" (piso.py:446-456) are not carried over. sor_ordering
+"lexicographic" always runs ops.poisson.sor_lexicographic. A batch runs
+the plain masked sor (the JAX package vmaps it).
+
+``_solve_pressure``, FDM (piso.py:475-497): the exact interior solve
+(ops.fdm, f64 products rounded to f32 at either fdm_precision), the p'
+BCs, err the post-solve max|rhs - A p'|, and a count of 1; the warm
+start is ignored.
 
 ``_solve_pressure``, MG_PRODUCTION: ops.poisson.multigrid_production
 with tol_r = projection_div_tol / dt_sub (dt_sub a 0-d device tensor),
@@ -115,11 +134,14 @@ from ..kernels.ensemble import substep_batch, substep_batch_fits
 from ..kernels.jacobi import jacobi_chain
 from ..kernels.jacobi_batch import jacobi_batch, jacobi_batch_plain
 from ..kernels.rounds import solve_correct_rounds
+from ..kernels.sor import sor_chain, sor_chain_rb2
 from ..kernels.substep import correct_bc, predict_div
 from ..ops.bc import apply_bcs
 from ..ops.corrector import correct
 from ..ops.divergence import divergence_rhs
-from ..ops.poisson import check_mgp_scheme, jacobi, multigrid_production
+from ..ops.fdm import fdm_solve_interior
+from ..ops.poisson import (_apply_pprime_bcs, _mg_residual, check_mgp_scheme,
+                           jacobi, multigrid_production, sor, sor_lexicographic)
 from ..ops.predictor import predict
 
 FUSED_MIN_CELLS = 2_000_000
@@ -200,12 +222,16 @@ def make_scene(grid: Grid, params: Optional[SimulationParams] = None,
     for obs in grid.obstacles:
         if not isinstance(obs, Cylinder):
             raise unported(f"obstacle {type(obs).__name__}", WIDEN_STEP)
-    if params.pressure_solver not in (PressureSolver.JACOBI,
+    if params.pressure_solver not in (PressureSolver.JACOBI, PressureSolver.SOR,
+                                      PressureSolver.FDM,
                                       PressureSolver.MG_PRODUCTION):
         raise unported(f"the {params.pressure_solver.value} pressure solver",
                        OTHER_SOLVERS)
     if params.pressure_solver == PressureSolver.MG_PRODUCTION:
         check_mgp_scheme(opts)
+    if opts.sor_ordering not in ("redblack", "lexicographic"):
+        raise ValueError(f"sor_ordering must be redblack or lexicographic, got "
+                         f"{opts.sor_ordering!r}")
     if opts.differentiable:
         raise unported("SolverOptions.differentiable", DIFFERENTIABLE)
     return Scene(grid=grid, params=params, opts=opts)
@@ -229,18 +255,57 @@ def resolve_fuse_k(opts: SolverOptions) -> int:
     return opts.pallas_fuse_k or 16
 
 
-def _solve_pressure(scene: Scene, pp0, rhs, dt_sub, done=None):
-    """The JACOBI and MG_PRODUCTION branches of the JAX package's
-    ``_solve_pressure``, and for a JACOBI batch its batched rule
-    (piso.py:335-360): the ``jacobi_batch`` kernel, or with pressure_impl
-    "jnp" the plain masked jacobi, neither sweeping the scenes a (B,)
-    ``done`` marks. Returns (p', err, iterations or V-cycles run)."""
+def _solve_sor(scene: Scene, pp0, rhs, done=None):
+    """The SOR branch of the JAX package's ``_solve_pressure`` (the
+    module docstring's table)."""
     g, opts = scene.grid, scene.opts
-    if scene.params.pressure_solver == PressureSolver.MG_PRODUCTION:
+    args = (g.dx, g.dy, opts.sor_omega, opts.jacobi_tol, opts.jacobi_iters)
+    batch = pp0.dim() == 3  # masked, as the JAX package's vmapped solve
+    if opts.sor_ordering == "lexicographic":
+        return sor_lexicographic(pp0, rhs, *args,
+                                 early_exit=opts.early_exit and not batch, done=done)
+    if batch:
+        return sor(pp0, rhs, *args, early_exit=False, done=done)
+    impl = opts.pressure_impl
+    if impl == "auto":
+        impl = ("pallas" if (g.nx * g.ny >= FUSED_MIN_CELLS
+                             or opts.jacobi_tol == 0.0) else "jnp")
+    if impl == "pallas":
+        k = max(resolve_fuse_k(opts) // 2, 1)  # the halo spans 2k rows
+        chain = (sor_chain_rb2 if g.nx * g.ny >= FUSED_MIN_CELLS and g.nx % 2 == 0
+                 else sor_chain)
+        return chain(pp0, rhs, *args, k=k, early_exit=opts.early_exit)
+    return sor(pp0, rhs, *args, early_exit=opts.early_exit)
+
+
+def _solve_fdm(scene: Scene, rhs):
+    """The FDM branch of the JAX package's ``_solve_pressure``
+    (piso.py:475-497), one scene."""
+    g = scene.grid
+    e_int = fdm_solve_interior(rhs[1:-1, 1:-1], g.dx, g.dy, g.dx)
+    pp = _apply_pprime_bcs(torch.nn.functional.pad(e_int, (1, 1, 1, 1)))
+    err = torch.amax(torch.abs(_mg_residual(pp, rhs, g.dx, g.dy)))
+    return pp, err, torch.ones((), dtype=torch.int32, device=rhs.device)
+
+
+def _solve_pressure(scene: Scene, pp0, rhs, dt_sub, done=None):
+    """The JACOBI, SOR, FDM and MG_PRODUCTION branches of the JAX
+    package's ``_solve_pressure``, and for a JACOBI or SOR batch its
+    batched rule (piso.py:335-360): the ``jacobi_batch`` kernel, or with
+    pressure_impl "jnp" the plain masked jacobi; the plain masked sor;
+    none sweeping the scenes a (B,) ``done`` marks. Returns (p', err,
+    iterations or V-cycles run)."""
+    g, opts = scene.grid, scene.opts
+    solver = scene.params.pressure_solver
+    if solver == PressureSolver.MG_PRODUCTION:
         # tol_r = div_tol / dt bounds the post-correction max|div u| by
         # div_tol (JAX piso.py:220-243).
         return multigrid_production(pp0, rhs, g.dx, g.dy, opts,
                                     opts.projection_div_tol / dt_sub)
+    if solver == PressureSolver.SOR:
+        return _solve_sor(scene, pp0, rhs, done)
+    if solver == PressureSolver.FDM:
+        return _solve_fdm(scene, rhs)
     if pp0.dim() == 3:
         solve = jacobi_batch if opts.pressure_impl in ("auto", "pallas") else jacobi_batch_plain
         return solve(pp0, rhs, g.dx, g.dy, opts.jacobi_omega, opts.jacobi_tol,
@@ -333,13 +398,16 @@ def _substep_jnp(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet):
 def _substep_batched(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet):
     """A substep of a batch (B, ny, *) with (B,) dt_sub, nu and inlet: the
     JAX package's custom_vmap rules (piso.py:610-642, :335-360). JACOBI
-    only. Returns (u, v, p, pp, err, counts) with err (B,), counts (B, 2)."""
-    opts = scene.opts
-    if scene.params.pressure_solver != PressureSolver.JACOBI:
-        raise unported(f"a batched {scene.params.pressure_solver.value} scene",
-                       OTHER_SOLVERS)
+    and SOR; the JAX package's B <= 16 gate for SOR (a TPU reading) is
+    not carried over. Returns (u, v, p, pp, err, counts) with err (B,),
+    counts (B, 2)."""
+    opts, solver = scene.opts, scene.params.pressure_solver
+    if solver not in (PressureSolver.JACOBI, PressureSolver.SOR):
+        raise unported(f"a batched {solver.value} scene", OTHER_SOLVERS)
     if (opts.pressure_impl in ("auto", "pallas")
             and opts.substep_impl in ("auto", "pallas")
+            and not (solver == PressureSolver.SOR
+                     and opts.sor_ordering == "lexicographic")
             and substep_batch_fits(scene.grid)):
         return substep_batch(u, v, p, p_prime, dt_sub, nu, inlet, scene)
     return _substep_jnp(scene, u, v, p, p_prime, dt_sub, nu, inlet)

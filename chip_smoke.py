@@ -21,6 +21,11 @@ Phases, one line each; any failure raises and exits non-zero:
    steps and the batched Jacobi kernel on the 8x800x264 ensemble's next
    rhs after 5, each with the same per-scene exits required, and the
    latter again with scenes flagged done, as the masked rounds call it;
+   the SOR kernels: the colour-split kernel at k = 8 and k = 10 on the
+   2048^2 SOR state after 3 steps, the full-layout kernel on the 2047^2
+   one, the whole-substep kernel's SOR form on the 16x256x96 SOR ensemble
+   after 20 steps (the same per-scene exits required), and one substep of
+   that form and of the plain batched SOR at B = 16 and B = 64;
 4. run the 800x264 default scene (the Rust app's) for 50 steps with
    make_run, print steps/s and check its physical invariants;
 5. run the benchmark's fast shape at 2048^2 (bench.py --mode fast):
@@ -36,10 +41,15 @@ Phases, one line each; any failure raises and exits non-zero:
    timed steps under set_sync_debug_mode("error"); 8 scenes of 800x264,
    10 steps; print scene-steps/s and aggregate cell-updates/s; and
    scene k of the 64-batch after 3 steps against an unbatched run of
-   that scene on the card;
+   that scene on the card; red/black SOR (bench.py --mode sor): at
+   2048^2, 5 warm-up steps, then 100 timed under
+   set_sync_debug_mode("error"); 3 steps at 2047^2 (odd: the full-layout
+   kernel); 3 steps of the 800x264 scene with SOR, which must launch no
+   SOR kernel and not the rounds kernel; the SOR ensemble, 16 scenes of
+   256x96, 5 warm-up steps, then 50 timed under the sync check;
 7. from the end states of 4, 5, 6 and the ensembles (2 of the 8
-   800x264 scenes), run 3 steps on CUDA and on the port's CPU path and
-   compare u, v, grad p and mean-removed p;
+   800x264 scenes, 2 of the 16 SOR scenes), run 3 steps on CUDA and on
+   the port's CPU path and compare u, v, grad p and mean-removed p;
 8. require every kernel of each path to have launched in that path's
    run (counts set to 0 just before it, read just after).
 
@@ -63,10 +73,13 @@ import cfd_demo_tpu_torch as tc
 from cfd_demo_tpu_torch.apps.ensemble import ensemble_scene, ensemble_state
 from cfd_demo_tpu_torch.cells import (ensemble_args, fast_scene,
                                       production_scene, reference_scene,
-                                      rounds_args, vcycles_launched)
+                                      rounds_args, sor_ensemble_scene, sor_scene,
+                                      vcycles_launched)
 from cfd_demo_tpu_torch.kernels import _build
 from cfd_demo_tpu_torch.kernels import mgp
-from cfd_demo_tpu_torch.kernels.ensemble import substep_batch, substep_batch_plain
+from cfd_demo_tpu_torch.kernels import sor as ksor
+from cfd_demo_tpu_torch.kernels.ensemble import (substep_batch, substep_batch_plain,
+                                                 substep_batch_sor)
 from cfd_demo_tpu_torch.kernels.jacobi import jacobi_fused_k, jacobi_fused_k_plain
 from cfd_demo_tpu_torch.kernels.jacobi_batch import jacobi_batch, jacobi_batch_plain
 from cfd_demo_tpu_torch.kernels.rounds import (solve_correct_rounds,
@@ -87,6 +100,8 @@ GRAD_P_ULPS = 6
 FAST, REF, PROD = "2048^2 fast", "800x264", "2048^2 production"
 ODD, REF_PROD = "2047^2 production", "800x264 production"
 ENS64, ENS8 = "ensemble 64x256x96", "ensemble 8x800x264"
+SOR, SOR_ODD, REF_SOR = "2048^2 sor", "2047^2 sor", "800x264 sor"
+ENS_SOR = "ensemble 16x256x96 sor"
 # name -> (wrapper, source, the Pallas call site it replaces, the path
 # whose launches the JSON line reports)
 KERNELS = {
@@ -111,6 +126,12 @@ KERNELS = {
                       "cfd_demo_tpu/kernels/ensemble_pallas.py:354", ENS64),
     "jacobi_batch": (jacobi_batch, "cfd_demo_tpu_torch/csrc/jacobi_batch.cu",
                      "cfd_demo_tpu/kernels/jacobi_pallas.py:1599", ENS8),
+    "sor_fused_k": (ksor.sor_fused_k, "cfd_demo_tpu_torch/csrc/sor.cu",
+                    "cfd_demo_tpu/kernels/sor_pallas.py:428", SOR_ODD),
+    "sor_fused_k_rb2": (ksor.sor_fused_k_rb2, "cfd_demo_tpu_torch/csrc/sor.cu",
+                        "cfd_demo_tpu/kernels/sor_pallas.py:939", SOR),
+    "substep_batch_sor": (substep_batch_sor, "cfd_demo_tpu_torch/csrc/ensemble.cu",
+                          "cfd_demo_tpu/kernels/ensemble_pallas.py:354", ENS_SOR),
 }
 # The kernels each path must launch.
 PATHS = {
@@ -122,7 +143,13 @@ PATHS = {
     REF_PROD: ("jacobi_fused_k_restrict", "jacobi_fused_k_corr", "cc_sweeps"),
     ENS64: ("substep_batch",),
     ENS8: ("jacobi_batch",),
+    SOR: ("predict_div", "sor_fused_k_rb2", "correct_bc"),
+    SOR_ODD: ("predict_div", "sor_fused_k", "correct_bc"),
+    REF_SOR: (),
+    ENS_SOR: ("substep_batch_sor",),
 }
+# Paths that must launch their kernels and no other.
+EXACT_PATHS = (SOR, SOR_ODD, REF_SOR, ENS_SOR)
 # The card's peaks (NVIDIA's H100 SXM data sheet, at the 700 W limit):
 # device-memory bytes/s and f32 FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -135,6 +162,12 @@ F32_FLOPS = 67e12
 # round's divergence 6 and corrector 9.
 SWEEP, SWEEP_ERR, RES, RES_MAX, RESTRICT, CORR_ADD, CC_SWEEP = 9, 3, 8, 2, 1.5, 3, 10
 PREDICT, DIV_CORRECT = 100, 15
+# A red/black SOR iteration: 10 a cell (two sums, four products, the rhs
+# term, three adds), and its |change| max 3.
+SOR_ITER = 10
+# Twice the drift of SOR's p' between two roundings of the same
+# iterations, as a share of max|p'| an iteration (compare_with_cpu).
+SOR_DRIFT = 2e-6
 
 
 def require(ok: bool, msg: str) -> None:
@@ -407,6 +440,134 @@ def check_ensemble_kernels(dev, results):
           f"{ms_last:.4f} ms ({int(n[-1])} sweeps)", flush=True)
 
 
+def check_sor_kernels(dev, results, report):
+    """Kernels 15, 13 and 20's SOR form on their paths' own states: the
+    colour-split kernel on the 2048^2 SOR state after 3 steps with the
+    next rhs, at k = 8 (the chain's) and k = 10 (its folded last launch);
+    the full-layout kernel on the 2047^2 one; kernel 20's SOR form on the
+    16x256x96 SOR ensemble after 20 steps, the same per-scene exits
+    required. Then one substep of that form and of the plain batched SOR
+    at B = 16 and B = 64, the reading behind the port's gate."""
+    for n, name in ((2048, "sor_fused_k_rb2"), (2047, "sor_fused_k")):
+        scene = sor_scene(n)
+        g, opts = scene.grid, scene.opts
+        om = opts.sor_omega
+        state, _ = tc.make_run(scene, 3)(scene.init_state(dev))
+        rhs = predict_div(state.u, state.v, state.dt, state.nu, g,
+                          scene.params.velocity_scheme, opts.semantics)[2]
+        pp = state.p_prime
+        cells = pp.numel()
+        ks = (8, 10) if name == "sor_fused_k_rb2" else (8,)
+        for k in ks:
+            if name == "sor_fused_k_rb2":
+                split = ksor.sor_compress(pp) + ksor.sor_compress(rhs)
+                call = lambda: ksor.sor_fused_k_rb2(*split, g.dx, g.dy, om, k)
+                plain = lambda: ksor.sor_fused_k_rb2_plain(*split, g.dx, g.dy, om, k)
+                got, ref = call(), plain()
+                labels = (("red", 0), ("black", 1), ("err", 2))
+                moved = nbytes(*split, got[0], got[1])
+            else:
+                call = lambda: ksor.sor_fused_k(pp, rhs, g.dx, g.dy, om, k)
+                plain = lambda: ksor.sor_fused_k_plain(pp, rhs, g.dx, g.dy, om, k)
+                got, ref = call(), plain()
+                labels = (("p'", 0), ("err", 1))
+                moved = nbytes(pp, rhs, got[0])
+            # The kernels fold the divisions into f32 multipliers as the TPU
+            # kernels do; omega = 1.7 carries those ulps over k iterations.
+            scale = scaled(ref[0], 1e-5)
+            key = name if k == 8 else f"{name}_k{k}"
+            compare(key, [(lb, got[i], ref[i], scale) for lb, i in labels], results,
+                    (time_ms(call, 10), time_ms(plain, 3)),
+                    bound(moved, (k * SOR_ITER + SWEEP_ERR) * cells))
+        if name == "sor_fused_k_rb2":
+            k10 = results.pop(f"{name}_k10")
+            results[name]["ms_k10"] = k10["ms"]
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                               k10["max_abs_err"])
+            # the full layout on the same state: what the colour split buys
+            full = time_ms(lambda: ksor.sor_fused_k(pp, rhs, g.dx, g.dy, om, 8), 10)
+            results[name]["full_layout_ms"] = full
+            print(f"[3] sor_fused_k on the same 2048^2 state, k = 8: {full:.4f} ms",
+                  flush=True)
+
+    results.update(check_sor_ensemble(dev, report))
+
+
+def same_arithmetic(scene, args):
+    """Kernel 20's SOR solve against the full-layout kernel, which shares
+    its multipliers and order of operations: one substep without outer
+    rounds at tol = 0 and 50 iterations, each scene's p' against
+    sor_fused_k on the plain predictor's rhs. They differ by the
+    predictor's last bits alone (1e-6 of max|p'| measured on an NVIDIA
+    H100 80GB HBM3, 700 W; PERF.md)."""
+    g, opts = scene.grid, scene.opts
+    fixed = dataclasses.replace(scene, opts=dataclasses.replace(
+        opts, jacobi_tol=0.0, jacobi_iters=50, outer_corrector_rounds=0))
+    u, v, _, pp0, dt, nu = args[:6]
+    got = substep_batch_sor(*args[:7], fixed)[3]
+    rhs = predict_div_plain(u, v, dt, nu, g, scene.params.velocity_scheme,
+                            opts.semantics)[2]
+    want = torch.stack([ksor.sor_fused_k(pp0[b].contiguous(), rhs[b].contiguous(),
+                                         g.dx, g.dy, opts.sor_omega, 50)[0]
+                        for b in range(pp0.shape[0])])
+    d, tol = max_abs(got, want), scaled(want, 1e-5)
+    require(d <= tol, f"substep_batch_sor against sor_fused_k: p' max|d| {d} > {tol}")
+    print(f"[3] substep_batch_sor, 50 iterations, no rounds, against sor_fused_k "
+          f"(the same multipliers): p' max|d|={d:.3e} (tol {tol:.1e})", flush=True)
+
+
+def check_sor_ensemble(dev, report):
+    scene = sor_ensemble_scene()
+    g = scene.grid
+    out = {}
+    timing = {}
+    for B in (16, 64):
+        state, _ = tc.make_run(scene, 20)(ensemble_state(scene, B, dev))
+        args = ensemble_args(scene, state)
+        got = substep_batch_sor(*args)
+        ref = substep_batch_plain(*args)
+        counts, ref_counts = got[5].cpu(), ref[5].cpu()
+        require(torch.equal(counts, ref_counts), f"substep_batch_sor B={B}: the kernel "
+                f"ran {counts.tolist()} (rounds, iterations per scene), the plain "
+                f"version {ref_counts.tolist()}")
+        ms = time_ms(lambda: substep_batch_sor(*args), 5, warmup=1)
+        plain_ms = time_ms(lambda: substep_batch_plain(*args), 2, warmup=1)
+        timing[B] = {"ms": ms, "plain_ms": plain_ms}
+        rounds, iters = (int(x) for x in counts.sum(dim=0))
+        print(f"[3] substep_batch_sor {B}x256x96 after 20 steps: the same exits on "
+              f"both sides, per scene {int(counts[:, 0].min())}-"
+              f"{int(counts[:, 0].max())} rounds and {int(counts[:, 1].min())}-"
+              f"{int(counts[:, 1].max())} iterations; kernel {ms:.4f} ms, plain "
+              f"batched SOR {plain_ms:.4f} ms ({plain_ms / ms:.2f}x)", flush=True)
+        if B != 16:
+            continue
+        err_k, err_p = got[4].cpu().double(), ref[4].cpu().double()
+        require(bool(torch.allclose(err_k, err_p, rtol=1e-2, atol=0)),
+                f"substep_batch_sor: err {err_k.tolist()} vs plain {err_p.tolist()}")
+        same_arithmetic(scene, args)
+        demean = lambda a, b: a - (a - b).mean(dim=(-2, -1), keepdim=True)
+        # u, v and p at the bounds of the Jacobi form (check_ensemble_kernels).
+        # p' drifts from the plain version's by the multipliers' rounding,
+        # which omega = 1.7 carries on: about 1e-6 max|p'| an iteration
+        # (on an NVIDIA H100 80GB HBM3, 700 W: 4.5e-7 after 1 iteration,
+        # 3.1e-5 after 50, 1.7e-4 after 200, at max|p'| 0.5-1.5; PERF.md),
+        # so twice that a scene's iterations.
+        drift = 2e-6 * int(counts[:, 1].max())
+        compare("substep_batch_sor", [
+            ("u", got[0], ref[0], 5e-5 + 1e-4 * float(ref[0].abs().max())),
+            ("v", got[1], ref[1], 5e-5 + 1e-4 * float(ref[1].abs().max())),
+            ("p-mean", demean(got[2], ref[2]), ref[2], scaled(ref[2], 1e-4)),
+            ("p'-mean", demean(got[3], ref[3]), ref[3], scaled(ref[3], drift))],
+            out, (ms, plain_ms),
+            bound(nbytes(*args[:4], *got),
+                  (iters * (SOR_ITER + SWEEP_ERR) + (rounds + B) * DIV_CORRECT
+                   + B * PREDICT) * g.nx * g.ny))
+        out["substep_batch_sor"]["iterations_per_scene"] = counts[:, 1].tolist()
+        out["substep_batch_sor"]["rounds_per_scene"] = counts[:, 0].tolist()
+    report["substep_batch_sor_gate"] = timing
+    return out
+
+
 def res_floor(p, rhs, denom) -> float:
     """30 ulps of the residual's f32 cancellation scale
     (tests/test_projection.py:320): a kernel's multipliers and the plain
@@ -576,14 +737,27 @@ def compare_with_cpu(scene, state_dev, label, steps=3, knife_edge=False):
     grad term to the u and v bounds (the corrector subtracts dt grad
     p'). They are the solver's own guarantee, not a fit to a reading.
 
-    With ``knife_edge`` (the ensembles), a Jacobi solve with tolerance
-    exits may stop one sweep apart on the two runs, at a float knife
-    edge (ROADMAP.md section 3). That sweep moves p' by its own max
-    change, below jacobi_tol; p sums every solve's p', so steps x (1 +
-    outer rounds) x jacobi_tol is added to the mean-removed p bound.
-    It matters where p is small: the 8x800x264 ensemble after 13 steps
-    (rms p ~14). The 800x264 default scene (p in the thousands) is held
-    to the golden bound alone."""
+    With ``knife_edge`` (the ensembles), a Jacobi or SOR solve with
+    tolerance exits may stop one iteration apart on the two runs, at a
+    float knife edge (ROADMAP.md section 3). That iteration moves p' by
+    its own max change, below jacobi_tol; p sums every solve's p', so
+    steps x (1 + outer rounds) x jacobi_tol is added to the mean-removed
+    p bound. It matters where p is small: the 8x800x264 ensemble after 13
+    steps (rms p ~14). The 800x264 default scene (p in the thousands) is
+    held to the golden bound alone.
+
+    Red/black SOR over-relaxes (omega = 1.7), and each iteration carries
+    the two devices' rounding on (PyTorch divides by a scalar through its
+    reciprocal on the card): the port's kernels drift from their plain
+    versions by about 1e-6 max|p'| an iteration (measured on an NVIDIA
+    H100 80GB HBM3, 700 W; PERF.md), so
+    each of the N iterations the steps may run adds SOR_DRIFT max|p'| to
+    p' in every cell, e = SOR_DRIFT N max|p'| in all; that is added to
+    the mean-removed p bound, 2 e / h to the grad p bound, and, as every
+    solve's p' corrects u and v, dt x solves x e / h to theirs. The
+    800x264 scene with SOR runs all its 21 solves' 50 iterations (their
+    error stays far above jacobi_tol), ~1050 a step, so there the u and v
+    bound is loose and p and grad p carry the check."""
     state_cpu = tc.state_from_numpy(tc.state_to_numpy(state_dev), "cpu")
     run = tc.make_run(scene, steps)
     a, da = run(state_dev)
@@ -599,6 +773,14 @@ def compare_with_cpu(scene, state_dev, label, steps=3, knife_edge=False):
         slack_uv = float((da.dt.cpu().double().numpy() * e).sum()) / np.sqrt(lam)
     elif knife_edge:
         slack_p = steps * (1 + scene.opts.outer_corrector_rounds) * scene.opts.jacobi_tol
+    if scene.params.pressure_solver == tc.PressureSolver.SOR:
+        solves = steps * (1 + scene.opts.outer_corrector_rounds)
+        pmax = max(1.0, *(float(s.p_prime.abs().max()) for s in (a, b)))
+        e = SOR_DRIFT * solves * max(1, scene.opts.jacobi_iters) * pmax
+        h = min(g.dx, g.dy)
+        slack_p += e
+        slack_grad += 2 * e / h
+        slack_uv += float(da.dt.max()) * solves * e / h
     out = {}
     for f in ("u", "v"):
         x, y = (getattr(s, f).cpu().double().numpy() for s in (a, b))
@@ -689,6 +871,73 @@ def run_ensembles(dev, launches, report):
     return (scene, state), (scene8, state8)
 
 
+def timed_run(scene, state, steps, no_sync):
+    """``steps`` steps from ``state``, counted from counts set to 0 and
+    timed by the host clock up to a synchronize; with ``no_sync`` under
+    set_sync_debug_mode("error"). Returns (state, seconds, launches)."""
+    run = tc.make_run(scene, steps)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    if no_sync:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, _ = run(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return state, time.perf_counter() - t0, read_counts()
+
+
+def run_sor(dev, launches, report):
+    """bench.py --mode sor at 2048^2 (the colour-split chain) and 2047^2
+    (the full-layout chain), the 800x264 scene with --solver sor (the
+    plain solve) and the SOR ensemble at B = 16 (kernel 20's SOR form);
+    returns their (scene, end state) pairs."""
+    scene = sor_scene()
+    n = scene.grid.nx
+    state, _ = tc.make_run(scene, 5)(scene.init_state(dev))
+    state, sec, launches[SOR] = timed_run(scene, state, 100, True)
+    check_invariants(scene, state, SOR)
+    rate = n * n * 100 / sec
+    report[SOR] = {"cell_updates_per_s": rate, "steps_per_s": 100 / sec}
+    print(f"[6] {SOR}: 100 steps in {sec:.4f} s = {rate:.4e} cell-updates/s "
+          f"({100 / sec:.2f} steps/s), no host sync (set_sync_debug_mode error)",
+          flush=True)
+    out = [(scene, state)]
+
+    scene = sor_scene(2047)
+    state, sec, launches[SOR_ODD] = timed_run(scene, scene.init_state(dev), 3, True)
+    check_invariants(scene, state, SOR_ODD)
+    report[SOR_ODD] = {"steps_per_s": 3 / sec}
+    print(f"[6] {SOR_ODD}: 3 steps from rest in {sec:.4f} s, no host sync", flush=True)
+    out.append((scene, state))
+
+    scene = tc.make_scene(tc.default_grid(), tc.SimulationParams(
+        pressure_solver=tc.PressureSolver.SOR))
+    init = scene.init_state(dev)
+    init.step.fill_(50)  # the inlet ramp half way up
+    state, sec, launches[REF_SOR] = timed_run(scene, init, 3, False)
+    check_invariants(scene, state, REF_SOR)
+    report[REF_SOR] = {"steps_per_s": 3 / sec}
+    print(f"[6] {REF_SOR}: 3 steps in {sec:.4f} s = {3 / sec:.2f} steps/s (the plain "
+          f"exact do-while, one host read an iteration), res_p "
+          f"{float(state.res_p):.3e}", flush=True)
+    out.append((scene, state))
+
+    scene, B = sor_ensemble_scene(), 16
+    g = scene.grid
+    state, _ = tc.make_run(scene, 5)(ensemble_state(scene, B, dev))
+    state, sec, launches[ENS_SOR] = timed_run(scene, state, 50, True)
+    check_invariants(scene, state, ENS_SOR)
+    rate = B * g.nx * g.ny * 50 / sec
+    report[ENS_SOR] = {"scene_steps_per_s": B * 50 / sec, "cell_updates_per_s": rate}
+    print(f"[6] {ENS_SOR}: 50 steps in {sec:.4f} s = {B * 50 / sec:.1f} scene-steps/s, "
+          f"{rate:.4e} cell-updates/s aggregate, no host sync", flush=True)
+    out.append((scene, state))
+    return out
+
+
 def reset_counts():
     for wrapper, _, _, _ in KERNELS.values():
         wrapper.launches = 0
@@ -761,6 +1010,7 @@ def main() -> int:
     check_mgp_kernels(dev, results)
     check_fdm(dev, report)
     check_ensemble_kernels(dev, results)
+    check_sor_kernels(dev, results, report)
     launches = {}
 
     scene_a = reference_scene()
@@ -862,6 +1112,7 @@ def main() -> int:
           f"{float(state_e.res_p):.3e}", flush=True)
 
     (scene_f, state_f), (scene_g, state_g) = run_ensembles(dev, launches, report)
+    sor_runs = run_sor(dev, launches, report)
 
     report["cpu_compare"] = {
         "800x264": compare_with_cpu(scene_a, state_a, "800x264"),
@@ -871,12 +1122,23 @@ def main() -> int:
         ENS64: compare_with_cpu(scene_f, state_f, ENS64, knife_edge=True),
         ENS8: compare_with_cpu(scene_g, take_scenes(state_g, [0, 7]),
                                f"{ENS8}, scenes 0 and 7", knife_edge=True)}
+    for (scene, state), label in zip(sor_runs, (SOR, SOR_ODD, REF_SOR, ENS_SOR)):
+        if label == ENS_SOR:
+            state, label = take_scenes(state, [0, 15]), f"{ENS_SOR}, scenes 0 and 15"
+        # the ensemble's solves exit at a live tolerance; the 800x264
+        # scene's never reach it, and the 2048^2 and 2047^2 shapes run a
+        # fixed schedule
+        report["cpu_compare"][label] = compare_with_cpu(
+            scene, state, label, knife_edge=label.startswith(ENS_SOR))
 
     for path, names in PATHS.items():
         counts = {k: launches[path][k] for k in names}
         print(f"[8] launches in the {path} run: {counts}", flush=True)
         for k, c in counts.items():
             require(c > 0, f"kernel {k} was not launched by the {path} run")
+        if path in EXACT_PATHS:
+            others = {k: c for k, c in launches[path].items() if c and k not in names}
+            require(not others, f"the {path} run launched {others} as well")
     report["launches"] = launches
 
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,

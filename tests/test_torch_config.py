@@ -92,12 +92,16 @@ _UNPORTED = [
     (_G, tcfg.SimulationParams(), tcfg.solver_options_for(tcfg.Semantics.JS)),
     (_G, tcfg.SimulationParams(velocity_scheme=tcfg.VelocityScheme.SECOND), _RUST),
     (_G, tcfg.SimulationParams(velocity_scheme=tcfg.VelocityScheme.QUICK), _RUST),
-    (_G, tcfg.SimulationParams(pressure_solver=tcfg.PressureSolver.SOR), _RUST),
+    # SOR and FDM are ported; differentiable SOR and FDM under CAVITY are not.
+    (_G, tcfg.SimulationParams(pressure_solver=tcfg.PressureSolver.SOR),
+     tcfg.solver_options_for(tcfg.Semantics.RUST, differentiable=True,
+                             early_exit=False, outer_corrector_rounds=0)),
     (_G, tcfg.SimulationParams(pressure_solver=tcfg.PressureSolver.MULTIGRID), _RUST),
     # MG_PRODUCTION is ported with its aligned cycle; the legacy one is not.
     (_G, tcfg.SimulationParams(pressure_solver=tcfg.PressureSolver.MG_PRODUCTION),
      tcfg.solver_options_for(tcfg.Semantics.RUST, mgp_scheme="legacy")),
-    (_G, tcfg.SimulationParams(pressure_solver=tcfg.PressureSolver.FDM), _RUST),
+    (_G, tcfg.SimulationParams(pressure_solver=tcfg.PressureSolver.FDM,
+                               flow_case=tcfg.FlowCase.CAVITY), _RUST),
     (_G, tcfg.SimulationParams(flow_case=tcfg.FlowCase.CAVITY), _RUST),
     (_G, tcfg.SimulationParams(inlet_profile=tcfg.InletProfile.PARABOLIC), _RUST),
     (tcfg.Grid(nx=24, ny=16, lx=4.0, ly=1.5,

@@ -18,9 +18,10 @@ from cfd_demo_tpu_torch.kernels import jacobi as kjac
 from cfd_demo_tpu_torch.kernels import jacobi_batch as kjb
 from cfd_demo_tpu_torch.kernels import mgp as kmgp
 from cfd_demo_tpu_torch.kernels import rounds as krounds
+from cfd_demo_tpu_torch.kernels import sor as ksor
 from cfd_demo_tpu_torch.kernels import substep as ksub
 from cfd_demo_tpu_torch.ops import fdm
-from cfd_demo_tpu_torch.ops.poisson import _apply_pprime_bcs, _cc_prolong_x
+from cfd_demo_tpu_torch.ops.poisson import _apply_pprime_bcs, _cc_prolong_x, sor
 
 pytestmark = pytest.mark.cuda
 
@@ -326,3 +327,93 @@ def test_jacobi_batch_done_flags(cuda, shape):
         assert not got[2][flags.to(cuda)].any()
         assert torch.equal(got[0].cpu()[flags], pp[flags])
         assert_close(got[0], ref[0], rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape,k", [((64, 96), 5), ((37, 53), 1), ((40, 96), 8)])
+def test_sor_fused_k(cuda, shape, k):
+    """The full-layout SOR kernel (odd sizes included) against k plain
+    iterations; omega = 1.7 amplifies the multipliers' ulps, hence 1e-5."""
+    ny, nx = shape
+    g = torch.Generator().manual_seed(12)
+    pp = _apply_pprime_bcs(0.1 * torch.randn(shape, generator=g))
+    rhs = torch.randn(shape, generator=g)
+    pp_d = pp.to(cuda)
+    got = ksor.sor_fused_k(pp_d, rhs.to(cuda), 1 / nx, 1 / ny, 1.7, k)
+    ref = ksor.sor_fused_k_plain(pp, rhs, 1 / nx, 1 / ny, 1.7, k)
+    assert torch.equal(pp_d.cpu(), pp)  # the caller's p' is not changed
+    assert_close(got[0], ref[0], rtol=1e-5)
+    assert_close(got[1], ref[1], rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape,k", [((64, 96), 5), ((37, 54), 3), ((40, 42), 10)])
+def test_sor_fused_k_rb2(cuda, shape, k):
+    """The colour-split kernel on odd heights and odd half widths."""
+    ny, nx = shape
+    g = torch.Generator().manual_seed(13)
+    pp = _apply_pprime_bcs(0.1 * torch.randn(shape, generator=g))
+    rhs = torch.randn(shape, generator=g)
+    split = ksor.sor_compress(pp) + ksor.sor_compress(rhs)
+    got = ksor.sor_fused_k_rb2(*(a.to(cuda) for a in split), 1 / nx, 1 / ny, 1.7, k)
+    ref = ksor.sor_fused_k_rb2_plain(*split, 1 / nx, 1 / ny, 1.7, k)
+    for a, b in zip(got, ref):
+        assert_close(a, b, rtol=1e-5)
+
+
+@pytest.mark.parametrize("tol", [0.0, 1e-30])
+def test_sor_chains(cuda, tol):
+    """Both chains on the card against the plain sor, 50 iterations at
+    k = 8; sync debug mode "error" holds the fixed schedule to no read."""
+    ny, nx = 48, 64
+    g = torch.Generator().manual_seed(14)
+    pp = _apply_pprime_bcs(0.1 * torch.randn((ny, nx), generator=g))
+    rhs = torch.randn((ny, nx), generator=g)
+    args = (1 / nx, 1 / ny, 1.7, tol, 50)
+    ref = sor(pp, rhs, *args, early_exit=False)
+    pp_d, rhs_d = pp.to(cuda), rhs.to(cuda)
+    for chain in (ksor.sor_chain, ksor.sor_chain_rb2):
+        if tol == 0.0:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = chain(pp_d, rhs_d, *args, k=8, early_exit=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert got[2] == 50
+        assert_close(got[0], ref[0], rtol=1e-5)
+
+
+@pytest.mark.parametrize("nx,ny,B,opts", [
+    (40, 24, 4, {"outer_corrector_rounds": 0, "jacobi_tol": 0.0, "jacobi_iters": 30}),
+    (53, 37, 3, {})])
+def test_substep_batch_sor(cuda, nx, ny, B, opts):
+    """Kernel 20's SOR form against the plain batched SOR substep, twice
+    (the second warm-started): the same exits. Fields at 1e-4, the bound
+    of tests/test_ensemble_pallas.py:183 for its setup (the first case:
+    no rounds, tol 0, 30 iterations); with outer rounds and a live
+    tolerance p' drifts by the multipliers' rounding, ~1e-6 max|p'| an
+    iteration at omega = 1.7 (PERF.md), so p and p' are held to twice
+    that over the iterations run, after removing each scene's mean."""
+    scene = _ensemble_scene(nx, ny)
+    scene = dataclasses.replace(
+        scene, params=dataclasses.replace(scene.params,
+                                          pressure_solver=tc.PressureSolver.SOR),
+        opts=dataclasses.replace(scene.opts, **opts))
+    args = _ensemble_inputs(scene, B, seed=15)
+    n0 = kens.substep_batch_sor.launches
+    for _ in range(2):
+        got = kens.substep_batch(*(a.to(cuda) for a in args), scene)
+        ref = kens.substep_batch_plain(*args, scene)
+        assert got[5].tolist() == ref[5].tolist()
+        assert ref[5][0].tolist()[1] == (30 if opts else 1)  # scene 0: at rest
+        fields = ("u", "v", "p", "pp", "err") if opts else ("u", "v", "err")
+        for name in fields:
+            i = ("u", "v", "p", "pp", "err").index(name)
+            torch.testing.assert_close(got[i].cpu(), ref[i], rtol=1e-4, atol=1e-4,
+                                       msg=name)
+        if not opts:
+            drift = 2e-6 * int(ref[5][:, 1].max())
+            for name, a, b in zip(("p", "pp"), got[2:4], ref[2:4]):
+                d = (a.cpu() - b).double()
+                d = d - d.mean(dim=(-2, -1), keepdim=True)
+                assert float(d.abs().max()) <= drift * max(1.0, float(b.abs().max())), name
+        args = (*ref[:4], *args[4:])
+    assert kens.substep_batch_sor.launches == n0 + 2

@@ -354,9 +354,13 @@ def test_the_gate():
 
 
 def test_other_solvers_raise_naming_their_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tc.make_scene(tc.default_grid(), tc.SimulationParams(
-            pressure_solver=tc.PressureSolver.SOR))
+    # SOR batches are ported (tests/test_torch_sor.py); FDM steps one scene
+    fdm = tc.make_scene(
+        tc.Grid(nx=16, ny=12, lx=1.0, ly=1.0),
+        tc.SimulationParams(pressure_solver=tc.PressureSolver.FDM),
+        tc.solver_options_for(tc.Semantics.RUST, early_exit=False))
+    with pytest.raises(NotImplementedError, match="batched fdm.*queue 1 item 7"):
+        tc.make_step(fdm)(tc.batch_state(fdm.init_state("cpu"), 2))
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         tc.make_scene(tc.default_grid(), tc.SimulationParams(
             pressure_solver=tc.PressureSolver.MULTIGRID))
