@@ -1,6 +1,6 @@
 """The port's measured shapes, and where their device time goes.
 
-Eight cells, each at full size, from the JAX package's own defaults:
+Ten cells, each at full size, from the JAX package's own defaults:
 
 - :func:`reference_scene`: the README quick start, the Rust app's
   800x264 cylinder channel with default parameters and solver options
@@ -23,22 +23,28 @@ Eight cells, each at full size, from the JAX package's own defaults:
   colour-split SOR chain);
 - **ensemble 16x256x96 sor**: ``python -m cfd_demo_tpu.apps.ensemble
   --batch 16 --solver sor``, the largest batch the JAX package sends to
-  its kernel's SOR form (piso.py:624-632).
+  its kernel's SOR form (piso.py:624-632);
+- :func:`multigrid_scene`: the production mode's options with the JS
+  kit's MULTIGRID solver at 2048² (three vertex V-cycles a step, no
+  outer rounds: the fused route, no host read);
+- :func:`legacy_production_scene`: ``bench.py --mode production
+  --mgp-scheme legacy`` at 2048² (the vertex hierarchy with damped p'-BC
+  sweeps, to the same exits as the aligned cycle).
 
 :func:`fdm_scene` is ``bench.py --mode fdm`` (the exact FDM projection),
 a shape without a kernel of its own. ``chip_smoke.py`` drives all but
 the reference mode. On a CUDA card,
 
-    python3 -m cfd_demo_tpu_torch.cells [--out FILE.json]
+    python3 -m cfd_demo_tpu_torch.cells [--cell NAME ...] [--out FILE.json]
 
-runs each cell for a timed rollout after its warm-up, then 10 more steps
-under ``torch.profiler``, and prints the rate, the device
-time per step by kernel and the device's busy share of the unprofiled
-wall time. For the 800x264 scene it also prints how many outer rounds
-and Jacobi sweeps the rounds kernel ran in a step, for the ensembles
-the mean and the most of those over their scenes in the first profiled
-step, and for the production scene how many V-cycles a step ran. An ensemble's cell-updates count every scene's
-cells.
+runs each cell (or the ones named) for a timed rollout after its
+warm-up, then 10 more steps under ``torch.profiler``, and prints the
+rate, the device time per step by kernel and the device's busy share of
+the unprofiled wall time. For the 800x264 scene it also prints how many
+outer rounds and Jacobi sweeps the rounds kernel ran in a step, for the
+ensembles the mean and the most of those over their scenes in the first
+profiled step, and for the production scenes how many V-cycles a step
+ran. An ensemble's cell-updates count every scene's cells.
 """
 from __future__ import annotations
 
@@ -54,7 +60,7 @@ import torch
 from .core.config import (Cylinder, Grid, PressureSolver, Semantics,
                           SimulationParams, default_grid, solver_options_for)
 from .apps.ensemble import ensemble_scene, ensemble_state
-from .kernels import mgp
+from .kernels import mg, mgp
 from .kernels.ensemble import substep_batch, substep_batch_fits, substep_batch_sor
 from .kernels.jacobi_batch import jacobi_batch
 from .kernels.rounds import solve_correct_rounds
@@ -117,6 +123,26 @@ def fdm_scene(n: int = 2048):
                            outer_corrector_rounds=0))
 
 
+def multigrid_scene(n: int = 2048):
+    """bench.py --mode production's options (bench.py:87-96) with the JS
+    kit's solver, PressureSolver.MULTIGRID, in its place."""
+    return make_scene(_bench_grid(n), SimulationParams(
+        dt=0.002, viscosity=1e-4, pressure_solver=PressureSolver.MULTIGRID),
+        solver_options_for(Semantics.RUST, ramp_up_steps=10,
+                           outer_corrector_rounds=0))
+
+
+def legacy_production_scene(n: int = 2048):
+    """bench.py --mode production --mgp-scheme legacy (bench.py:54-60,
+    :87-96)."""
+    return make_scene(
+        _bench_grid(n),
+        SimulationParams(dt=0.002, viscosity=1e-4,
+                         pressure_solver=PressureSolver.MG_PRODUCTION),
+        solver_options_for(Semantics.RUST, ramp_up_steps=10,
+                           outer_corrector_rounds=0, mgp_scheme="legacy"))
+
+
 def sor_ensemble_scene(nx: int = 256, ny: int = 96):
     """The ensemble app's scene with ``--solver sor``."""
     return ensemble_scene(nx, ny, SimulationParams(
@@ -151,11 +177,25 @@ def ensemble_counts(scene, state):
     return _substep_jnp(scene, *args[:7])[5]
 
 
-def vcycles_launched() -> float:
-    """V-cycles the fine-level kernels have run on the card: one corr
-    launch a cycle on an even grid, two res launches on another. (A
-    cycle on an interior of at most mgp_coarse_stop a side is FDM alone
-    and launches neither.)"""
+def vertex_levels(ny: int, nx: int, coarsest: int) -> int:
+    """Levels of the vertex hierarchy ((n + 1) // 2 a side) down to the
+    first at or below ``coarsest`` cells on a side."""
+    n = 1
+    while ny > coarsest and nx > coarsest:
+        ny, nx, n = (ny + 1) // 2, (nx + 1) // 2, n + 1
+    return n
+
+
+def vcycles_launched(scene=None) -> float:
+    """V-cycles an MG_PRODUCTION scene's kernels have run on the card.
+    Aligned: one corr launch a cycle on an even grid, two res launches
+    on another (a cycle on an interior of at most mgp_coarse_stop a side
+    is FDM alone and launches neither). Legacy (``scene`` with
+    mgp_scheme "legacy"): two mgp_smooth launches a level."""
+    if scene is not None and scene.opts.mgp_scheme == "legacy":
+        g = scene.grid
+        return mg.mgp_smooth.launches / (
+            2 * vertex_levels(g.ny, g.nx, scene.opts.mg_coarsest))
     return (mgp.jacobi_fused_k_corr.launches
             + mgp.jacobi_fused_k_res.launches / 2)
 
@@ -172,6 +212,8 @@ CELLS = {
     "ensemble 8x800x264": (lambda: ensemble_scene(800, 264), 5, 20, 8),
     "2048^2 sor": (sor_scene, 5, 100, None),
     "ensemble 16x256x96 sor": (sor_ensemble_scene, 20, 50, 16),
+    "2048^2 multigrid": (multigrid_scene, 5, 100, None),
+    "2048^2 production legacy": (legacy_production_scene, 5, 20, None),
 }
 
 
@@ -183,7 +225,9 @@ TRACED = {"predict_div_kernel(": (predict_div,), "correct_bc_kernel(": (correct_
           "ensemble_substep_kernel(": (substep_batch, substep_batch_sor),
           "jacobi_batch_kernel(": (jacobi_batch,),
           "restrict_kernel(": (mgp.jacobi_fused_k_restrict,),
-          "corr_add_kernel(": (mgp.jacobi_fused_k_corr,)}
+          "corr_add_kernel(": (mgp.jacobi_fused_k_corr,),
+          "vertex_restriction_kernel(": (mg.mg_residual_restrict,),
+          "vertex_prolong_add_kernel(": (mg.mg_prolong_add,)}
 
 
 def _busy_us(spans):
@@ -261,14 +305,14 @@ def measure(name, make, warmup, timed, batch, dev):
         counts = solve_correct_rounds(*rounds_args(scene, state))[5].tolist()
         out["rounds_per_step"], out["sweeps_per_step"] = counts
     run = make_run(scene, timed)
-    cycles0 = vcycles_launched()
+    cycles0 = vcycles_launched(scene)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, _ = run(state)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     if scene.params.pressure_solver == PressureSolver.MG_PRODUCTION:
-        out["vcycles_per_step"] = (vcycles_launched() - cycles0) / timed
+        out["vcycles_per_step"] = (vcycles_launched(scene) - cycles0) / timed
     if not bool(torch.isfinite(state.u).all()):
         raise RuntimeError(f"{name}: u is not finite")
     out["steps_per_s"] = timed / sec
@@ -307,6 +351,8 @@ def measure(name, make, warmup, timed, batch, dev):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
+    ap.add_argument("--cell", action="append", choices=list(CELLS),
+                    help="measure only this cell (repeatable); all by default")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("cells: needs a CUDA device")
@@ -316,8 +362,8 @@ def main() -> int:
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     report = {"nvidia_smi": smi}
-    for name, (make, warmup, timed, batch) in CELLS.items():
-        report[name] = measure(name, make, warmup, timed, batch, dev)
+    for name in args.cell or CELLS:
+        report[name] = measure(name, *CELLS[name], dev)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)

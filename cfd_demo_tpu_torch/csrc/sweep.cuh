@@ -81,6 +81,20 @@ inline cudaError_t run_sweeps(const float* src, const float* rhs, float* out,
     return cudaSuccess;
 }
 
+// The boundary cell b of 2 * nx + 2 * (ny - 2) (2 rows of nx, then 2
+// columns of ny-2) as (j, i), and the interior cell (jj, ii) whose value
+// the p' BCs copy into it (ops/poisson.py _apply_pprime_bcs, rows then
+// columns: a corner takes the diagonal interior cell); false for the
+// outlet column, which is 0 (Dirichlet).
+__device__ __forceinline__ bool ring_cell(int b, int ny, int nx, int& j, int& i,
+                                          int& jj, int& ii) {
+    if (b < 2 * nx) { j = (b < nx) ? 0 : ny - 1; i = b % nx; }
+    else { const int c = b - 2 * nx; j = 1 + c % (ny - 2); i = (c < ny - 2) ? 0 : nx - 1; }
+    ii = (i == 0) ? 1 : i;                             // left copies column 1
+    jj = (j == 0) ? 1 : (j == ny - 1) ? ny - 2 : j;    // rows first
+    return i != nx - 1;
+}
+
 // The p' BCs once (ops/poisson.py _apply_pprime_bcs, rows then columns),
 // written from interior values only, then the max over each of one or
 // two arrays of block maxima (pb may be null). One block.
@@ -89,21 +103,11 @@ __global__ void bc_max_kernel(float* pp, int ny, int nx, const float* pa,
                               float* ob) {
     __shared__ float sh[33];
     const int tid = threadIdx.x;
-    // boundary cells: 2 rows of nx, then 2 columns of ny-2
     const int nbc = 2 * nx + 2 * (ny - 2);
     for (int b = tid; b < nbc; b += blockDim.x) {
-        int j, i;
-        if (b < 2 * nx) { j = (b < nx) ? 0 : ny - 1; i = b % nx; }
-        else { const int c = b - 2 * nx; j = 1 + c % (ny - 2); i = (c < ny - 2) ? 0 : nx - 1; }
-        float val;
-        if (i == nx - 1) {
-            val = 0.0f;                               // outlet (Dirichlet)
-        } else {
-            const int ii = (i == 0) ? 1 : i;          // left copies column 1
-            const int jj = (j == 0) ? 1 : (j == ny - 1) ? ny - 2 : j;  // rows first
-            val = pp[(size_t)jj * nx + ii];
-        }
-        pp[(size_t)j * nx + i] = val;
+        int j, i, jj, ii;
+        const bool copy = ring_cell(b, ny, nx, j, i, jj, ii);
+        pp[(size_t)j * nx + i] = copy ? pp[(size_t)jj * nx + ii] : 0.0f;
     }
     float m = 0.0f;
     for (int b = tid; b < na; b += blockDim.x) m = pmax(m, pa[b]);

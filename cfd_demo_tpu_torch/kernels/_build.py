@@ -1,16 +1,17 @@
 """Build the CUDA kernels with nvcc and load them with ctypes.
 
-``load()`` compiles every ``csrc/*.cu`` at first use into one shared
-library with a plain C interface,
+``load()`` compiles every ``csrc/*.cu`` at first use, one nvcc a source,
+all started together,
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC -Xptxas -v
+         -Xcompiler -fPIC -Xptxas -v -c
 
-and caches it under ``cfd_demo_tpu_torch/_build/`` (git-ignored). The
-file name carries a hash of the sources and flags, so a changed source
-rebuilds. nvcc's output (ptxas register and spill counts included) is
-kept beside the library as ``.log``. A failed build raises with that
-output. ``-fmad=false`` keeps every multiply and add separately rounded,
+and links the objects into one shared library with a plain C interface
+(``nvcc -shared``), cached under ``cfd_demo_tpu_torch/_build/``
+(git-ignored). The file name carries a hash of the sources and flags, so
+a changed source rebuilds. nvcc's output (ptxas register and spill
+counts included) is kept beside the library as ``.log``. A failed build
+raises with that output. ``-fmad=false`` keeps every multiply and add separately rounded,
 as the JAX reference computes them (csrc/common.cuh).
 
 Every C entry point launches on the stream it is given and returns
@@ -37,8 +38,9 @@ from ..core.unported import WIDEN_STEP, unported
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = [*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+         "-Xptxas", "-v"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -63,6 +65,10 @@ _SIGNATURES = {
     "cfd_sor_fused_k": [P] * 4 + [I] * 3 + [F] * 5 + [P],
     "cfd_sor_rb2_partials": [I, I],
     "cfd_sor_fused_k_rb2": [P] * 6 + [I] * 3 + [F] * 5 + [P],
+    "cfd_mg_smooth": [P] * 4 + [I] * 3 + [F] * 3 + [P],
+    "cfd_mg_restrict": [P] * 3 + [I] * 2 + [F] * 3 + [P],
+    "cfd_mg_prolong_add": [P] * 3 + [I] * 3 + [P],
+    "cfd_mgp_smooth": [P] * 4 + [I] * 3 + [F] * 4 + [P],
 }
 
 
@@ -95,19 +101,34 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *FLAGS, "-o", tmp, *cu],
-                          capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    lib.with_suffix(".log").write_text(
-        f"built in {time.perf_counter() - t0:.1f} s\n{log}")
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs, procs = [], []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = os.path.join(work, src.stem + ".o")
+            objs.append(obj)
+            procs.append((src.name, subprocess.Popen(
+                [nvcc, *FLAGS, "-c", "-o", obj, str(src)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for name, proc in procs:  # every compile ends before any raise
+            out = proc.communicate()[0]
+            logs.append(f"== {name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(name)
+        log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+        tmp = os.path.join(work, lib.name)
+        proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({proc.returncode}):\n{log}")
+        lib.with_suffix(".log").write_text(
+            f"built in {time.perf_counter() - t0:.1f} s\n{log}")
+        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     return lib
 
 

@@ -1,5 +1,5 @@
-"""Pressure-correction solves, CHANNEL flow (↔ the Jacobi, SOR and
-MG_PRODUCTION slices of cfd_demo_tpu/ops/poisson.py).
+"""Pressure-correction solves, CHANNEL flow (↔ the Jacobi, SOR,
+MULTIGRID and MG_PRODUCTION slices of cfd_demo_tpu/ops/poisson.py).
 
 Jacobi, model.rs:733-824: a whole-array damped sweep with the
 per-iteration p' BCs (model.rs:807-815: Neumann bottom/top/left,
@@ -10,20 +10,25 @@ SOR, index.html:741-774: red/black over-relaxed sweeps (the parallel
 form), or the JS-exact lexicographic ordering as a wavefront; the same
 BCs and loop as Jacobi.
 
+MULTIGRID (``multigrid``), index.html:775-795: the JS kit's vertex
+V-cycles, zero-started, a fixed mg_cycles of them: undamped
+interior-only Jacobi, full-weighting restriction and bilinear
+prolongation, coarsening (n+1)//2.
+
 MG_PRODUCTION (``multigrid_production``): V-cycles of the aligned
-cell-centred hierarchy until max|rhs - A p'| falls below the
-divergence-calibrated tolerance or the f32 noise floor; see the section
-below.
+cell-centred hierarchy (or, with mgp_scheme "legacy", the JS kit's
+hierarchy with damped p'-BC sweeps) until max|rhs - A p'| falls below
+the divergence-calibrated tolerance or the f32 noise floor; see the
+sections below.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
-from ..core.unported import OTHER_SOLVERS, unported
 from .fdm import fdm_solve_interior
 
 
@@ -230,6 +235,134 @@ def _mgp_smooth(p, rhs, dx, dy, omega, iterations):
     for _ in range(iterations):
         p, _ = _jacobi_sweep(p, rhs, dx, dy, omega)
     return p
+
+
+# ---------------------------------------------------------------------------
+# The JS kit's vertex V-cycle (PressureSolver.MULTIGRID; JAX
+# ops/poisson.py:478-599), and the legacy MG_PRODUCTION cycle built on its
+# transfers (:647-665). Each piece keeps the JAX expression's order of
+# operations, so that the CPU results agree to the ulp.
+# ---------------------------------------------------------------------------
+
+def _mg_smooth(p, rhs, dx, dy, iterations: int):
+    """Undamped Jacobi on the interior, no BCs (index.html:1347-1369)."""
+    dx2, dy2 = dx * dx, dy * dy
+    denom = 2.0 / dx2 + 2.0 / dy2
+    for _ in range(iterations):
+        update = ((p[1:-1, 2:] + p[1:-1, :-2]) / dx2
+                  + (p[2:, 1:-1] + p[:-2, 1:-1]) / dy2 - rhs[1:-1, 1:-1]) / denom
+        p = p.clone()
+        p[1:-1, 1:-1] = update
+    return p
+
+
+def _mg_restrict(fine, nx_c: int, ny_c: int):
+    """Full weighting at the even fine points, injection on the boundary
+    by the same-row and same-column samples, columns last so that the
+    corners take the column values (index.html:1372-1395)."""
+    ny_f, nx_f = fine.shape
+    f = torch.nn.functional.pad(fine, (1, 1, 1, 1))
+
+    def sh(dj, di):  # fine[j + dj, i + di] at the even points, 0 outside
+        return f[1 + dj:1 + dj + ny_f:2, 1 + di:1 + di + nx_f:2]
+
+    w9 = (sh(0, 0)
+          + 0.5 * (sh(0, 1) + sh(0, -1) + sh(1, 0) + sh(-1, 0))
+          + 0.25 * (sh(1, 1) + sh(1, -1) + sh(-1, 1) + sh(-1, -1))) / 4.0
+    out = w9[:ny_c, :nx_c].clone()
+    out[0] = fine[0, ::2][:nx_c]
+    out[ny_c - 1] = fine[ny_f - 1, ::2][:nx_c]
+    out[:, 0] = fine[::2, 0][:ny_c]
+    out[:, nx_c - 1] = fine[::2, nx_f - 1][:ny_c]
+    return out
+
+
+def _mg_prolong(coarse, nx_f: int, ny_f: int):
+    """Bilinear prolongation (index.html:1398-1421): fine column i
+    interpolates coarse columns i//2 and min(i//2 + 1, last), then the
+    same along rows."""
+    ny_c, nx_c = coarse.shape
+    dev, dt = coarse.device, coarse.dtype
+    right = torch.cat([coarse[:, 1:], coarse[:, -1:]], dim=1)
+    rep = coarse.repeat_interleave(2, dim=1)[:, :nx_f]
+    rep_r = right.repeat_interleave(2, dim=1)[:, :nx_f]
+    a = (torch.arange(nx_f, device=dev) % 2).to(dt) * 0.5
+    row = rep * (1 - a) + rep_r * a
+    down = torch.cat([row[1:], row[-1:]], dim=0)
+    rep_y = row.repeat_interleave(2, dim=0)[:ny_f]
+    rep_d = down.repeat_interleave(2, dim=0)[:ny_f]
+    b = (torch.arange(ny_f, device=dev) % 2).to(dt)[:, None] * 0.5
+    return rep_y * (1 - b) + rep_d * b
+
+
+class MgKit(NamedTuple):
+    """The vertex cycles' four kernels (kernels.mg), or their plain
+    versions: smooth(p, rhs, dx, dy, k); restrict(p, rhs, dx, dy) ->
+    the coarse residual; prolong(e, p, bc) -> p + prolong(e), with the
+    p' BCs when bc; mgp_smooth(p, rhs, dx, dy, omega, k)."""
+
+    smooth: object
+    restrict: object
+    prolong: object
+    mgp_smooth: object
+
+
+def _mg_kit(opts) -> MgKit:
+    """The kernel wrappers (each runs its plain version on CPU tensors),
+    or with pressure_impl "jnp" the plain versions on any device."""
+    from ..kernels import mg  # kernels.mg imports this module
+    if opts.pressure_impl == "jnp":
+        return MgKit(mg.mg_smooth_plain, mg.mg_residual_restrict_plain,
+                     mg.mg_prolong_add_plain, mg.mgp_smooth_plain)
+    return MgKit(mg.mg_smooth, mg.mg_residual_restrict, mg.mg_prolong_add,
+                 mg.mgp_smooth)
+
+
+def _mg_vcycle(p, rhs, dx, dy, opts, kit: MgKit):
+    """One vertex V-cycle (JAX ops/poisson.py:589): pre-smooth, and at or
+    below mg_coarsest cells on a side the coarse smoothing alone; else
+    the restricted residual, the coarse cycle from zero at 2dx, 2dy, the
+    prolonged correction, post-smooth."""
+    ny, nx = p.shape
+    p = kit.smooth(p, rhs, dx, dy, opts.mg_pre_smooth)
+    if nx <= opts.mg_coarsest or ny <= opts.mg_coarsest:
+        return kit.smooth(p, rhs, dx, dy, opts.mg_coarse_smooth)
+    r_c = kit.restrict(p, rhs, dx, dy)
+    e_c = _mg_vcycle(torch.zeros_like(r_c), r_c, 2 * dx, 2 * dy, opts, kit)
+    p = kit.prolong(e_c, p, False)
+    return kit.smooth(p, rhs, dx, dy, opts.mg_post_smooth)
+
+
+def multigrid(pp0, rhs, dx: float, dy: float, opts):
+    """PressureSolver.MULTIGRID (JAX ops/poisson.py:1330): mg_cycles
+    V-cycles from zero (``pp0`` gives only the shape, index.html:777),
+    then the residual report. Returns (p', max|rhs - A p'|, mg_cycles as
+    a 0-d int32 tensor); reads nothing back to the host."""
+    if pp0.dim() != 2:
+        raise ValueError("multigrid takes one scene")
+    kit = _mg_kit(opts)
+    pp = torch.zeros_like(pp0)
+    for _ in range(opts.mg_cycles):
+        pp = _mg_vcycle(pp, rhs, dx, dy, opts, kit)
+    err = torch.amax(torch.abs(_mg_residual(pp, rhs, dx, dy)))  # 0 on the ring
+    return pp, err, torch.full((), opts.mg_cycles, dtype=torch.int32,
+                               device=pp0.device)
+
+
+def _mgp_vcycle(p, rhs, dx, dy, opts, kit: MgKit):
+    """One legacy MG_PRODUCTION V-cycle (JAX ops/poisson.py:647): the JS
+    kit's hierarchy with mgp_smooth damped sweeps and the p' BCs at every
+    level (the correction obeys the same homogeneous BCs as p'), and
+    bc(p + prolong(e)) before the post-smoother."""
+    ny, nx = p.shape
+    omega, nu = opts.jacobi_omega, opts.mgp_smooth
+    p = kit.mgp_smooth(p, rhs, dx, dy, omega, nu)
+    if nx <= opts.mg_coarsest or ny <= opts.mg_coarsest:
+        return kit.mgp_smooth(p, rhs, dx, dy, omega, opts.mg_coarse_smooth)
+    r_c = kit.restrict(p, rhs, dx, dy)
+    e_c = _mgp_vcycle(torch.zeros_like(r_c), r_c, 2 * dx, 2 * dy, opts, kit)
+    p = kit.prolong(e_c, p, True)
+    return kit.mgp_smooth(p, rhs, dx, dy, omega, nu)
 
 
 def _cc_neighbors(p):
@@ -481,13 +614,13 @@ def _masked_while(cycle, p0, tol, iters):
 
 
 def check_mgp_scheme(opts) -> None:
-    """Only the aligned scheme is ported; "auto" resolves to it at every
-    size, the JAX package's own rule wherever its whole-cycle legacy
-    kernel is absent (ops/poisson.py:1139-1149)."""
-    if opts.mgp_scheme not in ("auto", "aligned"):
-        raise unported(f'mgp_scheme="{opts.mgp_scheme}" (the legacy V-cycle '
-                       "and its whole-cycle smoother, queue 2 kernel 19)",
-                       OTHER_SOLVERS)
+    """"aligned", "legacy" or "auto", which resolves to aligned at every
+    size: the JAX package's legacy-below-2M-cells rule
+    (ops/poisson.py:1139-1149) is a reading of the TPU's launch latency,
+    not carried over."""
+    if opts.mgp_scheme not in ("auto", "aligned", "legacy"):
+        raise ValueError(f'mgp_scheme must be "auto", "aligned" or "legacy", '
+                         f"got {opts.mgp_scheme!r}")
 
 
 def _smoothers(opts):
@@ -504,25 +637,35 @@ def _smoothers(opts):
 
 
 def multigrid_production(pp0, rhs, dx: float, dy: float, opts, tol_r):
-    """PressureSolver.MG_PRODUCTION, aligned scheme, CHANNEL p' BCs.
+    """PressureSolver.MG_PRODUCTION, CHANNEL p' BCs.
 
-    Aligned V-cycles, warm-started from ``pp0``, until max|rhs - A p'| <=
+    Aligned V-cycles (with mgp_scheme "legacy", :func:`_mgp_vcycle`, the
+    error then max|_mg_residual| after the cycle, JAX
+    ops/poisson.py:1167-1170), warm-started from ``pp0``, until max|rhs - A p'| <=
     ``tol_r`` (a float or a 0-d tensor; projection_div_tol / dt_sub
     bounds the post-correction max|div u| by projection_div_tol), widened
     to mgp_rtol x the warm-start residual when mgp_rtol > 0 and to the
     f32 noise floor when mgp_floor > 0, at most mgp_max_cycles; or
-    exactly mgp_fixed_cycles cycles when that is > 0. early_exit takes
-    the exact do-while (one host read per cycle), otherwise the masked
-    fixed-trip loop. Returns (p', max|residual|, cycles run)."""
+    exactly mgp_fixed_cycles cycles when that is > 0, always aligned, as
+    the JAX package runs them whenever the BC is known
+    (ops/poisson.py:1299-1305). early_exit takes the exact do-while (one
+    host read per cycle), otherwise the masked fixed-trip loop. Returns
+    (p', max|residual|, cycles run)."""
     check_mgp_scheme(opts)
     if opts.mgp_smooth == 3 and pp0.shape[-2] * pp0.shape[-1] >= 48_000_000:
         # The JAX package's size rule (ops/poisson.py:1113-1121): five
         # sweeps a position from 48M cells, unless set explicitly.
         opts = dataclasses.replace(opts, mgp_smooth=5)
     smoothers = _smoothers(opts)
+    legacy = opts.mgp_scheme == "legacy" and opts.mgp_fixed_cycles == 0
+    kit = _mg_kit(opts) if legacy else None
 
     def cycle(p):
-        p, err, pmax = _mgp_vcycle_aligned(p, rhs, dx, dy, opts, smoothers)
+        if legacy:
+            p = _mgp_vcycle(p, rhs, dx, dy, opts, kit)
+            err, pmax = torch.amax(torch.abs(_mg_residual(p, rhs, dx, dy))), None
+        else:
+            p, err, pmax = _mgp_vcycle_aligned(p, rhs, dx, dy, opts, smoothers)
         if floor is None:
             return p, err, None
         if pmax is None:

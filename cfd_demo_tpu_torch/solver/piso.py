@@ -25,8 +25,8 @@ cells (bench.py's 2048² shapes)                 ``_solve_pressure`` -> with no 
 otherwise, JACOBI with substep_impl and         ``_substep_jnp``: plain predictor and
 pressure_impl in ("auto", "pallas") (the        divergence, then the ``rounds`` kernel
 800x264 default scene)                          (solve + corrector + rounds + BCs)
-otherwise (SOR, FDM or MG_PRODUCTION below      plain predictor, divergence,
-2M cells, or "jnp")                             ``_solve_pressure``, corrector,
+otherwise (SOR, FDM, MULTIGRID or               plain predictor, divergence,
+MG_PRODUCTION below 2M cells, or "jnp")         ``_solve_pressure``, corrector,
                                                 ``_outer_rounds``, BCs
 a batch (B, ny, *), JACOBI or red/black SOR,    ``substep_batch`` kernel (the SOR form:
 substep_impl and pressure_impl in ("auto",      ``substep_batch_sor``): the whole
@@ -41,7 +41,9 @@ another batch, JACOBI or SOR                    ``_substep_jnp``: plain predicto
                                                 corrector, masked outer rounds whose
                                                 solves skip converged scenes, BCs (the
                                                 800x264 ensemble)
-a batch with another solver                     NotImplementedError (queue 1 item 7)
+a batch with another solver                     NotImplementedError (MULTIGRID and legacy
+                                                MG_PRODUCTION: queue 1 item 9; the
+                                                aligned MG_PRODUCTION and FDM: item 7)
 ==============================================  =========================================
 
 A batch is never handed to a single-scene route (the fused kernels, the
@@ -74,12 +76,41 @@ the plain masked sor (the JAX package vmaps it).
 BCs, err the post-solve max|rhs - A p'|, and a count of 1; the warm
 start is ignored.
 
+``_solve_pressure``, MULTIGRID (piso.py:473-474): ops.poisson.multigrid,
+mg_cycles vertex V-cycles from zero and the residual report, through
+the vertex kernels (kernels.mg) at every level of any size, odd or
+even, down to the first at or below mg_coarsest cells a side (the TPU's
+``multigrid_pallas_ok`` and ``_level_ok`` gates, which hand odd and
+small levels to XLA, are not carried over). It reads nothing back: with
+outer_corrector_rounds 0 (the 2048² multigrid cell) the step never
+synchronises; the 800x264 scene's outer rounds read their error once a
+round.
+
+==============================================  =========================================
+level                                           kernel (one wrapper call each)
+==============================================  =========================================
+every level                                     ``mg_smooth``: mg_pre_smooth sweeps, then
+                                                after the correction mg_post_smooth (one
+                                                sweep a launch above 19,370 cells, all k
+                                                in one block at or below)
+every level above mg_coarsest                   ``mg_residual_restrict`` (the coarse rhs)
+                                                and ``mg_prolong_add`` (p + prolong(e))
+the coarsest level                              ``mg_smooth``, mg_coarse_smooth sweeps
+==============================================  =========================================
+
 ``_solve_pressure``, MG_PRODUCTION: ops.poisson.multigrid_production
-with tol_r = projection_div_tol / dt_sub (dt_sub a 0-d device tensor),
-the aligned scheme at every size ("auto" resolves to it, as the JAX
-package does wherever its legacy whole-cycle kernel is absent;
-"legacy" raises). Its smoothers, at any size (the TPU's 2M-cell, ny % 8,
-ny % 16 and k <= 14 gates are not carried over):
+with tol_r = projection_div_tol / dt_sub (dt_sub a 0-d device tensor).
+mgp_scheme "legacy" runs the vertex hierarchy (ops.poisson._mgp_vcycle)
+through ``mgp_smooth`` (mgp_smooth damped sweeps with the p' BCs, kernel
+19), ``mg_residual_restrict`` and ``mg_prolong_add`` with the p' BCs of
+the sum, at every level, and reads max|r| (and max|p'| for the noise
+floor) once a cycle for the exact exit; mgp_fixed_cycles > 0 runs the
+aligned cycle whatever the scheme, as the JAX package does
+(ops/poisson.py:1299-1305). The aligned scheme runs at every size
+otherwise: "auto" resolves to it (the JAX package's legacy-below-2M
+rule, ops/poisson.py:1139-1149, is a reading of the TPU's launch
+latency). The aligned cycle's smoothers, at any size (the TPU's 2M-cell,
+ny % 8, ny % 16 and k <= 14 gates are not carried over):
 
 ==============================================  =========================================
 level                                           kernel
@@ -96,7 +127,8 @@ levels at or below mgp_coarse_stop              FDM (ops.fdm, f64 products: neve
 an interior at most mgp_coarse_stop a side      FDM alone, no smoothing
 ==============================================  =========================================
 
-pressure_impl "jnp" runs the plain versions of the four smoothers.
+pressure_impl "jnp" runs the plain versions of the four smoothers, and of
+the vertex kernels.
 
 Convergence semantics: the rounds kernel and the plain Jacobi solve exit
 at the exact sweep and round (rounds_pallas.py:11-24); the chain checks
@@ -106,7 +138,8 @@ dynamic tolerance), or with early_exit False runs the masked fixed-trip
 loop. Host reads: the chain with tol > 0 reads its error once per
 k-launch, MG_PRODUCTION with early_exit once per V-cycle, and the fused
 route with outer rounds and early_exit once per round; the fixed
-schedules, the rounds kernel and the batch routes read nothing.
+schedules, MULTIGRID, the rounds kernel and the batch routes read
+nothing.
 
 The TPU gates (``_pallas_ok``'s ny % 8 and backend test, ``_tile_rows``,
 ``rounds_pallas_ok``'s VMEM bound) are not carried over; each kernel
@@ -128,8 +161,8 @@ from ..core.config import (Cylinder, FlowCase, Grid, InletProfile,
                            SolverOptions, VelocityScheme)
 from ..core.masks import masks_traced
 from ..core.state import State, init_state
-from ..core.unported import (DIFFERENTIABLE, OTHER_SOLVERS, ROUND_KERNEL,
-                             WIDEN_STEP, unported)
+from ..core.unported import (BATCHES, DIFFERENTIABLE, OTHER_SOLVERS,
+                             ROUND_KERNEL, WIDEN_STEP, unported)
 from ..kernels.ensemble import substep_batch, substep_batch_fits
 from ..kernels.jacobi import jacobi_chain
 from ..kernels.jacobi_batch import jacobi_batch, jacobi_batch_plain
@@ -141,7 +174,8 @@ from ..ops.corrector import correct
 from ..ops.divergence import divergence_rhs
 from ..ops.fdm import fdm_solve_interior
 from ..ops.poisson import (_apply_pprime_bcs, _mg_residual, check_mgp_scheme,
-                           jacobi, multigrid_production, sor, sor_lexicographic)
+                           jacobi, multigrid, multigrid_production, sor,
+                           sor_lexicographic)
 from ..ops.predictor import predict
 
 FUSED_MIN_CELLS = 2_000_000
@@ -223,7 +257,7 @@ def make_scene(grid: Grid, params: Optional[SimulationParams] = None,
         if not isinstance(obs, Cylinder):
             raise unported(f"obstacle {type(obs).__name__}", WIDEN_STEP)
     if params.pressure_solver not in (PressureSolver.JACOBI, PressureSolver.SOR,
-                                      PressureSolver.FDM,
+                                      PressureSolver.FDM, PressureSolver.MULTIGRID,
                                       PressureSolver.MG_PRODUCTION):
         raise unported(f"the {params.pressure_solver.value} pressure solver",
                        OTHER_SOLVERS)
@@ -289,8 +323,8 @@ def _solve_fdm(scene: Scene, rhs):
 
 
 def _solve_pressure(scene: Scene, pp0, rhs, dt_sub, done=None):
-    """The JACOBI, SOR, FDM and MG_PRODUCTION branches of the JAX
-    package's ``_solve_pressure``, and for a JACOBI or SOR batch its
+    """The JACOBI, SOR, FDM, MULTIGRID and MG_PRODUCTION branches of the
+    JAX package's ``_solve_pressure``, and for a JACOBI or SOR batch its
     batched rule (piso.py:335-360): the ``jacobi_batch`` kernel, or with
     pressure_impl "jnp" the plain masked jacobi; the plain masked sor;
     none sweeping the scenes a (B,) ``done`` marks. Returns (p', err,
@@ -304,6 +338,8 @@ def _solve_pressure(scene: Scene, pp0, rhs, dt_sub, done=None):
                                     opts.projection_div_tol / dt_sub)
     if solver == PressureSolver.SOR:
         return _solve_sor(scene, pp0, rhs, done)
+    if solver == PressureSolver.MULTIGRID:  # JAX piso.py:473-474
+        return multigrid(pp0, rhs, g.dx, g.dy, opts)
     if solver == PressureSolver.FDM:
         return _solve_fdm(scene, rhs)
     if pp0.dim() == 3:
@@ -402,6 +438,10 @@ def _substep_batched(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet):
     not carried over. Returns (u, v, p, pp, err, counts) with err (B,),
     counts (B, 2)."""
     opts, solver = scene.opts, scene.params.pressure_solver
+    if solver == PressureSolver.MULTIGRID or (solver == PressureSolver.MG_PRODUCTION
+                                              and opts.mgp_scheme == "legacy"):
+        scheme = " (legacy)" if solver == PressureSolver.MG_PRODUCTION else ""
+        raise unported(f"a batched {solver.value}{scheme} scene", BATCHES)
     if solver not in (PressureSolver.JACOBI, PressureSolver.SOR):
         raise unported(f"a batched {solver.value} scene", OTHER_SOLVERS)
     if (opts.pressure_impl in ("auto", "pallas")

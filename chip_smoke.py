@@ -25,7 +25,14 @@ Phases, one line each; any failure raises and exits non-zero:
    2048^2 SOR state after 3 steps, the full-layout kernel on the 2047^2
    one, the whole-substep kernel's SOR form on the 16x256x96 SOR ensemble
    after 20 steps (the same per-scene exits required), and one substep of
-   that form and of the plain batched SOR at B = 16 and B = 64;
+   that form and of the plain batched SOR at B = 16 and B = 64; the
+   vertex multigrid's kernels (csrc/mg.cu): on the 2048^2 and 2047^2
+   multigrid states after 3 steps, the fine level after one V-cycle, the
+   smoother at k = 5 and 10, the residual-restriction and the
+   prolongation of the cycle's own correction (with and without the p'
+   BCs); the transfers on a 33x17 level; the smoother on the 128^2 level
+   (one block); the damped smoother on the 2048^2 and 800x264 legacy
+   production states after 3 steps and on the 128^2 level;
 4. run the 800x264 default scene (the Rust app's) for 50 steps with
    make_run, print steps/s and check its physical invariants;
 5. run the benchmark's fast shape at 2048^2 (bench.py --mode fast):
@@ -46,10 +53,19 @@ Phases, one line each; any failure raises and exits non-zero:
    set_sync_debug_mode("error"); 3 steps at 2047^2 (odd: the full-layout
    kernel); 3 steps of the 800x264 scene with SOR, which must launch no
    SOR kernel and not the rounds kernel; the SOR ensemble, 16 scenes of
-   256x96, 5 warm-up steps, then 50 timed under the sync check;
+   256x96, 5 warm-up steps, then 50 timed under the sync check; the
+   JS kit's MULTIGRID (bench.py --mode production's options with that
+   solver): at 2048^2, 5 warm-up steps, then 100 timed under the sync
+   check; 3 steps at 2047^2 under it too; 3 steps of the 800x264 scene
+   with --solver multigrid (up to 20 outer rounds); the legacy production
+   projection (--mgp-scheme legacy) at 2048^2, 5 warm-up steps, then 20
+   one at a time with the V-cycles and exit of each, and 3 steps at
+   800x264; each of these paths must launch exactly its kernels;
 7. from the end states of 4, 5, 6 and the ensembles (2 of the 8
    800x264 scenes, 2 of the 16 SOR scenes), run 3 steps on CUDA and on
-   the port's CPU path and compare u, v, grad p and mean-removed p;
+   the port's CPU path and compare u, v, grad p and mean-removed p (the
+   production projections, aligned and legacy, with their solver's own
+   bound);
 8. require every kernel of each path to have launched in that path's
    run (counts set to 0 just before it, read just after).
 
@@ -72,10 +88,12 @@ import torch
 import cfd_demo_tpu_torch as tc
 from cfd_demo_tpu_torch.apps.ensemble import ensemble_scene, ensemble_state
 from cfd_demo_tpu_torch.cells import (ensemble_args, fast_scene,
+                                      legacy_production_scene, multigrid_scene,
                                       production_scene, reference_scene,
                                       rounds_args, sor_ensemble_scene, sor_scene,
                                       vcycles_launched)
 from cfd_demo_tpu_torch.kernels import _build
+from cfd_demo_tpu_torch.kernels import mg as kmg
 from cfd_demo_tpu_torch.kernels import mgp
 from cfd_demo_tpu_torch.kernels import sor as ksor
 from cfd_demo_tpu_torch.kernels.ensemble import (substep_batch, substep_batch_plain,
@@ -87,8 +105,8 @@ from cfd_demo_tpu_torch.kernels.rounds import (solve_correct_rounds,
 from cfd_demo_tpu_torch.kernels.substep import (correct_bc, correct_bc_plain,
                                                 predict_div, predict_div_plain)
 from cfd_demo_tpu_torch.ops import fdm
-from cfd_demo_tpu_torch.ops.poisson import (_cc_prolong_x, _cc_vcycle,
-                                            _smoothers)
+from cfd_demo_tpu_torch.ops.poisson import (_cc_prolong_x, _cc_vcycle, _mg_kit,
+                                            _mg_vcycle, _smoothers)
 from cfd_demo_tpu_torch.solver.piso import ramped_inlet
 
 EPS32 = float(np.finfo(np.float32).eps)
@@ -102,6 +120,8 @@ ODD, REF_PROD = "2047^2 production", "800x264 production"
 ENS64, ENS8 = "ensemble 64x256x96", "ensemble 8x800x264"
 SOR, SOR_ODD, REF_SOR = "2048^2 sor", "2047^2 sor", "800x264 sor"
 ENS_SOR = "ensemble 16x256x96 sor"
+MG, MG_ODD, REF_MG = "2048^2 multigrid", "2047^2 multigrid", "800x264 multigrid"
+LEG, REF_LEG = "2048^2 production legacy", "800x264 production legacy"
 # name -> (wrapper, source, the Pallas call site it replaces, the path
 # whose launches the JSON line reports)
 KERNELS = {
@@ -132,7 +152,17 @@ KERNELS = {
                         "cfd_demo_tpu/kernels/sor_pallas.py:939", SOR),
     "substep_batch_sor": (substep_batch_sor, "cfd_demo_tpu_torch/csrc/ensemble.cu",
                           "cfd_demo_tpu/kernels/ensemble_pallas.py:354", ENS_SOR),
+    # kernel 16, and kernel 10 (jacobi_pallas.py:1237), the same function
+    "mg_smooth": (kmg.mg_smooth, "cfd_demo_tpu_torch/csrc/mg.cu",
+                  "cfd_demo_tpu/kernels/mg_pallas.py:220", MG),
+    "mg_residual_restrict": (kmg.mg_residual_restrict, "cfd_demo_tpu_torch/csrc/mg.cu",
+                             "cfd_demo_tpu/kernels/mg_pallas.py:554", MG),
+    "mg_prolong_add": (kmg.mg_prolong_add, "cfd_demo_tpu_torch/csrc/mg.cu",
+                       "cfd_demo_tpu/kernels/mg_pallas.py:728", MG),
+    "mgp_smooth": (kmg.mgp_smooth, "cfd_demo_tpu_torch/csrc/mg.cu",
+                   "cfd_demo_tpu/kernels/mg_pallas.py:1063", LEG),
 }
+VERTEX = ("mg_residual_restrict", "mg_prolong_add")
 # The kernels each path must launch.
 PATHS = {
     REF: ("rounds",),
@@ -147,9 +177,14 @@ PATHS = {
     SOR_ODD: ("predict_div", "sor_fused_k", "correct_bc"),
     REF_SOR: (),
     ENS_SOR: ("substep_batch_sor",),
+    MG: ("predict_div", "correct_bc", "mg_smooth", *VERTEX),
+    MG_ODD: ("predict_div", "correct_bc", "mg_smooth", *VERTEX),
+    REF_MG: ("mg_smooth", *VERTEX),
+    LEG: ("predict_div", "correct_bc", "mgp_smooth", *VERTEX),
+    REF_LEG: ("mgp_smooth", *VERTEX),
 }
 # Paths that must launch their kernels and no other.
-EXACT_PATHS = (SOR, SOR_ODD, REF_SOR, ENS_SOR)
+EXACT_PATHS = (SOR, SOR_ODD, REF_SOR, ENS_SOR, MG, MG_ODD, REF_MG, LEG, REF_LEG)
 # The card's peaks (NVIDIA's H100 SXM data sheet, at the 700 W limit):
 # device-memory bytes/s and f32 FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -165,6 +200,11 @@ PREDICT, DIV_CORRECT = 100, 15
 # A red/black SOR iteration: 10 a cell (two sums, four products, the rhs
 # term, three adds), and its |change| max 3.
 SOR_ITER = 10
+# The vertex kernels, counted from csrc/mg.cu: an undamped sweep 7 a
+# cell; the residual-restriction 88 a coarse cell (nine residuals of 8,
+# the separable weights 16); the prolongation and add 12 a fine cell. A
+# damped folded sweep is SWEEP.
+MG_SWEEP, MG_RESTRICT, MG_PROLONG = 7, 88, 12
 # Twice the drift of SOR's p' between two roundings of the same
 # iterations, as a share of max|p'| an iteration (compare_with_cpu).
 SOR_DRIFT = 2e-6
@@ -737,6 +777,15 @@ def compare_with_cpu(scene, state_dev, label, steps=3, knife_edge=False):
     grad term to the u and v bounds (the corrector subtracts dt grad
     p'). They are the solver's own guarantee, not a fit to a reading.
 
+    MULTIGRID's three cycles do not converge, and their coarse
+    corrections carry the f32 rounding of each run's residual, about
+    mgp_floor eps (denom max|p'| + max|rhs|) a cell (the noise floor's
+    own definition), into the smoothest modes: two runs' p' may differ
+    by d with |A d| <= twice that, so rms(d) <= 2 E / lambda_min a solve
+    (``multigrid_noise``), summed over the steps' solves and added to the
+    mean-removed p bound alone. Those modes move p, not its gradient: u,
+    v and grad p keep their golden bounds.
+
     With ``knife_edge`` (the ensembles), a Jacobi or SOR solve with
     tolerance exits may stop one iteration apart on the two runs, at a
     float knife edge (ROADMAP.md section 3). That iteration moves p' by
@@ -759,6 +808,8 @@ def compare_with_cpu(scene, state_dev, label, steps=3, knife_edge=False):
     error stays far above jacobi_tol), ~1050 a step, so there the u and v
     bound is loose and p and grad p carry the check."""
     state_cpu = tc.state_from_numpy(tc.state_to_numpy(state_dev), "cpu")
+    if scene.params.pressure_solver == tc.PressureSolver.MULTIGRID:
+        slack_mg = multigrid_noise(scene, state_dev, steps)
     run = tc.make_run(scene, steps)
     a, da = run(state_dev)
     b, db = run(state_cpu)
@@ -771,6 +822,8 @@ def compare_with_cpu(scene, state_dev, label, steps=3, knife_edge=False):
         lam = lambda_min(g)
         slack_p, slack_grad = e.sum() / lam, e.sum() / np.sqrt(lam)
         slack_uv = float((da.dt.cpu().double().numpy() * e).sum()) / np.sqrt(lam)
+    elif scene.params.pressure_solver == tc.PressureSolver.MULTIGRID:
+        slack_p = slack_mg
     elif knife_edge:
         slack_p = steps * (1 + scene.opts.outer_corrector_rounds) * scene.opts.jacobi_tol
     if scene.params.pressure_solver == tc.PressureSolver.SOR:
@@ -799,6 +852,25 @@ def compare_with_cpu(scene, state_dev, label, steps=3, knife_edge=False):
     for k, (x, t) in out.items():
         require(x <= t, f"{label}: CUDA vs CPU {k} L2 {x} > {t}")
     return {k: x for k, (x, _) in out.items()}
+
+
+def multigrid_noise(scene, state, steps) -> float:
+    """The mean-removed p allowance of a MULTIGRID run of ``steps`` steps
+    from ``state`` (compare_with_cpu): per step, 1 + outer_corrector_rounds
+    solves times 2 E / lambda_min, E = mgp_floor eps (denom max|p'| +
+    max|rhs|) with that step's rhs (the plain predictor's) and p'."""
+    g, opts = scene.grid, scene.opts
+    denom = 2 / g.dx ** 2 + 2 / g.dy ** 2
+    step = tc.make_step(scene)
+    total = 0.0
+    for _ in range(steps):
+        rhs = predict_div_plain(state.u, state.v, state.dt, state.nu, g,
+                                scene.params.velocity_scheme, opts.semantics)[2]
+        rhs_max = float(rhs.abs().max())
+        state, _ = step(state)
+        e = opts.mgp_floor * EPS32 * (denom * float(state.p_prime.abs().max()) + rhs_max)
+        total += (1 + opts.outer_corrector_rounds) * 2 * e / lambda_min(g)
+    return total
 
 
 def take_scenes(state, idx):
@@ -938,6 +1010,257 @@ def run_sor(dev, launches, report):
     return out
 
 
+def sweep_tol(k, ref, rhs_scaled_max) -> float:
+    """16 eps k (max|p| + max|scaled rhs|): the multipliers (the TPU
+    kernels') round each sweep's terms a few ulps apart from the plain
+    divisions, and Jacobi's iteration (norm <= 1) carries that without
+    growth (tests/test_torch_mg.py)."""
+    return 16 * EPS32 * max(k, 1) * (float(ref.abs().max()) + rhs_scaled_max)
+
+
+def ulp_tol(ref) -> float:
+    """The prolongation repeats its plain version's operations: 1 ulp."""
+    return EPS32 * float(ref.abs().max())
+
+
+def coarse_levels(rhs, dx, dy, n):
+    """The rhs of the vertex hierarchy n levels below ``rhs`` (each the
+    restricted residual of a zero p'), with its spacing."""
+    for _ in range(n):
+        rhs = kmg.mg_residual_restrict(torch.zeros_like(rhs), rhs, dx, dy)
+        dx, dy = 2 * dx, 2 * dy
+    return rhs, dx, dy
+
+
+def check_mg_kernels(dev, results):
+    """Kernels 10/16-19 on their paths' own states: on the 2048^2 and
+    2047^2 multigrid states after 3 steps, the fine level after one
+    V-cycle of the next solve (what the second cycle smooths) with the
+    next rhs: the smoother at k = 5 and 10, the residual-restriction, and
+    the prolongation of the cycle's own coarse correction (with and
+    without the p' BCs); both again on a 33x17 level, and the smoother
+    on the 128^2 level (one block). The damped smoother at k = 3 on the
+    2048^2 and 800x264 legacy production states after 3 steps (p' and
+    the next rhs), and on the 128^2 level."""
+    extra = {k: {} for k in ("mg_smooth", "mg_residual_restrict", "mg_prolong_add",
+                             "mgp_smooth")}
+    worst = dict.fromkeys(extra, 0.0)
+
+    def check(name, label, got, ref, tol):
+        d = max_abs(got, ref)
+        require(bool(torch.isfinite(got).all()), f"{name} {label}: not finite")
+        require(d <= tol, f"{name} {label}: max|d| {d} > {tol}")
+        worst[name] = max(worst[name], d)
+        return f"max|d|={d:.3e} (tol {tol:.1e})"
+
+    for n in (2048, 2047):
+        scene = multigrid_scene(n)
+        g, opts = scene.grid, scene.opts
+        dx, dy = g.dx, g.dy
+        state, _ = tc.make_run(scene, 3)(scene.init_state(dev))
+        rhs = predict_div(state.u, state.v, state.dt, state.nu, g,
+                          scene.params.velocity_scheme, opts.semantics)[2]
+        kit = _mg_kit(opts)
+        p1 = _mg_vcycle(torch.zeros_like(rhs), rhs, dx, dy, opts, kit)
+        br_rhs = float(rhs.abs().max()) / (2 / dx ** 2 + 2 / dy ** 2)
+        cells = rhs.numel()
+        for k in (5, 10):
+            got = kmg.mg_smooth(p1, rhs, dx, dy, k)
+            ref = kmg.mg_smooth_plain(p1, rhs, dx, dy, k)
+            msg = check("mg_smooth", f"{n}^2 k={k}", got, ref, sweep_tol(k, ref, br_rhs))
+            ms = time_ms(lambda: kmg.mg_smooth(p1, rhs, dx, dy, k), 10)
+            plain = time_ms(lambda: kmg.mg_smooth_plain(p1, rhs, dx, dy, k), 3)
+            b = bound(nbytes(p1, rhs, got), k * MG_SWEEP * cells)
+            print(f"[3] mg_smooth {n}^2 k={k}: {msg}; kernel {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})",
+                  flush=True)
+            if n == 2048 and k == 5:
+                results["mg_smooth"] = {"ms": ms, "plain_ms": plain, **b,
+                                        "library_ms": None}
+            else:
+                extra["mg_smooth"][f"ms_{n}_k{k}"] = ms
+        got = kmg.mg_residual_restrict(p1, rhs, dx, dy)
+        ref = kmg.mg_residual_restrict_plain(p1, rhs, dx, dy)
+        msg = check("mg_residual_restrict", f"{n}^2", got, ref,
+                    res_floor(p1, rhs, 2 / dx ** 2 + 2 / dy ** 2))
+        ms = time_ms(lambda: kmg.mg_residual_restrict(p1, rhs, dx, dy), 20)
+        plain = time_ms(lambda: kmg.mg_residual_restrict_plain(p1, rhs, dx, dy), 5)
+        b = bound(nbytes(p1, rhs, got), MG_RESTRICT * got.numel())
+        print(f"[3] mg_residual_restrict {n}^2: {msg}; kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})",
+              flush=True)
+        if n == 2048:
+            results["mg_residual_restrict"] = {"ms": ms, "plain_ms": plain, **b,
+                                               "library_ms": None}
+        else:
+            extra["mg_residual_restrict"][f"ms_{n}"] = ms
+        e = _mg_vcycle(torch.zeros_like(ref), ref, 2 * dx, 2 * dy, opts, kit)
+        for bc in (False, True):
+            got = kmg.mg_prolong_add(e, p1, bc)
+            ref = kmg.mg_prolong_add_plain(e, p1, bc)
+            msg = check("mg_prolong_add", f"{n}^2 bc={bc}", got, ref, ulp_tol(ref))
+            ms = time_ms(lambda: kmg.mg_prolong_add(e, p1, bc), 20)
+            plain = time_ms(lambda: kmg.mg_prolong_add_plain(e, p1, bc), 5)
+            b = bound(nbytes(e, p1, got), MG_PROLONG * cells)
+            print(f"[3] mg_prolong_add {n}^2 bc={bc}: {msg}; kernel {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})",
+                  flush=True)
+            if n == 2048 and not bc:
+                results["mg_prolong_add"] = {"ms": ms, "plain_ms": plain, **b,
+                                             "library_ms": None}
+            else:
+                extra["mg_prolong_add"][f"ms_{n}" + ("_bc" if bc else "")] = ms
+        if n == 2048:
+            r128, dx128, dy128 = coarse_levels(rhs, dx, dy, 4)
+            z = torch.zeros_like(r128)
+            got = kmg.mg_smooth(z, r128, dx128, dy128, 5)
+            ref = kmg.mg_smooth_plain(z, r128, dx128, dy128, 5)
+            br128 = float(r128.abs().max()) / (2 / dx128 ** 2 + 2 / dy128 ** 2)
+            msg = check("mg_smooth", "128^2 level k=5", got, ref, sweep_tol(5, ref, br128))
+            ms = time_ms(lambda: kmg.mg_smooth(z, r128, dx128, dy128, 5), 20)
+            extra["mg_smooth"]["ms_128_k5_one_block"] = ms
+            print(f"[3] mg_smooth on the 128^2 level, k=5 (one block): {msg}; kernel "
+                  f"{ms:.4f} ms", flush=True)
+
+    # A small odd level: random p and rhs at the 64x coarser spacing.
+    gen = torch.Generator().manual_seed(0)
+    p = (0.01 * torch.randn((33, 17), generator=gen)).to(dev)
+    r = torch.randn((33, 17), generator=gen).to(dev)
+    h = 64 * 30.0 / 2048
+    got = kmg.mg_residual_restrict(p, r, h, h)
+    ref = kmg.mg_residual_restrict_plain(p, r, h, h)
+    msg = check("mg_residual_restrict", "33x17", got, ref, res_floor(p, r, 4 / h ** 2))
+    extra["mg_residual_restrict"]["ms_33x17"] = time_ms(
+        lambda: kmg.mg_residual_restrict(p, r, h, h), 20)
+    e = torch.randn(kmg.coarse_shape(33, 17), generator=gen).to(dev)
+    msgs = [msg]
+    for bc in (False, True):
+        got = kmg.mg_prolong_add(e, p, bc)
+        ref = kmg.mg_prolong_add_plain(e, p, bc)
+        msgs.append(check("mg_prolong_add", f"33x17 bc={bc}", got, ref, ulp_tol(ref)))
+    extra["mg_prolong_add"]["ms_33x17"] = time_ms(lambda: kmg.mg_prolong_add(e, p), 20)
+    print(f"[3] transfers on a 33x17 level: restrict {msgs[0]}; prolong {msgs[1]}, "
+          f"with the BCs {msgs[2]}", flush=True)
+
+    for n, make in ((2048, legacy_production_scene),
+                    (800, lambda: tc.make_scene(tc.default_grid(), tc.SimulationParams(
+                        pressure_solver=tc.PressureSolver.MG_PRODUCTION),
+                        tc.solver_options_for(tc.Semantics.RUST, mgp_scheme="legacy")))):
+        scene = make()
+        g, opts = scene.grid, scene.opts
+        dx, dy, om, k = g.dx, g.dy, opts.jacobi_omega, opts.mgp_smooth
+        init = scene.init_state(dev)
+        init.step.fill_(0 if n == 2048 else 50)  # 800x264: the inlet ramp half way
+        state, _ = tc.make_run(scene, 3)(init)
+        rhs = predict_div(state.u, state.v, state.dt, state.nu, g,
+                          scene.params.velocity_scheme, opts.semantics)[2]
+        pp = state.p_prime
+        ar_rhs = om * float(rhs.abs().max()) / (2 / dx ** 2 + 2 / dy ** 2)
+        got = kmg.mgp_smooth(pp, rhs, dx, dy, om, k)
+        ref = kmg.mgp_smooth_plain(pp, rhs, dx, dy, om, k)
+        label = f"{g.nx}x{g.ny}"
+        msg = check("mgp_smooth", f"{label} k={k}", got, ref, sweep_tol(k, ref, ar_rhs))
+        ms = time_ms(lambda: kmg.mgp_smooth(pp, rhs, dx, dy, om, k), 20)
+        plain = time_ms(lambda: kmg.mgp_smooth_plain(pp, rhs, dx, dy, om, k), 5)
+        b = bound(nbytes(pp, rhs, got), k * SWEEP * pp.numel())
+        print(f"[3] mgp_smooth {label} legacy state k={k}: {msg}; kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})",
+              flush=True)
+        if n == 2048:
+            results["mgp_smooth"] = {"ms": ms, "plain_ms": plain, **b, "library_ms": None}
+            r128, dx128, dy128 = coarse_levels(rhs, dx, dy, 4)
+            z = torch.zeros_like(r128)
+            got = kmg.mgp_smooth(z, r128, dx128, dy128, om, k)
+            ref = kmg.mgp_smooth_plain(z, r128, dx128, dy128, om, k)
+            ar128 = om * float(r128.abs().max()) / (2 / dx128 ** 2 + 2 / dy128 ** 2)
+            msg = check("mgp_smooth", "128^2 level", got, ref, sweep_tol(k, ref, ar128))
+            extra["mgp_smooth"]["ms_128_one_block"] = time_ms(
+                lambda: kmg.mgp_smooth(z, r128, dx128, dy128, om, k), 20)
+            print(f"[3] mgp_smooth on the 128^2 level, k={k} (one block): {msg}",
+                  flush=True)
+        else:
+            extra["mgp_smooth"]["ms_800x264"] = ms
+    for name, more in extra.items():
+        results[name].update(more, max_abs_err=worst[name])
+
+
+def run_vertex(dev, launches, report):
+    """The vertex multigrid's paths: MULTIGRID at 2048^2 (5 warm-up steps,
+    100 timed under set_sync_debug_mode("error")) and 2047^2 (3 steps,
+    the same check), the 800x264 scene with --solver multigrid (3 steps,
+    Rust defaults: up to 20 outer rounds); the legacy production
+    projection at 2048^2 (5 warm-up steps, then 20 one at a time, V-cycles
+    per step and each step's exit named) and 800x264 (3 steps). Returns
+    their (scene, end state, label) triples."""
+    out = []
+    scene = multigrid_scene()
+    n = scene.grid.nx
+    state, _ = tc.make_run(scene, 5)(scene.init_state(dev))
+    state, sec, launches[MG] = timed_run(scene, state, 100, True)
+    check_invariants(scene, state, MG)
+    rate = n * n * 100 / sec
+    report[MG] = {"cell_updates_per_s": rate, "steps_per_s": 100 / sec,
+                  "res_p": float(state.res_p)}
+    print(f"[6] {MG}: 100 steps in {sec:.4f} s = {rate:.4e} cell-updates/s "
+          f"({100 / sec:.2f} steps/s), no host sync (set_sync_debug_mode error); "
+          f"res_p after 3 cycles {float(state.res_p):.3e}", flush=True)
+    out.append((scene, state, MG))
+
+    scene = multigrid_scene(2047)
+    state, sec, launches[MG_ODD] = timed_run(scene, scene.init_state(dev), 3, True)
+    check_invariants(scene, state, MG_ODD)
+    report[MG_ODD] = {"steps_per_s": 3 / sec}
+    print(f"[6] {MG_ODD}: 3 steps from rest in {sec:.4f} s, no host sync", flush=True)
+    out.append((scene, state, MG_ODD))
+
+    for label, params, opts in (
+            (REF_MG, tc.SimulationParams(pressure_solver=tc.PressureSolver.MULTIGRID),
+             tc.solver_options_for(tc.Semantics.RUST)),
+            (REF_LEG, tc.SimulationParams(pressure_solver=tc.PressureSolver.MG_PRODUCTION),
+             tc.solver_options_for(tc.Semantics.RUST, mgp_scheme="legacy"))):
+        scene = tc.make_scene(tc.default_grid(), params, opts)
+        init = scene.init_state(dev)
+        init.step.fill_(50)  # the inlet ramp half way up
+        state, sec, launches[label] = timed_run(scene, init, 3, False)
+        check_invariants(scene, state, label)
+        report[label] = {"steps_per_s": 3 / sec, "res_p": float(state.res_p)}
+        print(f"[6] {label}: 3 steps in {sec:.4f} s = {3 / sec:.2f} steps/s (up to 20 "
+              f"outer rounds, one host read a round), res_p {float(state.res_p):.3e}",
+              flush=True)
+        out.append((scene, state, label))
+
+    scene = legacy_production_scene()
+    steps = 20
+    state, _ = tc.make_run(scene, 5)(scene.init_state(dev))
+    step = tc.make_step(scene)
+    states, diags, cycles = [state], [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        c0 = vcycles_launched(scene)
+        state, d = step(state)
+        cycles.append(vcycles_launched(scene) - c0)
+        states.append(state)
+        diags.append(d)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches[LEG] = read_counts()
+    check_invariants(scene, state, LEG)
+    exits = production_exits(scene, states, diags, cycles)
+    rate = n * n * steps / sec
+    report[LEG] = {"cell_updates_per_s": rate, "steps_per_s": steps / sec,
+                   "vcycles_per_step": cycles, "exits": exits,
+                   "res_p": [float(d.res_p) for d in diags]}
+    print(f"[6] {LEG}: {steps} steps in {sec:.4f} s = {rate:.4e} cell-updates/s "
+          f"({steps / sec:.2f} steps/s); V-cycles per step {cycles} (mean "
+          f"{np.mean(cycles):.2f}); exits: "
+          + ", ".join(f"{e} x{exits.count(e)}" for e in dict.fromkeys(exits)),
+          flush=True)
+    out.append((scene, state, LEG))
+    return out
+
+
 def reset_counts():
     for wrapper, _, _, _ in KERNELS.values():
         wrapper.launches = 0
@@ -1011,6 +1334,7 @@ def main() -> int:
     check_fdm(dev, report)
     check_ensemble_kernels(dev, results)
     check_sor_kernels(dev, results, report)
+    check_mg_kernels(dev, results)
     launches = {}
 
     scene_a = reference_scene()
@@ -1100,19 +1424,18 @@ def main() -> int:
         pressure_solver=tc.PressureSolver.MG_PRODUCTION))
     init_e = scene_e.init_state(dev)
     init_e.step.fill_(50)  # the inlet ramp half way up
-    torch.cuda.synchronize()
-    reset_counts()
-    state_e, _ = tc.make_run(scene_e, 3)(init_e)
-    torch.cuda.synchronize()
-    launches[REF_PROD] = read_counts()
+    state_e, sec_e, launches[REF_PROD] = timed_run(scene_e, init_e, 3, False)
     check_invariants(scene_e, state_e, "800x264 production")
     require(launches[REF_PROD]["rounds"] == 0,
             "800x264 MG_PRODUCTION launched the Jacobi rounds kernel")
-    print(f"[6] 800x264 production: 3 steps, no rounds-kernel launch, res_p "
-          f"{float(state_e.res_p):.3e}", flush=True)
+    report[REF_PROD] = {"steps_per_s": 3 / sec_e}
+    print(f"[6] 800x264 production: 3 steps in {sec_e:.4f} s = {3 / sec_e:.2f} "
+          f"steps/s, no rounds-kernel launch, res_p {float(state_e.res_p):.3e}",
+          flush=True)
 
     (scene_f, state_f), (scene_g, state_g) = run_ensembles(dev, launches, report)
     sor_runs = run_sor(dev, launches, report)
+    vertex_runs = run_vertex(dev, launches, report)
 
     report["cpu_compare"] = {
         "800x264": compare_with_cpu(scene_a, state_a, "800x264"),
@@ -1130,6 +1453,8 @@ def main() -> int:
         # fixed schedule
         report["cpu_compare"][label] = compare_with_cpu(
             scene, state, label, knife_edge=label.startswith(ENS_SOR))
+    for scene, state, label in vertex_runs:
+        report["cpu_compare"][label] = compare_with_cpu(scene, state, label)
 
     for path, names in PATHS.items():
         counts = {k: launches[path][k] for k in names}

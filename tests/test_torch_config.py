@@ -96,10 +96,14 @@ _UNPORTED = [
     (_G, tcfg.SimulationParams(pressure_solver=tcfg.PressureSolver.SOR),
      tcfg.solver_options_for(tcfg.Semantics.RUST, differentiable=True,
                              early_exit=False, outer_corrector_rounds=0)),
-    (_G, tcfg.SimulationParams(pressure_solver=tcfg.PressureSolver.MULTIGRID), _RUST),
-    # MG_PRODUCTION is ported with its aligned cycle; the legacy one is not.
+    # MULTIGRID and both MG_PRODUCTION cycles are ported; under CAVITY and
+    # differentiable they are not.
+    (_G, tcfg.SimulationParams(pressure_solver=tcfg.PressureSolver.MULTIGRID,
+                               flow_case=tcfg.FlowCase.CAVITY), _RUST),
     (_G, tcfg.SimulationParams(pressure_solver=tcfg.PressureSolver.MG_PRODUCTION),
-     tcfg.solver_options_for(tcfg.Semantics.RUST, mgp_scheme="legacy")),
+     tcfg.solver_options_for(tcfg.Semantics.RUST, mgp_scheme="legacy",
+                             differentiable=True, early_exit=False,
+                             outer_corrector_rounds=0)),
     (_G, tcfg.SimulationParams(pressure_solver=tcfg.PressureSolver.FDM,
                                flow_case=tcfg.FlowCase.CAVITY), _RUST),
     (_G, tcfg.SimulationParams(flow_case=tcfg.FlowCase.CAVITY), _RUST),

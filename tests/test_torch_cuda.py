@@ -16,6 +16,7 @@ import cfd_demo_tpu_torch as tc
 from cfd_demo_tpu_torch.kernels import ensemble as kens
 from cfd_demo_tpu_torch.kernels import jacobi as kjac
 from cfd_demo_tpu_torch.kernels import jacobi_batch as kjb
+from cfd_demo_tpu_torch.kernels import mg as kmg
 from cfd_demo_tpu_torch.kernels import mgp as kmgp
 from cfd_demo_tpu_torch.kernels import rounds as krounds
 from cfd_demo_tpu_torch.kernels import sor as ksor
@@ -417,3 +418,105 @@ def test_substep_batch_sor(cuda, nx, ny, B, opts):
                 assert float(d.abs().max()) <= drift * max(1.0, float(b.abs().max())), name
         args = (*ref[:4], *args[4:])
     assert kens.substep_batch_sor.launches == n0 + 2
+
+
+# The vertex multigrid's kernels (csrc/mg.cu) on even, odd and 3-wide
+# levels, and on both routes of the smoothers: 150x161 (24,150 cells) is
+# above the one-block limit (csrc/mg.cu kBlockCells, 19,370), the others
+# below. Tolerances as tests/test_torch_mg.py states them.
+MG_SHAPES = [(64, 96), (37, 53), (3, 17), (17, 3), (150, 161)]
+EPS = torch.finfo(torch.float32).eps
+
+
+def _sweep_tol(k, p_ref, rhs_scaled_max):
+    """16 eps k (max|p| + max|scaled rhs|): the multipliers' few ulps a
+    sweep, carried by Jacobi's iteration without growth."""
+    return 16 * EPS * max(k, 1) * (float(p_ref.abs().max()) + rhs_scaled_max)
+
+
+@pytest.mark.parametrize("shape", MG_SHAPES)
+@pytest.mark.parametrize("k", [0, 1, 5, 10])
+def test_mg_smooth(cuda, shape, k):
+    p, rhs, dx, dy = _fine(shape, seed=16)
+    p = p + 0.05  # a boundary that the undamped sweeps must read and keep
+    n0 = kmg.mg_smooth.launches
+    got = kmg.mg_smooth(p.to(cuda), rhs.to(cuda), dx, dy, k)
+    ref = kmg.mg_smooth_plain(p, rhs, dx, dy, k)
+    assert kmg.mg_smooth.launches == n0 + (k > 0)
+    br = 1 / (2 / dx ** 2 + 2 / dy ** 2)
+    tol = _sweep_tol(k, ref, br * float(rhs.abs().max()))
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=tol)
+    ring = torch.ones(shape, dtype=torch.bool)
+    ring[1:-1, 1:-1] = False
+    assert torch.equal(got.cpu()[ring], p[ring])
+
+
+@pytest.mark.parametrize("shape", MG_SHAPES)
+def test_mg_residual_restrict(cuda, shape):
+    p, rhs, dx, dy = _fine(shape, seed=17)
+    got = kmg.mg_residual_restrict(p.to(cuda), rhs.to(cuda), dx, dy)
+    ref = kmg.mg_residual_restrict_plain(p, rhs, dx, dy)
+    assert tuple(got.shape) == kmg.coarse_shape(*shape)
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=_res_tol(p, rhs, dx, dy))
+
+
+@pytest.mark.parametrize("shape", MG_SHAPES)
+@pytest.mark.parametrize("bc", [False, True])
+def test_mg_prolong_add(cuda, shape, bc):
+    """The plain version's operations in its order: equal but for the
+    last bit (1 ulp of max|out| allowed)."""
+    p, _, _, _ = _fine(shape, seed=18)
+    g = torch.Generator().manual_seed(19)
+    e = torch.randn(kmg.coarse_shape(*shape), generator=g)
+    got = kmg.mg_prolong_add(e.to(cuda), p.to(cuda), bc)
+    ref = kmg.mg_prolong_add_plain(e, p, bc)
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=EPS * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("shape", MG_SHAPES)
+@pytest.mark.parametrize("k", [0, 3, 10])
+def test_mgp_smooth(cuda, shape, k):
+    p, rhs, dx, dy = _fine(shape, seed=20)  # BC-consistent, as the cycle passes
+    got = kmg.mgp_smooth(p.to(cuda), rhs.to(cuda), dx, dy, 0.75, k)
+    ref = kmg.mgp_smooth_plain(p, rhs, dx, dy, 0.75, k)
+    ar = 0.75 / (2 / dx ** 2 + 2 / dy ** 2)
+    torch.testing.assert_close(got.cpu(), ref, rtol=0,
+                               atol=_sweep_tol(k, ref, ar * float(rhs.abs().max())))
+
+
+def _vertex_scene(nx, ny, solver, **opts):
+    grid = tc.Grid(nx=nx, ny=ny, lx=30.0, ly=30.0 * ny / nx,
+                   obstacles=(tc.Cylinder(7.5, 15.0 * ny / nx, 3.0),))
+    return tc.make_scene(grid, tc.SimulationParams(
+        dt=0.002, viscosity=1e-4, pressure_solver=getattr(tc.PressureSolver, solver)),
+        tc.solver_options_for(RUST, ramp_up_steps=2, outer_corrector_rounds=0, **opts))
+
+
+@pytest.mark.parametrize("nx,ny,solver", [(96, 64, "MULTIGRID"), (97, 63, "MULTIGRID"),
+                                          (96, 64, "MG_PRODUCTION")])
+def test_vertex_steps_match_cpu_path(cuda, nx, ny, solver):
+    """Three fused-route steps on the card and on the CPU path (MULTIGRID,
+    or the legacy MG_PRODUCTION cycle): u and v to 1e-5, p' to 1e-3 of
+    its max after removing the mean (the legacy solve exits at its noise
+    floor, tests/test_torch_mgp.py); every kernel of the cycle launched.
+    The MULTIGRID run, without outer rounds, never synchronises."""
+    scene = _vertex_scene(nx, ny, solver, substep_impl="pallas", mgp_scheme="legacy")
+    names = ("mg_smooth", "mg_residual_restrict", "mg_prolong_add", "mgp_smooth")
+    before = [getattr(kmg, n).launches for n in names]
+    state = scene.init_state(cuda)
+    tc.make_run(scene, 1)(state)  # warm the allocator
+    torch.cuda.synchronize()
+    if solver == "MULTIGRID":
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        a, _ = tc.make_run(scene, 3)(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    b, _ = tc.make_run(scene, 3)(scene.init_state("cpu"))
+    ran = {n for n, b0 in zip(names, before) if getattr(kmg, n).launches > b0}
+    want = ({"mg_smooth"} if solver == "MULTIGRID" else {"mgp_smooth"})
+    assert ran == want | {"mg_residual_restrict", "mg_prolong_add"}
+    for f in ("u", "v"):
+        assert_close(getattr(a, f), getattr(b, f), rtol=1e-5)
+    d = (a.p_prime.cpu() - b.p_prime).double()
+    assert float((d - d.mean()).abs().max()) <= 1e-3 * max(1e-6, float(b.p_prime.abs().max()))

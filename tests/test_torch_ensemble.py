@@ -361,9 +361,13 @@ def test_other_solvers_raise_naming_their_item():
         tc.solver_options_for(tc.Semantics.RUST, early_exit=False))
     with pytest.raises(NotImplementedError, match="batched fdm.*queue 1 item 7"):
         tc.make_step(fdm)(tc.batch_state(fdm.init_state("cpu"), 2))
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tc.make_scene(tc.default_grid(), tc.SimulationParams(
-            pressure_solver=tc.PressureSolver.MULTIGRID))
+    # MULTIGRID steps one scene (tests/test_torch_mg_step.py); its batches wait
+    mgs = tc.make_scene(
+        tc.Grid(nx=16, ny=12, lx=1.0, ly=1.0),
+        tc.SimulationParams(pressure_solver=tc.PressureSolver.MULTIGRID),
+        tc.solver_options_for(tc.Semantics.RUST, early_exit=False))
+    with pytest.raises(NotImplementedError, match="batched multigrid.*queue 1 item 9"):
+        tc.make_step(mgs)(tc.batch_state(mgs.init_state("cpu"), 2))
     scene = tc.make_scene(
         tc.Grid(nx=16, ny=12, lx=1.0, ly=1.0),
         tc.SimulationParams(pressure_solver=tc.PressureSolver.MG_PRODUCTION),

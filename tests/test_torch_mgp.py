@@ -274,7 +274,8 @@ def test_early_exit_and_masked_loop_agree():
 
 def test_size_rule_and_legacy_scheme(monkeypatch):
     """mgp_smooth 3 becomes 5 from 48M cells (ops/poisson.py:1113-1121)
-    unless set explicitly; "legacy" names what would port it."""
+    unless set explicitly; "legacy" is taken (tests/test_torch_mg_legacy.py),
+    an unknown scheme raises."""
     seen = []
     monkeypatch.setattr(TP, "_smoothers", lambda opts: seen.append(opts.mgp_smooth)
                         or (_ for _ in ()).throw(StopIteration))
@@ -283,8 +284,10 @@ def test_size_rule_and_legacy_scheme(monkeypatch):
         with pytest.raises(StopIteration):
             TP.multigrid_production(big, big, 1.0, 1.0, _topts(mgp_smooth=smooth), 1.0)
         assert seen.pop() == want
-    with pytest.raises(NotImplementedError, match="queue 2 kernel 19"):
+    with pytest.raises(StopIteration):  # past the scheme check, into the solve
         TP.multigrid_production(big, big, 1.0, 1.0, _topts(mgp_scheme="legacy"), 1.0)
+    with pytest.raises(ValueError, match="mgp_scheme"):
+        TP.multigrid_production(big, big, 1.0, 1.0, _topts(mgp_scheme="vertex"), 1.0)
 
 
 @pytest.mark.parametrize("shape,want", [
