@@ -1,6 +1,6 @@
 """The port's measured shapes, and where their device time goes.
 
-Ten cells, each at full size, from the JAX package's own defaults:
+Twelve cells, each at full size, from the JAX package's own defaults:
 
 - :func:`reference_scene`: the README quick start, the Rust app's
   800x264 cylinder channel with default parameters and solver options
@@ -29,7 +29,13 @@ Ten cells, each at full size, from the JAX package's own defaults:
   outer rounds: the fused route, no host read);
 - :func:`legacy_production_scene`: ``bench.py --mode production
   --mgp-scheme legacy`` at 2048² (the vertex hierarchy with damped p'-BC
-  sweeps, to the same exits as the aligned cycle).
+  sweeps, to the same exits as the aligned cycle);
+- :func:`js_default_scene`: the JS twin's default scene, the web UI's
+  JS mode (400x132, adaptive 5..20 substeps, extrapolation, a zero warm
+  start; the rounds-kernel route once a substep);
+- :func:`js_quick_scene`: ``bench.py --mode fast``'s grid and fixed
+  schedule with JS semantics, QUICK faces and the PARABOLIC inlet, one
+  substep (the fused route with those kernel variants).
 
 :func:`fdm_scene` is ``bench.py --mode fdm`` (the exact FDM projection),
 a shape without a kernel of its own. ``chip_smoke.py`` drives all but
@@ -57,16 +63,17 @@ import time
 
 import torch
 
-from .core.config import (Cylinder, Grid, PressureSolver, Semantics,
-                          SimulationParams, default_grid, solver_options_for)
+from .core.config import (Cylinder, Grid, InletProfile, PressureSolver,
+                          Semantics, SimulationParams, VelocityScheme,
+                          default_grid, default_js_grid, solver_options_for)
 from .apps.ensemble import ensemble_scene, ensemble_state
 from .kernels import mg, mgp
 from .kernels.ensemble import substep_batch, substep_batch_fits, substep_batch_sor
 from .kernels.jacobi_batch import jacobi_batch
 from .kernels.rounds import solve_correct_rounds
-from .kernels.substep import correct_bc, predict_div, predict_div_plain
-from .solver.piso import (_substep_jnp, _use_fused_substep, make_run,
-                          make_scene, make_step, ramped_inlet)
+from .kernels.substep import correct_bc, correct_div, predict_div, predict_div_plain
+from .solver.piso import (_substep_jnp, _use_fused_substep, _warm_start,
+                          make_run, make_scene, make_step, ramped_inlet)
 
 
 def reference_scene():
@@ -90,10 +97,34 @@ def fast_scene(n: int = 2048):
                       opts)
 
 
-def reference_mode_scene(n: int = 2048):
-    """bench.py --mode reference (bench.py:117-120)."""
+def reference_mode_scene(n: int = 2048, rounds_impl: str = "auto"):
+    """bench.py --mode reference (bench.py:117-120); ``rounds_impl="pallas"``
+    runs each outer round's corrector and divergence as one correct_div
+    launch."""
     return make_scene(_bench_grid(n), SimulationParams(dt=0.002, viscosity=1e-4),
-                      solver_options_for(Semantics.RUST, ramp_up_steps=10))
+                      solver_options_for(Semantics.RUST, ramp_up_steps=10,
+                                         rounds_impl=rounds_impl))
+
+
+def js_default_scene():
+    """The JS twin's default scene as the web UI's JS mode runs it
+    (apps/web/server.py:52-76): default_js_grid(), dt 0.005, viscosity
+    1e-6 and solver_options_for(Semantics.JS)."""
+    return make_scene(default_js_grid(), SimulationParams(dt=0.005, viscosity=1e-6),
+                      solver_options_for(Semantics.JS))
+
+
+def js_quick_scene(n: int = 2048):
+    """bench.py --mode fast's grid and fixed schedule (bench.py:78-86)
+    with JS semantics (extrapolation, the zero warm start), QUICK faces
+    and the PARABOLIC inlet, the substep count pinned to one."""
+    opts = solver_options_for(
+        Semantics.JS, ramp_up_steps=10, jacobi_tol=0.0, jacobi_iters=50,
+        outer_corrector_rounds=0, early_exit=False, substeps_adaptive=False,
+        substeps_init=1, extrapolate=True)
+    return make_scene(_bench_grid(n), SimulationParams(
+        dt=0.002, viscosity=1e-4, velocity_scheme=VelocityScheme.QUICK,
+        inlet_profile=InletProfile.PARABOLIC), opts)
 
 
 def production_scene(n: int = 2048):
@@ -150,15 +181,17 @@ def sor_ensemble_scene(nx: int = 256, ny: int = 96):
 
 
 def rounds_args(scene, state):
-    """What the rounds route feeds the rounds kernel in the next step
-    from ``state``: the plain predictor's u*, v* and rhs, with p, p' and
-    the step's dt and inlet."""
+    """What the rounds route feeds the rounds kernel in the next (first)
+    substep from ``state``: the plain predictor's u*, v* and rhs of the
+    state's fields (JS's extrapolation aside), with p, the warm start
+    (zero in JS), dt over the substep count and the inlet."""
     g = scene.grid
+    dt_sub = state.dt / state.substeps.to(state.dt.dtype)
     u_star, v_star, rhs = predict_div_plain(
-        state.u, state.v, state.dt, state.nu, g,
+        state.u, state.v, dt_sub, state.nu, g,
         scene.params.velocity_scheme, scene.opts.semantics)
-    return (u_star, v_star, state.p, state.p_prime, rhs, state.dt,
-            ramped_inlet(scene.opts, state), scene)
+    return (u_star, v_star, state.p, _warm_start(scene.opts, state.p_prime),
+            rhs, dt_sub, ramped_inlet(scene.opts, state), scene)
 
 
 def ensemble_args(scene, state):
@@ -214,13 +247,16 @@ CELLS = {
     "ensemble 16x256x96 sor": (sor_ensemble_scene, 20, 50, 16),
     "2048^2 multigrid": (multigrid_scene, 5, 100, None),
     "2048^2 production legacy": (legacy_production_scene, 5, 20, None),
+    "400x132 js default": (js_default_scene, 100, 50, None),
+    "2048^2 js quick": (js_quick_scene, 5, 100, None),
 }
 
 
 # Kernels each launch of these wrappers runs one of: the trace must hold
 # as many as the wrappers counted. (jacobi_fused_k_res, cc_sweeps and the
 # SOR chains launch kernels that others launch too, or k of them a call.)
-TRACED = {"predict_div_kernel(": (predict_div,), "correct_bc_kernel(": (correct_bc,),
+TRACED = {"predict_div_kernel": (predict_div,), "correct_bc_kernel(": (correct_bc,),
+          "correct_div_kernel(": (correct_div,),
           "rounds_kernel(": (solve_correct_rounds,),
           "ensemble_substep_kernel(": (substep_batch, substep_batch_sor),
           "jacobi_batch_kernel(": (jacobi_batch,),
@@ -277,7 +313,7 @@ def device_breakdown(scene, state, steps):
             raise RuntimeError("torch.profiler recorded no device activity")
         counted = {k: sum(w.launches for w in ws) - before[k] for k, ws in TRACED.items()}
         lost = [f"the trace holds {sum(kernel in e.name for e in events)} of "
-                f"{n} {kernel[:-1]} launches"
+                f"{n} {kernel.rstrip('(')} launches"
                 for kernel, n in counted.items()
                 if sum(kernel in e.name for e in events) != n]
         if not lost:
@@ -308,9 +344,11 @@ def measure(name, make, warmup, timed, batch, dev):
     cycles0 = vcycles_launched(scene)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, _ = run(state)
+    state, diags = run(state)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
+    if scene.opts.substeps_adaptive:
+        out["substeps_per_step"] = float(diags.substeps.double().mean())
     if scene.params.pressure_solver == PressureSolver.MG_PRODUCTION:
         out["vcycles_per_step"] = (vcycles_launched(scene) - cycles0) / timed
     if not bool(torch.isfinite(state.u).all()):
@@ -340,7 +378,9 @@ def measure(name, make, warmup, timed, batch, dev):
           + (f" (at most {out['max_rounds']:g} and {out['max_sweeps']:g})"
              if "max_sweeps" in out else "")
           + (f"; {out['vcycles_per_step']} V-cycles per step"
-             if "vcycles_per_step" in out else ""),
+             if "vcycles_per_step" in out else "")
+          + (f"; {out['substeps_per_step']:g} substeps per step (rounds and "
+             f"sweeps: per substep)" if "substeps_per_step" in out else ""),
           flush=True)
     for n, us, c in rows[:8]:
         print(f"    {us:10.1f} us/step {100 * us / busy_us:5.1f}%  x{c:g}  {n[:90]}",

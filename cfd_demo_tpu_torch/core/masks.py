@@ -1,16 +1,21 @@
 """Obstacle masks built on the device from index tensors
-(↔ cfd_demo_tpu/core/masks.py ``masks_traced``, Rust branch).
+(↔ cfd_demo_tpu/core/masks.py ``masks_traced``).
 
 Rust semantics (model.rs:232-261): a cell whose *centre* lies strictly
 inside a cylinder marks both adjacent u faces and both adjacent v faces
 for the predictor; the end-of-substep BCs zero only the west u face and
 the south v face of each such cell (model.rs:869-874).
 
+JS semantics (index.html:377-380, :912-929): the predictor and the BCs
+both test the *face position itself*, u face (i dx, (j + 0.5) dy) and v
+face ((i + 0.5) dx, j dy), with an inclusive radius.
+
 Coordinates are computed in f32 exactly as the JAX package does,
 ``(i + off) * dx`` with ``dx`` rounded to f32, and compared against
 ``f32(r**2)``: a face on the cylinder's rim flips if any of these
-roundings differ, so the CUDA kernels use the same operations
-(csrc/common.cuh ``inside_any``).
+roundings differ. The CUDA kernels read these tensors (one byte a face)
+rather than testing obstacles themselves, so any number of cylinders
+runs on the card.
 """
 from __future__ import annotations
 
@@ -20,29 +25,29 @@ import numpy as np
 import torch
 
 from .config import Cylinder, Grid, Semantics
-from .unported import WIDEN_STEP, unported
+from .unported import BOX_FLOAT64, unported
 
 
-def _inside_any(grid: Grid, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def _inside_any(grid: Grid, x: torch.Tensor, y: torch.Tensor,
+                inclusive: bool = False) -> torch.Tensor:
     acc = torch.zeros(torch.broadcast_shapes(x.shape, y.shape),
                       dtype=torch.bool, device=x.device)
     for obs in grid.obstacles:
         if not isinstance(obs, Cylinder):
-            raise unported(f"obstacle {type(obs).__name__}", WIDEN_STEP)
+            raise unported(f"obstacle {type(obs).__name__}", BOX_FLOAT64)
         dxo = x - float(np.float32(obs.center_x))
         dyo = y - float(np.float32(obs.center_y))
-        acc |= (dxo * dxo + dyo * dyo) < float(np.float32(obs.radius ** 2))
+        d2, r2 = dxo * dxo + dyo * dyo, float(np.float32(obs.radius ** 2))
+        acc |= (d2 <= r2) if inclusive else (d2 < r2)
     return acc
 
 
 @functools.lru_cache(maxsize=16)
 def masks_traced(grid: Grid, semantics: Semantics, device):
-    """(mask_u, mask_v, mask_u_bc, mask_v_bc) as bool tensors in the
-    storage shapes (ny, nx+1) and (ny, nx) on ``device``; a tuple of
-    None when the scene has no obstacles. Cached per (grid, semantics,
+    """(mask_u, mask_v, mask_u_bc, mask_v_bc) as contiguous bool tensors
+    in the storage shapes (ny, nx+1) and (ny, nx) on ``device``; a tuple
+    of None when the scene has no obstacles. Cached per (grid, semantics,
     device): callers must not write into the returned tensors."""
-    if semantics != Semantics.RUST:
-        raise unported("JS semantics (face-position masks)", WIDEN_STEP)
     if not grid.obstacles:
         return None, None, None, None
     ny, nx = grid.ny, grid.nx
@@ -52,6 +57,12 @@ def masks_traced(grid: Grid, semantics: Semantics, device):
     iu = torch.arange(nx + 1, device=device)[None, :]
     iv = torch.arange(nx, device=device)[None, :]
     jj = torch.arange(ny, device=device)[:, None]
+    if semantics == Semantics.JS:
+        yu = (jj.to(f32) + 0.5) * dy
+        mask_u = _inside_any(grid, (iu.to(f32) + 0.0) * dx, yu, True)
+        xv = (iv.to(f32) + 0.5) * dx
+        mask_v = _inside_any(grid, xv, (jj.to(f32) + 0.0) * dy, True)
+        return mask_u, mask_v, mask_u, mask_v
     # u face f: cells west (i-1) and east (i) of it, on row j.
     yc = (jj.to(f32) + 0.5) * dy
     in_w = _inside_any(grid, (iu.to(f32) + (-0.5)) * dx, yc) & (iu >= 1)

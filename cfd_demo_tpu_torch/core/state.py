@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from .config import Grid, Semantics, SimulationParams, SolverOptions
-from .unported import WIDEN_STEP, unported
+from .unported import BOX_FLOAT64, unported
 
 _FIELDS = ("u", "v", "p", "p_prime", "u_prev", "v_prev", "dt", "dt_user",
            "nu", "target_inlet", "t", "step", "substeps", "res_u", "res_v",
@@ -36,7 +36,7 @@ class State:
     v: torch.Tensor
     p: torch.Tensor
     p_prime: torch.Tensor
-    u_prev: Optional[torch.Tensor]  # JS extrapolation only (None here)
+    u_prev: Optional[torch.Tensor]  # JS only: the last step's entry u (extrapolation)
     v_prev: Optional[torch.Tensor]
     # runtime scalars (hot-swappable), 0-d tensors
     dt: torch.Tensor
@@ -63,18 +63,18 @@ class State:
 
 def init_state(grid: Grid, params: SimulationParams, opts: SolverOptions,
                device="cuda", dtype=torch.float32) -> State:
-    """Zero-initialized state (model.rs:219-299), on the card unless
-    ``device`` says otherwise (``device="cpu"`` for the CPU path)."""
+    """Zero-initialized state (model.rs:219-299, index.html:218-258), on
+    the card unless ``device`` says otherwise (``device="cpu"`` for the
+    CPU path). JS semantics carries u_prev and v_prev (zeros)."""
     if dtype != torch.float32:
-        raise unported(f"dtype {dtype}", WIDEN_STEP)
-    if opts.semantics != Semantics.RUST:
-        raise unported("JS semantics", WIDEN_STEP)
+        raise unported(f"dtype {dtype}", BOX_FLOAT64)
+    js = opts.semantics == Semantics.JS
     f = lambda x: torch.tensor(x, dtype=dtype, device=device)
-    zp = torch.zeros((grid.ny, grid.nx), dtype=dtype, device=device)
+    zu = lambda: torch.zeros((grid.ny, grid.nx + 1), dtype=dtype, device=device)
+    zp = lambda: torch.zeros((grid.ny, grid.nx), dtype=dtype, device=device)
     return State(
-        u=torch.zeros((grid.ny, grid.nx + 1), dtype=dtype, device=device),
-        v=zp.clone(), p=zp.clone(), p_prime=zp,
-        u_prev=None, v_prev=None,
+        u=zu(), v=zp(), p=zp(), p_prime=zp(),
+        u_prev=zu() if js else None, v_prev=zp() if js else None,
         dt=f(params.dt), dt_user=f(params.dt), nu=f(params.viscosity),
         target_inlet=f(params.target_inlet_velocity),
         t=f(0.0),

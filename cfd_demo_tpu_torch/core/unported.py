@@ -2,12 +2,12 @@
 from __future__ import annotations
 
 # ROADMAP.md queue-1 items that port what the slice leaves out.
-WIDEN_STEP = "queue 1 item 6"      # JS semantics, SECOND/QUICK, inlets, CAVITY, Box, float64
+CAVITY = "queue 1 item 6b"         # CAVITY flow
+BOX_FLOAT64 = "queue 1 item 6c"    # Box obstacles, float64 scenes
 OTHER_SOLVERS = "queue 1 item 7"   # the aligned MG_PRODUCTION's and FDM's batches
-BATCHES = "queue 1 item 9"         # MULTIGRID and legacy MG_PRODUCTION batches
+BATCHES = "queue 1 item 9"         # MULTIGRID, legacy MG_PRODUCTION and JS/SECOND/QUICK/parabolic batches
 DIFFERENTIABLE = "queue 1 item 11"  # SolverOptions.differentiable
 SHARDED = "queue 1 item 12"         # sharded tiers, the ensemble's --shard-batch
-ROUND_KERNEL = "queue 2 item 5"    # rounds_impl="pallas" (correct_div kernel)
 
 
 def unported(what: str, item: str) -> NotImplementedError:

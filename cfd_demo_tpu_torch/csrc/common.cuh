@@ -1,87 +1,36 @@
 // Shared device helpers for the PISO kernels (f32, row-major (rows=y, cols=x)).
 //
 // The library is built with -fmad=false: the JAX reference rounds every
-// multiply and add separately, and a contracted a*b+c in the obstacle
-// test below can move a face on the cylinder's rim across the radius,
-// an O(1) error at that face.
+// multiply and add separately, and a contracted a*b+c would round once.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#define CFD_MAX_CYL 4
-
-// Cylinders of the scene, passed by value as a kernel argument.
-// cx, cy and r2 = f32(radius**2) are rounded to f32 as the JAX package does.
-struct Cyl {
-    int n;
-    float cx[CFD_MAX_CYL];
-    float cy[CFD_MAX_CYL];
-    float r2[CFD_MAX_CYL];
-};
-
-// Build a Cyl from a host array of n (cx, cy, r2) triples.
-static inline Cyl make_cyl(int n, const float* host) {
-    Cyl c;
-    c.n = n;
-    for (int k = 0; k < n; ++k) {
-        c.cx[k] = host[3 * k];
-        c.cy[k] = host[3 * k + 1];
-        c.r2[k] = host[3 * k + 2];
-    }
-    return c;
-}
 
 // A max that propagates NaN like jnp.max / torch.amax (fmaxf drops it).
 __device__ __forceinline__ float pmax(float a, float b) {
     return (a > b || a != a) ? a : b;
 }
 
-// Cell-centre test, strict `<` (core/masks.py `_inside_any`, Rust).
-__device__ __forceinline__ bool inside_any(const Cyl& c, float x, float y) {
-    bool in = false;
-#pragma unroll
-    for (int k = 0; k < CFD_MAX_CYL; ++k) {  // constant indices: c stays in registers
-        if (k < c.n) {
-            float a = __fsub_rn(x, c.cx[k]);
-            float b = __fsub_rn(y, c.cy[k]);
-            float d2 = __fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b));
-            in = in || (d2 < c.r2[k]);
-        }
-    }
-    return in;
+// One face of an obstacle mask (core/masks.py masks_traced, one byte a
+// face, (ny, nx+1) for u and (ny, nx) for v); null means no obstacles.
+__device__ __forceinline__ bool masked(const uint8_t* m, size_t k) {
+    return m != nullptr && m[k] != 0;
 }
 
-// Coordinate (idx + off) * h in f32, as `coords` in core/masks.py.
-__device__ __forceinline__ float coord(int idx, float off, float h) {
-    return __fmul_rn(__fadd_rn((float)idx, off), h);
-}
+// The inlet profile (ops/bc.py inlet_profile_column): UNIFORM gives the
+// ramped inlet speed; a parabola of centre c and half-width r (PARABOLIC
+// or PARABOLIC_UPPER) gives max(inlet (1 - ((y - c) / r)^2), 0) at
+// y = (j + 0.5) dy, in the JAX package's f32 order (inlet_profile_traced).
+struct Inlet {
+    int parabolic;
+    float dy, c, r;
+};
 
-// Rust masks (core/masks.py masks_traced). u face (j, i), i in [0, nx].
-__device__ __forceinline__ bool in_cell_east_of_u(const Cyl& c, int j, int i,
-                                                  int nx, float dx, float dy) {
-    return i <= nx - 1 && inside_any(c, coord(i, 0.5f, dx), coord(j, 0.5f, dy));
-}
-__device__ __forceinline__ bool mask_u_star(const Cyl& c, int j, int i, int nx,
-                                            float dx, float dy) {
-    if (i < 1) return false;  // cell 0 never marks face 0
-    bool in_w = inside_any(c, coord(i, -0.5f, dx), coord(j, 0.5f, dy));
-    return in_w || in_cell_east_of_u(c, j, i, nx, dx, dy);
-}
-__device__ __forceinline__ bool mask_u_bc(const Cyl& c, int j, int i, int nx,
-                                          float dx, float dy) {
-    return in_cell_east_of_u(c, j, i, nx, dx, dy);
-}
-// v face (j, i), j in [0, ny-1] (the implicit top row is never masked).
-__device__ __forceinline__ bool mask_v_bc(const Cyl& c, int j, int i,
-                                          float dx, float dy) {
-    return inside_any(c, coord(i, 0.5f, dx), coord(j, 0.5f, dy));
-}
-__device__ __forceinline__ bool mask_v_star(const Cyl& c, int j, int i,
-                                            float dx, float dy) {
-    if (j < 1) return false;
-    bool in_s = inside_any(c, coord(i, 0.5f, dx), coord(j, -0.5f, dy));
-    return in_s || mask_v_bc(c, j, i, dx, dy);
+__device__ __forceinline__ float inlet_at(const Inlet& in, float inlet, int j) {
+    if (!in.parabolic) return inlet;
+    const float t = (((float)j + 0.5f) * in.dy - in.c) / in.r;
+    return pmax(inlet * (1.0f - t * t), 0.0f);
 }
 
 // Max over all threads of a block; every thread gets the result.

@@ -1,6 +1,7 @@
 // Fused corrector + velocity BCs + step reductions, CHANNEL flow with a
-// UNIFORM inlet, Rust masks. Replaces cfd_demo_tpu/kernels/substep_pallas.py
-// correct_bc_pallas (_kernel_post). See kernels/substep.py for the design note.
+// UNIFORM, PARABOLIC or PARABOLIC_UPPER inlet and either semantics' BC masks.
+// Replaces cfd_demo_tpu/kernels/substep_pallas.py correct_bc_pallas
+// (_kernel_post). See kernels/substep.py for the design note.
 #include "common.cuh"
 
 namespace {
@@ -17,9 +18,11 @@ struct CorrArgs {
     float* v;
     float* p_out;
     float* partials;   // 3 per block: max|u-ue|, max|v-ve|, max(|u|,|v|)
+    const uint8_t* mask_u_bc;  // (ny, nx+1) or null
+    const uint8_t* mask_v_bc;  // (ny, nx) or null
     int ny, nx;
     float dx, dy;
-    Cyl cyl;
+    Inlet in;
 };
 
 // ops/corrector.py on u face (j, i).
@@ -42,12 +45,12 @@ __global__ void correct_bc_kernel(CorrArgs A) {
         // u: corrector, then ops/bc.py in order: inlet, outlet copy of the
         // *corrected* u[j, nx-1] (recomputed here), no-slip rows, solid mask.
         float uval;
-        if (i == 0) uval = inlet;
-        else if (i == nx) uval = (nx - 1 == 0) ? inlet : u_corrected(A, dt, j, nx - 1);
+        const size_t ku = (size_t)j * (nx + 1) + i;
+        if (i == 0) uval = inlet_at(A.in, inlet, j);
+        else if (i == nx) uval = u_corrected(A, dt, j, nx - 1);
         else uval = u_corrected(A, dt, j, i);
         if (j == 0 || j == ny - 1) uval = 0.0f;
-        if (mask_u_bc(A.cyl, j, i, nx, A.dx, A.dy)) uval = 0.0f;
-        const size_t ku = (size_t)j * (nx + 1) + i;
+        if (masked(A.mask_u_bc, ku)) uval = 0.0f;
         A.u[ku] = uval;
         ru = fabsf(uval - A.ue[ku]);
         vel = fabsf(uval);
@@ -56,7 +59,7 @@ __global__ void correct_bc_kernel(CorrArgs A) {
             float vval = A.vs[k];
             if (j >= 1) vval = vval - dt * (A.pp[k] - A.pp[k - nx]) / A.dy;
             if (j == 0) vval = 0.0f;
-            if (mask_v_bc(A.cyl, j, i, A.dx, A.dy)) vval = 0.0f;
+            if (masked(A.mask_v_bc, k)) vval = 0.0f;
             A.v[k] = vval;
             A.p_out[k] = A.p[k] + A.pp[k];
             rv = fabsf(vval - A.ve[k]);
@@ -94,12 +97,13 @@ extern "C" int cfd_correct_bc_partials(int ny, int nx) {
 extern "C" int cfd_correct_bc(const float* us, const float* vs, const float* p,
                               const float* pp, const float* ue, const float* ve,
                               const float* scal, float* u, float* v, float* p_out,
-                              float* partials, float* red, int ny, int nx,
-                              float dx, float dy, int n_cyl, const float* cyl_host,
+                              float* partials, float* red, const uint8_t* mask_u_bc,
+                              const uint8_t* mask_v_bc, int ny, int nx, float dx,
+                              float dy, int parabolic, float center, float radius,
                               void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    CorrArgs A{us, vs, p, pp, ue, ve, scal, u, v, p_out, partials, ny, nx, dx, dy,
-               make_cyl(n_cyl, cyl_host)};
+    CorrArgs A{us, vs, p, pp, ue, ve, scal, u, v, p_out, partials, mask_u_bc, mask_v_bc,
+               ny, nx, dx, dy, Inlet{parabolic, dy, center, radius}};
     dim3 block(32, 8);
     dim3 grid((nx + 1 + 31) / 32, (ny + 7) / 8);
     correct_bc_kernel<<<grid, block, 0, st>>>(A);

@@ -42,7 +42,10 @@ struct EnsArgs {
     float tol;
     int rounds;
     float outer_tol;
-    Cyl cyl;
+    const uint8_t* mask_u;     // obstacle masks (ny, nx+1), (ny, nx), the same
+    const uint8_t* mask_v;     // for every scene; null: no obstacles
+    const uint8_t* mask_u_bc;
+    const uint8_t* mask_v_bc;
 };
 
 // One scene's pointers and its shared p' buffers.
@@ -186,11 +189,11 @@ __global__ void __launch_bounds__(kThreads) ensemble_substep_kernel(EnsArgs A) {
 
     // Predictor into u, v (u*, v*); the warm start into shared memory.
     const PredArgs P{A.u_in + off_u, A.v_in + off, nullptr, nullptr, nullptr, nullptr,
-                     ny, nx, A.dx, A.dy, A.dx2, A.dy2, A.cyl};
+                     A.mask_u, A.mask_v, ny, nx, A.dx, A.dy, A.dx2, A.dy2};
     for (int k = threadIdx.x; k < ny * (nx + 1); k += blockDim.x)
-        s.u[k] = ustar_at(P, dt, nu, k / (nx + 1), k % (nx + 1));
+        s.u[k] = ustar_at<FIRST, false>(P, dt, nu, k / (nx + 1), k % (nx + 1));
     for (int k = threadIdx.x; k < ny * nx; k += blockDim.x) {
-        s.v[k] = vstar_at(P, dt, nu, k / nx, k % nx);
+        s.v[k] = vstar_at<FIRST>(P, dt, nu, k / nx, k % nx);
         s.cur[k] = A.pp_in[off + k];
     }
     __syncthreads();
@@ -213,12 +216,12 @@ __global__ void __launch_bounds__(kThreads) ensemble_substep_kernel(EnsArgs A) {
         const int j = k / (nx + 1), i = k % (nx + 1);
         float val = (i == 0) ? inlet : (i == nx) ? s.other[j] : s.u[k];
         if (j == 0 || j == ny - 1) val = 0.0f;
-        if (mask_u_bc(A.cyl, j, i, nx, A.dx, A.dy)) val = 0.0f;
+        if (masked(A.mask_u_bc, k)) val = 0.0f;
         s.u[k] = val;
     }
     for (int k = threadIdx.x; k < ny * nx; k += blockDim.x) {
         const int j = k / nx, i = k % nx;
-        if (j == 0 || mask_v_bc(A.cyl, j, i, A.dx, A.dy)) s.v[k] = 0.0f;
+        if (j == 0 || masked(A.mask_v_bc, k)) s.v[k] = 0.0f;
     }
     if (threadIdx.x == 0) {
         A.err_out[b] = err;
@@ -237,14 +240,15 @@ extern "C" int cfd_substep_batch_smem(int ny, int nx) {
 extern "C" int cfd_substep_batch(const float* u_in, const float* v_in, const float* p_in,
                                  const float* pp_in, const float* scal, float* u, float* v,
                                  float* p, float* pp, float* rhs, float* err_out,
-                                 int* counts, int B, int ny, int nx, float dx, float dy,
+                                 int* counts, const uint8_t* mask_u, const uint8_t* mask_v,
+                                 const uint8_t* mask_u_bc, const uint8_t* mask_v_bc,
+                                 int B, int ny, int nx, float dx, float dy,
                                  float dx2, float dy2, float ax, float ay, float ar,
                                  float ac, float om, int sor, int iters, float tol,
-                                 int rounds, float outer_tol, int n_cyl,
-                                 const float* cyl_host, void* stream) {
+                                 int rounds, float outer_tol, void* stream) {
     EnsArgs A{u_in, v_in, p_in, pp_in, scal, u, v, p, pp, rhs, err_out, counts, ny, nx,
               dx, dy, dx2, dy2, ax, ay, ar, ac, om, sor, iters, tol, rounds, outer_tol,
-              make_cyl(n_cyl, cyl_host)};
+              mask_u, mask_v, mask_u_bc, mask_v_bc};
     const int smem = cfd_substep_batch_smem(ny, nx);
     int dev = 0, optin = 0;
     cudaError_t e = cudaGetDevice(&dev);

@@ -1,6 +1,7 @@
 // The whole pressure projection of one scene in one launch: exact
 // do-while Jacobi, corrector, up to `rounds` outer corrector rounds with an
-// exact exit, then the velocity BCs (CHANNEL, UNIFORM inlet, Rust masks).
+// exact exit, then the velocity BCs (CHANNEL, UNIFORM or parabolic inlet,
+// either semantics' BC masks). JS's zero warm start arrives as pp0.
 // Replaces cfd_demo_tpu/kernels/rounds_pallas.py solve_correct_rounds_pallas
 // (_kernel_rounds) with its in-kernel solver ensemble_pallas.make_jacobi_solve.
 // See kernels/rounds.py for the design note.
@@ -23,7 +24,7 @@ struct RoundsArgs {
     const float* us;    // u* (ny, nx+1)
     const float* vs;    // v* (ny, nx)
     const float* p_in;  // (ny, nx)
-    const float* pp0;   // BC-consistent warm start (ny, nx)
+    const float* pp0;   // BC-consistent warm start (ny, nx), zeros in JS
     const float* rhs0;  // (ny, nx)
     const float* scal;  // device [dt_sub, inlet]
     float* u;           // out (ny, nx+1)
@@ -41,7 +42,9 @@ struct RoundsArgs {
     float tol;
     int rounds;
     float outer_tol;
-    Cyl cyl;
+    const uint8_t* mask_u_bc;  // (ny, nx+1) or null
+    const uint8_t* mask_v_bc;  // (ny, nx) or null
+    Inlet in;
 };
 
 // The grid's warps take (row, 32-column chunk) segments in turn, so a
@@ -190,14 +193,15 @@ __global__ void __launch_bounds__(kThreads) rounds_kernel(RoundsArgs A) {
     c.grid.sync();
     FOR_CELLS(0, ny, 0, nx + 1) {
         const size_t ku = (size_t)j * (nx + 1) + i;
-        float val = (i == 0) ? inlet : (i == nx) ? __ldcg(A.rhs_w + j) : __ldcg(A.u + ku);
+        float val = (i == 0) ? inlet_at(A.in, inlet, j)
+                    : (i == nx) ? __ldcg(A.rhs_w + j) : __ldcg(A.u + ku);
         if (j == 0 || j == ny - 1) val = 0.0f;
-        if (mask_u_bc(A.cyl, j, i, nx, A.dx, A.dy)) val = 0.0f;
+        if (masked(A.mask_u_bc, ku)) val = 0.0f;
         A.u[ku] = val;
     }
     FOR_CELLS(0, ny, 0, nx) {
         const size_t k = (size_t)j * nx + i;
-        if (j == 0 || mask_v_bc(A.cyl, j, i, A.dx, A.dy)) A.v[k] = 0.0f;
+        if (j == 0 || masked(A.mask_v_bc, k)) A.v[k] = 0.0f;
     }
     if (c.gtid == 0) {
         A.err_out[0] = err;
@@ -213,13 +217,14 @@ extern "C" int cfd_rounds(const float* us, const float* vs, const float* p_in,
                           const float* pp0, const float* rhs0, const float* scal,
                           float* u, float* v, float* p, float* pp, float* pp_tmp,
                           float* rhs_w, float* slots, float* err_out, int* counts,
+                          const uint8_t* mask_u_bc, const uint8_t* mask_v_bc,
                           int ny, int nx, float dx, float dy, float ax, float ay,
                           float ar, float ac, int iters, float tol, int rounds,
-                          float outer_tol, int n_cyl, const float* cyl_host,
+                          float outer_tol, int parabolic, float center, float radius,
                           void* stream) {
     RoundsArgs A{us, vs, p_in, pp0, rhs0, scal, u, v, p, pp, pp_tmp, rhs_w, slots,
                  err_out, counts, ny, nx, dx, dy, ax, ay, ar, ac, iters, tol, rounds,
-                 outer_tol, make_cyl(n_cyl, cyl_host)};
+                 outer_tol, mask_u_bc, mask_v_bc, Inlet{parabolic, dy, center, radius}};
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);

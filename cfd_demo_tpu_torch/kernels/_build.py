@@ -32,8 +32,8 @@ from pathlib import Path
 
 import torch
 
-from ..core.config import Cylinder
-from ..core.unported import WIDEN_STEP, unported
+from ..core.masks import masks_traced
+from ..core.unported import BOX_FLOAT64, unported
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -47,19 +47,19 @@ I = ctypes.c_int
 F = ctypes.c_float
 # (name, argtypes) of every C entry point; all return int.
 _SIGNATURES = {
-    "cfd_predict_div": [P, P, P, P, P, P, I, I, F, F, F, F, I, P, P],
+    "cfd_predict_div": [P, P, P, P, P, P, P, P, I, I, F, F, F, F, I, I, P],
     "cfd_jacobi_partials": [I, I],
     "cfd_jacobi_fused_k": [P, P, P, P, P, P, I, I, I, F, F, F, F, P],
     "cfd_correct_bc_partials": [I, I],
-    "cfd_correct_bc": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, F, F, I, P, P],
-    "cfd_rounds": [P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, F, F, F,
-                   F, F, F, I, F, I, F, I, P, P],
+    "cfd_correct_bc": [P] * 14 + [I, I, F, F, I, F, F, P],
+    "cfd_correct_div": [P] * 9 + [I, I, F, F, P],
+    "cfd_rounds": [P] * 17 + [I, I, F, F, F, F, F, F, I, F, I, F, I, F, F, P],
     "cfd_mgp_res": [P] * 7 + [I] * 3 + [F] * 7 + [P],
     "cfd_mgp_restrict": [P] * 7 + [I] * 3 + [F] * 7 + [P],
     "cfd_mgp_corr": [P] * 9 + [I] * 3 + [F] * 7 + [P],
     "cfd_cc_sweeps": [P] * 5 + [I] * 3 + [F] * 8 + [P],
     "cfd_substep_batch_smem": [I, I],
-    "cfd_substep_batch": [P] * 12 + [I] * 3 + [F] * 9 + [I, I, F, I, F, I, P, P],
+    "cfd_substep_batch": [P] * 16 + [I] * 3 + [F] * 9 + [I, I, F, I, F, P],
     "cfd_jacobi_batch": [P] * 8 + [I] * 4 + [F] * 5 + [P],
     "cfd_sor_partials": [I, I],
     "cfd_sor_fused_k": [P] * 4 + [I] * 3 + [F] * 5 + [P],
@@ -157,17 +157,13 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def cylinders(grid):
-    """(count, ctypes float array of (cx, cy, f32(r**2)) triples) of the
-    grid's obstacles, which must be cylinders."""
-    obs = grid.obstacles
-    for o in obs:
-        if not isinstance(o, Cylinder):
-            raise unported(f"obstacle {type(o).__name__}", WIDEN_STEP)
-    if len(obs) > 4:  # CFD_MAX_CYL in csrc/common.cuh
-        raise ValueError(f"at most 4 cylinders per scene, got {len(obs)}")
-    vals = [x for o in obs for x in (o.center_x, o.center_y, o.radius ** 2)]
-    return len(obs), (ctypes.c_float * max(1, len(vals)))(*vals)
+def mask_ptrs(grid, semantics, device):
+    """Device pointers of the scene's four obstacle masks (core.masks
+    ``masks_traced``: one byte a face, cached per grid, semantics and
+    device, so they outlive the launch), or four None (a null pointer:
+    no obstacles)."""
+    return tuple(None if m is None else m.data_ptr()
+                 for m in masks_traced(grid, semantics, device))
 
 
 # ---------------------------------------------------------------------------
@@ -185,7 +181,7 @@ def on_cpu(what: str, shape_of: dict) -> bool:
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{what}: {name} must be a tensor, got {type(t)}")
         if t.dtype != torch.float32:
-            raise unported(f"{what}: {name} of dtype {t.dtype}", WIDEN_STEP)
+            raise unported(f"{what}: {name} of dtype {t.dtype}", BOX_FLOAT64)
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")

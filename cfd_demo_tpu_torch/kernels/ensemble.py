@@ -54,12 +54,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.config import PressureSolver
-from ..core.unported import OTHER_SOLVERS, unported
-from ._build import check, cylinders, load, on_cpu, scene_scalars, stream_of
+from ..core.config import InletProfile, PressureSolver, Semantics, VelocityScheme
+from ..core.unported import BATCHES, OTHER_SOLVERS, unported
+from ..ops.bc import check_channel
+from ._build import check, load, mask_ptrs, on_cpu, scene_scalars, stream_of
 from .jacobi import _multipliers
 from .sor import _coefficients
-from .substep import _check_slice
 
 # Shared memory one block may opt in to on the H100 (227 KB), less the
 # kernel's 33-float reduction scratch.
@@ -72,6 +72,26 @@ def substep_batch_fits(grid) -> bool:
     of a scene in one block's shared memory (up to 29,039 cells)."""
     return (grid.nx >= 3 and grid.ny >= 3
             and 2 * 4 * grid.ny * grid.nx + _SMEM_STATIC <= SMEM_OPTIN_BYTES)
+
+
+def check_batchable(scene):
+    """Batches step Rust semantics with FIRST faces, a UNIFORM inlet and
+    one substep, what the whole-substep kernel computes; JS semantics
+    (its zero p' and adaptive substeps), SECOND/QUICK faces, the
+    parabolic inlets and more substeps raise on every route, CPU and
+    card alike (queue 1 item 9)."""
+    params, opts = scene.params, scene.opts
+    if opts.semantics != Semantics.RUST:
+        raise unported("a batched JS-semantics scene", BATCHES)
+    if params.velocity_scheme != VelocityScheme.FIRST:
+        raise unported(f"a batched scene with {params.velocity_scheme.value} faces",
+                       BATCHES)
+    if params.inlet_profile != InletProfile.UNIFORM:
+        raise unported(f"a batched scene with the {params.inlet_profile.value} "
+                       f"inlet", BATCHES)
+    if opts.substeps_adaptive or opts.substeps_init != 1:
+        raise unported("a batched scene with more than one substep", BATCHES)
+    check_channel(params.flow_case)
 
 
 def substep_batch_plain(u, v, p, pp0, dt_sub, nu, inlet, scene):
@@ -88,8 +108,7 @@ def _launch(u, v, p, pp0, dt_sub, nu, inlet, scene, sor: bool):
     """Check the inputs and launch the kernel on CUDA tensors; None on
     CPU tensors."""
     g, opts = scene.grid, scene.opts
-    _check_slice(scene.params.velocity_scheme, opts.semantics,
-                 scene.params.inlet_profile, scene.params.flow_case)
+    check_batchable(scene)
     if not substep_batch_fits(g):
         raise ValueError(f"substep_batch: a {g.nx}x{g.ny} scene does not fit one "
                          f"block's shared memory (substep_batch_fits)")
@@ -106,7 +125,7 @@ def _launch(u, v, p, pp0, dt_sub, nu, inlet, scene, sor: bool):
     err = torch.empty(B, dtype=torch.float32, device=u.device)
     counts = torch.empty((B, 2), dtype=torch.int32, device=u.device)
     scal = scene_scalars(u.device, B, dt_sub, nu, inlet)
-    n_cyl, cyl = cylinders(g)
+    masks = mask_ptrs(g, opts.semantics, u.device)
     f32 = lambda x: float(np.float32(x))
     if sor:  # (bx, by, br, 1 - omega), omega
         bx, by, br, om, omc = _coefficients(g.dx, g.dy, opts.sor_omega)
@@ -118,10 +137,10 @@ def _launch(u, v, p, pp0, dt_sub, nu, inlet, scene, sor: bool):
             u.data_ptr(), v.data_ptr(), p.data_ptr(), pp0.data_ptr(),
             scal.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
             p_out.data_ptr(), pp.data_ptr(), rhs.data_ptr(), err.data_ptr(),
-            counts.data_ptr(), B, ny, nx, f32(g.dx), f32(g.dy),
+            counts.data_ptr(), *masks, B, ny, nx, f32(g.dx), f32(g.dy),
             f32(g.dx * g.dx), f32(g.dy * g.dy), *coef, int(sor),
             opts.jacobi_iters, opts.jacobi_tol, opts.outer_corrector_rounds,
-            opts.outer_corrector_tol, n_cyl, cyl, stream_of(u)), "substep_batch")
+            opts.outer_corrector_tol, stream_of(u)), "substep_batch")
     return u_out, v_out, p_out, pp, err, counts
 
 

@@ -7,7 +7,10 @@
 predictor, a Rust substep runs a do-while Jacobi that exits at the exact
 sweep its error drops below tol, the corrector, then up to 20 outer
 rounds of divergence, warm-started Jacobi and corrector, each exiting
-exactly, then the BCs (model.rs:696-724). On the reference's 800x264
+exactly, then the BCs (model.rs:696-724). A JS substep (the JS twin's
+400x132 scene) has no outer rounds and arrives with a zero warm start;
+its BC masks and a parabolic inlet come in as the correct_bc kernel's
+do (kernels/substep.py). On the reference's 800x264
 scene that is about a hundred sweeps per step, and each sweep needs a
 barrier across the whole field and a global max.
 
@@ -30,13 +33,13 @@ import numpy as np
 import torch
 
 from ..core.masks import masks_traced
-from ..ops.bc import apply_bcs
+from ..ops.bc import apply_bcs, check_channel
 from ..ops.corrector import correct
 from ..ops.divergence import divergence_rhs
 from ..ops.poisson import jacobi
-from ._build import check, cylinders, device_scalars, load, on_cpu, stream_of
+from ._build import check, device_scalars, load, mask_ptrs, on_cpu, stream_of
 from .jacobi import _multipliers
-from .substep import _check_slice
+from .substep import inlet_args
 
 
 def solve_correct_rounds_plain(u_star, v_star, p, pp0, rhs, dt_sub, inlet,
@@ -75,8 +78,7 @@ def solve_correct_rounds(u_star, v_star, p, pp0, rhs, dt_sub, inlet, scene):
     ``counts`` is an int32 (2,) tensor: outer rounds run, Jacobi sweeps
     run."""
     g, opts = scene.grid, scene.opts
-    _check_slice(scene.params.velocity_scheme, opts.semantics,
-                 scene.params.inlet_profile, scene.params.flow_case)
+    check_channel(scene.params.flow_case)
     ny, nx = g.ny, g.nx
     shapes = {"u_star": (u_star, (ny, nx + 1)), "v_star": (v_star, (ny, nx)),
               "p": (p, (ny, nx)), "pp0": (pp0, (ny, nx)), "rhs": (rhs, (ny, nx))}
@@ -90,7 +92,7 @@ def solve_correct_rounds(u_star, v_star, p, pp0, rhs, dt_sub, inlet, scene):
     err = torch.empty((), dtype=torch.float32, device=p.device)
     counts = torch.empty(2, dtype=torch.int32, device=p.device)
     scal = device_scalars(p.device, dt_sub, inlet)
-    n_cyl, cyl = cylinders(g)
+    _, _, mask_u_bc, mask_v_bc = mask_ptrs(g, opts.semantics, p.device)
     f32 = lambda x: float(np.float32(x))
     with torch.cuda.device(p.device):
         check(lib.cfd_rounds(
@@ -98,10 +100,11 @@ def solve_correct_rounds(u_star, v_star, p, pp0, rhs, dt_sub, inlet, scene):
             rhs.data_ptr(), scal.data_ptr(), u.data_ptr(), v.data_ptr(),
             p_out.data_ptr(), pp.data_ptr(), pp_tmp.data_ptr(),
             rhs_w.data_ptr(), slots.data_ptr(), err.data_ptr(),
-            counts.data_ptr(), ny, nx, f32(g.dx), f32(g.dy),
-            *_multipliers(g.dx, g.dy, opts.jacobi_omega),
+            counts.data_ptr(), mask_u_bc, mask_v_bc, ny, nx, f32(g.dx),
+            f32(g.dy), *_multipliers(g.dx, g.dy, opts.jacobi_omega),
             opts.jacobi_iters, opts.jacobi_tol, opts.outer_corrector_rounds,
-            opts.outer_corrector_tol, n_cyl, cyl, stream_of(p)),
+            opts.outer_corrector_tol,
+            *inlet_args(g, scene.params.inlet_profile), stream_of(p)),
             "solve_correct_rounds")
     solve_correct_rounds.launches += 1
     return u, v, p_out, pp, err, counts

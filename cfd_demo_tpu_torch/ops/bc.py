@@ -2,7 +2,7 @@
 
 model.rs:826-875, applied at the end of every PISO substep in this order:
 
-1. inlet:  u[j, 0] = profile(y_j)    (UNIFORM: the ramped inlet speed)
+1. inlet:  u[j, 0] = profile(y_j)    (uniform or clamped parabolic)
 2. outlet: u[j, nx] = u[j, nx-1]     (zero-gradient)
 3. no-slip rows: u[0, :] = u[ny-1, :] = 0   (overwrites the corners)
 4. v row 0 = 0 (the top row j=ny is implicit zero)
@@ -11,29 +11,47 @@ model.rs:826-875, applied at the end of every PISO substep in this order:
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.config import FlowCase, Grid, InletProfile
-from ..core.unported import WIDEN_STEP, unported
+from ..core.unported import CAVITY, unported
 from .stencil import apply_solid_mask
 
 
-def _check(profile: InletProfile, flow_case: FlowCase):
-    if profile != InletProfile.UNIFORM:
-        raise unported(f"the {profile.value} inlet profile", WIDEN_STEP)
+def check_channel(flow_case: FlowCase):
+    """CHANNEL flow only: CAVITY raises (queue 1 item 6b)."""
     if flow_case != FlowCase.CHANNEL:
-        raise unported(f"{flow_case.value} flow", WIDEN_STEP)
+        raise unported(f"{flow_case.value} flow", CAVITY)
+
+
+def parabola(grid: Grid, profile: InletProfile):
+    """(center, radius) of a parabolic inlet (model.rs:833-848): the
+    channel's height, or for PARABOLIC_UPPER (the sudden-expansion inlet)
+    its upper half, whose lower half the clamp zeroes exactly."""
+    if profile == InletProfile.PARABOLIC_UPPER:
+        return 3.0 * grid.ly / 4.0, grid.ly / 4.0
+    return grid.ly / 2.0, grid.ly / 2.0
 
 
 def inlet_profile_column(grid: Grid, profile: InletProfile, inlet_velocity,
                          device, dtype=torch.float32) -> torch.Tensor:
     """Per-row inlet u value (model.rs:833-848); ``inlet_velocity`` may
     be a 0-d tensor (the ramp), or a ``(B,)`` tensor of per-scene speeds,
-    which gives a ``(B, ny)`` column."""
-    _check(profile, FlowCase.CHANNEL)
+    which gives a ``(B, ny)`` column. The parabola's shape is computed in
+    f32 as the JAX package computes it, ``1 - ((y - c) / r)**2`` with
+    ``y = (j + 0.5) f32(dy)``, the formula the CUDA kernels evaluate per
+    row (csrc/common.cuh ``inlet_at``); the reference clamps the final
+    value, not the shape."""
     if isinstance(inlet_velocity, torch.Tensor):
         inlet_velocity = inlet_velocity[..., None]
-    return inlet_velocity * torch.ones((grid.ny,), dtype=dtype, device=device)
+    if profile == InletProfile.UNIFORM:
+        return inlet_velocity * torch.ones((grid.ny,), dtype=dtype, device=device)
+    center, radius = parabola(grid, profile)
+    y = (np.arange(grid.ny, dtype=np.float32) + 0.5) * np.float32(grid.dy)
+    shape_fn = 1.0 - ((y - np.float32(center)) / np.float32(radius)) ** 2
+    shape_fn = torch.from_numpy(shape_fn.astype(np.float32)).to(device, dtype)
+    return torch.clamp(inlet_velocity * shape_fn, min=0.0)
 
 
 def apply_bcs(u: torch.Tensor, v: torch.Tensor, grid: Grid,
@@ -41,7 +59,7 @@ def apply_bcs(u: torch.Tensor, v: torch.Tensor, grid: Grid,
               flow_case: FlowCase = FlowCase.CHANNEL):
     """Returns (u, v) with the boundary conditions enforced. Fields may
     carry leading batch dimensions, with a ``(B,)`` inlet speed."""
-    _check(profile, flow_case)
+    check_channel(flow_case)
     ny, nx = grid.ny, grid.nx
     u = u.clone()
     u[..., :, 0] = inlet_profile_column(grid, profile, inlet_velocity,

@@ -3,7 +3,11 @@
 Reference call stack (Rust semantics): Model::update (model.rs:304-379)
 -> piso_step (model.rs:529-730): predictor -> divergence -> Jacobi ->
 corrector -> up to 20 extra corrector rounds (model.rs:696-724) ->
-boundary conditions (model.rs:826-875); then CFL dt control.
+boundary conditions (model.rs:826-875); then CFL dt control. JS
+semantics (index.html:260-362): the extrapolated initial guess
+2u - u_prev, 1..20 adaptive substeps each solving from a zero p', no
+outer rounds, the max res_p over the substeps, dt capped by the user's
+dt and optionally scaled by the pressure residual.
 
 The step is plain Python over tensors on one device. Every scalar the
 step carries (dt, t, step, the residuals, the inlet ramp) is a 0-d
@@ -130,16 +134,34 @@ an interior at most mgp_coarse_stop a side      FDM alone, no smoothing
 pressure_impl "jnp" runs the plain versions of the four smoothers, and of
 the vertex kernels.
 
+The fused route with outer rounds and ``rounds_impl="pallas"`` runs
+each round as the solve plus one ``correct_div`` launch (the corrector
+and, in the same pass, the next round's divergence), then the plain BCs
+(JAX piso.py:725-756); other rounds_impl values take the plain corrector
+and ``_outer_rounds``. JS semantics starts every solve from a zero p'
+on every route (JAX piso.py:565-566, :692).
+
 Convergence semantics: the rounds kernel and the plain Jacobi solve exit
 at the exact sweep and round (rounds_pallas.py:11-24); the chain checks
 its tolerance every k sweeps (jacobi_pallas.py:28-30); MG_PRODUCTION
 exits at the exact V-cycle (``_exact_while`` with the noise floor as a
 dynamic tolerance), or with early_exit False runs the masked fixed-trip
-loop. Host reads: the chain with tol > 0 reads its error once per
-k-launch, MG_PRODUCTION with early_exit once per V-cycle, and the fused
-route with outer rounds and early_exit once per round; the fixed
-schedules, MULTIGRID, the rounds kernel and the batch routes read
-nothing.
+loop.
+
+==============================================  =========================================
+host read                                       when
+==============================================  =========================================
+the Jacobi chain's error                        once per k-launch, tol > 0
+MG_PRODUCTION's max|r| (and max|p'|)            once per V-cycle, early_exit
+the outer rounds' error                         once per round, the fused route and the
+                                                plain projection, early_exit
+``state.substeps``                              once per step, unless the count is
+                                                statically 1 (JS's adaptive substeps, or
+                                                substeps_init > 1)
+==============================================  =========================================
+
+The fixed schedules, MULTIGRID, the rounds kernel and the batch routes
+read nothing.
 
 The TPU gates (``_pallas_ok``'s ny % 8 and backend test, ``_tile_rows``,
 ``rounds_pallas_ok``'s VMEM bound) are not carried over; each kernel
@@ -156,19 +178,18 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.config import (Cylinder, FlowCase, Grid, InletProfile,
-                           PressureSolver, Semantics, SimulationParams,
-                           SolverOptions, VelocityScheme)
+from ..core.config import (Cylinder, FlowCase, Grid, PressureSolver,
+                           Semantics, SimulationParams, SolverOptions)
 from ..core.masks import masks_traced
 from ..core.state import State, init_state
-from ..core.unported import (BATCHES, DIFFERENTIABLE, OTHER_SOLVERS,
-                             ROUND_KERNEL, WIDEN_STEP, unported)
-from ..kernels.ensemble import substep_batch, substep_batch_fits
+from ..core.unported import (BATCHES, BOX_FLOAT64, CAVITY, DIFFERENTIABLE,
+                             OTHER_SOLVERS, unported)
+from ..kernels.ensemble import check_batchable, substep_batch, substep_batch_fits
 from ..kernels.jacobi import jacobi_chain
 from ..kernels.jacobi_batch import jacobi_batch, jacobi_batch_plain
 from ..kernels.rounds import solve_correct_rounds
 from ..kernels.sor import sor_chain, sor_chain_rb2
-from ..kernels.substep import correct_bc, predict_div
+from ..kernels.substep import correct_bc, correct_div, predict_div
 from ..ops.bc import apply_bcs
 from ..ops.corrector import correct
 from ..ops.divergence import divergence_rhs
@@ -239,23 +260,11 @@ def make_scene(grid: Grid, params: Optional[SimulationParams] = None,
     if grid.nx < 3 or grid.ny < 3:
         raise ValueError(f"the grid needs at least 3x3 cells, got "
                          f"{grid.nx}x{grid.ny}")
-    if opts.semantics != Semantics.RUST:
-        raise unported("JS semantics", WIDEN_STEP)
-    if (opts.extrapolate or opts.residual_dt_scaling or opts.substeps_adaptive
-            or opts.substeps_init != 1):
-        raise unported("extrapolation, residual dt scaling and substeps",
-                       WIDEN_STEP)
-    if params.velocity_scheme != VelocityScheme.FIRST:
-        raise unported(f"the {params.velocity_scheme.value} velocity scheme",
-                       WIDEN_STEP)
-    if params.inlet_profile != InletProfile.UNIFORM:
-        raise unported(f"the {params.inlet_profile.value} inlet profile",
-                       WIDEN_STEP)
     if params.flow_case != FlowCase.CHANNEL:
-        raise unported(f"{params.flow_case.value} flow", WIDEN_STEP)
+        raise unported(f"{params.flow_case.value} flow", CAVITY)
     for obs in grid.obstacles:
         if not isinstance(obs, Cylinder):
-            raise unported(f"obstacle {type(obs).__name__}", WIDEN_STEP)
+            raise unported(f"obstacle {type(obs).__name__}", BOX_FLOAT64)
     if params.pressure_solver not in (PressureSolver.JACOBI, PressureSolver.SOR,
                                       PressureSolver.FDM, PressureSolver.MULTIGRID,
                                       PressureSolver.MG_PRODUCTION):
@@ -403,6 +412,12 @@ def _outer_rounds(scene: Scene, u, v, p, pp, err, dt_sub):
     return u, v, p, pp, err, it, iters
 
 
+def _warm_start(opts: SolverOptions, p_prime):
+    """The solve's initial p': the carried p' (Rust), or zero (JS,
+    index.html:777; JAX piso.py:565-566)."""
+    return p_prime if opts.semantics == Semantics.RUST else torch.zeros_like(p_prime)
+
+
 def _substep_jnp(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet):
     """Plain predictor and divergence, then for one JACOBI scene the
     rounds kernel, or else (another solver, substep_impl or pressure_impl
@@ -414,14 +429,16 @@ def _substep_jnp(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet):
     mask_u, mask_v, mask_u_bc, mask_v_bc = masks_traced(g, opts.semantics,
                                                         u.device)
     u_star, v_star = predict(u, v, dt_sub, nu, g.dx, g.dy, g.nx, g.ny,
-                             scene.params.velocity_scheme, False, mask_u, mask_v)
+                             scene.params.velocity_scheme,
+                             opts.semantics == Semantics.JS, mask_u, mask_v)
     rhs = divergence_rhs(u_star, v_star, dt_sub, g.dx, g.dy)
+    pp0 = _warm_start(opts, p_prime)
     if (u.dim() == 2 and scene.params.pressure_solver == PressureSolver.JACOBI
             and opts.pressure_impl in ("auto", "pallas")
             and opts.substep_impl in ("auto", "pallas")):
-        return solve_correct_rounds(u_star, v_star, p, p_prime, rhs, dt_sub,
+        return solve_correct_rounds(u_star, v_star, p, pp0, rhs, dt_sub,
                                     inlet, scene)
-    pp, err, n = _solve_pressure(scene, p_prime, rhs, dt_sub)
+    pp, err, n = _solve_pressure(scene, pp0, rhs, dt_sub)
     u, v, p = correct(u_star, v_star, p, pp, dt_sub, g.dx, g.dy)
     u, v, p, pp, err, it, iters = _outer_rounds(scene, u, v, p, pp, err, dt_sub)
     u, v = apply_bcs(u, v, g, scene.params.inlet_profile, inlet, mask_u_bc,
@@ -435,8 +452,9 @@ def _substep_batched(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet):
     """A substep of a batch (B, ny, *) with (B,) dt_sub, nu and inlet: the
     JAX package's custom_vmap rules (piso.py:610-642, :335-360). JACOBI
     and SOR; the JAX package's B <= 16 gate for SOR (a TPU reading) is
-    not carried over. Returns (u, v, p, pp, err, counts) with err (B,),
-    counts (B, 2)."""
+    not carried over. (``step_fn`` has refused JS semantics, SECOND/QUICK
+    faces and the parabolic inlets, ``check_batchable``.) Returns (u, v,
+    p, pp, err, counts) with err (B,), counts (B, 2)."""
     opts, solver = scene.opts, scene.params.pressure_solver
     if solver == PressureSolver.MULTIGRID or (solver == PressureSolver.MG_PRODUCTION
                                               and opts.mgp_scheme == "legacy"):
@@ -471,19 +489,27 @@ def piso_substep(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet,
                           scene.params.flow_case)
     u_star, v_star, rhs = predict_div(u, v, dt_sub, nu, g,
                                       scene.params.velocity_scheme, sem)
-    pp, err, _ = _solve_pressure(scene, p_prime, rhs, dt_sub)
+    pp, err, _ = _solve_pressure(scene, _warm_start(opts, p_prime), rhs, dt_sub)
     rounds = opts.outer_corrector_rounds
     if rounds == 0 and entry is not None:
         u, v, p, res_u, res_v, max_vel = correct_bc(
             u_star, v_star, p, pp, entry[0], entry[1], dt_sub, inlet, g,
             profile, flow, sem)
         return u, v, p, pp, err, (res_u, res_v, max_vel)
-    if rounds > 0 and opts.early_exit and opts.rounds_impl == "pallas":
-        raise unported('rounds_impl="pallas" (the correct_div kernel)',
-                       ROUND_KERNEL)
     _, _, mask_u_bc, mask_v_bc = masks_traced(g, sem, u.device)
-    u, v, p = correct(u_star, v_star, p, pp, dt_sub, g.dx, g.dy)
-    u, v, p, pp, err = _outer_rounds(scene, u, v, p, pp, err, dt_sub)[:5]
+    if rounds > 0 and opts.early_exit and opts.rounds_impl == "pallas":
+        # JAX piso.py:725-756: each round is the solve plus one correct_div
+        # launch, whose divergence feeds the next round's solve; the exit
+        # reads err on the host once a round, as _outer_rounds does.
+        u, v, p, rhs = correct_div(u_star, v_star, p, pp, dt_sub, g)
+        it = 0
+        while it < rounds and bool(err >= opts.outer_corrector_tol):
+            pp, err, _ = _solve_pressure(scene, pp, rhs, dt_sub)
+            u, v, p, rhs = correct_div(u, v, p, pp, dt_sub, g)
+            it += 1
+    else:
+        u, v, p = correct(u_star, v_star, p, pp, dt_sub, g.dx, g.dy)
+        u, v, p, pp, err = _outer_rounds(scene, u, v, p, pp, err, dt_sub)[:5]
     u, v = apply_bcs(u, v, g, profile, inlet, mask_u_bc, mask_v_bc, flow)
     return u, v, p, pp, err, None
 
@@ -499,15 +525,37 @@ def ramped_inlet(opts: SolverOptions, state: State):
     return ramp * state.target_inlet
 
 
-def dt_control(grid: Grid, opts: SolverOptions, state: State, max_vel):
-    """CFL dt control with the 1.1x growth cap (model.rs:877-889)."""
-    cap = state.dt
+def adapt_substeps(opts: SolverOptions, substeps, res_u, res_v, res_p):
+    """JS substep adaptation (index.html:310-317): grow by the error
+    ratio above tolerance, halve when well below."""
+    error_norm = torch.maximum(torch.maximum(res_u, res_v), res_p)
+    tol = opts.substep_tolerance
+    factor = error_norm / torch.full_like(error_norm, tol)  # a true division on the card
+    grown = torch.clamp(torch.ceil(substeps.to(error_norm.dtype) * factor),
+                        max=float(opts.substeps_max)).to(torch.int32)
+    shrunk = torch.clamp(substeps // 2, min=1)
+    return torch.where(
+        error_norm > tol, grown,
+        torch.where((error_norm < tol / 10.0) & (substeps > 1), shrunk, substeps))
+
+
+def dt_control(grid: Grid, opts: SolverOptions, state: State, max_vel, res_p):
+    """CFL dt control with the 1.1x growth cap (model.rs:877-889 /
+    index.html:1326-1341), capped by the user's dt in JS, plus the JS
+    residual-based dt scaling (index.html:338-350)."""
+    js = opts.semantics == Semantics.JS
+    cap = state.dt_user if js else state.dt
     safe_vel = torch.where(max_vel == 0.0, 1.0, max_vel)
     # f32(cfl * h) / v, rounded as the JAX package divides (a Python
     # scalar on the left would become a reciprocal and a multiply).
     cfl_h = torch.full_like(safe_vel, opts.cfl * min(grid.dx, grid.dy))
     dt_cfl = torch.where(max_vel == 0.0, cap,
                          torch.minimum(cfl_h / safe_vel, cap))
+    if js and opts.residual_dt_scaling:
+        ptol = torch.full_like(res_p, opts.residual_dt_tol)
+        dt_pressure = torch.where(res_p > opts.residual_dt_tol,
+                                  dt_cfl * (ptol / (res_p + 1e-10)), dt_cfl)
+        dt_cfl = torch.minimum(dt_cfl, dt_pressure)
     return torch.where(dt_cfl > state.dt,
                        torch.minimum(dt_cfl, state.dt * opts.dt_growth_cap),
                        dt_cfl)
@@ -518,25 +566,52 @@ def dt_control(grid: Grid, opts: SolverOptions, state: State, max_vel):
 # ---------------------------------------------------------------------------
 
 def step_fn(scene: Scene, state: State) -> Tuple[State, StepDiagnostics]:
-    """One Model::update: a single Rust substep plus the step controls.
-    On a batched state (fields (B, ny, *), scalars (B,)) every scene
-    steps on its own: the residuals and the CFL control per scene."""
+    """One Model::update / updateSimulation: the substeps plus the step
+    controls. On a batched state (fields (B, ny, *), scalars (B,)) every
+    scene steps on its own: the residuals and the CFL control per scene.
+
+    The substep count is static (one substep, no host read) unless the
+    scene adapts it or starts above one; then the loop reads
+    ``state.substeps`` once (JAX piso.py:858-905)."""
     g, opts = scene.grid, scene.opts
     if state.u.dim() not in (2, 3):
         raise ValueError(f"step_fn: u of shape {tuple(state.u.shape)}; expected "
                          f"(ny, nx+1) or (B, ny, nx+1)")
     batched = state.u.dim() == 3
-    u_old, v_old = state.u, state.v
+    if batched:  # before any route is chosen, on every device
+        check_batchable(scene)
+    js = opts.semantics == Semantics.JS
+    u_enter, v_enter = state.u, state.v
+    u, v = u_enter, v_enter
+    if js and opts.extrapolate:
+        # The JS extrapolated initial guess (index.html:263-270), with
+        # u_prev the previous converged field (JAX piso.py:838-847).
+        nonzero = state.step > 0
+        u = torch.where(nonzero, 2.0 * u - state.u_prev, u)
+        v = torch.where(nonzero, 2.0 * v - state.v_prev, v)
+    u_old, v_old = u, v
     inlet = ramped_inlet(opts, state)
-    # One substep: dt_sub is dt and the executed count is 1.
-    dt_sub = state.dt
-    substeps = torch.ones_like(state.substeps)
+    if not opts.substeps_adaptive and opts.substeps_init == 1:
+        # Statically one substep: the carried counter is pinned to the
+        # count run, so the substeps sum to one dt (JAX piso.py:858-866).
+        substeps, n_sub, dt_sub = torch.ones_like(state.substeps), 1, state.dt
+    else:
+        substeps = state.substeps
+        n_sub = int(substeps)  # the step's one host read of its count
+        dt_sub = state.dt / substeps.to(state.dt.dtype)
+    executed = substeps
     fused_red = (not batched and _use_fused_substep(scene)
                  and opts.outer_corrector_rounds == 0)
     entry = (u_old, v_old) if fused_red else None
-    u, v, p, pp, res_p, red = piso_substep(scene, u_old, v_old, state.p,
-                                           state.p_prime, dt_sub, state.nu,
-                                           inlet, entry=entry)
+    p, pp = state.p, state.p_prime
+    res_p = red = None
+    for _ in range(n_sub):
+        u, v, p, pp, err, extras = piso_substep(scene, u, v, p, pp, dt_sub,
+                                                state.nu, inlet, entry=entry)
+        # JS reports the max residual over the substeps (index.html:288-293),
+        # Rust the last substep's (model.rs:326).
+        res_p = torch.maximum(res_p, err) if js and res_p is not None else err
+        red = extras if extras is not None else red
     if red is not None:
         res_u, res_v, max_vel = red
     else:
@@ -547,12 +622,16 @@ def step_fn(scene: Scene, state: State) -> Tuple[State, StepDiagnostics]:
                                 torch.amax(torch.abs(v), dim=last2))
     new_step = state.step + 1
     new_t = state.t + state.dt
-    new_dt = dt_control(g, opts, state, max_vel)
+    if js and opts.substeps_adaptive:
+        substeps = adapt_substeps(opts, substeps, res_u, res_v, res_p)
+    new_dt = dt_control(g, opts, state, max_vel, res_p)
     new_state = dataclasses.replace(
-        state, u=u, v=v, p=p, p_prime=pp, dt=new_dt, t=new_t, step=new_step,
-        substeps=substeps, res_u=res_u, res_v=res_v, res_p=res_p)
+        state, u=u, v=v, p=p, p_prime=pp,
+        u_prev=u_enter if js else None, v_prev=v_enter if js else None,
+        dt=new_dt, t=new_t, step=new_step, substeps=substeps, res_u=res_u,
+        res_v=res_v, res_p=res_p)
     diag = StepDiagnostics(step=new_step, t=new_t, dt=state.dt, res_u=res_u,
-                           res_v=res_v, res_p=res_p, substeps=substeps)
+                           res_v=res_v, res_p=res_p, substeps=executed)
     return new_state, diag
 
 

@@ -32,7 +32,14 @@ Phases, one line each; any failure raises and exits non-zero:
    prolongation of the cycle's own correction (with and without the p'
    BCs); the transfers on a 33x17 level; the smoother on the 128^2 level
    (one block); the damped smoother on the 2048^2 and 800x264 legacy
-   production states after 3 steps and on the 128^2 level;
+   production states after 3 steps and on the 128^2 level; the JS twin's
+   forms: predict_div with SECOND and QUICK faces under either semantics
+   and correct_bc with the PARABOLIC and PARABOLIC_UPPER inlets under the
+   JS masks, on the 2048^2 JS QUICK state after 3 steps, and the rounds
+   kernel on a 400x132 JS QUICK PARABOLIC state (the same sweeps
+   required); correct_div on the 2048^2 reference-mode state after 3
+   steps; one MULTIGRID solve from the same (p'0, rhs) on the card and
+   the CPU at 2048^2, p' held to the summed tolerances of its launches;
 4. run the 800x264 default scene (the Rust app's) for 50 steps with
    make_run, print steps/s and check its physical invariants;
 5. run the benchmark's fast shape at 2048^2 (bench.py --mode fast):
@@ -60,12 +67,20 @@ Phases, one line each; any failure raises and exits non-zero:
    with --solver multigrid (up to 20 outer rounds); the legacy production
    projection (--mgp-scheme legacy) at 2048^2, 5 warm-up steps, then 20
    one at a time with the V-cycles and exit of each, and 3 steps at
-   800x264; each of these paths must launch exactly its kernels;
+   800x264; the JS twin's default scene (400x132, adaptive substeps, the
+   rounds kernel from a zero p'), 5 warm-up steps then 50 timed, with
+   substeps per step; the 2048^2 JS QUICK PARABOLIC shape (bench.py
+   --mode fast's schedule), 5 warm-up steps then 100 timed under the sync
+   check; the 2048^2 reference mode with rounds_impl="pallas", 3 warm-up
+   steps then 5 with the outer rounds of each, against the unfused
+   route's 5 from the same state on the card; each of these paths must
+   launch exactly its kernels;
 7. from the end states of 4, 5, 6 and the ensembles (2 of the 8
-   800x264 scenes, 2 of the 16 SOR scenes), run 3 steps on CUDA and on
-   the port's CPU path and compare u, v, grad p and mean-removed p (the
-   production projections, aligned and legacy, with their solver's own
-   bound);
+   800x264 scenes, 2 of the 16 SOR scenes), run 3 steps (the 2048^2 JS
+   QUICK shape 2, the reference mode 1) on CUDA and on the port's CPU
+   path and compare u, v, grad p and mean-removed p (the production
+   projections, aligned and legacy, with their solver's own bound;
+   MULTIGRID on u, v and grad p alone);
 8. require every kernel of each path to have launched in that path's
    run (counts set to 0 just before it, read just after).
 
@@ -87,11 +102,13 @@ import torch
 
 import cfd_demo_tpu_torch as tc
 from cfd_demo_tpu_torch.apps.ensemble import ensemble_scene, ensemble_state
-from cfd_demo_tpu_torch.cells import (ensemble_args, fast_scene,
-                                      legacy_production_scene, multigrid_scene,
-                                      production_scene, reference_scene,
+from cfd_demo_tpu_torch.cells import (ensemble_args, fast_scene, js_default_scene,
+                                      js_quick_scene, legacy_production_scene,
+                                      multigrid_scene, production_scene,
+                                      reference_mode_scene, reference_scene,
                                       rounds_args, sor_ensemble_scene, sor_scene,
                                       vcycles_launched)
+from cfd_demo_tpu_torch.core.masks import masks_traced
 from cfd_demo_tpu_torch.kernels import _build
 from cfd_demo_tpu_torch.kernels import mg as kmg
 from cfd_demo_tpu_torch.kernels import mgp
@@ -103,10 +120,11 @@ from cfd_demo_tpu_torch.kernels.jacobi_batch import jacobi_batch, jacobi_batch_p
 from cfd_demo_tpu_torch.kernels.rounds import (solve_correct_rounds,
                                                solve_correct_rounds_plain)
 from cfd_demo_tpu_torch.kernels.substep import (correct_bc, correct_bc_plain,
+                                                correct_div, correct_div_plain,
                                                 predict_div, predict_div_plain)
 from cfd_demo_tpu_torch.ops import fdm
-from cfd_demo_tpu_torch.ops.poisson import (_cc_prolong_x, _cc_vcycle, _mg_kit,
-                                            _mg_vcycle, _smoothers)
+from cfd_demo_tpu_torch.ops.poisson import (MgKit, _cc_prolong_x, _cc_vcycle, _mg_kit,
+                                            _mg_vcycle, _smoothers, multigrid)
 from cfd_demo_tpu_torch.solver.piso import ramped_inlet
 
 EPS32 = float(np.finfo(np.float32).eps)
@@ -122,6 +140,8 @@ SOR, SOR_ODD, REF_SOR = "2048^2 sor", "2047^2 sor", "800x264 sor"
 ENS_SOR = "ensemble 16x256x96 sor"
 MG, MG_ODD, REF_MG = "2048^2 multigrid", "2047^2 multigrid", "800x264 multigrid"
 LEG, REF_LEG = "2048^2 production legacy", "800x264 production legacy"
+JS_DEF, JS_QUICK = "400x132 js default", "2048^2 js quick"
+REF_CD = "2048^2 reference correct_div"
 # name -> (wrapper, source, the Pallas call site it replaces, the path
 # whose launches the JSON line reports)
 KERNELS = {
@@ -161,6 +181,8 @@ KERNELS = {
                        "cfd_demo_tpu/kernels/mg_pallas.py:728", MG),
     "mgp_smooth": (kmg.mgp_smooth, "cfd_demo_tpu_torch/csrc/mg.cu",
                    "cfd_demo_tpu/kernels/mg_pallas.py:1063", LEG),
+    "correct_div": (correct_div, "cfd_demo_tpu_torch/csrc/correct_div.cu",
+                    "cfd_demo_tpu/kernels/substep_pallas.py:587", REF_CD),
 }
 VERTEX = ("mg_residual_restrict", "mg_prolong_add")
 # The kernels each path must launch.
@@ -182,9 +204,13 @@ PATHS = {
     REF_MG: ("mg_smooth", *VERTEX),
     LEG: ("predict_div", "correct_bc", "mgp_smooth", *VERTEX),
     REF_LEG: ("mgp_smooth", *VERTEX),
+    JS_DEF: ("rounds",),
+    JS_QUICK: ("predict_div", "jacobi_fused_k", "correct_bc"),
+    REF_CD: ("predict_div", "jacobi_fused_k", "correct_div"),
 }
 # Paths that must launch their kernels and no other.
-EXACT_PATHS = (SOR, SOR_ODD, REF_SOR, ENS_SOR, MG, MG_ODD, REF_MG, LEG, REF_LEG)
+EXACT_PATHS = (SOR, SOR_ODD, REF_SOR, ENS_SOR, MG, MG_ODD, REF_MG, LEG, REF_LEG,
+               JS_DEF, JS_QUICK, REF_CD)
 # The card's peaks (NVIDIA's H100 SXM data sheet, at the 700 W limit):
 # device-memory bytes/s and f32 FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -192,11 +218,13 @@ F32_FLOPS = 67e12
 # f32 operations per cell, counted from the kernels' sources: a folded
 # damped sweep 9 and its |change| max 3; a folded residual 8 and its
 # |r| max 2; the 2x2 restriction 1.5; the corr add 3; a cell-centred
-# sweep 10; predict_div about 100 (u* and v*: 25 each, rhs 6, the two
-# cylinder tests, the recomputed neighbours); correct_bc about 20; a
-# round's divergence 6 and corrector 9.
+# sweep 10; predict_div about 100 with FIRST faces (u* and v*: 25 each,
+# each computed twice, the rhs 6), 160 with SECOND (35 each) and 200 with
+# QUICK (50 each); correct_bc about 20; a round's divergence 6 and
+# corrector 9, and correct_div about 30 (the corrector of three faces).
 SWEEP, SWEEP_ERR, RES, RES_MAX, RESTRICT, CORR_ADD, CC_SWEEP = 9, 3, 8, 2, 1.5, 3, 10
-PREDICT, DIV_CORRECT = 100, 15
+PREDICT, DIV_CORRECT, CORRECT_DIV = 100, 15, 30
+PREDICT_BY_SCHEME = {"FIRST": PREDICT, "SECOND": 160, "QUICK": 200}
 # A red/black SOR iteration: 10 a cell (two sums, four products, the rhs
 # term, three adds), and its |change| max 3.
 SOR_ITER = 10
@@ -310,7 +338,7 @@ def check_kernels(dev, results):
         ("rhs", got[2], ref[2], rhs_tol)], results,
         (time_ms(lambda: predict_div(u, v, dt, nu, g, sch, sem), 20),
          time_ms(lambda: predict_div_plain(u, v, dt, nu, g, sch, sem), 20)),
-        bound(nbytes(u, v, *got), 100 * g.nx * g.ny))
+        bound(nbytes(u, v, *got, *masks_traced(g, sem, dev)[:2]), PREDICT * g.nx * g.ny))
     u_star, v_star, rhs = got
 
     k = 16
@@ -339,7 +367,8 @@ def check_kernels(dev, results):
                                got, ref)], results,
         (time_ms(lambda: correct_bc(*args), 20),
          time_ms(lambda: correct_bc_plain(*args), 20)),
-        bound(nbytes(*args[:6], *got), 20 * g.nx * g.ny))
+        bound(nbytes(*args[:6], *got[:3], *masks_traced(g, sem, dev)[2:]),
+              20 * g.nx * g.ny))
 
     # The rounds kernel at 800x264 on the state phase 4 ends at (55 steps),
     # where every step runs all its outer rounds, fed what the main path
@@ -384,6 +413,173 @@ def check_kernels(dev, results):
         bound(nbytes(*args[:5], *got[:4]),
               (counts[1] * (SWEEP + SWEEP_ERR) + (counts[0] + 1) * 15)
               * g.nx * g.ny))
+
+
+def check_js_kernels(dev, results):
+    """Kernels 1, 3 and 4's new forms and kernel 5 on their paths' states.
+    On the 2048^2 JS QUICK PARABOLIC state after 3 steps: predict_div with
+    SECOND and QUICK faces under either semantics (JS: the face-position
+    masks and the averaged convecting v), correct_bc with the PARABOLIC
+    and PARABOLIC_UPPER inlets under the JS masks. The rounds kernel on
+    the 400x132 JS QUICK PARABOLIC scene after 20 steps (the zero warm
+    start, no outer rounds), the same sweeps required. correct_div on the
+    2048^2 reference-mode state after 3 steps. Each form's numbers go
+    under its kernel's "variants"."""
+    scene = js_quick_scene()
+    g, opts = scene.grid, scene.opts
+    state, _ = tc.make_run(scene, 3)(scene.init_state(dev))
+    u, v, dt, nu = state.u, state.v, state.dt, state.nu
+    inlet = ramped_inlet(opts, state)
+    h, cells = float(dt), g.nx * g.ny
+
+    def record(name, label, pairs, call, plain, bnd, n=20, n_plain=5):
+        """compare() under results[name]["variants"][label]."""
+        out = {}
+        compare(f"{name} {label}", pairs, out, (time_ms(call, n), time_ms(plain, n_plain)),
+                bnd)
+        entry = out.popitem()[1]
+        del entry["library_ms"]
+        results[name].setdefault("variants", {})[label] = entry
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                           entry["max_abs_err"])
+        return entry
+
+    for sem in (tc.Semantics.RUST, tc.Semantics.JS):
+        masks = masks_traced(g, sem, dev)
+        for sch in (tc.VelocityScheme.SECOND, tc.VelocityScheme.QUICK):
+            call = lambda: predict_div(u, v, dt, nu, g, sch, sem)
+            plain = lambda: predict_div_plain(u, v, dt, nu, g, sch, sem)
+            got, ref = call(), plain()
+            uv_scale = max(1.0, float(ref[0].abs().max()), float(ref[1].abs().max()))
+            rhs_tol = 4 * EPS32 * uv_scale * (1 / g.dx + 1 / g.dy) / h
+            record("predict_div", f"{sem.value} {sch.value}", [
+                ("u*", got[0], ref[0], scaled(ref[0], 1e-6)),
+                ("v*", got[1], ref[1], scaled(ref[1], 1e-6)),
+                ("rhs", got[2], ref[2], rhs_tol)], call, plain,
+                bound(nbytes(u, v, *got, *masks[:2]),
+                      PREDICT_BY_SCHEME[sch.name] * cells))
+
+    js = tc.Semantics.JS
+    u_star, v_star, _ = predict_div(u, v, dt, nu, g, scene.params.velocity_scheme, js)
+    for prof in (tc.InletProfile.PARABOLIC, tc.InletProfile.PARABOLIC_UPPER):
+        args = (u_star, v_star, state.p, state.p_prime, u, v, dt, inlet, g, prof,
+                tc.FlowCase.CHANNEL, js)
+        got, ref = correct_bc(*args), correct_bc_plain(*args)
+        record("correct_bc", f"js {prof.value}", [
+            (lb, a, b, scaled(b, 1e-6))
+            for lb, a, b in zip(("u", "v", "p", "res_u", "res_v", "max_vel"), got, ref)],
+            lambda: correct_bc(*args), lambda: correct_bc_plain(*args),
+            bound(nbytes(*args[:6], *got[:3], *masks_traced(g, js, dev)[2:]),
+                  20 * cells))
+
+    # The rounds kernel's JS form on the JS twin's grid with QUICK faces and
+    # the PARABOLIC inlet, fed what the rounds route feeds it.
+    scene = tc.make_scene(tc.default_js_grid(), tc.SimulationParams(
+        dt=0.005, viscosity=1e-6, velocity_scheme=tc.VelocityScheme.QUICK,
+        inlet_profile=tc.InletProfile.PARABOLIC), tc.solver_options_for(js))
+    gj = scene.grid
+    init = scene.init_state(dev)
+    init.step.fill_(500)  # the inlet ramp half way up (1000 steps)
+    state_j, _ = tc.make_run(scene, 20)(init)
+    args = rounds_args(scene, state_j)
+    got, ref = solve_correct_rounds(*args), solve_correct_rounds_plain(*args)
+    counts, ref_counts = got[5].tolist(), ref[5].tolist()
+    require(counts == ref_counts, f"rounds (JS): the kernel ran {counts} (outer "
+            f"rounds, sweeps), the plain version {ref_counts}")
+    require(counts[0] == 0, f"rounds (JS): {counts[0]} outer rounds ran")
+    demean = lambda a, b: a - (a - b).mean()
+    entry = record("rounds", "js quick parabolic 400x132", [
+        ("u", got[0], ref[0], 5e-5 + 1e-4 * float(ref[0].abs().max())),
+        ("v", got[1], ref[1], 5e-5 + 1e-4 * float(ref[1].abs().max())),
+        ("p-mean", demean(got[2], ref[2]), ref[2], scaled(ref[2], 1e-4)),
+        ("p'-mean", demean(got[3], ref[3]), ref[3], scaled(ref[3], 1e-4))],
+        lambda: solve_correct_rounds(*args), lambda: solve_correct_rounds_plain(*args),
+        bound(nbytes(*args[:5], *got[:4], *masks_traced(gj, js, dev)[2:]),
+              (counts[1] * (SWEEP + SWEEP_ERR) + DIV_CORRECT) * gj.nx * gj.ny),
+        n=10, n_plain=3)
+    entry["sweeps"] = counts[1]
+    print(f"[3] rounds (JS): {counts[1]} sweeps, no outer round, on both sides",
+          flush=True)
+
+    # correct_div on the reference-mode state: what the first outer round
+    # of the next step gets (u*, v* of the predictor, p and the solve's p').
+    scene = reference_mode_scene(2048, "pallas")
+    g = scene.grid
+    state, _ = tc.make_run(scene, 3)(scene.init_state(dev))
+    dt = state.dt
+    u_star, v_star, _ = predict_div(state.u, state.v, dt, state.nu, g,
+                                    scene.params.velocity_scheme, scene.opts.semantics)
+    args = (u_star, v_star, state.p, state.p_prime, dt, g)
+    got, ref = correct_div(*args), correct_div_plain(*args)
+    uv_scale = max(1.0, float(ref[0].abs().max()), float(ref[1].abs().max()))
+    compare("correct_div", [
+        ("u", got[0], ref[0], scaled(ref[0], 1e-6)),
+        ("v", got[1], ref[1], scaled(ref[1], 1e-6)),
+        ("p", got[2], ref[2], scaled(ref[2], 1e-6)),
+        ("rhs", got[3], ref[3], 4 * EPS32 * uv_scale * (1 / g.dx + 1 / g.dy) / float(dt))],
+        results, (time_ms(lambda: correct_div(*args), 20),
+                  time_ms(lambda: correct_div_plain(*args), 5)),
+        bound(nbytes(*args[:4], *got), CORRECT_DIV * g.nx * g.ny))
+
+
+def check_multigrid_solve(dev, report):
+    """One MULTIGRID solve (mg_cycles V-cycles, ops/poisson.py multigrid)
+    from the same (p'0, rhs) on the card and on the CPU: the 2048^2
+    multigrid state after 3 steps and its next rhs. The cycles do not
+    converge, so each run's p' carries its own roundings; max|d| of p' is
+    held to the sum, over the launches the solve makes, of each launch's
+    tolerance as phase 3 states it for that kernel (sweep_tol for a
+    smoother, res_floor for a residual-restriction, ulp_tol for a
+    prolongation), computed from the CPU run's own operands."""
+    scene = multigrid_scene()
+    g, opts = scene.grid, scene.opts
+    state, _ = tc.make_run(scene, 3)(scene.init_state(dev))
+    rhs = predict_div(state.u, state.v, state.dt, state.nu, g,
+                      scene.params.velocity_scheme, opts.semantics)[2]
+    reset_counts()
+    got = multigrid(state.p_prime, rhs, g.dx, g.dy, opts)[0]
+    torch.cuda.synchronize()
+    ran = {k: c for k, c in read_counts().items() if c}
+    require(set(ran) == {"mg_smooth", *VERTEX},
+            f"multigrid solve: launched {ran}")
+    total, n = [0.0], dict.fromkeys(ran, 0)
+
+    def smooth(p, r, dx, dy, k):
+        out = kmg.mg_smooth_plain(p, r, dx, dy, k)
+        total[0] += sweep_tol(k, out, float(r.abs().max()) / (2 / dx ** 2 + 2 / dy ** 2))
+        n["mg_smooth"] += 1
+        return out
+
+    def restrict(p, r, dx, dy):
+        total[0] += res_floor(p, r, 2 / dx ** 2 + 2 / dy ** 2)
+        n["mg_residual_restrict"] += 1
+        return kmg.mg_residual_restrict_plain(p, r, dx, dy)
+
+    def prolong(e, p, bc):
+        out = kmg.mg_prolong_add_plain(e, p, bc)
+        total[0] += ulp_tol(out)
+        n["mg_prolong_add"] += 1
+        return out
+
+    kit = MgKit(smooth, restrict, prolong, None)
+    rhs_cpu = rhs.cpu()
+    ref = torch.zeros_like(rhs_cpu)
+    for _ in range(opts.mg_cycles):
+        ref = _mg_vcycle(ref, rhs_cpu, g.dx, g.dy, opts, kit)
+    require(n == ran, f"multigrid solve: the card launched {ran}, the CPU run {n}")
+    d = max_abs(got.cpu(), ref)
+    dd = (got.cpu() - ref).double()
+    l2_dm = float(torch.sqrt(torch.mean((dd - dd.mean()) ** 2)))
+    pmax = float(ref.abs().max())
+    report["multigrid_one_solve"] = {"max_abs_d": d, "bound": total[0],
+                                     "l2_demeaned_d": l2_dm, "max_abs_p": pmax,
+                                     "launches": ran}
+    print(f"[3] multigrid, one solve ({opts.mg_cycles} V-cycles) from the same (p'0, "
+          f"rhs) on the card and the CPU at 2048^2: p' max|d|={d:.3e} (bound "
+          f"{total[0]:.3e}, the summed tolerances of {sum(ran.values())} launches), "
+          f"mean-removed L2 {l2_dm:.3e}, max|p'| {pmax:.3e}", flush=True)
+    require(bool(torch.isfinite(got).all()), "multigrid solve: p' not finite")
+    require(d <= total[0], f"multigrid solve: p' max|d| {d} > {total[0]}")
 
 
 def check_ensemble_kernels(dev, results):
@@ -778,22 +974,20 @@ def compare_with_cpu(scene, state_dev, label, steps=3, knife_edge=False):
     p'). They are the solver's own guarantee, not a fit to a reading.
 
     MULTIGRID's three cycles do not converge, and their coarse
-    corrections carry the f32 rounding of each run's residual, about
-    mgp_floor eps (denom max|p'| + max|rhs|) a cell (the noise floor's
-    own definition), into the smoothest modes: two runs' p' may differ
-    by d with |A d| <= twice that, so rms(d) <= 2 E / lambda_min a solve
-    (``multigrid_noise``), summed over the steps' solves and added to the
-    mean-removed p bound alone. Those modes move p, not its gradient: u,
-    v and grad p keep their golden bounds.
+    corrections carry each run's f32 roundings into the smoothest modes
+    of p', which move p and not its gradient: its rollouts are held on
+    u, v and grad p alone, and p' by one solve from the same inputs
+    (check_multigrid_solve).
 
-    With ``knife_edge`` (the ensembles), a Jacobi or SOR solve with
-    tolerance exits may stop one iteration apart on the two runs, at a
-    float knife edge (ROADMAP.md section 3). That iteration moves p' by
-    its own max change, below jacobi_tol; p sums every solve's p', so
-    steps x (1 + outer rounds) x jacobi_tol is added to the mean-removed
-    p bound. It matters where p is small: the 8x800x264 ensemble after 13
-    steps (rms p ~14). The 800x264 default scene (p in the thousands) is
-    held to the golden bound alone.
+    With ``knife_edge`` (the ensembles, the JS twin's scene), a Jacobi or
+    SOR solve with tolerance exits may stop one iteration apart on the
+    two runs, at a float knife edge (ROADMAP.md section 3). That
+    iteration moves p' by its own max change, below jacobi_tol; p sums
+    every solve's p', so jacobi_tol times the solves the steps ran (1 +
+    outer rounds a substep) is added to the mean-removed p bound. It
+    matters where p is small: the 8x800x264 ensemble after 13 steps (rms
+    p ~14). The 800x264 default scene (p in the thousands) is held to
+    the golden bound alone.
 
     Red/black SOR over-relaxes (omega = 1.7), and each iteration carries
     the two devices' rounding on (PyTorch divides by a scalar through its
@@ -808,11 +1002,15 @@ def compare_with_cpu(scene, state_dev, label, steps=3, knife_edge=False):
     error stays far above jacobi_tol), ~1050 a step, so there the u and v
     bound is loose and p and grad p carry the check."""
     state_cpu = tc.state_from_numpy(tc.state_to_numpy(state_dev), "cpu")
-    if scene.params.pressure_solver == tc.PressureSolver.MULTIGRID:
-        slack_mg = multigrid_noise(scene, state_dev, steps)
     run = tc.make_run(scene, steps)
-    a, da = run(state_dev)
-    b, db = run(state_cpu)
+    return compare_runs(scene, run(state_dev), run(state_cpu), label, steps,
+                        knife_edge, "CUDA vs CPU")
+
+
+def compare_runs(scene, run_a, run_b, label, steps, knife_edge=False,
+                 what="CUDA vs CPU"):
+    """The checks of compare_with_cpu on two runs' (state, diagnostics)."""
+    (a, da), (b, db) = run_a, run_b
     g = scene.grid
     l2 = lambda x, y: float(np.sqrt(np.mean((x - y) ** 2)))
     rms = lambda x: max(1.0, float(np.sqrt(np.mean(x ** 2))))
@@ -822,10 +1020,12 @@ def compare_with_cpu(scene, state_dev, label, steps=3, knife_edge=False):
         lam = lambda_min(g)
         slack_p, slack_grad = e.sum() / lam, e.sum() / np.sqrt(lam)
         slack_uv = float((da.dt.cpu().double().numpy() * e).sum()) / np.sqrt(lam)
-    elif scene.params.pressure_solver == tc.PressureSolver.MULTIGRID:
-        slack_p = slack_mg
     elif knife_edge:
-        slack_p = steps * (1 + scene.opts.outer_corrector_rounds) * scene.opts.jacobi_tol
+        # the most substeps a scene ran
+        substeps = int(torch.maximum(da.substeps.cpu(), db.substeps.cpu())
+                       .reshape(steps, -1).sum(dim=0).max())
+        slack_p = (substeps * (1 + scene.opts.outer_corrector_rounds)
+                   * scene.opts.jacobi_tol)
     if scene.params.pressure_solver == tc.PressureSolver.SOR:
         solves = steps * (1 + scene.opts.outer_corrector_rounds)
         pmax = max(1.0, *(float(s.p_prime.abs().max()) for s in (a, b)))
@@ -841,36 +1041,21 @@ def compare_with_cpu(scene, state_dev, label, steps=3, knife_edge=False):
     pa, pb = (s.p.cpu().double().numpy() for s in (a, b))
     gp, gp_bound, unit = grad_p_l2(pa, pb, g)
     out["grad_p"] = (gp, gp_bound + slack_grad)
-    d = pa - pb
-    d = d - d.mean(axis=(-2, -1), keepdims=True)  # each scene's own mean
-    out["p_demeaned"] = (l2(d, 0.0), 1e-5 * rms(pb) + slack_p)
-    print(f"[7] {label}: {steps} steps CUDA vs CPU, L2 "
+    if scene.params.pressure_solver != tc.PressureSolver.MULTIGRID:
+        d = pa - pb
+        d = d - d.mean(axis=(-2, -1), keepdims=True)  # each scene's own mean
+        out["p_demeaned"] = (l2(d, 0.0), 1e-5 * rms(pb) + slack_p)
+    if da.substeps.tolist() != db.substeps.tolist():
+        raise RuntimeError(f"{label}: {what} substep counts {da.substeps.tolist()} "
+                           f"vs {db.substeps.tolist()}")
+    print(f"[7] {label}: {steps} steps {what}, L2 "
           + ", ".join(f"{k}={x:.3e} (bound {t:.2e})" for k, (x, t) in out.items())
           + f"; grad p {gp / unit:.2f} ulp(max|p|)/h"
           + (f"; solve terms {slack_uv:.2e} (u, v), {slack_grad:.2e} (grad p), "
              f"{slack_p:.2e} (p)" if slack_p else ""), flush=True)
     for k, (x, t) in out.items():
-        require(x <= t, f"{label}: CUDA vs CPU {k} L2 {x} > {t}")
+        require(x <= t, f"{label}: {what} {k} L2 {x} > {t}")
     return {k: x for k, (x, _) in out.items()}
-
-
-def multigrid_noise(scene, state, steps) -> float:
-    """The mean-removed p allowance of a MULTIGRID run of ``steps`` steps
-    from ``state`` (compare_with_cpu): per step, 1 + outer_corrector_rounds
-    solves times 2 E / lambda_min, E = mgp_floor eps (denom max|p'| +
-    max|rhs|) with that step's rhs (the plain predictor's) and p'."""
-    g, opts = scene.grid, scene.opts
-    denom = 2 / g.dx ** 2 + 2 / g.dy ** 2
-    step = tc.make_step(scene)
-    total = 0.0
-    for _ in range(steps):
-        rhs = predict_div_plain(state.u, state.v, state.dt, state.nu, g,
-                                scene.params.velocity_scheme, opts.semantics)[2]
-        rhs_max = float(rhs.abs().max())
-        state, _ = step(state)
-        e = opts.mgp_floor * EPS32 * (denom * float(state.p_prime.abs().max()) + rhs_max)
-        total += (1 + opts.outer_corrector_rounds) * 2 * e / lambda_min(g)
-    return total
 
 
 def take_scenes(state, idx):
@@ -1261,6 +1446,105 @@ def run_vertex(dev, launches, report):
     return out
 
 
+def run_js(dev, launches, report):
+    """The JS twin's step and kernel 5's route: the JS default scene
+    (400x132, adaptive substeps, the rounds kernel from a zero p'), 5
+    warm-up steps then 50 timed, with substeps per step; the 2048^2 JS
+    QUICK PARABOLIC shape, 5 warm-up steps then 100 timed under
+    set_sync_debug_mode("error"); the 2048^2 reference mode with
+    rounds_impl="pallas", 3 warm-up steps then 5 one at a time with the
+    outer rounds of each (correct_div launches less one), held against
+    the unfused route's 5 steps from the same state on the card. Returns
+    their (scene, end state, label) triples."""
+    out = []
+    scene = js_default_scene()
+    g = scene.grid
+    state, _ = tc.make_run(scene, 5)(scene.init_state(dev))
+    run = tc.make_run(scene, 50)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, diags = run(state)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches[JS_DEF] = read_counts()
+    check_invariants(scene, state, JS_DEF)
+    sub = diags.substeps.cpu()
+    require(bool(((sub >= 1) & (sub <= scene.opts.substeps_max)).all()),
+            f"{JS_DEF}: substep counts {sub.tolist()}")
+    require(launches[JS_DEF]["rounds"] == int(sub.sum()),
+            f"{JS_DEF}: {launches[JS_DEF]['rounds']} rounds-kernel launches for "
+            f"{int(sub.sum())} substeps")
+    require(state.u_prev is not None and bool(torch.isfinite(state.u_prev).all()),
+            f"{JS_DEF}: u_prev missing or not finite")
+    report[JS_DEF] = {"steps_per_s": 50 / sec, "substeps_per_step": sub.tolist(),
+                      "res_p": float(state.res_p), "dt": float(state.dt)}
+    print(f"[6] {JS_DEF}: 50 steps in {sec:.4f} s = {50 / sec:.2f} steps/s, "
+          f"{float(sub.double().mean()):.2f} substeps per step (min {int(sub.min())}, "
+          f"max {int(sub.max())}; one rounds-kernel launch and one host read of "
+          f"the count a step), res_p {float(state.res_p):.3e}, dt "
+          f"{float(state.dt):.5f}; invariants hold", flush=True)
+    out.append((scene, state, JS_DEF))
+
+    scene = js_quick_scene()
+    n = scene.grid.nx
+    state, _ = tc.make_run(scene, 5)(scene.init_state(dev))
+    state, sec, launches[JS_QUICK] = timed_run(scene, state, 100, True)
+    umin, umax = check_invariants(scene, state, JS_QUICK)
+    rate = n * n * 100 / sec
+    report[JS_QUICK] = {"cell_updates_per_s": rate, "steps_per_s": 100 / sec,
+                        "u_range": [umin, umax]}
+    # 50 sweeps from a zero p' (JS) leave most of the divergence at 2048^2,
+    # and the flow grows without bound as the JAX package's does: the
+    # schedule's work does not depend on the values.
+    print(f"[6] {JS_QUICK}: 100 steps in {sec:.4f} s = {rate:.4e} cell-updates/s "
+          f"({100 / sec:.2f} steps/s), no host sync (set_sync_debug_mode error); "
+          f"u in [{umin:.4e}, {umax:.4e}]", flush=True)
+    out.append((scene, state, JS_QUICK))
+
+    scene = reference_mode_scene(2048, "pallas")
+    state0, _ = tc.make_run(scene, 3)(scene.init_state(dev))
+    step = tc.make_step(scene)
+    state, diags, rounds = state0, [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        c0 = correct_div.launches
+        state, d = step(state)
+        rounds.append(correct_div.launches - c0 - 1)
+        diags.append(d)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches[REF_CD] = read_counts()
+    check_invariants(scene, state, REF_CD)
+    require(launches[REF_CD]["correct_div"] == 5 + sum(rounds) and min(rounds) >= 0,
+            f"{REF_CD}: correct_div launches {launches[REF_CD]['correct_div']}, "
+            f"rounds {rounds}")
+    rate = n * n * 5 / sec
+    report[REF_CD] = {"cell_updates_per_s": rate, "steps_per_s": 5 / sec,
+                      "rounds_per_step": rounds}
+    print(f"[6] {REF_CD}: 5 steps in {sec:.4f} s = {rate:.4e} cell-updates/s "
+          f"({5 / sec:.2f} steps/s), outer rounds per step {rounds} (one correct_div "
+          f"launch and one host read a round)", flush=True)
+    pallas = (state, type(diags[0])(*(torch.stack(x) for x in zip(*diags))))
+    run = tc.make_run(reference_mode_scene(2048), 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    unfused = run(state0)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    report[REF_CD]["unfused_cell_updates_per_s"] = n * n * 5 / sec
+    print(f"[6] {REF_CD}: the unfused route (rounds_impl auto: the plain corrector "
+          f"and divergence) from the same state, 5 steps in {sec:.4f} s = "
+          f"{n * n * 5 / sec:.4e} cell-updates/s", flush=True)
+    report[REF_CD]["vs_unfused"] = compare_runs(
+        scene, pallas, unfused, f"{REF_CD} vs the unfused route", 5,
+        knife_edge=True, what="correct_div vs unfused, both on the card")
+    out.append((scene, state, REF_CD))
+    return out
+
+
 def reset_counts():
     for wrapper, _, _, _ in KERNELS.values():
         wrapper.launches = 0
@@ -1330,11 +1614,13 @@ def main() -> int:
 
     results = {}
     check_kernels(dev, results)
+    check_js_kernels(dev, results)
     check_mgp_kernels(dev, results)
     check_fdm(dev, report)
     check_ensemble_kernels(dev, results)
     check_sor_kernels(dev, results, report)
     check_mg_kernels(dev, results)
+    check_multigrid_solve(dev, report)
     launches = {}
 
     scene_a = reference_scene()
@@ -1436,6 +1722,7 @@ def main() -> int:
     (scene_f, state_f), (scene_g, state_g) = run_ensembles(dev, launches, report)
     sor_runs = run_sor(dev, launches, report)
     vertex_runs = run_vertex(dev, launches, report)
+    js_runs = run_js(dev, launches, report)
 
     report["cpu_compare"] = {
         "800x264": compare_with_cpu(scene_a, state_a, "800x264"),
@@ -1455,6 +1742,11 @@ def main() -> int:
             scene, state, label, knife_edge=label.startswith(ENS_SOR))
     for scene, state, label in vertex_runs:
         report["cpu_compare"][label] = compare_with_cpu(scene, state, label)
+    # The JS twin's solves and the reference mode's exit at a live
+    # tolerance; the JS QUICK shape runs a fixed schedule.
+    for (scene, state, label), steps in zip(js_runs, (3, 2, 1)):
+        report["cpu_compare"][label] = compare_with_cpu(
+            scene, state, label, steps, knife_edge=label != JS_QUICK)
 
     for path, names in PATHS.items():
         counts = {k: launches[path][k] for k in names}

@@ -520,3 +520,157 @@ def test_vertex_steps_match_cpu_path(cuda, nx, ny, solver):
         assert_close(getattr(a, f), getattr(b, f), rtol=1e-5)
     d = (a.p_prime.cpu() - b.p_prime).double()
     assert float((d - d.mean()).abs().max()) <= 1e-3 * max(1e-6, float(b.p_prime.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# The JS twin's variants, kernel 5 and the mask hand-off
+# ---------------------------------------------------------------------------
+
+SIX = tc.Grid(nx=96, ny=64, lx=3.0, ly=2.0, obstacles=tuple(
+    tc.Cylinder(0.4 + 0.45 * k, 0.6 + 0.8 * (k % 2), 0.15) for k in range(6)))
+
+
+@pytest.mark.parametrize("semantics", ["RUST", "JS"])
+@pytest.mark.parametrize("scheme", ["FIRST", "SECOND", "QUICK"])
+def test_predict_div_variants(cuda, semantics, scheme):
+    """Kernel 1's scheme and semantics forms (JS: face-position masks and
+    the averaged convecting v), on six cylinders."""
+    for grid in (GRID, SIX):
+        u, v, _, _ = fields(10, grid, cuda)
+        args = (DT, NU, grid, tc.VelocityScheme[scheme], tc.Semantics[semantics])
+        got = ksub.predict_div(u, v, *args)
+        ref = ksub.predict_div_plain(u.cpu(), v.cpu(), *args)
+        assert_close(got[0], ref[0])
+        assert_close(got[1], ref[1])
+        assert_close(got[2], ref[2], rtol=1e-6 / (grid.dx * DT))
+
+
+@pytest.mark.parametrize("semantics", ["RUST", "JS"])
+@pytest.mark.parametrize("profile", ["PARABOLIC", "PARABOLIC_UPPER"])
+def test_correct_bc_variants(cuda, semantics, profile):
+    """Kernel 3's parabolic inlets (per row, in inlet_profile_traced's f32
+    order) under either semantics' BC masks."""
+    for grid in (GRID, SIX):
+        args = fields(11, grid, cuda) + fields(12, grid, cuda)[:2]
+        rest = (DT, INLET, grid, tc.InletProfile[profile], tc.FlowCase.CHANNEL,
+                tc.Semantics[semantics])
+        got = ksub.correct_bc(*args, *rest)
+        ref = ksub.correct_bc_plain(*(a.cpu() for a in args), *rest)
+        for a, b in zip(got, ref):
+            assert_close(a, b)
+
+
+def _js_rounds_scene(profile="PARABOLIC"):
+    grid = tc.Grid(nx=40, ny=24, lx=3.0, ly=1.5, obstacles=(tc.Cylinder(0.9, 0.75, 0.3),))
+    return tc.make_scene(grid, tc.SimulationParams(
+        dt=0.002, viscosity=1e-4, velocity_scheme=tc.VelocityScheme.QUICK,
+        inlet_profile=getattr(tc.InletProfile, profile)), tc.solver_options_for(tc.Semantics.JS))
+
+
+@pytest.mark.parametrize("profile", ["PARABOLIC", "PARABOLIC_UPPER"])
+def test_rounds_js(cuda, profile):
+    """Kernel 4's JS form: the zero warm start, no outer rounds, the
+    face-position BC masks and a parabolic inlet; the same sweeps."""
+    scene = _js_rounds_scene(profile)
+    u, v, p, rhs = fields(13, scene.grid, cuda, scale=0.1)
+    args = (u, v, p, torch.zeros_like(p), 10 * rhs)
+    got = krounds.solve_correct_rounds(*args, 0.002, 0.8, scene)
+    ref = krounds.solve_correct_rounds_plain(*(a.cpu() for a in args), 0.002, 0.8, scene)
+    for name, a, b in zip(("u", "v", "p", "pp", "err"), got, ref):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=5e-5, msg=name)
+    assert got[5].tolist() == ref[5].tolist() and ref[5][0] == 0
+
+
+@pytest.mark.parametrize("nx,ny", [(96, 64), (128, 64), (100, 88), (3, 3)])
+def test_correct_div(cuda, nx, ny):
+    grid = tc.Grid(nx=nx, ny=ny, lx=3.0, ly=2.0)
+    args = fields(14, grid, cuda)
+    before = ksub.correct_div.launches
+    got = ksub.correct_div(*args, DT, grid)
+    assert ksub.correct_div.launches == before + 1
+    ref = ksub.correct_div_plain(*(a.cpu() for a in args), DT, grid)
+    for a, b in zip(got[:3], ref[:3]):
+        assert_close(a, b)
+    # rhs divides corrected-u differences by dx*dt (test_predict_div)
+    assert_close(got[3], ref[3], rtol=1e-6 / (min(grid.dx, grid.dy) * DT))
+
+
+def _steps_match(scene, cuda, n, rtol=1e-5):
+    run = tc.make_run(scene, n)
+    a, da = run(scene.init_state(cuda))
+    b, db = run(scene.init_state("cpu"))
+    for f in ("u", "v"):
+        assert_close(getattr(a, f), getattr(b, f), rtol=rtol)
+    d = (a.p.cpu() - b.p).double()
+    assert float((d - d.mean()).abs().max()) <= rtol * max(1.0, float(b.p.abs().max()))
+    assert da.substeps.tolist() == db.substeps.tolist()
+
+
+@pytest.mark.parametrize("route", ["rounds", "fused"])
+def test_six_cylinders_step_like_cpu(cuda, route):
+    """Six cylinders, which the kernels' old per-scene cap (four) refused:
+    the rounds route and the fused route match the CPU path."""
+    opts = tc.solver_options_for(RUST)
+    if route == "fused":
+        opts = dataclasses.replace(opts, substep_impl="pallas", jacobi_tol=0.0,
+                                   outer_corrector_rounds=0, early_exit=False)
+    scene = tc.make_scene(SIX, tc.SimulationParams(dt=0.002, viscosity=1e-4), opts)
+    before = (krounds.solve_correct_rounds.launches, ksub.correct_bc.launches)
+    _steps_match(scene, cuda, 5)
+    after = (krounds.solve_correct_rounds.launches, ksub.correct_bc.launches)
+    assert after[route == "fused"] > before[route == "fused"]
+
+
+def test_six_cylinder_batch(cuda):
+    """Kernel 20 reads the same masks: six cylinders, against its plain
+    version."""
+    scene = tc.make_scene(SIX, tc.SimulationParams(dt=0.002, viscosity=1e-4),
+                          tc.solver_options_for(RUST, early_exit=False))
+    args = _ensemble_inputs(scene, 3, seed=15)
+    got = kens.substep_batch(*(a.to(cuda) for a in args), scene)
+    ref = kens.substep_batch_plain(*args, scene)
+    assert got[5].tolist() == ref[5].tolist()
+    for name, a, b in zip(("u", "v", "p", "pp", "err"), got, ref):
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-5, atol=2e-5, msg=name)
+
+
+def test_js_adaptive_steps_like_cpu(cuda):
+    """The JS twin's step (adaptive substeps, extrapolation, the rounds
+    kernel from a zero p', QUICK, PARABOLIC): the same substep counts and
+    fields as the CPU path."""
+    scene = _js_rounds_scene()
+    before = krounds.solve_correct_rounds.launches
+    _steps_match(scene, cuda, 6)
+    assert krounds.solve_correct_rounds.launches > before
+
+
+def test_js_quick_fused_never_syncs(cuda):
+    """The 2048^2 JS QUICK PARABOLIC shape, small: one pinned substep on
+    the fused route reads nothing back, and matches the CPU path."""
+    grid = tc.Grid(nx=128, ny=128, lx=30.0, ly=30.0, obstacles=(tc.Cylinder(7.5, 15.0, 3.0),))
+    scene = tc.make_scene(grid, tc.SimulationParams(
+        dt=0.002, viscosity=1e-4, velocity_scheme=tc.VelocityScheme.QUICK,
+        inlet_profile=tc.InletProfile.PARABOLIC), tc.solver_options_for(
+            tc.Semantics.JS, ramp_up_steps=10, jacobi_tol=0.0, jacobi_iters=50,
+            outer_corrector_rounds=0, early_exit=False, substeps_adaptive=False,
+            substeps_init=1, extrapolate=True, substep_impl="pallas"))
+    state, _ = tc.make_run(scene, 2)(scene.init_state(cuda))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tc.make_run(scene, 3)(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _steps_match(scene, cuda, 4)
+
+
+def test_rounds_impl_pallas_like_cpu(cuda):
+    """rounds_impl="pallas": each outer round launches correct_div; the
+    card matches the CPU path."""
+    grid = tc.Grid(nx=64, ny=64, lx=30.0, ly=30.0, obstacles=(tc.Cylinder(7.5, 15.0, 3.0),))
+    scene = tc.make_scene(grid, tc.SimulationParams(dt=0.002, viscosity=1e-4),
+                          tc.solver_options_for(RUST, ramp_up_steps=10, rounds_impl="pallas",
+                                                substep_impl="pallas"))
+    before = ksub.correct_div.launches
+    _steps_match(scene, cuda, 3)
+    assert ksub.correct_div.launches >= before + 2 * 3

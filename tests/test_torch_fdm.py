@@ -39,7 +39,7 @@ def _floor(e, r, dx, dy, mult):
 ])
 def test_fdm_solve_interior_matches_jax(shape, dx, dy, d_mult):
     """The CHANNEL operator (Dirichlet outlet); the all-Neumann one is
-    CAVITY's (ROADMAP.md queue 1 item 6)."""
+    CAVITY's (ROADMAP.md queue 1 item 6b)."""
     rng = np.random.default_rng(9)
     r = rng.standard_normal(shape).astype(np.float32)
     d_wall = d_mult * dx

@@ -6,6 +6,8 @@ tests run it. The CUDA kernels themselves are held against the plain
 versions by tests/test_torch_cuda.py (marked ``cuda``) and by
 chip_smoke.py.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -172,8 +174,9 @@ def test_wrappers_validate_inputs():
     with pytest.raises(ValueError, match="contiguous"):
         tsub.predict_div(T(u).t().contiguous().t(), T(v), DT, NU, TG, FIRST_T,
                          RUST_T)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tsub.predict_div(T(u), T(v), DT, NU, TG,
+    box = dataclasses.replace(TG, obstacles=(tcfg.Box(1.0, 0.75, 0.2, 0.2),))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):  # Box masks
+        tsub.predict_div(T(u), T(v), DT, NU, box,
                          tcfg.VelocityScheme.SECOND, RUST_T)
     before = tsub.predict_div.launches
     tsub.predict_div(T(u), T(v), DT, NU, TG, FIRST_T, RUST_T)
