@@ -37,6 +37,15 @@ Twelve cells, each at full size, from the JAX package's own defaults:
   schedule with JS semantics, QUICK faces and the PARABOLIC inlet, one
   substep (the fused route with those kernel variants).
 
+:data:`SHARDED` names the row-sharded paths (shard/step_shmap.py) that
+``chip_smoke.py`` runs, each a scene above on a row mesh of n shards
+(``make_mesh(n)``: every shard on ``cuda:0`` on one card): 2048² fast
+and sor on 4 shards (kernels 1, 11 or 14, and 3), the 800x264 default
+scene on 3 (88 rows a shard: kernel 1, kernel 11 with early exits, the
+outer rounds) and 2048² FDM on 4. ``--cell`` measures them as the other
+cells. All shards on one card show what the tier costs
+over the unsharded step, not how it scales.
+
 :func:`fdm_scene` is ``bench.py --mode fdm`` (the exact FDM projection),
 a shape without a kernel of its own. ``chip_smoke.py`` drives all but
 the reference mode. On a CUDA card,
@@ -72,6 +81,7 @@ from .kernels.ensemble import substep_batch, substep_batch_fits, substep_batch_s
 from .kernels.jacobi_batch import jacobi_batch
 from .kernels.rounds import solve_correct_rounds
 from .kernels.substep import correct_bc, correct_div, predict_div, predict_div_plain
+from .shard import make_mesh, make_run_shmap, make_step_shmap, shard_state
 from .solver.piso import (_substep_jnp, _use_fused_substep, _warm_start,
                           make_run, make_scene, make_step, ramped_inlet)
 
@@ -250,6 +260,13 @@ CELLS = {
     "400x132 js default": (js_default_scene, 100, 50, None),
     "2048^2 js quick": (js_quick_scene, 5, 100, None),
 }
+# The sharded paths: name -> (scene, shards, warm-up steps, timed steps).
+SHARDED = {
+    "2048^2 fast sharded x4": (fast_scene, 4, 5, 100),
+    "2048^2 sor sharded x4": (sor_scene, 4, 5, 100),
+    "800x264 sharded x3": (reference_scene, 3, 55, 10),
+    "2048^2 fdm sharded x4": (fdm_scene, 4, 0, 3),
+}
 
 
 # Kernels each launch of these wrappers runs one of: the trace must hold
@@ -280,7 +297,7 @@ def _busy_us(spans):
 TRACE_ATTEMPTS = 3
 
 
-def device_breakdown(scene, state, steps):
+def device_breakdown(step, state, steps):
     """Device time by kernel over ``steps`` steps under torch.profiler:
     (busy µs per step, [(kernel, µs per step, launches per step)]). A
     first, unrecorded rollout warms the tracer up, and each step waits
@@ -289,7 +306,6 @@ def device_breakdown(scene, state, steps):
     launch the wrappers counted (why the profiler drops one is not
     known) is taken again, up to TRACE_ATTEMPTS times, and then raises."""
     from torch.profiler import ProfilerActivity, profile, schedule
-    step = make_step(scene)
     for attempt in range(TRACE_ATTEMPTS):
         events = []
 
@@ -330,17 +346,24 @@ def device_breakdown(scene, state, steps):
     return busy / steps, rows
 
 
-def measure(name, make, warmup, timed, batch, dev):
+def measure(name, make, warmup, timed, batch, dev, shards=None):
+    """One cell: ``shards`` runs the scene's sharded step on that many
+    shards (from the unsharded warm-up's state)."""
     scene = make()
     g = scene.grid
     init = (scene.init_state(dev) if batch is None
             else ensemble_state(scene, batch, dev))
     state, _ = make_run(scene, warmup)(init)
     out = {}
-    if batch is None and not _use_fused_substep(scene):  # the rounds-kernel route
-        counts = solve_correct_rounds(*rounds_args(scene, state))[5].tolist()
+    if shards:
+        mesh = make_mesh(shards)
+        state = shard_state(state, mesh)
+        run, step = make_run_shmap(scene, mesh, timed), make_step_shmap(scene, mesh)
+    else:
+        run, step = make_run(scene, timed), make_step(scene)
+    if batch is None and not shards and not _use_fused_substep(scene):
+        counts = solve_correct_rounds(*rounds_args(scene, state))[5].tolist()  # the rounds route
         out["rounds_per_step"], out["sweeps_per_step"] = counts
-    run = make_run(scene, timed)
     cycles0 = vcycles_launched(scene)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -351,7 +374,7 @@ def measure(name, make, warmup, timed, batch, dev):
         out["substeps_per_step"] = float(diags.substeps.double().mean())
     if scene.params.pressure_solver == PressureSolver.MG_PRODUCTION:
         out["vcycles_per_step"] = (vcycles_launched(scene) - cycles0) / timed
-    if not bool(torch.isfinite(state.u).all()):
+    if not all(bool(torch.isfinite(u).all()) for u in (state.u if shards else [state.u])):
         raise RuntimeError(f"{name}: u is not finite")
     out["steps_per_s"] = timed / sec
     out["cell_updates_per_s"] = (batch or 1) * g.nx * g.ny * timed / sec
@@ -362,7 +385,7 @@ def measure(name, make, warmup, timed, batch, dev):
         counts = ensemble_counts(scene, state).double()
         out["rounds_per_step"], out["sweeps_per_step"] = counts.mean(dim=0).tolist()
         out["max_rounds"], out["max_sweeps"] = counts.max(dim=0).values.tolist()
-    busy_us, rows = device_breakdown(scene, state, PROFILED_STEPS)
+    busy_us, rows = device_breakdown(step, state, PROFILED_STEPS)
     wall_us = 1e6 * sec / timed
     out["wall_us_per_step"] = wall_us
     out["device_busy_us_per_step"] = busy_us
@@ -391,7 +414,7 @@ def measure(name, make, warmup, timed, batch, dev):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
-    ap.add_argument("--cell", action="append", choices=list(CELLS),
+    ap.add_argument("--cell", action="append", choices=list(CELLS) + list(SHARDED),
                     help="measure only this cell (repeatable); all by default")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -403,7 +426,11 @@ def main() -> int:
     print(smi, flush=True)
     report = {"nvidia_smi": smi}
     for name in args.cell or CELLS:
-        report[name] = measure(name, *CELLS[name], dev)
+        if name in SHARDED:
+            make, shards, warmup, timed = SHARDED[name]
+            report[name] = measure(name, make, warmup, timed, None, dev, shards)
+        else:
+            report[name] = measure(name, *CELLS[name], dev)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)

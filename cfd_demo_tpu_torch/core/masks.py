@@ -42,14 +42,28 @@ def _inside_any(grid: Grid, x: torch.Tensor, y: torch.Tensor,
     return acc
 
 
-@functools.lru_cache(maxsize=16)
-def masks_traced(grid: Grid, semantics: Semantics, device):
+@functools.lru_cache(maxsize=64)
+def masks_traced(grid: Grid, semantics: Semantics, device, row_offset: int = 0,
+                 rows=None):
     """(mask_u, mask_v, mask_u_bc, mask_v_bc) as contiguous bool tensors
     in the storage shapes (ny, nx+1) and (ny, nx) on ``device``; a tuple
     of None when the scene has no obstacles. Cached per (grid, semantics,
-    device): callers must not write into the returned tensors."""
+    device, window): callers must not write into the returned tensors.
+
+    With ``rows``, the masks of a row block of a sharded field: global
+    rows [row_offset, row_offset + rows), False outside the grid (a
+    halo beyond the domain's edge)."""
     if not grid.obstacles:
         return None, None, None, None
+    if rows is not None:
+        lo, hi = max(row_offset, 0), min(row_offset + rows, grid.ny)
+        out = []
+        for m in masks_traced(grid, semantics, device):
+            w = m.new_zeros((rows,) + m.shape[1:])
+            if hi > lo:
+                w[lo - row_offset:hi - row_offset] = m[lo:hi]
+            out.append(w)
+        return tuple(out)
     ny, nx = grid.ny, grid.nx
     dx = float(np.float32(grid.dx))
     dy = float(np.float32(grid.dy))

@@ -7,7 +7,7 @@ BOX_FLOAT64 = "queue 1 item 6c"    # Box obstacles, float64 scenes
 OTHER_SOLVERS = "queue 1 item 7"   # the aligned MG_PRODUCTION's and FDM's batches
 BATCHES = "queue 1 item 9"         # MULTIGRID, legacy MG_PRODUCTION and JS/SECOND/QUICK/parabolic batches
 DIFFERENTIABLE = "queue 1 item 11"  # SolverOptions.differentiable
-SHARDED = "queue 1 item 12"         # sharded tiers, the ensemble's --shard-batch
+SHARDED = "queue 1 item 12"         # the 2-D tier, mg_shmap, multi-process, --shard-batch
 
 
 def unported(what: str, item: str) -> NotImplementedError:

@@ -2,6 +2,13 @@
 // UNIFORM, PARABOLIC or PARABOLIC_UPPER inlet and either semantics' BC masks.
 // Replaces cfd_demo_tpu/kernels/substep_pallas.py correct_bc_pallas
 // (_kernel_post). See kernels/substep.py for the design note.
+//
+// The arrays may be a row block of a sharded field: local row j is global
+// row j + row_off of a gny-row grid. The BC rows, the inlet's rows and the
+// masks (which hold the whole grid) take the global row, and the three
+// reductions count the owned local rows [own_lo, own_hi) only (the
+// caller discards the halo rows). The whole field is row_off = 0,
+// gny = ny and every row owned.
 #include "common.cuh"
 
 namespace {
@@ -20,7 +27,9 @@ struct CorrArgs {
     float* partials;   // 3 per block: max|u-ue|, max|v-ve|, max(|u|,|v|)
     const uint8_t* mask_u_bc;  // (ny, nx+1) or null
     const uint8_t* mask_v_bc;  // (ny, nx) or null
-    int ny, nx;
+    int ny, nx;        // the block's rows, the grid's columns
+    int row_off, gny;  // global row of local row 0; the grid's rows
+    int own_lo, own_hi;
     float dx, dy;
     Inlet in;
 };
@@ -38,32 +47,40 @@ __global__ void correct_bc_kernel(CorrArgs A) {
     __shared__ float sh[33];
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     const int j = blockIdx.y * blockDim.y + threadIdx.y;
-    const int ny = A.ny, nx = A.nx;
+    const int ny = A.ny, nx = A.nx, gny = A.gny, gj = j + A.row_off;
+    const bool in_grid = gj >= 0 && gj < gny;
     float ru = 0.0f, rv = 0.0f, vel = 0.0f;
     if (j < ny && i <= nx) {
+        const bool own = j >= A.own_lo && j < A.own_hi;
         const float dt = A.scal[0], inlet = A.scal[1];
         // u: corrector, then ops/bc.py in order: inlet, outlet copy of the
         // *corrected* u[j, nx-1] (recomputed here), no-slip rows, solid mask.
         float uval;
         const size_t ku = (size_t)j * (nx + 1) + i;
-        if (i == 0) uval = inlet_at(A.in, inlet, j);
+        if (i == 0) uval = inlet_at(A.in, inlet, gj);
         else if (i == nx) uval = u_corrected(A, dt, j, nx - 1);
         else uval = u_corrected(A, dt, j, i);
-        if (j == 0 || j == ny - 1) uval = 0.0f;
-        if (masked(A.mask_u_bc, ku)) uval = 0.0f;
+        if (gj == 0 || gj == gny - 1) uval = 0.0f;
+        if (in_grid && masked(A.mask_u_bc, (size_t)gj * (nx + 1) + i)) uval = 0.0f;
         A.u[ku] = uval;
-        ru = fabsf(uval - A.ue[ku]);
-        vel = fabsf(uval);
+        if (own) {
+            ru = fabsf(uval - A.ue[ku]);
+            vel = fabsf(uval);
+        }
         if (i < nx) {
             const size_t k = (size_t)j * nx + i;
             float vval = A.vs[k];
-            if (j >= 1) vval = vval - dt * (A.pp[k] - A.pp[k - nx]) / A.dy;
-            if (j == 0) vval = 0.0f;
-            if (masked(A.mask_v_bc, k)) vval = 0.0f;
+            // p'[j-1] past the block's first row reads 0 (a halo row)
+            const float pS = (j >= 1) ? A.pp[k - nx] : 0.0f;
+            if (gj >= 1) vval = vval - dt * (A.pp[k] - pS) / A.dy;
+            if (gj == 0) vval = 0.0f;
+            if (in_grid && masked(A.mask_v_bc, (size_t)gj * nx + i)) vval = 0.0f;
             A.v[k] = vval;
             A.p_out[k] = A.p[k] + A.pp[k];
-            rv = fabsf(vval - A.ve[k]);
-            vel = pmax(vel, fabsf(vval));
+            if (own) {
+                rv = fabsf(vval - A.ve[k]);
+                vel = pmax(vel, fabsf(vval));
+            }
         }
     }
     ru = block_max(ru, sh);
@@ -98,12 +115,13 @@ extern "C" int cfd_correct_bc(const float* us, const float* vs, const float* p,
                               const float* pp, const float* ue, const float* ve,
                               const float* scal, float* u, float* v, float* p_out,
                               float* partials, float* red, const uint8_t* mask_u_bc,
-                              const uint8_t* mask_v_bc, int ny, int nx, float dx,
-                              float dy, int parabolic, float center, float radius,
-                              void* stream) {
+                              const uint8_t* mask_v_bc, int ny, int nx, int row_off,
+                              int gny, int own_lo, int own_hi, float dx, float dy,
+                              int parabolic, float center, float radius, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     CorrArgs A{us, vs, p, pp, ue, ve, scal, u, v, p_out, partials, mask_u_bc, mask_v_bc,
-               ny, nx, dx, dy, Inlet{parabolic, dy, center, radius}};
+               ny, nx, row_off, gny, own_lo, own_hi, dx, dy,
+               Inlet{parabolic, dy, center, radius}};
     dim3 block(32, 8);
     dim3 grid((nx + 1 + 31) / 32, (ny + 7) / 8);
     correct_bc_kernel<<<grid, block, 0, st>>>(A);

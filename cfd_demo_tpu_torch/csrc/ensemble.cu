@@ -189,7 +189,7 @@ __global__ void __launch_bounds__(kThreads) ensemble_substep_kernel(EnsArgs A) {
 
     // Predictor into u, v (u*, v*); the warm start into shared memory.
     const PredArgs P{A.u_in + off_u, A.v_in + off, nullptr, nullptr, nullptr, nullptr,
-                     A.mask_u, A.mask_v, ny, nx, A.dx, A.dy, A.dx2, A.dy2};
+                     A.mask_u, A.mask_v, ny, nx, 0, ny, A.dx, A.dy, A.dx2, A.dy2};
     for (int k = threadIdx.x; k < ny * (nx + 1); k += blockDim.x)
         s.u[k] = ustar_at<FIRST, false>(P, dt, nu, k / (nx + 1), k % (nx + 1));
     for (int k = threadIdx.x; k < ny * nx; k += blockDim.x) {

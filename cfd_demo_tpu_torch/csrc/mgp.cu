@@ -166,8 +166,8 @@ extern "C" int cfd_mgp_res(const float* pp_in, const float* rhs, float* out,
     residual_kernel<<<grid_for(ny, nx), dim3(kBX, kBY), 0, st>>>(R);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    bc_max_kernel<<<1, 1024, 0, st>>>(out, ny, nx, partials, nparts(ny, nx), err,
-                                      nullptr, 0, nullptr);
+    bc_max_kernel<false><<<1, 1024, 0, st>>>(out, ny, nx, partials, nparts(ny, nx), err,
+                                      nullptr, 0, nullptr, whole(ny, nx));
     return (int)cudaGetLastError();
 }
 
@@ -189,8 +189,8 @@ extern "C" int cfd_mgp_restrict(const float* pp_in, const float* rhs, float* out
         out, rhs, rc, partials, ny, nx, bx, by, denom);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    bc_max_kernel<<<1, 1024, 0, st>>>(out, ny, nx, partials, nparts(ncy, ncx), err,
-                                      nullptr, 0, nullptr);
+    bc_max_kernel<false><<<1, 1024, 0, st>>>(out, ny, nx, partials, nparts(ncy, ncx), err,
+                                      nullptr, 0, nullptr, whole(ny, nx));
     return (int)cudaGetLastError();
 }
 
@@ -218,8 +218,8 @@ extern "C" int cfd_mgp_corr(const float* pp_in, const float* rhs, const float* r
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     const int n = nparts(ny, nx);
-    bc_max_kernel<<<1, 1024, 0, st>>>(out, ny, nx, part_r, n, err, part_p, n,
-                                      pmax_out);
+    bc_max_kernel<false><<<1, 1024, 0, st>>>(out, ny, nx, part_r, n, err, part_p, n,
+                                      pmax_out, whole(ny, nx));
     return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,13 @@
 // The predictor at one face (ops/predictor.py with the faces of
 // ops/schemes.py), shared by predict_div.cu and ensemble.cu. Templated on
 // the upwind scheme S and on AVG, JS's averaged convecting v.
+//
+// The arrays may be a row block of a sharded field: local row j is global
+// row j + row_off of a gny-row grid. Loads are local (zero outside the
+// block, as outside the grid); every row test (interior, the schemes'
+// near-wall forms, v's implicit zero top row) and the masks, which hold
+// the whole grid, take the global row. The whole field is row_off = 0,
+// gny = ny.
 #pragma once
 
 #include "common.cuh"
@@ -18,7 +25,8 @@ struct PredArgs {
     float* rhs;       // (ny, nx)
     const uint8_t* mask_u;  // predictor masks (ny, nx+1), (ny, nx), or null
     const uint8_t* mask_v;
-    int ny, nx;
+    int ny, nx;       // the arrays' rows (the block's) and the grid's columns
+    int row_off, gny;  // global row of local row 0; the grid's rows
     float dx, dy, dx2, dy2;  // f32(dx), f32(dy), f32(dx*dx), f32(dy*dy)
 };
 
@@ -36,10 +44,10 @@ __device__ __forceinline__ float lin(float a, float b) { return 1.5f * a - 0.5f 
 // u momentum at u face (j, i), i in [0, nx].
 template <int S, bool AVG>
 __device__ float ustar_at(const PredArgs& A, float dt, float nu, int j, int i) {
-    const int ny = A.ny, nx = A.nx, wu = nx + 1;
+    const int ny = A.ny, nx = A.nx, wu = nx + 1, gny = A.gny, gj = j + A.row_off;
     const float uC = ld(A.u, ny, wu, j, i);
-    if (!(i >= 1 && i <= nx - 1 && j >= 1 && j <= ny - 2)) return uC;
-    if (masked(A.mask_u, (size_t)j * wu + i)) return 0.0f;
+    if (!(i >= 1 && i <= nx - 1 && gj >= 1 && gj <= gny - 2)) return uC;
+    if (masked(A.mask_u, (size_t)gj * wu + i)) return 0.0f;
     const float uE = ld(A.u, ny, wu, j, i + 1), uW = ld(A.u, ny, wu, j, i - 1);
     const float uN = ld(A.u, ny, wu, j + 1, i), uS = ld(A.u, ny, wu, j - 1, i);
     const float vNE = ld(A.v, ny, nx, j + 1, i), vSE = ld(A.v, ny, nx, j, i);
@@ -62,20 +70,20 @@ __device__ float ustar_at(const PredArgs& A, float dt, float nu, int j, int i) {
             e = (uC >= 0.0f) ? ((i > 1) ? lin(uC, uW) : uC)
                              : ((i < nx - 1) ? lin(uE, uEE) : uE);
             w = (uW >= 0.0f) ? ((i > 2) ? lin(uW, uWW) : uW) : lin(uC, uE);
-            n = (vn_avg >= 0.0f) ? ((j > 1) ? lin(uC, uS) : uC)
-                                 : ((j < ny - 2) ? lin(uN, uNN) : uN);
-            s = (vs_avg >= 0.0f) ? ((j > 1) ? lin(uS, uSS) : uS) : lin(uC, uN);
+            n = (vn_avg >= 0.0f) ? ((gj > 1) ? lin(uC, uS) : uC)
+                                 : ((gj < gny - 2) ? lin(uN, uNN) : uN);
+            s = (vs_avg >= 0.0f) ? ((gj > 1) ? lin(uS, uSS) : uS) : lin(uC, uN);
         } else {  // QUICK, index.html:471-541
             e = (uC >= 0.0f) ? ((i >= 2) ? (-uW + 6.0f * uC + 3.0f * uE) / 8.0f : lin(uC, uW))
                              : ((i <= nx - 2) ? (3.0f * uC + 6.0f * uE - uEE) / 8.0f : uE);
             w = (uW >= 0.0f) ? ((i >= 3) ? (-uWW + 6.0f * uW + 3.0f * uC) / 8.0f : lin(uW, uC))
                              : (3.0f * uW + 6.0f * uC - uE) / 8.0f;
             n = (vn_avg >= 0.0f)
-                    ? ((j >= 2) ? (-uS + 6.0f * uC + 3.0f * uN) / 8.0f : lin(uC, uS))
-                    : ((j < ny - 2) ? (3.0f * uC + 6.0f * uN - uNN) / 8.0f : uN);
+                    ? ((gj >= 2) ? (-uS + 6.0f * uC + 3.0f * uN) / 8.0f : lin(uC, uS))
+                    : ((gj < gny - 2) ? (3.0f * uC + 6.0f * uN - uNN) / 8.0f : uN);
             s = (vs_avg >= 0.0f)
-                    ? ((j >= 2) ? (-uSS + 6.0f * uS + 3.0f * uC) / 8.0f : lin(uS, uC))
-                    : ((j < ny - 1) ? (3.0f * uS + 6.0f * uC - uN) / 8.0f : uC);
+                    ? ((gj >= 2) ? (-uSS + 6.0f * uS + 3.0f * uC) / 8.0f : lin(uS, uC))
+                    : ((gj < gny - 1) ? (3.0f * uS + 6.0f * uC - uN) / 8.0f : uC);
         }
     }
     const float conv = (e * e - w * w) / A.dx + (vn * n - vs * s) / A.dy;
@@ -83,15 +91,17 @@ __device__ float ustar_at(const PredArgs& A, float dt, float nu, int j, int i) {
     return uC + dt * (-conv + nu * lap);
 }
 
-// v momentum at v face (j, i), i in [0, nx-1]; j = ny is v's implicit zero
-// top row. The convecting u is unaveraged in both semantics.
+// v momentum at v face (j, i), i in [0, nx-1]. A row past the array reads
+// 0: on the whole field that is v's implicit zero top row (j = ny). A
+// block row past the grid (a halo) keeps v, as every non-interior face
+// does. The convecting u is unaveraged in both semantics.
 template <int S>
 __device__ float vstar_at(const PredArgs& A, float dt, float nu, int j, int i) {
-    const int ny = A.ny, nx = A.nx, wu = nx + 1;
+    const int ny = A.ny, nx = A.nx, wu = nx + 1, gny = A.gny, gj = j + A.row_off;
     if (j >= ny) return 0.0f;
     const float vC = ld(A.v, ny, nx, j, i);
-    if (!(i >= 1 && i <= nx - 2 && j >= 1 && j <= ny - 1)) return vC;
-    if (masked(A.mask_v, (size_t)j * nx + i)) return 0.0f;
+    if (!(i >= 1 && i <= nx - 2 && gj >= 1 && gj <= gny - 1)) return vC;
+    if (masked(A.mask_v, (size_t)gj * nx + i)) return 0.0f;
     const float vE = ld(A.v, ny, nx, j, i + 1), vW = ld(A.v, ny, nx, j, i - 1);
     const float vN = ld(A.v, ny, nx, j + 1, i), vS = ld(A.v, ny, nx, j - 1, i);
     const float u_e = ld(A.u, ny, wu, j, i + 1), u_w = ld(A.u, ny, wu, j, i);
@@ -110,20 +120,20 @@ __device__ float vstar_at(const PredArgs& A, float dt, float nu, int j, int i) {
                               : ((i < nx - 2) ? lin(vE, vEE) : vE);
             w = (u_w >= 0.0f) ? ((i > 1) ? lin(vW, vWW) : vW)
                               : ((i < nx - 1) ? lin(vC, vE) : vC);
-            n = (vn_avg >= 0.0f) ? ((j > 1) ? lin(vC, vS) : vC)
-                                 : ((j < ny - 1) ? lin(vN, vNN) : vN);
-            s = (vs_avg >= 0.0f) ? ((j > 1) ? lin(vS, vSS) : vS) : lin(vC, vN);
+            n = (vn_avg >= 0.0f) ? ((gj > 1) ? lin(vC, vS) : vC)
+                                 : ((gj < gny - 1) ? lin(vN, vNN) : vN);
+            s = (vs_avg >= 0.0f) ? ((gj > 1) ? lin(vS, vSS) : vS) : lin(vC, vN);
         } else {  // QUICK, index.html:645-711
             e = (u_e >= 0.0f) ? ((i >= 2) ? (-vW + 6.0f * vC + 3.0f * vE) / 8.0f : lin(vC, vW))
                               : ((i < nx - 2) ? (3.0f * vC + 6.0f * vE - vEE) / 8.0f : vE);
             w = (u_w >= 0.0f) ? ((i >= 3) ? (-vWW + 6.0f * vW + 3.0f * vC) / 8.0f : lin(vW, vC))
                               : (3.0f * vW + 6.0f * vC - vE) / 8.0f;
             n = (vn_avg >= 0.0f)
-                    ? ((j >= 2) ? (-vS + 6.0f * vC + 3.0f * vN) / 8.0f : lin(vC, vS))
-                    : ((j < ny - 1) ? (3.0f * vC + 6.0f * vN - vNN) / 8.0f : vN);
+                    ? ((gj >= 2) ? (-vS + 6.0f * vC + 3.0f * vN) / 8.0f : lin(vC, vS))
+                    : ((gj < gny - 1) ? (3.0f * vC + 6.0f * vN - vNN) / 8.0f : vN);
             s = (vs_avg >= 0.0f)
-                    ? ((j >= 2) ? (-vSS + 6.0f * vS + 3.0f * vC) / 8.0f : lin(vS, vC))
-                    : ((j < ny - 1) ? (3.0f * vS + 6.0f * vC - vN) / 8.0f : vC);
+                    ? ((gj >= 2) ? (-vSS + 6.0f * vS + 3.0f * vC) / 8.0f : lin(vS, vC))
+                    : ((gj < gny - 1) ? (3.0f * vS + 6.0f * vC - vN) / 8.0f : vC);
         }
     }
     const float conv = (u_e * e - u_w * w) / A.dx + (n * n - s * s) / A.dy;

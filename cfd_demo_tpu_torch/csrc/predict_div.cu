@@ -2,8 +2,9 @@
 // cfd_demo_tpu/kernels/substep_pallas.py predict_div_pallas (_kernel_pre);
 // the math is ops/predictor.py `predict` followed by ops/divergence.py
 // `divergence_rhs`, for each scheme (FIRST, SECOND, QUICK) and semantics
-// (Rust's unaveraged or JS's averaged convecting v). See kernels/substep.py
-// for the design note.
+// (Rust's unaveraged or JS's averaged convecting v), on the whole field or
+// on a row block of a sharded one at a global row offset. See
+// kernels/substep.py for the design note.
 #include "predict.cuh"
 
 namespace {
@@ -36,12 +37,16 @@ void launch(const PredArgs& A, dim3 grid, dim3 block, cudaStream_t st) {
 }  // namespace
 
 // scheme: 0 FIRST, 1 SECOND, 2 QUICK; avg: 1 for JS's averaged convecting v.
+// The arrays hold ny rows, global rows [row_off, row_off + ny) of a
+// gny-row grid (row_off = 0, gny = ny: the whole field); the masks hold
+// the whole grid.
 extern "C" int cfd_predict_div(const float* u, const float* v, const float* scal,
                                float* u_star, float* v_star, float* rhs,
                                const uint8_t* mask_u, const uint8_t* mask_v,
-                               int ny, int nx, float dx, float dy, float dx2, float dy2,
-                               int scheme, int avg, void* stream) {
-    PredArgs A{u, v, scal, u_star, v_star, rhs, mask_u, mask_v, ny, nx, dx, dy, dx2, dy2};
+                               int ny, int nx, int row_off, int gny, float dx, float dy,
+                               float dx2, float dy2, int scheme, int avg, void* stream) {
+    PredArgs A{u, v, scal, u_star, v_star, rhs, mask_u, mask_v, ny, nx, row_off, gny,
+               dx, dy, dx2, dy2};
     dim3 block(32, 8);
     dim3 grid((nx + 1 + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
     cudaStream_t st = (cudaStream_t)stream;

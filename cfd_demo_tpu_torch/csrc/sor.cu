@@ -21,30 +21,32 @@ __device__ __forceinline__ float sor_cell(const SorCoef& c, float C, float E, fl
     return c.omc * C + c.om * upd;
 }
 
-// One colour half in place on the full array. The threads of row j take
-// its cells of that colour, i = 2t + ((j + colour) & 1) (red: colour 0,
-// (j + i) even). A cell reads only the other colour and itself, so the
-// half is race-free. Boundary reads are folded (sor_pallas.py:84-97): a
-// Neumann neighbour reads the cell itself and the outlet reads 0, so no
-// boundary cell is read or written. With `partials`, each block writes
-// the max |change| of its cells.
+// One colour half in place on the full array, or on a block of it at
+// global offsets (sweep.cuh Block). The threads of row j take its cells
+// of that colour by the parity of the global row and column, i = 2t +
+// ((gj + col_off + colour) & 1) (red: colour 0, (gj + gi) even,
+// sor_pallas.py:483-494), so a shard colours its cells as the whole grid
+// does. A cell reads only the other colour and itself, so the half is
+// race-free. Boundary reads are folded (sor_pallas.py:84-97): a Neumann
+// neighbour reads the cell itself and the outlet reads 0, so no boundary
+// cell is read or written. With `partials`, each block writes the max
+// |change| of its owned cells.
+template <bool BLK>
 __global__ void sor_half_kernel(float* pp, const float* rhs, float* partials, int ny,
-                                int nx, int colour, SorCoef cf) {
+                                int nx, int colour, SorCoef cf, Block B) {
     __shared__ float sh[33];
     const int t = blockIdx.x * blockDim.x + threadIdx.x;
     const int j = blockIdx.y * blockDim.y + threadIdx.y;
-    const int i = 2 * t + ((j + colour) & 1);
+    const int i = 2 * t + ((BLK ? j + B.row_off + B.col_off + colour : j + colour) & 1);
     float d = 0.0f;
-    if (j >= 1 && j <= ny - 2 && i >= 1 && i <= nx - 2) {
+    if (interior<BLK>(B, ny, nx, j, i)) {
         const size_t k = (size_t)j * nx + i;
         const float C = pp[k];
-        const float E = (i == nx - 2) ? 0.0f : pp[k + 1];
-        const float W = (i == 1) ? C : pp[k - 1];
-        const float N = (j == ny - 2) ? C : pp[k + nx];
-        const float S = (j == 1) ? C : pp[k - nx];
+        float E, W, N, S;
+        folded<BLK>(B, pp, ny, nx, j, i, k, C, E, W, N, S);
         const float nv = sor_cell(cf, C, E, W, N, S, rhs[k]);
         pp[k] = nv;
-        d = fabsf(nv - C);
+        if (owned<BLK>(B, j, i)) d = fabsf(nv - C);
     }
     if (partials != nullptr) {
         d = block_max(d, sh);
@@ -121,29 +123,54 @@ __global__ void bc_max_rb2_kernel(float* pr, float* pb, int ny, int nx, const fl
 // Block maxima the last iteration writes: both halves' blocks.
 extern "C" int cfd_sor_partials(int ny, int nx) { return 2 * nparts(ny, (nx + 1) / 2); }
 
+namespace {
+
 // k red/black iterations in place on `pp` (BC-consistent on entry), two
 // launches each; the last iteration writes its block maxima to `partials`
 // (cfd_sor_partials floats), then one block applies the p' BCs and
 // reduces them into err[0].
-extern "C" int cfd_sor_fused_k(float* pp, const float* rhs, float* partials, float* err,
-                               int ny, int nx, int k, float bx, float by, float br,
-                               float om, float omc, void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
+template <bool BLK>
+int sor_k(float* pp, const float* rhs, float* partials, float* err, int ny, int nx,
+          int k, SorCoef cf, cudaStream_t st, Block blk) {
     if (k < 1 || ny < 3 || nx < 3) return (int)cudaErrorInvalidValue;
-    const SorCoef cf{bx, by, br, om, omc};
     const int np = nparts(ny, (nx + 1) / 2);
     for (int it = 0; it < k; ++it) {
         for (int colour = 0; colour < 2; ++colour) {
             float* part = (it == k - 1) ? partials + colour * np : nullptr;
-            sor_half_kernel<<<grid_for(ny, (nx + 1) / 2), dim3(kBX, kBY), 0, st>>>(
-                pp, rhs, part, ny, nx, colour, cf);
+            sor_half_kernel<BLK><<<grid_for(ny, (nx + 1) / 2), dim3(kBX, kBY), 0, st>>>(
+                pp, rhs, part, ny, nx, colour, cf, blk);
             cudaError_t e = cudaGetLastError();
             if (e != cudaSuccess) return (int)e;
         }
     }
-    bc_max_kernel<<<1, 1024, 0, st>>>(pp, ny, nx, partials, 2 * np, err, nullptr, 0,
-                                      nullptr);
+    bc_max_kernel<BLK><<<1, 1024, 0, st>>>(pp, ny, nx, partials, 2 * np, err, nullptr, 0,
+                                      nullptr, blk);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int cfd_sor_fused_k(float* pp, const float* rhs, float* partials, float* err,
+                               int ny, int nx, int k, float bx, float by, float br,
+                               float om, float omc, void* stream) {
+    return sor_k<false>(pp, rhs, partials, err, ny, nx, k, SorCoef{bx, by, br, om, omc},
+                        (cudaStream_t)stream, whole(ny, nx));
+}
+
+// Kernel 14 (sor_pallas.py sor_fused_k_shard, _kernel_shard): the same k
+// iterations on an (ny, nx) halo-extended block (a 2k-row halo: two rings
+// an iteration) whose local (0, 0) is global (row_off, col_off) of a
+// (gny, gnx) grid; err counts the owned rows [own_lo, own_hi) and
+// columns [own_clo, own_chi), and the caller keeps the owned rows.
+extern "C" int cfd_sor_fused_k_shard(float* pp, const float* rhs, float* partials,
+                                     float* err, int ny, int nx, int k, int row_off,
+                                     int col_off, int gny, int gnx, int own_lo,
+                                     int own_hi, int own_clo, int own_chi, float bx,
+                                     float by, float br, float om, float omc,
+                                     void* stream) {
+    return sor_k<true>(pp, rhs, partials, err, ny, nx, k, SorCoef{bx, by, br, om, omc},
+                       (cudaStream_t)stream,
+                       Block{row_off, col_off, gny, gnx, own_lo, own_hi, own_clo, own_chi});
 }
 
 extern "C" int cfd_sor_rb2_partials(int ny, int nx) { return 2 * nparts(ny, nx / 2); }

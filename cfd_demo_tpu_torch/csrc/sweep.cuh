@@ -1,5 +1,8 @@
-// The folded damped-Jacobi sweep on the full p' array and the p' BC
-// refresh, shared by jacobi.cu and mgp.cu (CHANNEL flow).
+// The folded damped-Jacobi sweep and the p' BC refresh, shared by
+// jacobi.cu, sor.cu, mgp.cu and mg.cu (CHANNEL flow), on the whole p' array
+// or on a block of it: a sharded tier's halo-extended row (or row and
+// column) block, whose global rows and columns decide the interior, the
+// folds and the BC cells (Block).
 #pragma once
 
 #include "common.cuh"
@@ -20,35 +23,87 @@ inline int nparts(int rows, int cols) {
     return (int)(g.x * g.y);
 }
 
+// Where a (ny, nx) array lies in the global (gny, gnx) one: local (j, i)
+// is global (j + row_off, i + col_off), and offsets may be negative (a
+// halo below or left of the grid). own_* are the local rows and columns
+// a residual counts (a shard's own, not its halo).
+struct Block {
+    int row_off, col_off, gny, gnx;
+    int own_lo, own_hi, own_clo, own_chi;
+};
+
+// The whole array: every cell owned.
+inline Block whole(int ny, int nx) { return Block{0, 0, ny, nx, 0, ny, 0, nx}; }
+
+// The passes below are templated on BLK: false is the whole array, where
+// the block's tests reduce to the plain ones and are compiled out (the
+// general form costs the whole-array sweep 12%, kernel_times.py on an
+// NVIDIA H100 80GB HBM3, 700.00 W); true is a block of a sharded grid.
+
+// True when local (j, i) is a global interior cell inside the array.
+template <bool BLK>
+__device__ __forceinline__ bool interior(const Block& B, int ny, int nx, int j, int i) {
+    if (!BLK) return i >= 1 && i <= nx - 2 && j >= 1 && j <= ny - 2;
+    const int gj = j + B.row_off, gi = i + B.col_off;
+    return j < ny && i < nx && gi >= 1 && gi <= B.gnx - 2 && gj >= 1 && gj <= B.gny - 2;
+}
+
+template <bool BLK>
+__device__ __forceinline__ bool owned(const Block& B, int j, int i) {
+    return !BLK || (j >= B.own_lo && j < B.own_hi && i >= B.own_clo && i < B.own_chi);
+}
+
+// The folded neighbours (E, W, N, S) of the interior cell (j, i) at
+// index k (jacobi_pallas.py:110-135, :1343-1358): a Neumann neighbour
+// reads the cell itself and the Dirichlet outlet reads 0, tested on the
+// global row and column, so no boundary cell is read. A neighbour past
+// the array's edge (a halo's stale edge) reads the cell itself.
+template <bool BLK>
+__device__ __forceinline__ void folded(const Block& B, const float* a, int ny, int nx,
+                                       int j, int i, size_t k, float c, float& E,
+                                       float& W, float& N, float& S) {
+    if (!BLK) {
+        E = (i == nx - 2) ? 0.0f : a[k + 1];
+        W = (i == 1) ? c : a[k - 1];
+        N = (j == ny - 2) ? c : a[k + nx];
+        S = (j == 1) ? c : a[k - nx];
+        return;
+    }
+    const int gj = j + B.row_off, gi = i + B.col_off;
+    E = (gi == B.gnx - 2) ? 0.0f : (i + 1 < nx) ? a[k + 1] : c;
+    W = (gi == 1 || i < 1) ? c : a[k - 1];
+    N = (gj == B.gny - 2 || j + 1 >= ny) ? c : a[k + nx];
+    S = (gj == 1 || j < 1) ? c : a[k - nx];
+}
+
 struct SweepArgs {
     const float* src;
     const float* rhs;
     float* dst;
-    float* partials;  // per-block max |delta|, or nullptr
+    float* partials;  // per-block max |delta| over owned cells, or nullptr
     int ny, nx;
     float ax, ay, ar, ac;  // jacobi_pallas.py:87-94
+    Block blk;
 };
 
-// One sweep over the interior (j in [1, ny-2], i in [1, nx-2]). Boundary
-// reads are folded (jacobi_pallas.py:110-135): a Neumann neighbour reads
-// the cell itself and the Dirichlet outlet reads 0, so no boundary cell
-// of `src` is read and boundary cells of `dst` are left unwritten.
+// One sweep over the interior cells. Boundary reads are folded, so no
+// boundary cell of `src` is read and the cells of `dst` that are not
+// interior (the global ring, a halo beyond the grid) are left unwritten.
+template <bool BLK>
 __global__ void sweep_kernel(SweepArgs A) {
     __shared__ float sh[33];
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     const int j = blockIdx.y * blockDim.y + threadIdx.y;
     const int ny = A.ny, nx = A.nx;
     float d = 0.0f;
-    if (i >= 1 && i <= nx - 2 && j >= 1 && j <= ny - 2) {
+    if (interior<BLK>(A.blk, ny, nx, j, i)) {
         const size_t k = (size_t)j * nx + i;
         const float c = A.src[k];
-        const float E = (i == nx - 2) ? 0.0f : A.src[k + 1];
-        const float W = (i == 1) ? c : A.src[k - 1];
-        const float N = (j == ny - 2) ? c : A.src[k + nx];
-        const float S = (j == 1) ? c : A.src[k - nx];
+        float E, W, N, S;
+        folded<BLK>(A.blk, A.src, ny, nx, j, i, k, c, E, W, N, S);
         const float nv = A.ax * (E + W) + A.ay * (N + S) + A.ac * c - A.ar * A.rhs[k];
         A.dst[k] = nv;
-        d = fabsf(nv - c);
+        if (owned<BLK>(A.blk, j, i)) d = fabsf(nv - c);
     }
     if (A.partials != nullptr) {
         d = block_max(d, sh);
@@ -60,10 +115,12 @@ __global__ void sweep_kernel(SweepArgs A) {
 // k sweeps from `src` (not written), ping-ponging through `tmp` so that
 // the last lands in `out`; the last one writes per-block maxima to
 // `partials` when that is not null. k == 0 copies src to out.
-inline cudaError_t run_sweeps(const float* src, const float* rhs, float* out,
-                              float* tmp, float* partials, int ny, int nx, int k,
-                              float ax, float ay, float ar, float ac,
-                              cudaStream_t st) {
+// run_sweeps is the whole array's.
+template <bool BLK>
+inline cudaError_t run_sweeps_as(const float* src, const float* rhs, float* out,
+                                 float* tmp, float* partials, int ny, int nx, int k,
+                                 float ax, float ay, float ar, float ac,
+                                 cudaStream_t st, Block blk) {
     if (k == 0) {
         if (src == out) return cudaSuccess;
         return cudaMemcpyAsync(out, src, sizeof(float) * (size_t)ny * nx,
@@ -72,13 +129,21 @@ inline cudaError_t run_sweeps(const float* src, const float* rhs, float* out,
     for (int s = 0; s < k; ++s) {
         float* dst = ((k - 1 - s) & 1) ? tmp : out;
         SweepArgs A{src, rhs, dst, (s == k - 1) ? partials : nullptr, ny, nx,
-                    ax, ay, ar, ac};
-        sweep_kernel<<<grid_for(ny, nx), dim3(kBX, kBY), 0, st>>>(A);
+                    ax, ay, ar, ac, blk};
+        sweep_kernel<BLK><<<grid_for(ny, nx), dim3(kBX, kBY), 0, st>>>(A);
         cudaError_t e = cudaGetLastError();
         if (e != cudaSuccess) return e;
         src = dst;
     }
     return cudaSuccess;
+}
+
+inline cudaError_t run_sweeps(const float* src, const float* rhs, float* out,
+                              float* tmp, float* partials, int ny, int nx, int k,
+                              float ax, float ay, float ar, float ac,
+                              cudaStream_t st) {
+    return run_sweeps_as<false>(src, rhs, out, tmp, partials, ny, nx, k, ax, ay, ar, ac,
+                                st, whole(ny, nx));
 }
 
 // The boundary cell b of 2 * nx + 2 * (ny - 2) (2 rows of nx, then 2
@@ -95,19 +160,48 @@ __device__ __forceinline__ bool ring_cell(int b, int ny, int nx, int& j, int& i,
     return i != nx - 1;
 }
 
-// The p' BCs once (ops/poisson.py _apply_pprime_bcs, rows then columns),
-// written from interior values only, then the max over each of one or
-// two arrays of block maxima (pb may be null). One block.
+// The p' BCs once (ops/poisson.py _apply_pprime_bcs, rows then columns:
+// a corner takes the diagonal interior cell, the outlet column is 0) on
+// the global boundary cells that lie in the (ny, nx) block B, written
+// from interior values only, then the max over each of one or two arrays
+// of block maxima (pb may be null). On the whole array (BLK false) the
+// cells are ring_cell's. In a block, a cell beyond the grid, or whose
+// interior source lies past the block's edge, is left as it is (a halo
+// the caller discards). One block.
+template <bool BLK>
 __global__ void bc_max_kernel(float* pp, int ny, int nx, const float* pa,
                               int na, float* oa, const float* pb, int nb,
-                              float* ob) {
+                              float* ob, Block B) {
     __shared__ float sh[33];
     const int tid = threadIdx.x;
-    const int nbc = 2 * nx + 2 * (ny - 2);
-    for (int b = tid; b < nbc; b += blockDim.x) {
+    for (int b = tid; !BLK && b < 2 * nx + 2 * (ny - 2); b += blockDim.x) {
         int j, i, jj, ii;
         const bool copy = ring_cell(b, ny, nx, j, i, jj, ii);
         pp[(size_t)j * nx + i] = copy ? pp[(size_t)jj * nx + ii] : 0.0f;
+    }
+    for (int b = tid; BLK && b < 2 * nx + 2 * ny; b += blockDim.x) {
+        int j, i;
+        if (b < 2 * nx) {  // the bottom and top rows, every column
+            j = ((b < nx) ? 0 : B.gny - 1) - B.row_off;
+            i = b % nx;
+        } else {           // the left and right columns, interior rows
+            const int c = b - 2 * nx;
+            j = c % ny;
+            i = ((c < ny) ? 0 : B.gnx - 1) - B.col_off;
+            const int gj = j + B.row_off;
+            if (gj < 1 || gj > B.gny - 2) continue;
+        }
+        if (j < 0 || j >= ny || i < 0 || i >= nx) continue;
+        const int gj = j + B.row_off, gi = i + B.col_off;
+        if (gi < 0 || gi >= B.gnx) continue;
+        float val = 0.0f;  // the outlet (Dirichlet)
+        if (gi != B.gnx - 1) {
+            const int jj = j + (gj == 0) - (gj == B.gny - 1);  // rows first
+            const int ii = i + (gi == 0);                      // left copies column 1
+            if (jj < 0 || jj >= ny || ii >= nx) continue;
+            val = pp[(size_t)jj * nx + ii];
+        }
+        pp[(size_t)j * nx + i] = val;
     }
     float m = 0.0f;
     for (int b = tid; b < na; b += blockDim.x) m = pmax(m, pa[b]);

@@ -47,11 +47,12 @@ I = ctypes.c_int
 F = ctypes.c_float
 # (name, argtypes) of every C entry point; all return int.
 _SIGNATURES = {
-    "cfd_predict_div": [P, P, P, P, P, P, P, P, I, I, F, F, F, F, I, I, P],
+    "cfd_predict_div": [P] * 8 + [I] * 4 + [F] * 4 + [I, I, P],
     "cfd_jacobi_partials": [I, I],
     "cfd_jacobi_fused_k": [P, P, P, P, P, P, I, I, I, F, F, F, F, P],
+    "cfd_jacobi_fused_k_shard": [P] * 6 + [I] * 11 + [F] * 4 + [P],
     "cfd_correct_bc_partials": [I, I],
-    "cfd_correct_bc": [P] * 14 + [I, I, F, F, I, F, F, P],
+    "cfd_correct_bc": [P] * 14 + [I] * 6 + [F, F, I, F, F, P],
     "cfd_correct_div": [P] * 9 + [I, I, F, F, P],
     "cfd_rounds": [P] * 17 + [I, I, F, F, F, F, F, F, I, F, I, F, I, F, F, P],
     "cfd_mgp_res": [P] * 7 + [I] * 3 + [F] * 7 + [P],
@@ -63,6 +64,7 @@ _SIGNATURES = {
     "cfd_jacobi_batch": [P] * 8 + [I] * 4 + [F] * 5 + [P],
     "cfd_sor_partials": [I, I],
     "cfd_sor_fused_k": [P] * 4 + [I] * 3 + [F] * 5 + [P],
+    "cfd_sor_fused_k_shard": [P] * 4 + [I] * 11 + [F] * 5 + [P],
     "cfd_sor_rb2_partials": [I, I],
     "cfd_sor_fused_k_rb2": [P] * 6 + [I] * 3 + [F] * 5 + [P],
     "cfd_mg_smooth": [P] * 4 + [I] * 3 + [F] * 3 + [P],

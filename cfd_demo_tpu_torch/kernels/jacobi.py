@@ -20,11 +20,30 @@ with a k-cell halo, the TPU kernel's design, is later work.
 ``jacobi_chain`` replaces ``jacobi_pallas`` (jacobi_pallas.py:1114) and
 keeps its schedule: iters//k launches of k, the tolerance checked
 between them, then the iters%k remainder launch unconditionally.
+
+``jacobi_fused_k_shard`` replaces ``jacobi_fused_k_shard``
+(jacobi_pallas.py:1404, call :1450, body ``_kernel_shard`` :1293), the
+sharded step's solve (shard/jacobi_shmap.py): the same k sweeps and BC
+pass, in the same CUDA kernels (csrc/jacobi.cu, sweep.cuh ``Block``), on
+a halo-extended (ext_ny, nx) block whose local (0, 0) is global
+(row_offset, col_offset) of a (gny, gnx) grid. The offsets may be
+negative: shard 0's halo lies below the grid. The interior, the folded
+reads, the outlet and the BC cells are tested on global rows and
+columns, and err is the last sweep's max |delta| over the owned rows
+[own_lo, own_hi) and columns ``own_cols`` only. The halo's rows go stale
+one ring a sweep, as the Pallas kernel's do (it rolls with wraparound at
+its window's edges), and a neighbour past the block's edge reads the
+cell itself here: the caller keeps the owned rows, which a halo of k
+rows or more keeps exact. The column form (``col_offset``, ``gnx``,
+``own_cols``) serves the 2-D tier. ``jacobi_fused_k_shard_plain`` is its
+plain twin, in the Pallas kernel's arithmetic (the f32 multipliers).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..core.unported import CAVITY, unported
 from ..ops.poisson import _jacobi_sweep
 from ._build import check, load, on_cpu, stream_of
 
@@ -94,3 +113,142 @@ def jacobi_chain(pp0, rhs, dx: float, dy: float, omega: float, tol: float,
         pp, err = jacobi_fused_k(pp, rhs, dx, dy, omega, rem)
         n_run += rem
     return pp, err, n_run
+
+
+# ---------------------------------------------------------------------------
+# The sharded tier's block form (kernel 11; kernel 14 in kernels/sor.py)
+# ---------------------------------------------------------------------------
+
+def shard_block(what: str, pp_ext, row_offset: int, gny: int, own_lo: int,
+                own_hi: int, col_offset: int, gnx, own_cols, cavity: bool):
+    """Validate a shard kernel's block arguments; returns the Block of
+    csrc/sweep.cuh as ints (row_off, col_off, gny, gnx, own_lo, own_hi,
+    own_clo, own_chi)."""
+    if cavity:
+        raise unported(f"the cavity p' BCs of {what}", CAVITY)
+    ext_ny, nx = pp_ext.shape
+    gnx = nx if gnx is None else gnx
+    own_clo, own_chi = own_cols if own_cols is not None else (0, nx)
+    if gny < 3 or gnx < 3:
+        raise ValueError(f"{what} needs a grid of at least 3x3 cells, got {gny}x{gnx}")
+    if not (0 <= own_lo < own_hi <= ext_ny and 0 <= own_clo < own_chi <= nx):
+        raise ValueError(f"{what}: owned rows [{own_lo}, {own_hi}) and columns "
+                         f"[{own_clo}, {own_chi}) outside the ({ext_ny}, {nx}) block")
+    return (int(row_offset), int(col_offset), gny, gnx, own_lo, own_hi, own_clo,
+            own_chi)
+
+
+def block_indices(shape, blk, device):
+    """Global row (rows, 1) and column (1, cols) indices of a block."""
+    row_off, col_off = blk[:2]
+    gr = torch.arange(row_off, row_off + shape[0], device=device)[:, None]
+    gc = torch.arange(col_off, col_off + shape[1], device=device)[None, :]
+    return gr, gc
+
+
+def block_masks(shape, blk, device):
+    """(interior, owned): the global interior cells of a block, and those
+    of them in its owned rows and columns."""
+    _, _, gny, gnx, own_lo, own_hi, own_clo, own_chi = blk
+    gr, gc = block_indices(shape, blk, device)
+    lr = torch.arange(shape[0], device=device)[:, None]
+    lc = torch.arange(shape[1], device=device)[None, :]
+    interior = (gr >= 1) & (gr <= gny - 2) & (gc >= 1) & (gc <= gnx - 2)
+    owned = (interior & (lr >= own_lo) & (lr < own_hi)
+             & (lc >= own_clo) & (lc < own_chi))
+    return interior, owned
+
+
+def _edge_shift(x, dim: int, step: int):
+    """x shifted by ``step`` along ``dim`` (out[j] = x[j + step]), the
+    edge cell reading itself."""
+    n = x.shape[dim]
+    if step > 0:
+        return torch.cat([x.narrow(dim, 1, n - 1), x.narrow(dim, n - 1, 1)], dim)
+    return torch.cat([x.narrow(dim, 0, 1), x.narrow(dim, 0, n - 1)], dim)
+
+
+def folded_neighbours(pp, blk):
+    """(E, W, N, S) of every cell of a block with the kernels' folds
+    (sweep.cuh ``folded``): a Neumann neighbour reads the cell itself,
+    the outlet reads 0, a neighbour past the block's edge the cell."""
+    gny, gnx = blk[2], blk[3]
+    gr, gc = block_indices(pp.shape, blk, pp.device)
+    zero = pp.new_zeros(())
+    E = torch.where(gc == gnx - 2, zero, _edge_shift(pp, 1, 1))
+    W = torch.where(gc == 1, pp, _edge_shift(pp, 1, -1))
+    N = torch.where(gr == gny - 2, pp, _edge_shift(pp, 0, 1))
+    S = torch.where(gr == 1, pp, _edge_shift(pp, 0, -1))
+    return E, W, N, S
+
+
+def block_pprime_bcs(pp, blk):
+    """The p' BCs on a block's global boundary cells, in the Pallas
+    kernels' order (jacobi_pallas.py:1388-1396): the bottom and top rows
+    from their neighbours, then the left column from column 1, then the
+    outlet 0; a corner takes the diagonal cell."""
+    gny, gnx = blk[2], blk[3]
+    gr, gc = block_indices(pp.shape, blk, pp.device)
+    pp = torch.where(gr == 0, _edge_shift(pp, 0, 1), pp)
+    pp = torch.where(gr == gny - 1, _edge_shift(pp, 0, -1), pp)
+    pp = torch.where(gc == 0, _edge_shift(pp, 1, 1), pp)
+    return torch.where(gc == gnx - 1, pp.new_zeros(()), pp)
+
+
+def jacobi_fused_k_shard_plain(pp_ext, rhs_ext, row_offset: int, gny: int, dx: float,
+                               dy: float, omega: float, k: int, own_lo: int,
+                               own_hi: int, cavity: bool = False, col_offset: int = 0,
+                               gnx=None, own_cols=None):
+    """k folded sweeps on the block in the Pallas kernel's arithmetic
+    (jacobi_pallas.py:1318-1372: ax (E + W) + ay (N + S) + ac p' - ar
+    rhs), the BCs once; returns (block, last sweep's owned max |delta|).
+    Cells that are not global interior cells keep their values until the
+    BC pass."""
+    blk = shard_block("jacobi_fused_k_shard", pp_ext, row_offset, gny, own_lo,
+                      own_hi, col_offset, gnx, own_cols, cavity)
+    ax, ay, ar, ac = (torch.tensor(np.float32(c), device=pp_ext.device)
+                      for c in _multipliers(dx, dy, omega))
+    interior, owned = block_masks(pp_ext.shape, blk, pp_ext.device)
+    rhs_s = ar * rhs_ext
+    pp, zero = pp_ext, pp_ext.new_zeros(())
+    for _ in range(k):
+        E, W, N, S = folded_neighbours(pp, blk)
+        new = ax * (E + W) + ay * (N + S) + ac * pp - rhs_s
+        err = torch.amax(torch.where(owned, torch.abs(new - pp), zero))
+        pp = torch.where(interior, new, pp)
+    return block_pprime_bcs(pp, blk), err
+
+
+def jacobi_fused_k_shard(pp_ext, rhs_ext, row_offset: int, gny: int, dx: float,
+                         dy: float, omega: float, k: int, own_lo: int, own_hi: int,
+                         cavity: bool = False, col_offset: int = 0, gnx=None,
+                         own_cols=None):
+    """k fused damped-Jacobi sweeps (CHANNEL p' BCs) on a halo-extended
+    block at global offsets. Returns (the block, the last sweep's max
+    |delta| over the owned cells as a 0-d tensor); keep its owned rows."""
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    blk = shard_block("jacobi_fused_k_shard", pp_ext, row_offset, gny, own_lo,
+                      own_hi, col_offset, gnx, own_cols, cavity)
+    shape = tuple(pp_ext.shape)
+    if on_cpu("jacobi_fused_k_shard", {"pp_ext": (pp_ext, shape),
+                                       "rhs_ext": (rhs_ext, shape)}):
+        return jacobi_fused_k_shard_plain(pp_ext, rhs_ext, row_offset, gny, dx, dy,
+                                          omega, k, own_lo, own_hi, cavity,
+                                          col_offset, gnx, own_cols)
+    lib = load()
+    ny, nx = shape
+    out, tmp = torch.empty_like(pp_ext), torch.empty_like(pp_ext)
+    partials = torch.empty(lib.cfd_jacobi_partials(ny, nx), dtype=torch.float32,
+                           device=pp_ext.device)
+    err = torch.empty((), dtype=torch.float32, device=pp_ext.device)
+    with torch.cuda.device(pp_ext.device):
+        check(lib.cfd_jacobi_fused_k_shard(
+            pp_ext.data_ptr(), rhs_ext.data_ptr(), out.data_ptr(), tmp.data_ptr(),
+            partials.data_ptr(), err.data_ptr(), ny, nx, k, *blk,
+            *_multipliers(dx, dy, omega), stream_of(pp_ext)), "jacobi_fused_k_shard")
+    jacobi_fused_k_shard.launches += 1
+    return out, err
+
+
+jacobi_fused_k_shard.launches = 0

@@ -32,6 +32,17 @@ were XLA outside the kernel on the TPU. Keeping k iterations in shared
 memory on a tile with a 2k-row halo, the TPU kernel's design, is later
 work.
 
+``sor_fused_k_shard`` replaces ``sor_fused_k_shard`` (sor_pallas.py:569,
+call :609, body ``_kernel_shard`` :452), the sharded step's SOR solve
+(shard/sor_shmap.py): kernel 13's iterations and BC pass (csrc/sor.cu,
+the full layout) on a halo-extended block at global row and column
+offsets, as ``kernels.jacobi.jacobi_fused_k_shard`` is kernel 2's. The
+colour is the parity of the global row plus column (sor_pallas.py:483-494),
+so a shard colours its cells as the whole grid does; err counts the
+owned cells; the halo, two rings stale an iteration, spans 2k rows, and
+the caller keeps the owned rows. The colour-split layout is not used
+here: a block's parity depends on its offset.
+
 ``sor_chain`` replaces ``sor_pallas`` (sor_pallas.py:641) and
 ``sor_chain_rb2`` replaces ``sor_pallas_rb2`` (sor_pallas.py:958), with
 their schedules: iters // k launches of k, the tolerance checked
@@ -46,6 +57,7 @@ import torch
 
 from ..ops.poisson import _sor_sweep
 from ._build import check, load, on_cpu, stream_of
+from .jacobi import block_indices, block_masks, block_pprime_bcs, folded_neighbours, shard_block
 
 
 def _coefficients(dx: float, dy: float, omega: float):
@@ -115,6 +127,72 @@ def sor_chain(pp0, rhs, dx: float, dy: float, omega: float, tol: float,
         pp, err = sor_fused_k(pp, rhs, dx, dy, omega, rem)
         n_run += rem
     return pp, err, n_run
+
+
+def sor_fused_k_shard_plain(pp_ext, rhs_ext, row_offset: int, gny: int, dx: float,
+                            dy: float, omega: float, k: int, own_lo: int, own_hi: int,
+                            cavity: bool = False, col_offset: int = 0, gnx=None,
+                            own_cols=None):
+    """k red/black iterations on the block in the Pallas kernel's
+    arithmetic (sor_pallas.py:519-531: (1 - om) p' + om (bx (E + W) + by
+    (N + S) - br rhs), red then black by global parity), the BCs once;
+    returns (block, last iteration's owned max |change|)."""
+    blk = shard_block("sor_fused_k_shard", pp_ext, row_offset, gny, own_lo, own_hi,
+                      col_offset, gnx, own_cols, cavity)
+    bx, by, br, om, omc = (torch.tensor(np.float32(c), device=pp_ext.device)
+                           for c in _coefficients(dx, dy, omega))
+    interior, owned = block_masks(pp_ext.shape, blk, pp_ext.device)
+    gr, gc = block_indices(pp_ext.shape, blk, pp_ext.device)
+    par = (gr + gc) % 2
+    rhs_s = br * rhs_ext
+    pp, zero = pp_ext, pp_ext.new_zeros(())
+
+    def half(pp, mask):
+        E, W, N, S = folded_neighbours(pp, blk)
+        new = omc * pp + om * (bx * (E + W) + by * (N + S) - rhs_s)
+        return torch.where(mask, new, pp)
+
+    for _ in range(k):
+        old = pp
+        pp = half(half(pp, interior & (par == 0)), interior & (par == 1))
+        err = torch.amax(torch.where(owned, torch.abs(pp - old), zero))
+    return block_pprime_bcs(pp, blk), err
+
+
+def sor_fused_k_shard(pp_ext, rhs_ext, row_offset: int, gny: int, dx: float, dy: float,
+                      omega: float, k: int, own_lo: int, own_hi: int,
+                      cavity: bool = False, col_offset: int = 0, gnx=None,
+                      own_cols=None):
+    """k fused red/black SOR iterations (CHANNEL p' BCs) on a
+    halo-extended block at global offsets. Returns (the block, the last
+    iteration's max |change| over the owned cells as a 0-d tensor); keep
+    its owned rows."""
+    if k < 1:
+        raise ValueError(f"sor_fused_k_shard: k must be >= 1, got {k}")
+    blk = shard_block("sor_fused_k_shard", pp_ext, row_offset, gny, own_lo, own_hi,
+                      col_offset, gnx, own_cols, cavity)
+    shape = tuple(pp_ext.shape)
+    if on_cpu("sor_fused_k_shard", {"pp_ext": (pp_ext, shape),
+                                    "rhs_ext": (rhs_ext, shape)}):
+        return sor_fused_k_shard_plain(pp_ext, rhs_ext, row_offset, gny, dx, dy, omega,
+                                       k, own_lo, own_hi, cavity, col_offset, gnx,
+                                       own_cols)
+    lib = load()
+    ny, nx = shape
+    out = pp_ext.clone()
+    partials = torch.empty(lib.cfd_sor_partials(ny, nx), dtype=torch.float32,
+                           device=pp_ext.device)
+    err = torch.empty((), dtype=torch.float32, device=pp_ext.device)
+    with torch.cuda.device(pp_ext.device):
+        check(lib.cfd_sor_fused_k_shard(
+            out.data_ptr(), rhs_ext.data_ptr(), partials.data_ptr(), err.data_ptr(),
+            ny, nx, k, *blk, *_coefficients(dx, dy, omega), stream_of(pp_ext)),
+            "sor_fused_k_shard")
+    sor_fused_k_shard.launches += 1
+    return out, err
+
+
+sor_fused_k_shard.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,19 @@ bytes per cell, bandwidth-bound (134 MB, 0.040 ms at 2048²). rhs(j, i)
 needs the corrected u(j, i+1) and v(j+1, i): the thread recomputes them
 in registers.
 
+``predict_div`` and ``correct_bc`` also take a row block of a sharded
+field (the sharded step, shard/step_shmap.py): ``row_offset`` is the
+global row of the block's row 0, which may be negative (shard 0's halo
+lies below the grid), and ``correct_bc``'s ``own_rows`` = (lo, hi) are
+the local rows its three reductions count (substep_pallas.py:235, :393,
+:406-410). Every row test, the inlet's rows and the masks take global
+rows; loads past the block read 0, as the Pallas window's zero-filled
+rolls do, so the halo rows' outputs are stale and the caller discards
+them. The kernels read the whole grid's masks at global rows; the plain
+versions take the block's window of them (``masks_traced(...,
+row_offset, rows)``). Without an offset the arguments are those of the
+whole field, and every launch computes what it computed before.
+
 On CPU tensors each wrapper runs its plain version, built from the
 ported ops; on CUDA tensors it launches the kernel or raises.
 """
@@ -69,25 +82,38 @@ def inlet_args(grid: Grid, profile: InletProfile):
     return 1, _f32(center), _f32(radius)
 
 
+def _masks(grid: Grid, semantics: Semantics, device, row_offset, rows):
+    if row_offset is None:
+        return masks_traced(grid, semantics, device)
+    return masks_traced(grid, semantics, device, row_offset, rows)
+
+
+def _block_rows(grid: Grid, u, row_offset) -> int:
+    """The rows of the arrays: the grid's, or a block's (``row_offset``)."""
+    return grid.ny if row_offset is None else u.shape[0]
+
+
 def predict_div_plain(u, v, dt_sub, nu, grid: Grid, scheme: VelocityScheme,
-                      semantics: Semantics):
+                      semantics: Semantics, row_offset=None):
     """ops.predictor.predict + ops.divergence.divergence_rhs."""
-    mask_u, mask_v, _, _ = masks_traced(grid, semantics, u.device)
+    mask_u, mask_v, _, _ = _masks(grid, semantics, u.device, row_offset, u.shape[0])
     u_star, v_star = predict(u, v, dt_sub, nu, grid.dx, grid.dy, grid.nx,
                              grid.ny, scheme, semantics == Semantics.JS,
-                             mask_u, mask_v)
+                             mask_u, mask_v, row_offset or 0)
     return u_star, v_star, divergence_rhs(u_star, v_star, dt_sub, grid.dx,
                                           grid.dy)
 
 
 def predict_div(u, v, dt_sub, nu, grid: Grid, scheme: VelocityScheme,
-                semantics: Semantics):
+                semantics: Semantics, row_offset=None):
     """Fused predictor + divergence: returns (u_star, v_star, rhs) in the
-    storage shapes (ny, nx+1), (ny, nx), (ny, nx). ``dt_sub`` and ``nu``
-    are floats or 0-d tensors on the fields' device."""
-    ny, nx = grid.ny, grid.nx
+    storage shapes (ny, nx+1), (ny, nx), (ny, nx), ny the block's rows
+    when ``row_offset`` (an int) places u and v in the grid. ``dt_sub``
+    and ``nu`` are floats or 0-d tensors on the fields' device."""
+    ny, nx = _block_rows(grid, u, row_offset), grid.nx
     if on_cpu("predict_div", {"u": (u, (ny, nx + 1)), "v": (v, (ny, nx))}):
-        return predict_div_plain(u, v, dt_sub, nu, grid, scheme, semantics)
+        return predict_div_plain(u, v, dt_sub, nu, grid, scheme, semantics,
+                                 row_offset)
     lib = load()
     u_star, v_star, rhs = (torch.empty_like(u), torch.empty_like(v),
                            torch.empty_like(v))
@@ -97,7 +123,7 @@ def predict_div(u, v, dt_sub, nu, grid: Grid, scheme: VelocityScheme,
         check(lib.cfd_predict_div(
             u.data_ptr(), v.data_ptr(), scal.data_ptr(), u_star.data_ptr(),
             v_star.data_ptr(), rhs.data_ptr(), mask_u, mask_v, ny, nx,
-            _f32(grid.dx), _f32(grid.dy), _f32(grid.dx * grid.dx),
+            row_offset or 0, grid.ny, _f32(grid.dx), _f32(grid.dy), _f32(grid.dx * grid.dx),
             _f32(grid.dy * grid.dy), _SCHEME[scheme],
             int(semantics == Semantics.JS), stream_of(u)), "predict_div")
     predict_div.launches += 1
@@ -109,34 +135,45 @@ predict_div.launches = 0
 
 def correct_bc_plain(u_star, v_star, p, p_prime, u_entry, v_entry, dt_sub,
                      inlet, grid: Grid, profile: InletProfile,
-                     flow_case: FlowCase, semantics: Semantics):
-    """ops.corrector.correct + ops.bc.apply_bcs + the three maxima."""
-    _, _, mask_u_bc, mask_v_bc = masks_traced(grid, semantics, u_star.device)
+                     flow_case: FlowCase, semantics: Semantics, row_offset=None,
+                     own_rows=None):
+    """ops.corrector.correct + ops.bc.apply_bcs + the three maxima (over
+    the rows ``own_rows``)."""
+    rows = u_star.shape[0]
+    _, _, mask_u_bc, mask_v_bc = _masks(grid, semantics, u_star.device,
+                                        row_offset, rows)
     u, v, p = correct(u_star, v_star, p, p_prime, dt_sub, grid.dx, grid.dy)
     u, v = apply_bcs(u, v, grid, profile, inlet, mask_u_bc, mask_v_bc,
-                     flow_case)
-    res_u = torch.amax(torch.abs(u - u_entry))
-    res_v = torch.amax(torch.abs(v - v_entry))
-    max_vel = torch.maximum(torch.amax(torch.abs(u)), torch.amax(torch.abs(v)))
+                     flow_case, row_offset or 0)
+    lo, hi = own_rows or (0, rows)
+    uo, vo = u[lo:hi], v[lo:hi]
+    res_u = torch.amax(torch.abs(uo - u_entry[lo:hi]))
+    res_v = torch.amax(torch.abs(vo - v_entry[lo:hi]))
+    max_vel = torch.maximum(torch.amax(torch.abs(uo)), torch.amax(torch.abs(vo)))
     return u, v, p, res_u, res_v, max_vel
 
 
 def correct_bc(u_star, v_star, p, p_prime, u_entry, v_entry, dt_sub, inlet,
                grid: Grid, profile: InletProfile, flow_case: FlowCase,
-               semantics: Semantics):
+               semantics: Semantics, row_offset=None, own_rows=None):
     """Fused corrector + BCs + step reductions. Returns
     (u, v, p, res_u, res_v, max_vel), the last three 0-d tensors:
     res_* = max|field - entry| (model.rs:333-348) and max_vel feeds the
-    CFL controller."""
+    CFL controller. With ``row_offset`` (an int) the arrays are a row
+    block of the grid and the maxima count the local rows ``own_rows`` =
+    (lo, hi) only (all rows when None)."""
     check_channel(flow_case)
-    ny, nx = grid.ny, grid.nx
+    ny, nx = _block_rows(grid, u_star, row_offset), grid.nx
+    own_lo, own_hi = own_rows or (0, ny)
+    if not 0 <= own_lo < own_hi <= ny:
+        raise ValueError(f"correct_bc: own_rows {own_rows} outside the block's {ny} rows")
     shapes = {"u_star": (u_star, (ny, nx + 1)), "v_star": (v_star, (ny, nx)),
               "p": (p, (ny, nx)), "p_prime": (p_prime, (ny, nx)),
               "u_entry": (u_entry, (ny, nx + 1)), "v_entry": (v_entry, (ny, nx))}
     if on_cpu("correct_bc", shapes):
         return correct_bc_plain(u_star, v_star, p, p_prime, u_entry, v_entry,
                                 dt_sub, inlet, grid, profile, flow_case,
-                                semantics)
+                                semantics, row_offset, own_rows)
     lib = load()
     u, v, p_new = (torch.empty_like(u_star), torch.empty_like(v_star),
                    torch.empty_like(p))
@@ -151,7 +188,7 @@ def correct_bc(u_star, v_star, p, p_prime, u_entry, v_entry, dt_sub, inlet,
             p_prime.data_ptr(), u_entry.data_ptr(), v_entry.data_ptr(),
             scal.data_ptr(), u.data_ptr(), v.data_ptr(), p_new.data_ptr(),
             partials.data_ptr(), red.data_ptr(), mask_u_bc, mask_v_bc, ny, nx,
-            _f32(grid.dx), _f32(grid.dy), *inlet_args(grid, profile),
+            row_offset or 0, grid.ny, own_lo, own_hi, _f32(grid.dx), _f32(grid.dy), *inlet_args(grid, profile),
             stream_of(u)), "correct_bc")
     correct_bc.launches += 1
     return u, v, p_new, red[0], red[1], red[2]

@@ -56,17 +56,24 @@ def inlet_profile_column(grid: Grid, profile: InletProfile, inlet_velocity,
 
 def apply_bcs(u: torch.Tensor, v: torch.Tensor, grid: Grid,
               profile: InletProfile, inlet_velocity, mask_u_bc, mask_v_bc,
-              flow_case: FlowCase = FlowCase.CHANNEL):
+              flow_case: FlowCase = FlowCase.CHANNEL, row_offset: int = 0):
     """Returns (u, v) with the boundary conditions enforced. Fields may
-    carry leading batch dimensions, with a ``(B,)`` inlet speed."""
+    carry leading batch dimensions, with a ``(B,)`` inlet speed. On a row
+    block of a sharded field (rows [row_offset, row_offset + rows) of the
+    grid, the masks the block's), the inlet column and the no-slip rows
+    are taken at the block's global rows."""
     check_channel(flow_case)
     ny, nx = grid.ny, grid.nx
+    rows = u.shape[-2]
     u = u.clone()
-    u[..., :, 0] = inlet_profile_column(grid, profile, inlet_velocity,
-                                        u.device, u.dtype)
+    inlet = inlet_profile_column(grid, profile, inlet_velocity, u.device, u.dtype)
+    lo, hi = max(row_offset, 0), min(row_offset + rows, ny)
+    u[..., lo - row_offset:hi - row_offset, 0] = inlet[..., lo:hi]
     u[..., :, nx] = u[..., :, nx - 1]
-    u[..., 0, :] = 0.0
-    u[..., ny - 1, :] = 0.0
+    for j in (0, ny - 1):
+        if 0 <= j - row_offset < rows:
+            u[..., j - row_offset, :] = 0.0
     v = v.clone()
-    v[..., 0, :] = 0.0
+    if 0 <= -row_offset < rows:
+        v[..., -row_offset, :] = 0.0
     return apply_solid_mask(u, mask_u_bc), apply_solid_mask(v, mask_v_bc)

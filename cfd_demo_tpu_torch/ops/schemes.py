@@ -11,6 +11,9 @@ lanes outside the update region carry junk that the predictor masks
 away. The expressions keep the JAX package's operation order term for
 term (e.g. ``((-uW + 6 uC) + 3 uE) / 8``), so the two round alike.
 
+``row_offset`` is the global row of the arrays' row 0 when they are a
+row block of a sharded field (``ny`` stays the global height).
+
 Semantics: the u-momentum north/south convecting velocity is the
 *unaveraged* east v neighbour in Rust (get_v_north, model.rs:1056-1069)
 and the average of the two adjacent v faces in JS (index.html:396-404);
@@ -51,7 +54,7 @@ def _lin(a, b):
 
 
 def u_faces(u: torch.Tensor, v: torch.Tensor, nx: int, ny: int,
-            scheme: VelocityScheme, avg_conv_v: bool) -> UFaces:
+            scheme: VelocityScheme, avg_conv_v: bool, row_offset: int = 0) -> UFaces:
     """Face values for the u-momentum cell around u face (i, j); the
     adjacent v faces are v[j, i-1], v[j, i] (south) and v[j+1, i-1],
     v[j+1, i] (north)."""
@@ -73,7 +76,7 @@ def u_faces(u: torch.Tensor, v: torch.Tensor, nx: int, ny: int,
         s = where(v_s >= 0, uS, uC)
         return UFaces(e, w, n, s, v_n, v_s)
     uEE, uWW, uNN, uSS = su(0, 2), su(0, -2), su(2, 0), su(-2, 0)
-    i, j = col_index(shape, u.device), row_index(shape, u.device)
+    i, j = col_index(shape, u.device), row_index(shape, u.device, row_offset)
     if scheme == VelocityScheme.SECOND:
         # model.rs:911-1053 / index.html:425-464
         e = where(uC >= 0, where(i > 1, _lin(uC, uW), uC),
@@ -102,7 +105,7 @@ def u_faces(u: torch.Tensor, v: torch.Tensor, nx: int, ny: int,
 
 
 def v_faces(u: torch.Tensor, v: torch.Tensor, nx: int, ny: int,
-            scheme: VelocityScheme) -> VFaces:
+            scheme: VelocityScheme, row_offset: int = 0) -> VFaces:
     """Face values for the v-momentum cell around v face (i, j); the
     convecting u values are the unaveraged u[j, i] (west) and u[j, i+1]
     (east) in both references (model.rs:600-601, index.html:568/573)."""
@@ -123,7 +126,7 @@ def v_faces(u: torch.Tensor, v: torch.Tensor, nx: int, ny: int,
         s = where(v_s_avg >= 0, vS, vC)
         return VFaces(e, w, n, s, u_e, u_w)
     vEE, vWW, vNN, vSS = sv(0, 2), sv(0, -2), sv(2, 0), sv(-2, 0)
-    i, j = col_index(shape, v.device), row_index(shape, v.device)
+    i, j = col_index(shape, v.device), row_index(shape, v.device, row_offset)
     if scheme == VelocityScheme.SECOND:
         # model.rs:1098-1248 / index.html:596-633
         e = where(u_e >= 0, where(i > 0, _lin(vC, vW), vC),

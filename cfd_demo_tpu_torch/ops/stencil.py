@@ -47,9 +47,10 @@ def col_index(shape, device) -> torch.Tensor:
     return torch.arange(shape[-1], device=device)[None, :].expand(shape)
 
 
-def row_index(shape, device) -> torch.Tensor:
-    """int64 y (j) indices broadcast to ``shape``."""
-    return torch.arange(shape[-2], device=device)[:, None].expand(shape)
+def row_index(shape, device, offset: int = 0) -> torch.Tensor:
+    """int64 y (j) indices broadcast to ``shape``; ``offset`` is the
+    global row of local row 0 (a row block of a sharded field)."""
+    return torch.arange(offset, offset + shape[-2], device=device)[:, None].expand(shape)
 
 
 def apply_solid_mask(x: torch.Tensor, mask) -> torch.Tensor:

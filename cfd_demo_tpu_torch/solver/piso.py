@@ -291,11 +291,20 @@ def _use_fused_substep(scene: Scene) -> bool:
     return impl == "pallas"
 
 
-def resolve_fuse_k(opts: SolverOptions) -> int:
+def resolve_fuse_k(opts: SolverOptions, divide: int = 0) -> int:
     """Sweeps per Jacobi-chain launch: pallas_fuse_k, or 16 when 0 (the
     JAX package's auto value, piso.py:184-212). Not yet tuned for the
-    H100."""
-    return opts.pallas_fuse_k or 16
+    H100. ``divide`` > 0 (the sharded step, whose per-shard chain has no
+    remainder launch) makes the auto value the largest k <= 16 that
+    divides it, e.g. 10 for 50 iterations; an explicit pallas_fuse_k is
+    returned as it is."""
+    if opts.pallas_fuse_k:
+        return opts.pallas_fuse_k
+    base = 16
+    if divide:
+        while base > 1 and divide % base != 0:
+            base -= 1
+    return base
 
 
 def _solve_sor(scene: Scene, pp0, rhs, done=None):
@@ -520,7 +529,7 @@ def piso_substep(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet,
 
 def ramped_inlet(opts: SolverOptions, state: State):
     """Inlet ramp (model.rs:311-316)."""
-    ramp = torch.clamp(state.step.to(state.u.dtype) / float(opts.ramp_up_steps),
+    ramp = torch.clamp(state.step.to(state.dt.dtype) / float(opts.ramp_up_steps),
                        max=1.0)
     return ramp * state.target_inlet
 

@@ -40,6 +40,12 @@ Phases, one line each; any failure raises and exits non-zero:
    required); correct_div on the 2048^2 reference-mode state after 3
    steps; one MULTIGRID solve from the same (p'0, rhs) on the card and
    the CPU at 2048^2, p' held to the summed tolerances of its launches;
+   the row-sharded tier's kernels: on the 2048^2 fast and SOR states
+   after 3 steps cut into 4 shards, every shard's halo-extended block
+   (544 rows: 512 owned, a 16-row halo) through jacobi_fused_k_shard at
+   k = 10 and sor_fused_k_shard at k = 5, and each once on a column
+   block, owned rows against the plain twins; predict_div and correct_bc
+   on a shard's 8-row-haloed block at a nonzero row offset;
 4. run the 800x264 default scene (the Rust app's) for 50 steps with
    make_run, print steps/s and check its physical invariants;
 5. run the benchmark's fast shape at 2048^2 (bench.py --mode fast):
@@ -73,14 +79,22 @@ Phases, one line each; any failure raises and exits non-zero:
    --mode fast's schedule), 5 warm-up steps then 100 timed under the sync
    check; the 2048^2 reference mode with rounds_impl="pallas", 3 warm-up
    steps then 5 with the outer rounds of each, against the unfused
-   route's 5 from the same state on the card; each of these paths must
+   route's 5 from the same state on the card; the row-sharded step on one
+   card (every shard on cuda:0): 2048^2 fast and sor on 4 shards, 5
+   warm-up steps then 100 timed under set_sync_debug_mode("error"), each
+   beside its unsharded rate; the 800x264 default scene on 3 shards (88
+   rows each, early exits, outer rounds) for 3 steps from phase 4's end
+   state; 2048^2 FDM on 4 shards, 3 steps; each of these paths must
    launch exactly its kernels;
 7. from the end states of 4, 5, 6 and the ensembles (2 of the 8
    800x264 scenes, 2 of the 16 SOR scenes), run 3 steps (the 2048^2 JS
    QUICK shape 2, the reference mode 1) on CUDA and on the port's CPU
    path and compare u, v, grad p and mean-removed p (the production
    projections, aligned and legacy, with their solver's own bound;
-   MULTIGRID on u, v and grad p alone);
+   MULTIGRID on u, v and grad p alone); from each sharded path's end
+   state 3 steps sharded on the card, against 3 unsharded on the card
+   and 3 on the CPU path (the 800x264 one sharded on the CPU, its
+   solves exiting k sweeps apart at most);
 8. require every kernel of each path to have launched in that path's
    run (counts set to 0 just before it, read just after).
 
@@ -102,20 +116,27 @@ import torch
 
 import cfd_demo_tpu_torch as tc
 from cfd_demo_tpu_torch.apps.ensemble import ensemble_scene, ensemble_state
-from cfd_demo_tpu_torch.cells import (ensemble_args, fast_scene, js_default_scene,
+from cfd_demo_tpu_torch.cells import (SHARDED, ensemble_args, fast_scene, js_default_scene,
                                       js_quick_scene, legacy_production_scene,
                                       multigrid_scene, production_scene,
                                       reference_mode_scene, reference_scene,
                                       rounds_args, sor_ensemble_scene, sor_scene,
                                       vcycles_launched)
 from cfd_demo_tpu_torch.core.masks import masks_traced
+from cfd_demo_tpu_torch.shard import (gather_state, make_mesh, make_run_shmap,
+                                      shard_state)
+from cfd_demo_tpu_torch.shard.halo import exchange_rows
+from cfd_demo_tpu_torch.shard.mesh import split_rows
+from cfd_demo_tpu_torch.shard.step_shmap import sor_k
 from cfd_demo_tpu_torch.kernels import _build
 from cfd_demo_tpu_torch.kernels import mg as kmg
 from cfd_demo_tpu_torch.kernels import mgp
 from cfd_demo_tpu_torch.kernels import sor as ksor
 from cfd_demo_tpu_torch.kernels.ensemble import (substep_batch, substep_batch_plain,
                                                  substep_batch_sor)
-from cfd_demo_tpu_torch.kernels.jacobi import jacobi_fused_k, jacobi_fused_k_plain
+from cfd_demo_tpu_torch.kernels.jacobi import (jacobi_fused_k, jacobi_fused_k_plain,
+                                               jacobi_fused_k_shard,
+                                               jacobi_fused_k_shard_plain)
 from cfd_demo_tpu_torch.kernels.jacobi_batch import jacobi_batch, jacobi_batch_plain
 from cfd_demo_tpu_torch.kernels.rounds import (solve_correct_rounds,
                                                solve_correct_rounds_plain)
@@ -125,7 +146,7 @@ from cfd_demo_tpu_torch.kernels.substep import (correct_bc, correct_bc_plain,
 from cfd_demo_tpu_torch.ops import fdm
 from cfd_demo_tpu_torch.ops.poisson import (MgKit, _cc_prolong_x, _cc_vcycle, _mg_kit,
                                             _mg_vcycle, _smoothers, multigrid)
-from cfd_demo_tpu_torch.solver.piso import ramped_inlet
+from cfd_demo_tpu_torch.solver.piso import ramped_inlet, resolve_fuse_k
 
 EPS32 = float(np.finfo(np.float32).eps)
 # p's f32 resolution. p reaches thousands on the 800x264 scene, and there
@@ -142,6 +163,7 @@ MG, MG_ODD, REF_MG = "2048^2 multigrid", "2047^2 multigrid", "800x264 multigrid"
 LEG, REF_LEG = "2048^2 production legacy", "800x264 production legacy"
 JS_DEF, JS_QUICK = "400x132 js default", "2048^2 js quick"
 REF_CD = "2048^2 reference correct_div"
+FAST_SH, SOR_SH, REF_SH, FDM_SH = SHARDED  # the sharded paths, cells.py
 # name -> (wrapper, source, the Pallas call site it replaces, the path
 # whose launches the JSON line reports)
 KERNELS = {
@@ -183,6 +205,10 @@ KERNELS = {
                    "cfd_demo_tpu/kernels/mg_pallas.py:1063", LEG),
     "correct_div": (correct_div, "cfd_demo_tpu_torch/csrc/correct_div.cu",
                     "cfd_demo_tpu/kernels/substep_pallas.py:587", REF_CD),
+    "jacobi_fused_k_shard": (jacobi_fused_k_shard, "cfd_demo_tpu_torch/csrc/jacobi.cu",
+                             "cfd_demo_tpu/kernels/jacobi_pallas.py:1450", FAST_SH),
+    "sor_fused_k_shard": (ksor.sor_fused_k_shard, "cfd_demo_tpu_torch/csrc/sor.cu",
+                          "cfd_demo_tpu/kernels/sor_pallas.py:609", SOR_SH),
 }
 VERTEX = ("mg_residual_restrict", "mg_prolong_add")
 # The kernels each path must launch.
@@ -207,10 +233,14 @@ PATHS = {
     JS_DEF: ("rounds",),
     JS_QUICK: ("predict_div", "jacobi_fused_k", "correct_bc"),
     REF_CD: ("predict_div", "jacobi_fused_k", "correct_div"),
+    FAST_SH: ("predict_div", "jacobi_fused_k_shard", "correct_bc"),
+    SOR_SH: ("predict_div", "sor_fused_k_shard", "correct_bc"),
+    REF_SH: ("predict_div", "jacobi_fused_k_shard"),
+    FDM_SH: ("predict_div", "correct_bc"),
 }
 # Paths that must launch their kernels and no other.
 EXACT_PATHS = (SOR, SOR_ODD, REF_SOR, ENS_SOR, MG, MG_ODD, REF_MG, LEG, REF_LEG,
-               JS_DEF, JS_QUICK, REF_CD)
+               JS_DEF, JS_QUICK, REF_CD, FAST_SH, SOR_SH, REF_SH, FDM_SH)
 # The card's peaks (NVIDIA's H100 SXM data sheet, at the 700 W limit):
 # device-memory bytes/s and f32 FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -1008,8 +1038,18 @@ def compare_with_cpu(scene, state_dev, label, steps=3, knife_edge=False):
 
 
 def compare_runs(scene, run_a, run_b, label, steps, knife_edge=False,
-                 what="CUDA vs CPU"):
-    """The checks of compare_with_cpu on two runs' (state, diagnostics)."""
+                 what="CUDA vs CPU", sweeps_apart=1):
+    """The checks of compare_with_cpu on two runs' (state, diagnostics).
+
+    ``sweeps_apart`` > 1 (with ``knife_edge``): the two runs' Jacobi
+    solves may exit that many sweeps apart, as a launch-granular exit
+    (the sharded step's: k sweeps a launch) does against an exact one.
+    Past the exit each damped sweep changes p' by at most its last
+    change, below jacobi_tol (the sweep is a max-norm contraction for
+    omega <= 1), so p' may differ by sweeps_apart jacobi_tol in each cell
+    at each solve: the knife-edge term is multiplied by it, and, as each
+    solve's p' corrects u and v by dt grad p', 2 / h of it is added to the
+    grad p bound and dt 2 / h of it to u's and v's."""
     (a, da), (b, db) = run_a, run_b
     g = scene.grid
     l2 = lambda x, y: float(np.sqrt(np.mean((x - y) ** 2)))
@@ -1025,7 +1065,11 @@ def compare_runs(scene, run_a, run_b, label, steps, knife_edge=False,
         substeps = int(torch.maximum(da.substeps.cpu(), db.substeps.cpu())
                        .reshape(steps, -1).sum(dim=0).max())
         slack_p = (substeps * (1 + scene.opts.outer_corrector_rounds)
-                   * scene.opts.jacobi_tol)
+                   * scene.opts.jacobi_tol * sweeps_apart)
+        if sweeps_apart > 1:
+            h = min(g.dx, g.dy)
+            slack_grad = 2 * slack_p / h
+            slack_uv = float(da.dt.max()) * 2 * slack_p / h
     if scene.params.pressure_solver == tc.PressureSolver.SOR:
         solves = steps * (1 + scene.opts.outer_corrector_rounds)
         pmax = max(1.0, *(float(s.p_prime.abs().max()) for s in (a, b)))
@@ -1545,6 +1589,226 @@ def run_js(dev, launches, report):
     return out
 
 
+def shard_blocks(x, shards, halo):
+    """A global field's halo-extended row blocks, as the sharded step's
+    exchange gives them (zero rows past the grid)."""
+    mesh = make_mesh(shards, x.device)
+    return exchange_rows(split_rows(x, mesh), mesh, halo)
+
+
+def check_shard_kernels(dev, results, report):
+    """Kernels 11 and 14, and the row-offset forms of 1 and 3, on the main
+    paths' states: the 2048^2 fast (and SOR) state after 3 steps, its
+    next rhs, cut into 4 shards of 512 rows; every shard's extended block
+    (a halo8(k) = 16-row halo) through jacobi_fused_k_shard at k = 10
+    (sor_fused_k_shard at k = 5), owned rows and err against the plain
+    twin; then each on a column block of shard 1 (global columns
+    [496, 1040), 512 owned), the 2-D tier's form. Timed on shard 1's
+    block (544 x 2048). predict_div and correct_bc on shard 2's
+    8-row-haloed block (row offset 1016), owned rows against their plain
+    forms, timed beside the whole field's launches of phase 3."""
+    shards, loc_h = 4, 8
+    for solver, name, k in (("JACOBI", "jacobi_fused_k_shard", None),
+                            ("SOR", "sor_fused_k_shard", None)):
+        scene = fast_scene() if solver == "JACOBI" else sor_scene()
+        g, opts = scene.grid, scene.opts
+        state, _ = tc.make_run(scene, 3)(scene.init_state(dev))
+        rhs = predict_div(state.u, state.v, state.dt, state.nu, g,
+                          scene.params.velocity_scheme, opts.semantics)[2]
+        if solver == "JACOBI":
+            k = resolve_fuse_k(opts, divide=opts.jacobi_iters)
+            kern, plain, om, halo = (jacobi_fused_k_shard, jacobi_fused_k_shard_plain,
+                                     opts.jacobi_omega, -(-k // 8) * 8)
+            ops = k * (SWEEP + SWEEP_ERR)
+        else:
+            k = sor_k(scene)
+            kern, plain, om, halo = (ksor.sor_fused_k_shard, ksor.sor_fused_k_shard_plain,
+                                     opts.sor_omega, -(-2 * k // 8) * 8)
+            ops = k * SOR_ITER + SWEEP_ERR
+        loc = g.ny // shards
+        ppx, rhsx = (shard_blocks(x, shards, halo) for x in (state.p_prime, rhs))
+        pairs = []
+        for s in range(shards):
+            args = (ppx[s], rhsx[s], s * loc - halo, g.ny, g.dx, g.dy, om, k, halo,
+                    halo + loc)
+            got, ref = kern(*args), plain(*args)
+            own = slice(halo, halo + loc)
+            # f32 multipliers on both sides: a rounding apart, carried over k
+            # iterations (omega 1.7 amplifies SOR's)
+            tol = scaled(ref[0][own], 1e-5)
+            pairs += [(f"shard {s} p'", got[0][own], ref[0][own], tol),
+                      (f"shard {s} err", got[1], ref[1], tol)]
+        c0, c1 = g.nx // 4 - halo, g.nx // 2 + halo
+        cargs = (ppx[1][:, c0:c1].contiguous(), rhsx[1][:, c0:c1].contiguous(),
+                 loc - halo, g.ny, g.dx, g.dy, om, k, halo, halo + loc)
+        ckw = dict(col_offset=c0, gnx=g.nx, own_cols=(halo, c1 - c0 - halo))
+        got, ref = kern(*cargs, **ckw), plain(*cargs, **ckw)
+        own = (slice(halo, halo + loc), slice(halo, c1 - c0 - halo))
+        pairs += [("column block p'", got[0][own], ref[0][own], scaled(ref[0][own], 1e-5)),
+                  ("column block err", got[1], ref[1], scaled(ref[0][own], 1e-5))]
+        args = (ppx[1], rhsx[1], loc - halo, g.ny, g.dx, g.dy, om, k, halo, halo + loc)
+        out = kern(*args)[0]
+        compare(name, pairs, results,
+                (time_ms(lambda: kern(*args), 20), time_ms(lambda: plain(*args), 3)),
+                bound(nbytes(ppx[1], rhsx[1], out), ops * ppx[1].numel()))
+        results[name]["k"] = k
+        results[name]["block"] = list(ppx[1].shape)
+
+    # Kernels 1 and 3 at a row offset: shard 2 of 4 on the fast state.
+    scene = fast_scene()
+    g, opts = scene.grid, scene.opts
+    state, _ = tc.make_run(scene, 3)(scene.init_state(dev))
+    sch, sem = scene.params.velocity_scheme, opts.semantics
+    loc, s = g.ny // shards, 2
+    off = s * loc - loc_h
+    ue, ve = (shard_blocks(x, shards, loc_h)[s] for x in (state.u, state.v))
+    dt, nu = state.dt, state.nu
+    got = predict_div(ue, ve, dt, nu, g, sch, sem, row_offset=off)
+    ref = predict_div_plain(ue, ve, dt, nu, g, sch, sem, row_offset=off)
+    own = slice(loc_h, loc_h + loc)
+    uv_scale = max(1.0, float(ref[0].abs().max()), float(ref[1].abs().max()))
+    rhs_tol = 4 * EPS32 * uv_scale * (1 / g.dx + 1 / g.dy) / float(dt)
+    compare("predict_div row_offset", [
+        ("u*", got[0][own], ref[0][own], scaled(ref[0], 1e-6)),
+        ("v*", got[1][own], ref[1][own], scaled(ref[1], 1e-6)),
+        ("rhs", got[2][own], ref[2][own], rhs_tol)], report,
+        (time_ms(lambda: predict_div(ue, ve, dt, nu, g, sch, sem, row_offset=off), 20),
+         time_ms(lambda: predict_div_plain(ue, ve, dt, nu, g, sch, sem, row_offset=off),
+                 5)),
+        bound(nbytes(ue, ve, *got), PREDICT * ue.numel()))
+    us, vs, rhs = got
+    pad = lambda x: torch.nn.functional.pad(x[s * loc:(s + 1) * loc], (0, 0, loc_h, loc_h))
+    ppe = shard_blocks(state.p_prime, shards, loc_h)[s]
+    args = (us, vs, pad(state.p), ppe, pad(state.u), pad(state.v), dt,
+            ramped_inlet(opts, state), g, scene.params.inlet_profile,
+            scene.params.flow_case, sem)
+    kw = dict(row_offset=off, own_rows=(loc_h, loc_h + loc))
+    got, ref = correct_bc(*args, **kw), correct_bc_plain(*args, **kw)
+    compare("correct_bc row_offset", [
+        (label, a[own] if a.dim() else a, b[own] if b.dim() else b, scaled(b, 1e-6))
+        for label, a, b in zip(("u", "v", "p", "res_u", "res_v", "max_vel"), got, ref)],
+        report,
+        (time_ms(lambda: correct_bc(*args, **kw), 20),
+         time_ms(lambda: correct_bc_plain(*args, **kw), 5)),
+        bound(nbytes(*args[:6], *got[:3]), 20 * us.numel()))
+
+
+def sharded_run(scene, state, shards, steps, no_sync):
+    """``steps`` sharded steps on ``shards`` shards of one card from the
+    unsharded or sharded ``state``, counted from counts set to 0 and timed
+    by the host clock up to a synchronize; with ``no_sync`` under
+    set_sync_debug_mode("error"). Returns (sharded state, diagnostics,
+    seconds, launches)."""
+    mesh = make_mesh(shards)
+    if not isinstance(state.u, tuple):
+        state = shard_state(state, mesh)
+    run = make_run_shmap(scene, mesh, steps)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    if no_sync:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, diags = run(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return state, diags, time.perf_counter() - t0, read_counts()
+
+
+def run_sharded(dev, launches, report, state_ref):
+    """The row-sharded step on one card (shard/step_shmap.py; every shard
+    on cuda:0): 2048^2 fast and sor on 4 shards, 5 warm-up steps then 100
+    timed under the sync check, each beside its unsharded rate and with
+    its shard-kernel launches counted exactly (shards x iters // k a
+    step); the 800x264 default scene on 3 shards for 3 steps from phase
+    4's end state ``state_ref``; 2048^2 FDM on 4 shards, 3 steps from
+    rest. Returns (scene, sharded end state, shards, label) for each."""
+    out = []
+    for label, kernel, unsharded in (
+            (FAST_SH, "jacobi_fused_k_shard", report["fast_2048_cell_updates_per_s"]),
+            (SOR_SH, "sor_fused_k_shard", report[SOR]["cell_updates_per_s"])):
+        make, shards, warmup, steps = SHARDED[label]
+        scene = make()
+        n, opts = scene.grid.nx, scene.opts
+        k = (resolve_fuse_k(opts, divide=opts.jacobi_iters) if label == FAST_SH
+             else sor_k(scene))
+        state, _, _, _ = sharded_run(scene, scene.init_state(dev), shards, warmup, False)
+        state, _, sec, launches[label] = sharded_run(scene, state, shards, steps, True)
+        want = steps * shards * (opts.jacobi_iters // k)
+        require(launches[label][kernel] == want,
+                f"{label}: {launches[label][kernel]} {kernel} launches, not {want}")
+        check_invariants(scene, gather_state(state, "cpu"), label)
+        rate = n * n * steps / sec
+        report[label] = {"cell_updates_per_s": rate, "steps_per_s": steps / sec,
+                         "unsharded_cell_updates_per_s": unsharded, "k": k,
+                         f"{kernel}_per_step": want // steps}
+        print(f"[6] {label}: {steps} steps in {sec:.4f} s = {rate:.4e} cell-updates/s "
+              f"({steps / sec:.2f} steps/s; unsharded {unsharded:.4e}, phases 5-6), "
+              f"{shards} shards on one card, {want // steps} {kernel} launches a step "
+              f"(k = {k}), no host sync (set_sync_debug_mode error)", flush=True)
+        out.append((scene, state, shards, label))
+
+    make, shards, _, _ = SHARDED[REF_SH]
+    scene = make()
+    state, diags, sec, launches[REF_SH] = sharded_run(scene, state_ref, shards, 3, False)
+    check_invariants(scene, gather_state(state, "cpu"), REF_SH)
+    k = resolve_fuse_k(scene.opts, divide=scene.opts.jacobi_iters)
+    per_step = launches[REF_SH]["jacobi_fused_k_shard"] / shards / 3
+    report[REF_SH] = {"steps_per_s": 3 / sec, "k": k,
+                      "jacobi_fused_k_shard_per_shard_step": per_step,
+                      "res_p": [float(x) for x in diags.res_p]}
+    print(f"[6] {REF_SH}: 3 steps in {sec:.4f} s = {3 / sec:.2f} steps/s, {shards} shards "
+          f"of {scene.grid.ny // shards} rows, {per_step:.1f} jacobi_fused_k_shard launches a "
+          f"shard a step (k = {k}; early exits and outer rounds, one host read a "
+          f"launch and a round), res_p {report[REF_SH]['res_p']}", flush=True)
+    out.append((scene, state, shards, REF_SH))
+
+    make, shards, _, steps = SHARDED[FDM_SH]
+    scene = make()
+    state, _, sec, launches[FDM_SH] = sharded_run(scene, scene.init_state(dev), shards,
+                                                  steps, False)
+    check_invariants(scene, gather_state(state, "cpu"), FDM_SH)
+    report[FDM_SH] = {"steps_per_s": steps / sec}
+    print(f"[6] {FDM_SH}: {steps} steps from rest in {sec:.4f} s (the rhs gathered and "
+          f"the exact solve on one shard's device)", flush=True)
+    out.append((scene, state, shards, FDM_SH))
+    return out
+
+
+def compare_sharded(scene, state, shards, label, steps=3):
+    """3 steps from a sharded end state: sharded on the card against
+    unsharded on the card, and against the CPU path (unsharded; the
+    800x264 scene's sharded, whose launch-granular exits an unsharded
+    run's exact ones would meet only k sweeps apart)."""
+    mesh = make_mesh(shards)
+    sharded = make_run_shmap(scene, mesh, steps)(state)
+    a = (gather_state(sharded[0], "cpu"), sharded[1])
+    whole = gather_state(state, dev_of(state))
+    b = tc.make_run(scene, steps)(whole)
+    ref = label == REF_SH
+    k = resolve_fuse_k(scene.opts, divide=scene.opts.jacobi_iters) if ref else 1
+    out = {"vs_unsharded": compare_runs(
+        scene, a, b, label, steps, knife_edge=ref, sweeps_apart=k,
+        what="sharded vs unsharded, both on the card")}
+    cpu_start = gather_state(state, "cpu")
+    if ref:
+        cmesh = make_mesh(shards, "cpu")
+        c = make_run_shmap(scene, cmesh, steps)(shard_state(cpu_start, cmesh))
+        c = (gather_state(c[0], "cpu"), c[1])
+        what = "sharded, CUDA vs CPU"
+    else:
+        c = tc.make_run(scene, steps)(cpu_start)
+        what = "sharded CUDA vs unsharded CPU"
+    out["vs_cpu"] = compare_runs(scene, a, c, label, steps, knife_edge=ref,
+                                 sweeps_apart=k, what=what)
+    return out
+
+
+def dev_of(sharded_state):
+    return sharded_state.u[0].device
+
+
 def reset_counts():
     for wrapper, _, _, _ in KERNELS.values():
         wrapper.launches = 0
@@ -1621,6 +1885,7 @@ def main() -> int:
     check_sor_kernels(dev, results, report)
     check_mg_kernels(dev, results)
     check_multigrid_solve(dev, report)
+    check_shard_kernels(dev, results, report)
     launches = {}
 
     scene_a = reference_scene()
@@ -1723,6 +1988,7 @@ def main() -> int:
     sor_runs = run_sor(dev, launches, report)
     vertex_runs = run_vertex(dev, launches, report)
     js_runs = run_js(dev, launches, report)
+    sharded_runs = run_sharded(dev, launches, report, state_a)
 
     report["cpu_compare"] = {
         "800x264": compare_with_cpu(scene_a, state_a, "800x264"),
@@ -1747,6 +2013,8 @@ def main() -> int:
     for (scene, state, label), steps in zip(js_runs, (3, 2, 1)):
         report["cpu_compare"][label] = compare_with_cpu(
             scene, state, label, steps, knife_edge=label != JS_QUICK)
+    for scene, state, shards, label in sharded_runs:
+        report["cpu_compare"][label] = compare_sharded(scene, state, shards, label)
 
     for path, names in PATHS.items():
         counts = {k: launches[path][k] for k in names}

@@ -674,3 +674,142 @@ def test_rounds_impl_pallas_like_cpu(cuda):
     before = ksub.correct_div.launches
     _steps_match(scene, cuda, 3)
     assert ksub.correct_div.launches >= before + 2 * 3
+
+
+# ---------------------------------------------------------------------------
+# The row-sharded tier: kernels 11 and 14, the offset forms of 1 and 3
+# ---------------------------------------------------------------------------
+
+SHARD_OFFSETS = [-16, 16, 32, 17]  # below the grid, inside, at the top, odd
+
+
+def _shard_block(seed, rows, cols):
+    g = torch.Generator().manual_seed(seed)
+    return 0.1 * torch.randn(rows, cols, generator=g), torch.randn(rows, cols, generator=g)
+
+
+@pytest.mark.parametrize("off", SHARD_OFFSETS)
+@pytest.mark.parametrize("kind,k", [("jacobi", 10), ("jacobi", 3), ("sor", 5), ("sor", 2)])
+def test_shard_kernels(cuda, off, kind, k):
+    """Kernels 11 and 14 on a (loc + 2 halo, nx) block of a 96-row grid:
+    the owned rows and err against the plain twins (the Pallas kernels'
+    arithmetic, so one rounding apart)."""
+    kern = kjac.jacobi_fused_k_shard if kind == "jacobi" else ksor.sor_fused_k_shard
+    plain = (kjac.jacobi_fused_k_shard_plain if kind == "jacobi"
+             else ksor.sor_fused_k_shard_plain)
+    omega = 0.8 if kind == "jacobi" else 1.7
+    halo, loc, gny, nx = 16, 48, 96, 100
+    pp, rhs = _shard_block(off + k, loc + 2 * halo, nx)
+    args = (off, gny, 1 / nx, 1 / gny, omega, k, halo, halo + loc)
+    got = kern(pp.to(cuda), rhs.to(cuda), *args)
+    ref = plain(pp, rhs, *args)
+    own = slice(halo, halo + loc)
+    assert_close(got[0][own], ref[0][own], rtol=1e-5)
+    assert_close(got[1], ref[1], rtol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["jacobi", "sor"])
+@pytest.mark.parametrize("col_off", [-16, 33])
+def test_shard_kernels_column_block(cuda, kind, col_off):
+    kern = kjac.jacobi_fused_k_shard if kind == "jacobi" else ksor.sor_fused_k_shard
+    plain = (kjac.jacobi_fused_k_shard_plain if kind == "jacobi"
+             else ksor.sor_fused_k_shard_plain)
+    halo, loc, gny, gnx, width = 16, 32, 96, 160, 80
+    pp, rhs = _shard_block(col_off + 100, loc + 2 * halo, width)
+    kw = dict(col_offset=col_off, gnx=gnx, own_cols=(halo, width - halo))
+    args = (40 - halo, gny, 1 / gnx, 1 / gny, 0.8 if kind == "jacobi" else 1.7, 5,
+            halo, halo + loc)
+    got = kern(pp.to(cuda), rhs.to(cuda), *args, **kw)
+    ref = plain(pp, rhs, *args, **kw)
+    own = (slice(halo, halo + loc), slice(halo, width - halo))
+    assert_close(got[0][own], ref[0][own], rtol=1e-5)
+    assert_close(got[1], ref[1], rtol=1e-5)
+
+
+SHARD_GRID = tc.Grid(nx=96, ny=64, lx=3.0, ly=2.0, obstacles=(tc.Cylinder(0.8, 0.6, 0.3),))
+
+
+@pytest.mark.parametrize("shard", [0, 1, 3])
+@pytest.mark.parametrize("scheme,semantics", [("FIRST", "RUST"), ("QUICK", "JS")])
+def test_predict_div_row_offset(cuda, shard, scheme, semantics):
+    """Kernel 1 on an 8-row-haloed block of one of 4 shards, the rows
+    past the grid zero as the exchange gives them."""
+    loc, h = 16, 8
+    off = shard * loc - h
+    u, v, _, _ = fields(20 + shard, SHARD_GRID, "cpu")
+    u, v = (torch.nn.functional.pad(x, (0, 0, h, h))[shard * loc:shard * loc + loc + 2 * h]
+            .contiguous() for x in (u, v))
+    sch, sem = getattr(tc.VelocityScheme, scheme), getattr(tc.Semantics, semantics)
+    got = ksub.predict_div(u.to(cuda), v.to(cuda), DT, NU, SHARD_GRID, sch, sem,
+                           row_offset=off)
+    ref = ksub.predict_div_plain(u, v, DT, NU, SHARD_GRID, sch, sem, row_offset=off)
+    own = slice(h, h + loc)
+    assert_close(got[0][own], ref[0][own])
+    assert_close(got[1][own], ref[1][own])
+    assert_close(got[2][own], ref[2][own], rtol=1e-4)
+
+
+@pytest.mark.parametrize("shard", [0, 2, 3])
+def test_correct_bc_row_offset(cuda, shard):
+    loc, h = 16, 8
+    off = shard * loc - h
+    us, vs, p, pp, ue, ve = (
+        torch.nn.functional.pad(x, (0, 0, h, h))[shard * loc:shard * loc + loc + 2 * h]
+        .contiguous()
+        for x in fields(30 + shard, SHARD_GRID, "cpu") + fields(40 + shard, SHARD_GRID,
+                                                                 "cpu")[:2])
+    args = (us, vs, p, pp, ue, ve, DT, INLET, SHARD_GRID, tc.InletProfile.PARABOLIC,
+            tc.FlowCase.CHANNEL, RUST)
+    kw = dict(row_offset=off, own_rows=(h, h + loc))
+    got = ksub.correct_bc(*(x.to(cuda) if isinstance(x, torch.Tensor) else x
+                            for x in args), **kw)
+    ref = ksub.correct_bc_plain(*args, **kw)
+    own = slice(h, h + loc)
+    for a, b in zip(got[:3], ref[:3]):
+        assert_close(a[own], b[own])
+    for a, b in zip(got[3:], ref[3:]):
+        assert_close(a, b)
+
+
+@pytest.mark.parametrize("solver,shards", [("JACOBI", 4), ("SOR", 4), ("FDM", 2)])
+def test_sharded_steps_match_cpu(cuda, solver, shards):
+    """The sharded step on the card (every shard on one device) against
+    the same step on the CPU, and the unsharded step on the card."""
+    from cfd_demo_tpu_torch.shard import gather_state, make_mesh, make_run_shmap, shard_state
+    scene = tc.make_scene(tc.Grid(nx=96, ny=128, lx=3.0, ly=4.0,
+                                  obstacles=(tc.Cylinder(0.8, 2.0, 0.3),)),
+                          tc.SimulationParams(dt=0.002, viscosity=1e-4,
+                                              pressure_solver=getattr(tc.PressureSolver,
+                                                                      solver)),
+                          tc.solver_options_for(RUST, ramp_up_steps=5, jacobi_tol=0.0,
+                                                jacobi_iters=20, outer_corrector_rounds=0,
+                                                early_exit=False))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        mesh = make_mesh(shards, dev)
+        state, _ = make_run_shmap(scene, mesh, 3)(shard_state(scene.init_state(dev), mesh))
+        out[dev.type] = gather_state(state, "cpu")
+    unsharded, _ = tc.make_run(scene, 3)(scene.init_state(cuda))
+    for f in ("u", "v", "p"):
+        assert_close(getattr(out["cuda"], f), getattr(out["cpu"], f), rtol=1e-5)
+        assert_close(getattr(out["cuda"], f), getattr(unsharded, f), rtol=1e-5)
+
+
+def test_sharded_fast_rollout_never_syncs(cuda):
+    from cfd_demo_tpu_torch.shard import make_mesh, make_run_shmap, shard_state
+    scene = tc.make_scene(tc.Grid(nx=96, ny=128, lx=3.0, ly=4.0),
+                          tc.SimulationParams(dt=0.002, viscosity=1e-4),
+                          tc.solver_options_for(RUST, jacobi_tol=0.0, jacobi_iters=20,
+                                                outer_corrector_rounds=0,
+                                                early_exit=False))
+    mesh = make_mesh(4, cuda)
+    state = shard_state(scene.init_state(cuda), mesh)
+    run = make_run_shmap(scene, mesh, 3)
+    run(state)  # builds, caches the masks
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, _ = run(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(bool(torch.isfinite(u).all()) for u in state.u)
