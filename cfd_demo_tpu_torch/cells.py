@@ -269,18 +269,26 @@ SHARDED = {
 }
 
 
-# Kernels each launch of these wrappers runs one of: the trace must hold
-# as many as the wrappers counted. (jacobi_fused_k_res, cc_sweeps and the
-# SOR chains launch kernels that others launch too, or k of them a call.)
-TRACED = {"predict_div_kernel": (predict_div,), "correct_bc_kernel(": (correct_bc,),
-          "correct_div_kernel(": (correct_div,),
-          "rounds_kernel(": (solve_correct_rounds,),
-          "ensemble_substep_kernel(": (substep_batch, substep_batch_sor),
-          "jacobi_batch_kernel(": (jacobi_batch,),
-          "restrict_kernel(": (mgp.jacobi_fused_k_restrict,),
-          "corr_add_kernel(": (mgp.jacobi_fused_k_corr,),
-          "vertex_restriction_kernel(": (mg.mg_residual_restrict,),
-          "vertex_prolong_add_kernel(": (mg.mg_prolong_add,)}
+# Kernels each launch of these wrappers runs one of, with the launches
+# the wrappers counted: the trace must hold as many. (jacobi_fused_k,
+# jacobi_fused_k_res, cc_sweeps and the SOR chains launch kernels that
+# others launch too, or several of them a call.)
+def _counts(*wrappers):
+    return lambda: sum(w.launches for w in wrappers)
+
+
+TRACED = {"predict_div_kernel": _counts(predict_div),
+          "correct_bc_kernel(": _counts(correct_bc),
+          "correct_div_kernel(": _counts(correct_div),
+          "rounds_kernel(": lambda: (solve_correct_rounds.launches
+                                     - solve_correct_rounds.cluster_launches),
+          "rounds_cluster_kernel<": lambda: solve_correct_rounds.cluster_launches,
+          "ensemble_substep_kernel(": _counts(substep_batch, substep_batch_sor),
+          "jacobi_batch_kernel(": _counts(jacobi_batch),
+          "restrict_kernel(": _counts(mgp.jacobi_fused_k_restrict),
+          "corr_add_kernel(": _counts(mgp.jacobi_fused_k_corr),
+          "vertex_restriction_kernel(": _counts(mg.mg_residual_restrict),
+          "vertex_prolong_add_kernel(": _counts(mg.mg_prolong_add)}
 
 
 def _busy_us(spans):
@@ -319,7 +327,7 @@ def device_breakdown(step, state, steps):
                      schedule=schedule(wait=0, warmup=1, active=1),
                      on_trace_ready=keep) as prof:
             for _ in range(2):
-                before = {k: sum(w.launches for w in ws) for k, ws in TRACED.items()}
+                before = {k: count() for k, count in TRACED.items()}
                 s = state
                 for _ in range(steps):
                     s, _ = step(s)
@@ -327,7 +335,7 @@ def device_breakdown(step, state, steps):
                 prof.step()
         if not events:
             raise RuntimeError("torch.profiler recorded no device activity")
-        counted = {k: sum(w.launches for w in ws) - before[k] for k, ws in TRACED.items()}
+        counted = {k: count() - before[k] for k, count in TRACED.items()}
         lost = [f"the trace holds {sum(kernel in e.name for e in events)} of "
                 f"{n} {kernel.rstrip('(')} launches"
                 for kernel, n in counted.items()

@@ -45,16 +45,20 @@ FLAGS = [*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+_ROUNDS = [P] * 17 + [I, I, F, F, F, F, F, F, I, F, I, F, I, F, F, P]
 # (name, argtypes) of every C entry point; all return int.
 _SIGNATURES = {
     "cfd_predict_div": [P] * 8 + [I] * 4 + [F] * 4 + [I, I, P],
     "cfd_jacobi_partials": [I, I],
-    "cfd_jacobi_fused_k": [P, P, P, P, P, P, I, I, I, F, F, F, F, P],
+    "cfd_jacobi_fused_k": [P] * 5 + [I] * 3 + [F] * 4 + [P],
+    "cfd_jacobi_tile": [P],
     "cfd_jacobi_fused_k_shard": [P] * 6 + [I] * 11 + [F] * 4 + [P],
     "cfd_correct_bc_partials": [I, I],
     "cfd_correct_bc": [P] * 14 + [I] * 6 + [F, F, I, F, F, P],
     "cfd_correct_div": [P] * 9 + [I, I, F, F, P],
-    "cfd_rounds": [P] * 17 + [I, I, F, F, F, F, F, F, I, F, I, F, I, F, F, P],
+    "cfd_rounds": _ROUNDS,
+    "cfd_rounds_cluster": _ROUNDS,
+    "cfd_rounds_cluster_size": [I, I],
     "cfd_mgp_res": [P] * 7 + [I] * 3 + [F] * 7 + [P],
     "cfd_mgp_restrict": [P] * 7 + [I] * 3 + [F] * 7 + [P],
     "cfd_mgp_corr": [P] * 9 + [I] * 3 + [F] * 7 + [P],
@@ -100,18 +104,25 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the library if it is not built yet; returns its path."""
     lib = library_path()
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if not lib.exists():
+        compile_library(lib, [s for s in _sources() if s.suffix == ".cu"], FLAGS)
+    return lib
+
+
+def compile_library(lib: Path, sources, flags) -> None:
+    """nvcc each source with ``flags`` (all started together), link them
+    into the shared library ``lib`` and keep nvcc's output beside it as
+    ``.log``; raises with that output if a step fails."""
+    lib.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+    with tempfile.TemporaryDirectory(dir=lib.parent) as work:
         objs, procs = [], []
-        for src in (s for s in _sources() if s.suffix == ".cu"):
+        for src in sources:
             obj = os.path.join(work, src.stem + ".o")
             objs.append(obj)
             procs.append((src.name, subprocess.Popen(
-                [nvcc, *FLAGS, "-c", "-o", obj, str(src)], stdout=subprocess.PIPE,
+                [nvcc, *flags, "-c", "-o", obj, str(src)], stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True)))
         logs, failed = [], []
         for name, proc in procs:  # every compile ends before any raise
@@ -131,7 +142,6 @@ def build() -> Path:
         lib.with_suffix(".log").write_text(
             f"built in {time.perf_counter() - t0:.1f} s\n{log}")
         os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
-    return lib
 
 
 @functools.cache

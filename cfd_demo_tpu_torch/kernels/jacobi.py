@@ -9,13 +9,21 @@ reads 0), the p' BCs once at the end, rows then columns, and the max
 equal to k plain sweeps only for BC-consistent input p', which the
 solver always passes (zeros or a previous solve's output).
 
-Each sweep reads p' and rhs and writes p' (12 bytes per cell, about
-50 MB at 2048²), and every sweep needs the whole field of the previous
-one. This first version runs one sweep per launch, ping-ponging two
-buffers, so the launch boundary is the barrier; the last sweep writes
-per-block maxima, and one block then applies the BCs and reduces them.
-A call is k + 1 launches. Keeping k sweeps in shared memory on a tile
-with a k-cell halo, the TPU kernel's design, is later work.
+What bounds it on the H100: a sweep needs the whole field of the
+previous one, and a sweep a launch moves 12 bytes a cell through device
+memory every sweep (about 50 MB at 2048², 26-28 µs a sweep, 30x the
+call's bound). The kernel is temporally blocked, as the TPU kernel's VMEM
+window was: a block owns a tile, loads p' and rhs over the tile and a
+t-cell halo into shared memory (16-byte cp.async), runs t sweeps there
+(each sweep exact on the cells one ring further in, the folds tested on
+global indices, so the owned cells come out exact) and writes only its
+owned cells. A call of k sweeps is ceil(k / t) launches, the remainder
+last; the last one also applies the p' BCs (tiles are clamped inside the
+grid, so a ring cell and the interior cell it copies share a tile) and
+folds its max |delta| into err with an atomicMax. t and the tile are
+constants of csrc/jacobi.cu, chosen on the card (its note and PERF.md
+give the measurements); ``jacobi_tile()`` reports them. The result is
+``jacobi_fused_k_shard_plain`` on the whole field, bit for bit.
 
 ``jacobi_chain`` replaces ``jacobi_pallas`` (jacobi_pallas.py:1114) and
 keeps its schedule: iters//k launches of k, the tolerance checked
@@ -24,7 +32,8 @@ between them, then the iters%k remainder launch unconditionally.
 ``jacobi_fused_k_shard`` replaces ``jacobi_fused_k_shard``
 (jacobi_pallas.py:1404, call :1450, body ``_kernel_shard`` :1293), the
 sharded step's solve (shard/jacobi_shmap.py): the same k sweeps and BC
-pass, in the same CUDA kernels (csrc/jacobi.cu, sweep.cuh ``Block``), on
+pass, one sweep a launch (csrc/jacobi.cu on sweep.cuh's per-sweep
+kernels and ``Block``; the tiled form is ROADMAP work for it), on
 a halo-extended (ext_ny, nx) block whose local (0, 0) is global
 (row_offset, col_offset) of a (gny, gnx) grid. The offsets may be
 negative: shard 0's halo lies below the grid. The interior, the folded
@@ -39,6 +48,8 @@ rows or more keeps exact. The column form (``col_offset``, ``gnx``,
 plain twin, in the Pallas kernel's arithmetic (the f32 multipliers).
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -76,19 +87,25 @@ def jacobi_fused_k(pp, rhs, dx: float, dy: float, omega: float, k: int):
         return jacobi_fused_k_plain(pp, rhs, dx, dy, omega, k)
     lib = load()
     out, tmp = torch.empty_like(pp), torch.empty_like(pp)
-    partials = torch.empty(lib.cfd_jacobi_partials(ny, nx), dtype=torch.float32,
-                           device=pp.device)
     err = torch.empty((), dtype=torch.float32, device=pp.device)
     with torch.cuda.device(pp.device):
         check(lib.cfd_jacobi_fused_k(
             pp.data_ptr(), rhs.data_ptr(), out.data_ptr(), tmp.data_ptr(),
-            partials.data_ptr(), err.data_ptr(), ny, nx, k,
-            *_multipliers(dx, dy, omega), stream_of(pp)), "jacobi_fused_k")
+            err.data_ptr(), ny, nx, k, *_multipliers(dx, dy, omega), stream_of(pp)),
+            "jacobi_fused_k")
     jacobi_fused_k.launches += 1
     return out, err
 
 
 jacobi_fused_k.launches = 0
+
+
+def jacobi_tile() -> dict:
+    """The CUDA kernel's constants: sweeps a launch, the owned tile's
+    rows and columns, threads a block (needs the built library)."""
+    out = (ctypes.c_int * 4)()
+    load().cfd_jacobi_tile(out)
+    return dict(zip(("sweeps", "rows", "cols", "threads"), out))
 
 
 def jacobi_chain(pp0, rhs, dx: float, dy: float, omega: float, tol: float,

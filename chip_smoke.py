@@ -10,9 +10,15 @@ Phases, one line each; any failure raises and exits non-zero:
 3. hold each CUDA kernel against its plain PyTorch version on the card,
    at the main paths' shapes, and time both with CUDA events: 2048^2 for
    predict_div, jacobi_fused_k and correct_bc on a state after a few
-   steps of the fast shape; 800x264 for the rounds kernel, on the state
-   phase 4 ends at, where every step runs all its outer rounds, with the
-   same count of rounds and sweeps required; on the 2048^2 production
+   steps of the fast shape (jacobi_fused_k also bit for bit against the
+   whole field's jacobi_fused_k_shard_plain at k = 16 and at a k its
+   sweeps a launch do not divide); 800x264 for the rounds kernel, on the
+   state phase 4 ends at, where every step runs all its outer rounds, with
+   the same count of rounds and sweeps required, and its cluster and
+   cooperative forms against each other there and on the 400x132 JS state
+   (the same counts and bits), and the cooperative form, which the rule
+   gives a 1024x512 grid, against the plain version there (the same
+   counts); on the 2048^2 production
    state after a few steps, the restrict and corr kernels at 2048^2 and
    the cc kernel on the 1023^2 level (with and without the residual);
    the res kernel on the 2047^2 production state; the FDM bottom
@@ -136,9 +142,10 @@ from cfd_demo_tpu_torch.kernels.ensemble import (substep_batch, substep_batch_pl
                                                  substep_batch_sor)
 from cfd_demo_tpu_torch.kernels.jacobi import (jacobi_fused_k, jacobi_fused_k_plain,
                                                jacobi_fused_k_shard,
-                                               jacobi_fused_k_shard_plain)
+                                               jacobi_fused_k_shard_plain, jacobi_tile)
 from cfd_demo_tpu_torch.kernels.jacobi_batch import jacobi_batch, jacobi_batch_plain
-from cfd_demo_tpu_torch.kernels.rounds import (solve_correct_rounds,
+from cfd_demo_tpu_torch.kernels.rounds import (rounds_cluster_fits, rounds_cluster_size,
+                                               solve_correct_rounds,
                                                solve_correct_rounds_plain)
 from cfd_demo_tpu_torch.kernels.substep import (correct_bc, correct_bc_plain,
                                                 correct_div, correct_div_plain,
@@ -211,9 +218,11 @@ KERNELS = {
                           "cfd_demo_tpu/kernels/sor_pallas.py:609", SOR_SH),
 }
 VERTEX = ("mg_residual_restrict", "mg_prolong_add")
+# The rounds kernel's launches in its cluster form (of its "launches").
+CLUSTER = "rounds_cluster"
 # The kernels each path must launch.
 PATHS = {
-    REF: ("rounds",),
+    REF: ("rounds", CLUSTER),
     FAST: ("predict_div", "jacobi_fused_k", "correct_bc"),
     PROD: ("predict_div", "correct_bc", "jacobi_fused_k_restrict",
            "jacobi_fused_k_corr", "cc_sweeps"),
@@ -230,7 +239,7 @@ PATHS = {
     REF_MG: ("mg_smooth", *VERTEX),
     LEG: ("predict_div", "correct_bc", "mgp_smooth", *VERTEX),
     REF_LEG: ("mgp_smooth", *VERTEX),
-    JS_DEF: ("rounds",),
+    JS_DEF: ("rounds", CLUSTER),
     JS_QUICK: ("predict_div", "jacobi_fused_k", "correct_bc"),
     REF_CD: ("predict_div", "jacobi_fused_k", "correct_div"),
     FAST_SH: ("predict_div", "jacobi_fused_k_shard", "correct_bc"),
@@ -385,6 +394,21 @@ def check_kernels(dev, results):
          time_ms(lambda: jacobi_fused_k_plain(pp, rhs, g.dx, g.dy,
                                               opts.jacobi_omega, k), 10)),
         bound(nbytes(pp, rhs, got[0]), k * (SWEEP + SWEEP_ERR) * pp.numel()))
+    # The tiled kernel is the whole field's shard twin (the Pallas kernel's
+    # arithmetic) bit for bit, at k = 16 and at a k its t does not divide.
+    tile = jacobi_tile()
+    results["jacobi_fused_k"]["tile"] = tile
+    for kk in (16, tile["sweeps"] + 5):
+        a = jacobi_fused_k(pp, rhs, g.dx, g.dy, opts.jacobi_omega, kk)
+        b = jacobi_fused_k_shard_plain(pp, rhs, 0, g.ny, g.dx, g.dy, opts.jacobi_omega,
+                                       kk, 0, g.ny)
+        d = max(max_abs(a[0], b[0]), max_abs(a[1], b[1]))
+        require(d == 0.0, f"jacobi_fused_k: k={kk} differs from the whole field's "
+                f"jacobi_fused_k_shard_plain by {d}")
+    print(f"[3] jacobi_fused_k: {tile['sweeps']} sweeps a launch on "
+          f"{tile['rows']}x{tile['cols']} tiles ({tile['threads']} threads); "
+          f"k=16 and k={tile['sweeps'] + 5} equal the whole field's "
+          f"jacobi_fused_k_shard_plain bit for bit", flush=True)
     pp = got[0]
 
     args = (u_star, v_star, state.p, pp, u, v, dt, inlet, g,
@@ -443,6 +467,75 @@ def check_kernels(dev, results):
         bound(nbytes(*args[:5], *got[:4]),
               (counts[1] * (SWEEP + SWEEP_ERR) + (counts[0] + 1) * 15)
               * g.nx * g.ny))
+    check_rounds_forms(args, got, "800x264", results)
+    check_rounds_refused(dev, results)
+
+
+def check_rounds_refused(dev, results):
+    """The rounds kernel's cooperative form where rounds_cluster_fits
+    refuses the grid (1024 x 512 cells: past the cluster's shared memory),
+    on seeded random fields (an rhs large enough that every solve runs its
+    40 sweeps and all 3 outer rounds run), against the plain version: the
+    same counts, u and v at the 800x264 check's bound, p and p' with the
+    mean difference removed."""
+    grid = tc.Grid(nx=1024, ny=512, lx=8.0, ly=4.0, obstacles=(tc.Cylinder(2.0, 2.0, 0.3),))
+    require(not rounds_cluster_fits(grid.ny, grid.nx),
+            "rounds: the rule takes the cluster form at 1024x512")
+    scene = tc.make_scene(grid, tc.SimulationParams(dt=0.002, viscosity=1e-4),
+                          tc.solver_options_for(tc.Semantics.RUST, jacobi_iters=40,
+                                                outer_corrector_rounds=3))
+    gen = torch.Generator().manual_seed(21)
+    mk = lambda *shape, scale=0.1: (scale * torch.randn(*shape, generator=gen)).to(dev)
+    u, v, p = mk(grid.ny, grid.nx + 1), mk(grid.ny, grid.nx), mk(grid.ny, grid.nx)
+    args = (u, v, p, torch.zeros_like(p), mk(grid.ny, grid.nx, scale=100.0), 0.002, 1.0,
+            scene)
+    n_cluster = solve_correct_rounds.cluster_launches
+    got, ref = solve_correct_rounds(*args), solve_correct_rounds_plain(*args)
+    require(solve_correct_rounds.cluster_launches == n_cluster,
+            "rounds 1024x512: the cluster form was launched")
+    counts, ref_counts = got[5].tolist(), ref[5].tolist()
+    require(counts == ref_counts == [3, 160], f"rounds 1024x512: the cooperative form "
+            f"ran {counts}, the plain version {ref_counts}, expected [3, 160]")
+    demean = lambda a, b: a - (a - b).mean()
+    errs = {"u": (max_abs(got[0], ref[0]), 5e-5 + 1e-4 * float(ref[0].abs().max())),
+            "v": (max_abs(got[1], ref[1]), 5e-5 + 1e-4 * float(ref[1].abs().max())),
+            "p-mean": (max_abs(demean(got[2], ref[2]), ref[2]), scaled(ref[2], 1e-4)),
+            "p'-mean": (max_abs(demean(got[3], ref[3]), ref[3]), scaled(ref[3], 1e-4))}
+    for name, (d, tol) in errs.items():
+        require(d <= tol, f"rounds 1024x512 {name}: max|diff| {d} > {tol}")
+    entry = {"rule": "cooperative", "counts": counts,
+             "max_abs_err": max(d for d, _ in errs.values()),
+             "ms": time_ms(lambda: solve_correct_rounds(*args), 5, warmup=1),
+             "plain_ms": time_ms(lambda: solve_correct_rounds_plain(*args), 3, warmup=1)}
+    results["rounds"].setdefault("forms", {})["1024x512"] = entry
+    print(f"[3] rounds 1024x512 (the rule refuses the cluster form): the cooperative "
+          f"form ran {counts} as the plain version, max|diff| {entry['max_abs_err']:.3e}; "
+          f"{entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms", flush=True)
+
+
+def check_rounds_forms(args, got, label, results):
+    """The rounds kernel's other form on the same inputs as ``got`` (the
+    form rounds_cluster_fits names for the shape): the same counts and
+    the same bits in u, v, p, p' and err; both forms timed."""
+    g = args[-1].grid
+    fits = rounds_cluster_fits(g.ny, g.nx)
+    other = "cooperative" if fits else "cluster"
+    alt = solve_correct_rounds(*args, form=other)
+    require(alt[5].tolist() == got[5].tolist(),
+            f"rounds {label}: the {other} form ran {alt[5].tolist()}, the other "
+            f"{got[5].tolist()}")
+    d = max(max_abs(a, b) for a, b in zip(alt[:5], got[:5]))
+    require(d == 0.0, f"rounds {label}: the two forms differ by {d}")
+    times = {form: time_ms(lambda: solve_correct_rounds(*args, form=form), 5, warmup=1)
+             for form in ("cluster", "cooperative")}
+    entry = results["rounds"].setdefault("forms", {})
+    entry[label] = {"rule": "cluster" if fits else "cooperative",
+                    "ctas": rounds_cluster_size(g.ny, g.nx), **{f + "_ms": t
+                                                                 for f, t in times.items()}}
+    print(f"[3] rounds {label}: the cluster form ({entry[label]['ctas']} CTAs) and the "
+          f"cooperative form give the same bits and counts; cluster "
+          f"{times['cluster']:.4f} ms, cooperative {times['cooperative']:.4f} ms; the "
+          f"rule takes the {entry[label]['rule']} form", flush=True)
 
 
 def check_js_kernels(dev, results):
@@ -530,6 +623,7 @@ def check_js_kernels(dev, results):
     entry["sweeps"] = counts[1]
     print(f"[3] rounds (JS): {counts[1]} sweeps, no outer round, on both sides",
           flush=True)
+    check_rounds_forms(args, got, "400x132 js", results)
 
     # correct_div on the reference-mode state: what the first outer round
     # of the next step gets (u*, v* of the predictor, p and the solve's p').
@@ -1812,10 +1906,13 @@ def dev_of(sharded_state):
 def reset_counts():
     for wrapper, _, _, _ in KERNELS.values():
         wrapper.launches = 0
+    solve_correct_rounds.cluster_launches = 0
 
 
 def read_counts():
-    return {name: w.launches for name, (w, _, _, _) in KERNELS.items()}
+    counts = {name: w.launches for name, (w, _, _, _) in KERNELS.items()}
+    counts[CLUSTER] = solve_correct_rounds.cluster_launches
+    return counts
 
 
 def production_exits(scene, states, diags, cycles):
@@ -2024,6 +2121,16 @@ def main() -> int:
         if path in EXACT_PATHS:
             others = {k: c for k, c in launches[path].items() if c and k not in names}
             require(not others, f"the {path} run launched {others} as well")
+    # The rounds kernel takes its cluster form on both scenes that launch
+    # it: the default 800x264 scene and the JS twin's 400x132.
+    for path, g in ((REF, tc.default_grid()), (JS_DEF, tc.default_js_grid())):
+        require(rounds_cluster_fits(g.ny, g.nx),
+                f"rounds_cluster_fits refuses the {path} grid")
+        want = launches[path]["rounds"]
+        require(launches[path][CLUSTER] == want,
+                f"the {path} run launched the rounds kernel's cluster form "
+                f"{launches[path][CLUSTER]} times of {launches[path]['rounds']}, "
+                f"expected {want}")
     report["launches"] = launches
 
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,

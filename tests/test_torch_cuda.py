@@ -813,3 +813,117 @@ def test_sharded_fast_rollout_never_syncs(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert all(bool(torch.isfinite(u).all()) for u in state.u)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2 tiled (t sweeps a launch in shared memory), kernel 4's two forms
+# ---------------------------------------------------------------------------
+
+TILED_SHAPES = [(3, 3), (5, 67), (67, 5), (130, 258), (257, 129), (64, 96), (40, 96),
+                (2047, 2047), (2048, 2048)]
+
+
+def _tiled_inputs(seed, shape):
+    g = torch.Generator().manual_seed(seed)
+    pp = _apply_pprime_bcs(0.1 * torch.randn(shape, generator=g))
+    return pp, torch.randn(shape, generator=g)
+
+
+# k as a function of the kernel's sweeps a launch t
+TILED_KS = {"1": lambda t: 1, "t-1": lambda t: t - 1, "t": lambda t: t,
+            "t+1": lambda t: t + 1, "16": lambda t: 16}
+
+
+@pytest.mark.parametrize("k", list(TILED_KS))
+@pytest.mark.parametrize("shape", TILED_SHAPES)
+def test_jacobi_fused_k_tiled_bit_for_bit(cuda, shape, k):
+    """Kernel 2 (t sweeps a launch on tiles in shared memory) equals the
+    whole field's jacobi_fused_k_shard_plain (the Pallas kernel's
+    arithmetic) to the bit, p' and err."""
+    k = TILED_KS[k](kjac.jacobi_tile()["sweeps"])
+    ny, nx = shape
+    pp, rhs = _tiled_inputs(ny + nx + k, shape)
+    got = kjac.jacobi_fused_k(pp.to(cuda), rhs.to(cuda), 1 / nx, 1 / ny, 0.75, k)
+    ref = kjac.jacobi_fused_k_shard_plain(pp, rhs, 0, ny, 1 / nx, 1 / ny, 0.75, k, 0, ny)
+    assert torch.equal(got[0].cpu(), ref[0]), float((got[0].cpu() - ref[0]).abs().max())
+    assert torch.equal(got[1].cpu(), ref[1]), (float(got[1]), float(ref[1]))
+
+
+@pytest.mark.parametrize("shape", [(130, 258), (2048, 2048)])
+def test_jacobi_chain_tiled_bit_for_bit(cuda, shape):
+    """50 sweeps through jacobi_chain (launches of 16 and a remainder of
+    2, no tolerance) equal 50 sweeps of the plain twin."""
+    ny, nx = shape
+    pp, rhs = _tiled_inputs(5, shape)
+    got = kjac.jacobi_chain(pp.to(cuda), rhs.to(cuda), 1 / nx, 1 / ny, 0.75, 0.0, 50)
+    ref = kjac.jacobi_fused_k_shard_plain(pp, rhs, 0, ny, 1 / nx, 1 / ny, 0.75, 50, 0, ny)
+    assert got[2] == 50
+    assert torch.equal(got[0].cpu(), ref[0])
+    assert torch.equal(got[1].cpu(), ref[1])
+
+
+def _rounds_state(which, cuda):
+    from cfd_demo_tpu_torch.cells import reference_scene, rounds_args
+    if which == "800x264":
+        scene, steps = reference_scene(), 55
+        init = scene.init_state(cuda)
+    else:  # the JS twin's grid, QUICK faces, the PARABOLIC inlet
+        scene = tc.make_scene(tc.default_js_grid(), tc.SimulationParams(
+            dt=0.005, viscosity=1e-6, velocity_scheme=tc.VelocityScheme.QUICK,
+            inlet_profile=tc.InletProfile.PARABOLIC),
+            tc.solver_options_for(tc.Semantics.JS))
+        steps = 20
+        init = scene.init_state(cuda)
+        init.step.fill_(500)
+    state, _ = tc.make_run(scene, steps)(init)
+    return rounds_args(scene, state)
+
+
+@pytest.mark.parametrize("which", ["800x264", "400x132 js parabolic"])
+def test_rounds_cluster_equals_cooperative(cuda, which):
+    """Kernel 4's cluster and cooperative forms on the same inputs: the
+    same counts, the same bits in u, v, p, p' and err; the call without a
+    form takes the cluster form, which rounds_cluster_fits names for both
+    shapes."""
+    args = _rounds_state(which, cuda)
+    g = args[-1].grid
+    a = krounds.solve_correct_rounds(*args, form="cluster")
+    b = krounds.solve_correct_rounds(*args, form="cooperative")
+    assert a[5].tolist() == b[5].tolist()
+    for name, x, y in zip(("u", "v", "p", "pp", "err"), a, b):
+        assert torch.equal(x, y), (name, float((x - y).abs().max()))
+    n_cluster = krounds.solve_correct_rounds.cluster_launches
+    c = krounds.solve_correct_rounds(*args)
+    assert krounds.rounds_cluster_fits(g.ny, g.nx)
+    assert krounds.solve_correct_rounds.cluster_launches == n_cluster + 1
+    assert torch.equal(c[3], b[3])
+    assert krounds.rounds_cluster_size(g.ny, g.nx) in (8, 16)
+
+
+def test_rounds_cooperative_where_the_rule_refuses(cuda):
+    """A grid past the cluster form's capacity takes the cooperative
+    form, held against the plain version with the same counts."""
+    grid = tc.Grid(nx=1024, ny=512, lx=8.0, ly=4.0,
+                   obstacles=(tc.Cylinder(2.0, 2.0, 0.3),))
+    assert not krounds.rounds_cluster_fits(grid.ny, grid.nx)
+    scene = tc.make_scene(grid, tc.SimulationParams(dt=0.002, viscosity=1e-4),
+                          tc.solver_options_for(RUST, jacobi_iters=40,
+                                                outer_corrector_rounds=3))
+    u, v, p, rhs = fields(21, grid, cuda, scale=0.1)
+    args = (u, v, p, torch.zeros_like(p), 1000 * rhs)  # every solve runs its 40 sweeps
+    n_cluster = krounds.solve_correct_rounds.cluster_launches
+    got = krounds.solve_correct_rounds(*args, 0.002, 1.0, scene)
+    assert krounds.solve_correct_rounds.cluster_launches == n_cluster
+    ref = krounds.solve_correct_rounds_plain(*(a.cpu() for a in args), 0.002, 1.0, scene)
+    for name, a, b in zip(("u", "v"), got, ref):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=5e-5, msg=name)
+    # p and p' as chip_smoke.py holds the rounds kernel: the kernel's folded
+    # multipliers move p' in its last bits a sweep, mostly along the
+    # near-uniform mode, so the mean difference is removed
+    for name, a, b in zip(("p", "pp"), got[2:4], ref[2:4]):
+        d = a.cpu() - b
+        assert float((d - d.mean()).abs().max()) <= 1e-4 * float(b.abs().max()), name
+    assert float(got[4]) == pytest.approx(float(ref[4]), rel=1e-2)
+    assert got[5].tolist() == ref[5].tolist() == [3, 160]
+    with pytest.raises(ValueError, match="cluster form"):
+        krounds.solve_correct_rounds(*args, 0.002, 1.0, scene, form="cluster")
