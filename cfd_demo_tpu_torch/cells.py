@@ -283,8 +283,14 @@ TRACED = {"predict_div_kernel": _counts(predict_div),
           "rounds_kernel(": lambda: (solve_correct_rounds.launches
                                      - solve_correct_rounds.cluster_launches),
           "rounds_cluster_kernel<": lambda: solve_correct_rounds.cluster_launches,
-          "ensemble_substep_kernel(": _counts(substep_batch, substep_batch_sor),
-          "jacobi_batch_kernel(": _counts(jacobi_batch),
+          "ensemble_substep_kernel(": lambda: (
+              _counts(substep_batch, substep_batch_sor)()
+              - substep_batch.cluster_launches - substep_batch_sor.cluster_launches),
+          "ensemble_cluster_kernel<": lambda: (substep_batch.cluster_launches
+                                               + substep_batch_sor.cluster_launches),
+          "jacobi_batch_kernel(": lambda: (jacobi_batch.launches
+                                           - jacobi_batch.cluster_launches),
+          "jacobi_batch_cluster_kernel<": lambda: jacobi_batch.cluster_launches,
           "restrict_kernel(": _counts(mgp.jacobi_fused_k_restrict),
           "corr_add_kernel(": _counts(mgp.jacobi_fused_k_corr),
           "vertex_restriction_kernel(": _counts(mg.mg_residual_restrict),

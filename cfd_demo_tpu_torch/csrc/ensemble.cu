@@ -6,18 +6,33 @@
 // substep_batch_pallas (_kernel_sub, with make_jacobi_solve or
 // make_sor_solve). See kernels/ensemble.py for the design note.
 //
-// One thread block per scene. The block keeps the scene's p' in shared
-// memory: Jacobi in two buffers it ping-pongs between sweeps, SOR in place
-// in one (the other stages the outlet column for the BCs); u, v, p and the
-// divergence in global memory (L2). A scene never reads another scene's
-// data, so __syncthreads() is the only barrier it needs; global writes of a
-// block are visible to that block after it, so in-kernel data is read with
-// plain loads (never __ldg).
+// Two forms of the same function, the same bits and counts.
+//
+// The cluster form (ensemble_cluster_kernel): one thread-block cluster of C
+// CTAs per scene, B clusters a launch, on cluster.cuh's machinery. Each
+// CTA runs the predictor (predict.cuh, FIRST, Rust) on its slab's rows,
+// then the divergence, the exact-exit solve with the scene's p' in the
+// cluster's shared memory (Jacobi: the shared strip sweep; SOR: a red and
+// a black half, each ending in the st.async exchange of the slab's edge
+// rows and the CTA's max), the corrector, the outer rounds, and the BCs.
+// dt_sub, nu and the inlet come from the scene's row of scal; the counts
+// are written per scene. kernels/cluster.py picks C so that the card
+// holds the whole batch at once where it can.
+//
+// The block form (ensemble_substep_kernel), kept to compare with and for
+// scenes wider than the cluster form takes (nx > 1024): one thread block
+// per scene keeps the scene's p' in shared memory: Jacobi in two buffers
+// it ping-pongs between sweeps, SOR in place in one (the other stages the
+// outlet column for the BCs); u, v, p and the divergence in global memory
+// (L2). A scene never reads another scene's data, so __syncthreads() is the
+// only barrier it needs; global writes of a block are visible to that
+// block after it, so in-kernel data is read with plain loads (never __ldg).
+#include "cluster.cuh"
 #include "predict.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 1024;  // the block form's block
 
 struct EnsArgs {
     const float* u_in;   // (B, ny, nx+1)
@@ -29,7 +44,7 @@ struct EnsArgs {
     float* v;            // out (B, ny, nx)
     float* p;            // out (B, ny, nx)
     float* pp;           // out (B, ny, nx)
-    float* rhs;          // scratch (B, ny, nx): the divergence
+    float* rhs_w;        // scratch (B, ny, nx): the divergence
     float* err_out;      // out (B,)
     int* counts;         // out (B, 2): outer rounds run, Jacobi sweeps run
     int ny, nx;
@@ -185,7 +200,7 @@ __global__ void __launch_bounds__(kThreads) ensemble_substep_kernel(EnsArgs A) {
     const int ny = A.ny, nx = A.nx;
     const size_t off_u = (size_t)b * ny * (nx + 1), off = (size_t)b * ny * nx;
     const float dt = A.scal[3 * b], nu = A.scal[3 * b + 1], inlet = A.scal[3 * b + 2];
-    Sc s{A.u + off_u, A.v + off, A.p + off, A.rhs + off, smem, smem + ny * nx, sh, 0};
+    Sc s{A.u + off_u, A.v + off, A.p + off, A.rhs_w + off, smem, smem + ny * nx, sh, 0};
 
     // Predictor into u, v (u*, v*); the warm start into shared memory.
     const PredArgs P{A.u_in + off_u, A.v_in + off, nullptr, nullptr, nullptr, nullptr,
@@ -230,9 +245,124 @@ __global__ void __launch_bounds__(kThreads) ensemble_substep_kernel(EnsArgs A) {
     }
 }
 
+// The cluster form: cluster blockIdx.x / C takes scene b, RP rows a CTA.
+template <int RT, bool RHS_SMEM, bool SOR>
+__global__ void __launch_bounds__(kCThreads, 1) ensemble_cluster_kernel(EnsArgs A, int RP) {
+    extern __shared__ __align__(16) float smem[];
+    __shared__ unsigned cmax[3];  // the CTA's max an exchange, in rotation
+    __shared__ uint64_t bars[2];
+    cg::cluster_group cl = cg::this_cluster();
+    const int b = blockIdx.x / (int)cl.num_blocks();
+    const int ny = A.ny, nx = A.nx, tid = threadIdx.x;
+    const size_t off_u = (size_t)b * ny * (nx + 1), off = (size_t)b * ny * nx;
+    const float dt = A.scal[3 * b], nu = A.scal[3 * b + 1], inlet = A.scal[3 * b + 2];
+    SlabSmem M;
+    Slab S = slab_setup(cl, ny, nx, RP, RHS_SMEM, smem, cmax, bars, M);
+    float* cur = M.cur;
+    float* other = M.other;
+    const int P = S.P;
+    // The predictor into u, v (u*, v*) on the slab's rows; p and the warm
+    // start into shared memory.
+    const PredArgs PA{A.u_in + off_u, A.v_in + off, nullptr, nullptr, nullptr, nullptr,
+                      A.mask_u, A.mask_v, ny, nx, 0, ny, A.dx, A.dy, A.dx2, A.dy2};
+    const size_t o = (size_t)S.r0 * nx, ou = (size_t)S.r0 * (nx + 1);
+    for (int q = tid; q < S.nrow * (nx + 1); q += kCThreads) {
+        const int r = q / (nx + 1), i = q - r * (nx + 1);
+        A.u[off_u + ou + q] = ustar_at<FIRST, false>(PA, dt, nu, S.r0 + r, i);
+    }
+    for (int q = tid; q < S.nrow * P; q += kCThreads) {
+        const int r = q / P, i = q - r * P;
+        float pp = 0.0f;  // the padding columns hold 0
+        if (i < nx) {
+            const size_t k = o + (size_t)r * nx + i;
+            A.v[off + k] = vstar_at<FIRST>(PA, dt, nu, S.r0 + r, i);
+            A.p[off + k] = A.p_in[off + k];
+            pp = A.pp_in[off + k];
+        }
+        row_of(S, cur, r)[i] = pp;
+        row_of(S, other, r)[i] = pp;
+    }
+    cluster_barrier();  // every slab's u* and v*, every mbarrier initialised
+    const float* arr = RHS_SMEM ? M.rb : A.rhs_w + off;
+    cluster_divergence<RHS_SMEM>(A, S, b, M.rb, dt);
+    __syncthreads();  // the rhs, before another thread's sweep reads it
+    float err = cluster_solve<RT, RHS_SMEM, SOR, false>(A, S, cmax, arr, cur, other);
+    cluster_correct(A, S, b, cur, dt);
+    // Outer rounds (model.rs:696-724): `it < rounds and err >= outer_tol`.
+    int rounds_run = 0;
+    for (; rounds_run < A.rounds && err >= A.outer_tol; ++rounds_run) {
+        cluster_divergence<RHS_SMEM>(A, S, b, M.rb, dt);
+        __syncthreads();
+        err = cluster_solve<RT, RHS_SMEM, SOR, false>(A, S, cmax, arr, cur, other);
+        cluster_correct(A, S, b, cur, dt);
+    }
+    for (int q = tid; q < S.nrow * nx; q += kCThreads) {
+        const int r = q / nx, i = q - r * nx;
+        A.pp[off + o + q] = row_of(S, cur, r)[i];
+    }
+    cluster_bcs(A, S, b, other, Inlet{0, A.dy, 0.0f, 0.0f}, inlet);
+    if (S.rank == 0 && tid == 0) {
+        A.err_out[b] = err;
+        A.counts[2 * b] = rounds_run;
+        A.counts[2 * b + 1] = SOR ? S.sweep / 2 : S.sweep;  // an SOR iteration: two halves
+    }
+}
+
+using EnsClusterFn = void (*)(EnsArgs, int);
+
+EnsClusterFn ensemble_cluster_fn(const SlabPlan& pl, bool sor) {
+#define CFD_RT(R)                                                                          \
+    case R:                                                                                \
+        return pl.rhs_smem ? (sor ? ensemble_cluster_kernel<R, true, true>                 \
+                                  : ensemble_cluster_kernel<R, true, false>)               \
+                           : (sor ? ensemble_cluster_kernel<R, false, true>                \
+                                  : ensemble_cluster_kernel<R, false, false>);
+    switch (pl.rt) { CFD_RT(1) CFD_RT(2) CFD_RT(3) CFD_RT(4) CFD_RT(6) }
+#undef CFD_RT
+    return nullptr;
+}
+
 }  // namespace
 
-// Bytes of dynamic shared memory a launch on an (ny, nx) scene needs.
+// How many clusters of C CTAs of the cluster form (sor: its SOR solve) the
+// card holds at once for (ny, nx) scenes, or minus the CUDA error; minus
+// cudaErrorInvalidValue where slab_plan cannot split the scene over C
+// CTAs. Sets the kernel's attributes (on the current device).
+extern "C" int cfd_substep_batch_cluster_admit(int ny, int nx, int C, int sor) {
+    const SlabPlan pl = slab_plan(ny, nx, C);
+    if (pl.rt == 0) return -(int)cudaErrorInvalidValue;
+    return cluster_admit(ensemble_cluster_fn(pl, sor != 0), C, pl.smem);
+}
+
+// The cluster form (cfd_substep_batch's arguments, then C): B clusters of
+// C CTAs (kernels/cluster.py picks C). Fails (never falls back) if
+// slab_plan cannot split the scene over C CTAs or the card refuses the
+// launch.
+extern "C" int cfd_substep_batch_cluster(
+        const float* u_in, const float* v_in, const float* p_in, const float* pp_in,
+        const float* scal, float* u, float* v, float* p, float* pp, float* rhs,
+        float* err_out, int* counts, const uint8_t* mask_u, const uint8_t* mask_v,
+        const uint8_t* mask_u_bc, const uint8_t* mask_v_bc, int B, int ny, int nx, float dx,
+        float dy, float dx2, float dy2, float ax, float ay, float ar, float ac, float om,
+        int sor, int iters, float tol, int rounds, float outer_tol, int C, void* stream) {
+    const SlabPlan pl = slab_plan(ny, nx, C);
+    if (B < 1 || pl.rt == 0) return (int)cudaErrorInvalidValue;
+    EnsArgs A{u_in, v_in, p_in, pp_in, scal, u, v, p, pp, rhs, err_out, counts, ny, nx,
+              dx, dy, dx2, dy2, ax, ay, ar, ac, om, sor, iters, tol, rounds, outer_tol,
+              mask_u, mask_v, mask_u_bc, mask_v_bc};
+    const EnsClusterFn fn = ensemble_cluster_fn(pl, sor != 0);
+    cudaError_t e = cluster_attributes(fn, C);
+    if (e != cudaSuccess) return (int)e;
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = cluster_config(B, C, pl.smem, &attr);
+    cfg.stream = (cudaStream_t)stream;
+    e = cudaLaunchKernelEx(&cfg, fn, A, pl.rp);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+}
+
+// The block form. Bytes of dynamic shared memory a launch on an (ny, nx)
+// scene needs.
 extern "C" int cfd_substep_batch_smem(int ny, int nx) {
     return (int)(2 * sizeof(float) * (size_t)ny * nx);
 }

@@ -4,23 +4,32 @@
 // cfd_demo_tpu/kernels/jacobi_pallas.py jacobi_pallas_batch (_kernel_batch).
 // See kernels/jacobi_batch.py for the design note.
 //
-// A persistent cooperative kernel like rounds.cu: at most one resident block
-// per SM, a grid-wide barrier after each sweep, and per scene a rotating
-// three-slot atomicMax for the sweep's max. Each block keeps its own copy of
-// every scene's error, exit flag, sweep count and buffer parity in shared
-// memory; all blocks compute them from the same slots, so they agree without
-// further barriers. Data written inside the kernel is read with __ldcg (L2).
-// Scenes flagged in done_in start frozen: with every scene flagged, the
-// launch copies pp0 and returns after its first grid-wide barrier.
-#include <cooperative_groups.h>
-
-#include "common.cuh"
-
-namespace cg = cooperative_groups;
+// Two forms of the same function, the same bits and counts.
+//
+// The cluster form (jacobi_batch_cluster_kernel): one thread-block cluster
+// of C CTAs per scene, B clusters a launch, on cluster.cuh's machinery:
+// the scene's p' in the cluster's shared memory, ar * rhs there where it
+// fits (else rhs from L2), the masked loop's do-while run per cluster
+// with the exact exit (the order-free integer max of the bit patterns),
+// the p' BCs once, then err and the sweeps written per scene. The scenes
+// are independent, so there is no grid-wide barrier; a scene flagged in
+// done_in only copies its pp0 (its cluster returns at once).
+//
+// The cooperative form (jacobi_batch_kernel), for scenes no cluster holds:
+// a persistent cooperative kernel like rounds.cu's: at most one resident
+// block per SM, a grid-wide barrier after each sweep, and per scene a
+// rotating three-slot atomicMax for the sweep's max. Each block keeps its
+// own copy of every scene's error, exit flag, sweep count and buffer
+// parity in shared memory; all blocks compute them from the same slots, so
+// they agree without further barriers. Data written inside the kernel is
+// read with __ldcg (L2). Scenes flagged in done_in start frozen: with
+// every scene flagged, the launch copies pp0 and returns after its first
+// grid-wide barrier.
+#include "cluster.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 1024;  // the cooperative form's block
 
 struct BatchArgs {
     const float* pp0;  // (B, ny, nx), BC-consistent
@@ -144,9 +153,111 @@ __global__ void __launch_bounds__(kThreads) jacobi_batch_kernel(BatchArgs A) {
     }
 }
 
+// The cluster form: cluster blockIdx.x / C solves scene b, RP rows a CTA.
+template <int RT, bool RHS_SMEM>
+__global__ void __launch_bounds__(kCThreads, 1) jacobi_batch_cluster_kernel(BatchArgs A,
+                                                                           int RP) {
+    extern __shared__ __align__(16) float smem[];
+    __shared__ unsigned cmax[3];  // the CTA's max a sweep, in rotation
+    __shared__ uint64_t bars[2];
+    cg::cluster_group cl = cg::this_cluster();
+    const int b = blockIdx.x / (int)cl.num_blocks();
+    const int ny = A.ny, nx = A.nx, tid = threadIdx.x;
+    const size_t base = (size_t)b * ny * nx;
+    const float* pp0 = A.pp0 + base;
+    float* out = A.out + base;
+    if (A.done_in != nullptr && A.done_in[b]) {  // frozen: p' = pp0, err inf, 0 sweeps
+        const int rank = (int)cl.block_rank();
+        const int r0 = min(ny, rank * RP), r1 = min(ny, r0 + RP);
+        for (size_t k = (size_t)r0 * nx + tid; k < (size_t)r1 * nx; k += kCThreads)
+            out[k] = pp0[k];
+        if (rank == 0 && tid == 0) {
+            A.err_out[b] = __int_as_float(0x7f800000);
+            A.n_out[b] = 0;
+        }
+        return;
+    }
+    SlabSmem M;
+    Slab S = slab_setup(cl, ny, nx, RP, RHS_SMEM, smem, cmax, bars, M);
+    float* cur = M.cur;
+    float* other = M.other;
+    const int P = S.P;
+    const size_t o = (size_t)S.r0 * nx;
+    const float* rhs = A.rhs + base;
+    for (int q = tid; q < S.nrow * P; q += kCThreads) {
+        const int r = q / P, i = q - r * P;
+        float pp = 0.0f, rr = 0.0f;  // the padding columns hold 0
+        if (i < nx) {
+            const size_t k = o + (size_t)r * nx + i;
+            pp = pp0[k];
+            rr = A.ar * rhs[k];
+        }
+        row_of(S, cur, r)[i] = pp;
+        row_of(S, other, r)[i] = pp;
+        if (RHS_SMEM) M.rb[q] = rr;
+    }
+    cluster_barrier();  // every slab loaded, every mbarrier initialised
+    const float err = cluster_solve<RT, RHS_SMEM, false, true>(A, S, cmax,
+                                                               RHS_SMEM ? M.rb : rhs, cur,
+                                                               other);
+    for (int q = tid; q < S.nrow * nx; q += kCThreads) {
+        const int r = q / nx, i = q - r * nx;
+        out[o + q] = row_of(S, cur, r)[i];
+    }
+    if (S.rank == 0 && tid == 0) {
+        A.err_out[b] = err;
+        A.n_out[b] = S.sweep;
+    }
+}
+
+using BatchClusterFn = void (*)(BatchArgs, int);
+
+BatchClusterFn batch_cluster_kernel(const SlabPlan& pl) {
+#define CFD_RT(R)                                                                          \
+    case R:                                                                                \
+        return pl.rhs_smem ? jacobi_batch_cluster_kernel<R, true>                          \
+                           : jacobi_batch_cluster_kernel<R, false>;
+    switch (pl.rt) { CFD_RT(1) CFD_RT(2) CFD_RT(3) CFD_RT(4) CFD_RT(6) }
+#undef CFD_RT
+    return nullptr;
+}
+
 }  // namespace
 
-// One block per SM, all resident as the grid-wide barrier requires.
+// How many clusters of C CTAs of the cluster form the card holds at once
+// for (ny, nx) scenes (cudaOccupancyMaxActiveClusters), or minus the CUDA
+// error; minus cudaErrorInvalidValue where slab_plan cannot split the
+// scene over C CTAs. Sets the kernel's attributes (on the current device).
+extern "C" int cfd_jacobi_batch_cluster_admit(int ny, int nx, int C) {
+    const SlabPlan pl = slab_plan(ny, nx, C);
+    if (pl.rt == 0) return -(int)cudaErrorInvalidValue;
+    return cluster_admit(batch_cluster_kernel(pl), C, pl.smem);
+}
+
+// The cluster form: B clusters of C CTAs (kernels/cluster.py picks C).
+// Fails (never falls back) if slab_plan cannot split the scene over C
+// CTAs or the card refuses the launch.
+extern "C" int cfd_jacobi_batch_cluster(const float* pp0, const float* rhs,
+                                        const bool* done_in, float* out, float* err_out,
+                                        int* n_out, int B, int ny, int nx, int iters,
+                                        float tol, float ax, float ay, float ar, float ac,
+                                        int C, void* stream) {
+    const SlabPlan pl = slab_plan(ny, nx, C);
+    if (B < 1 || pl.rt == 0) return (int)cudaErrorInvalidValue;
+    BatchArgs A{pp0, rhs, done_in, out, nullptr, nullptr, err_out, n_out, B, ny, nx, iters,
+                tol, ax, ay, ar, ac};
+    const BatchClusterFn fn = batch_cluster_kernel(pl);
+    cudaError_t e = cluster_attributes(fn, C);
+    if (e != cudaSuccess) return (int)e;
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = cluster_config(B, C, pl.smem, &attr);
+    cfg.stream = (cudaStream_t)stream;
+    e = cudaLaunchKernelEx(&cfg, fn, A, pl.rp);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+}
+
+// The cooperative form: one block per SM, all resident as the grid-wide barrier requires.
 extern "C" int cfd_jacobi_batch(const float* pp0, const float* rhs, const bool* done_in,
                                 float* out, float* tmp, float* slots, float* err_out,
                                 int* n_out, int B, int ny, int nx, int iters, float tol,

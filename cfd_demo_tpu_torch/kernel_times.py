@@ -6,10 +6,16 @@ comparing two checkouts of the port on one card.
 times predict_div, jacobi_fused_k (k = 16), correct_bc, sor_fused_k and
 sor_fused_k_rb2 (k = 8) as chip_smoke.py's phase 3 feeds them (the fast
 and SOR shapes after 3 steps, the next rhs), each as the median of 5
-means of 50 launches, and the rounds kernel on the 800x264 default
-scene after 55 steps (phase 3's state, every outer round run), the
-median of 5 means of 5 (and its cooperative form there, where the tree
-has two forms). The script uses only entry points that every
+means of 50 launches; the rounds kernel on the 800x264 default scene
+after 55 steps (phase 3's state, every outer round run), the median of 5
+means of 5 (and its cooperative form there, where the tree has two
+forms); and the ensembles' kernels on chip_smoke's states: kernel 20 on
+the 64x256x96 ensemble and its SOR form on the 16x256x96 one after 20
+steps, the median of 5 means of 5, kernel 12 on the 8x800x264
+ensemble's next rhs after 5 steps, every scene active and every scene
+done, the median of 5 means of 20 (each also in its parent form, the
+block or cooperative one, where the tree has two forms). The script
+uses only entry points that every
 version of the port since its SOR slice has, so it can time an older
 checkout as well: run it from that checkout's root with
 
@@ -22,7 +28,29 @@ trees in one call on the card: A, B, B, A.
 
 times the rounds kernel's cluster and cooperative forms on the same
 inputs (the default scene's 30 x 10 channel at ROUNDS_SHAPES after 55
-steps), the measurement behind the cluster rule, and
+steps), the measurement behind the cluster rule, and the cluster form
+at each C kernels/cluster.py may pick and at 16 CTAs,
+
+    python3 -m cfd_demo_tpu_torch.kernel_times --ensemble-forms [--out FILE.json]
+
+times kernels 12 and 20 on those three states in their parent form and
+in the cluster form at every C that splits the scene with rows in every
+CTA (kernels/cluster.py ``tight``), each held to the parent form's bits,
+with the C the plan picks,
+
+    python3 -m cfd_demo_tpu_torch.kernel_times --distinct-scenes [--out FILE.json]
+
+runs kernel 20 (Jacobi and SOR) on 150 distinct 40x24 scenes, the CUDA
+tests' ``test_substep_batch_waves`` inputs, and lists each scene where
+the block form's exits or fields differ from the plain version's
+(beside the plain version in f64),
+
+    python3 -m cfd_demo_tpu_torch.kernel_times --sass [--out FILE.json]
+
+counts, in the built library's SASS (``cuobjdump -sass``), each cluster
+kernel's instructions an exchange from its first shuffle to its warp
+max (the strip's rows, unrolled) over its rows a thread, and the spill
+loads and stores (LDL, STL) among them, and
 
     python3 -m cfd_demo_tpu_torch.kernel_times --tiles [--out FILE.json]
 
@@ -45,12 +73,16 @@ import sys
 import torch
 
 import cfd_demo_tpu_torch as tc
-from cfd_demo_tpu_torch.cells import fast_scene, reference_scene, rounds_args, sor_scene
+from cfd_demo_tpu_torch.apps.ensemble import ensemble_scene, ensemble_state
+from cfd_demo_tpu_torch.cells import (ensemble_args, fast_scene, reference_scene,
+                                      rounds_args, sor_ensemble_scene, sor_scene)
 from cfd_demo_tpu_torch.kernels import _build
 from cfd_demo_tpu_torch.kernels import sor as ksor
+from cfd_demo_tpu_torch.kernels.ensemble import substep_batch, substep_batch_plain
 from cfd_demo_tpu_torch.kernels.jacobi import _multipliers, jacobi_fused_k
+from cfd_demo_tpu_torch.kernels.jacobi_batch import jacobi_batch
 from cfd_demo_tpu_torch.kernels.rounds import solve_correct_rounds
-from cfd_demo_tpu_torch.kernels.substep import correct_bc, predict_div
+from cfd_demo_tpu_torch.kernels.substep import correct_bc, predict_div, predict_div_plain
 from cfd_demo_tpu_torch.solver.piso import ramped_inlet
 
 REPEATS, CALLS = 5, 50
@@ -76,6 +108,24 @@ def median_ms(fn, calls: int = CALLS) -> float:
         fn()
     torch.cuda.synchronize()
     return statistics.median(_mean_ms(fn, calls) for _ in range(REPEATS))
+
+
+def device_us(fn, calls: int, kernel: str) -> float:
+    """Mean device time in µs of the kernels named ``kernel`` (a substring)
+    that ``calls`` calls of fn launch, from torch.profiler's trace (over
+    the launches it holds: it can drop one, cells.py says): where a launch
+    is shorter than its host call, CUDA events time the host."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    if not spans:
+        raise RuntimeError(f"the trace holds none of {calls} {kernel} launches")
+    return sum(spans) / len(spans)
 
 
 def kernel_times(dev) -> dict:
@@ -114,7 +164,110 @@ def kernel_times(dev) -> dict:
         out["rounds_cooperative_form"] = median_ms(
             lambda: solve_correct_rounds(*args, form="cooperative"), 5)
     out["rounds_counts"] = solve_correct_rounds(*args)[5].tolist()
+
+    # the ensembles' kernels, and their parent forms where the tree has two
+    forms = hasattr(substep_batch, "cluster_launches")
+    for name, (args, _) in ensemble_states(dev).items():
+        out[name] = median_ms(lambda: substep_batch(*args), 5)
+        if forms:
+            out[name + "_block_form"] = median_ms(
+                lambda: substep_batch(*args, form="block"), 5)
+    jargs, done = batch_solve_state(dev)
+    for label, flags in (("", None), ("_all_done", done)):
+        out["jacobi_batch" + label] = median_ms(lambda: jacobi_batch(*jargs, done=flags), 20)
+        if forms:
+            out[f"jacobi_batch{label}_cooperative_form"] = median_ms(
+                lambda: jacobi_batch(*jargs, done=flags, form="cooperative"), 20)
+    # a launch with every scene done is shorter than its host call
+    out["jacobi_batch_all_done_device_us"] = device_us(
+        lambda: jacobi_batch(*jargs, done=done), 20, "jacobi_batch")
+    if forms:
+        out["jacobi_batch_all_done_cooperative_form_device_us"] = device_us(
+            lambda: jacobi_batch(*jargs, done=done, form="cooperative"), 20, "jacobi_batch")
     return out
+
+
+def ensemble_states(dev) -> dict:
+    """{name: (kernel 20's arguments, batch)}: the 64x256x96 ensemble and
+    the 16x256x96 SOR ensemble after 20 steps, as chip_smoke.py's phase 3
+    feeds them."""
+    out = {}
+    for name, scene, batch in (("substep_batch", ensemble_scene(), 64),
+                               ("substep_batch_sor", sor_ensemble_scene(), 16)):
+        state, _ = tc.make_run(scene, 20)(ensemble_state(scene, batch, dev))
+        out[name] = (ensemble_args(scene, state), batch)
+    return out
+
+
+def batch_solve_state(dev):
+    """Kernel 12's arguments on the 8x800x264 ensemble's next rhs after 5
+    steps (chip_smoke.py's phase 3), and done flags marking every scene."""
+    scene = ensemble_scene(800, 264)
+    g, opts = scene.grid, scene.opts
+    state, _ = tc.make_run(scene, 5)(ensemble_state(scene, 8, dev))
+    rhs = predict_div_plain(state.u, state.v, state.dt, state.nu, g,
+                            scene.params.velocity_scheme, opts.semantics)[2]
+    jargs = (state.p_prime, rhs, g.dx, g.dy, opts.jacobi_omega, opts.jacobi_tol,
+             opts.jacobi_iters)
+    return jargs, torch.ones(8, dtype=torch.bool, device=dev)
+
+
+def ensemble_form_times(dev) -> list:
+    """Kernels 12 and 20 on chip_smoke's states in the parent form and in
+    the cluster form at every C that splits the scene with rows in every
+    CTA, each held to the parent form's bits: ms a launch (median of 5
+    means of 5; kernel 12: of 20) and µs an exchange (a Jacobi sweep, or
+    an SOR iteration's two halves) of the scene that runs the most."""
+    from cfd_demo_tpu_torch.kernels import cluster as kcl
+    from cfd_demo_tpu_torch.kernels.ensemble import substep_batch_ctas
+    from cfd_demo_tpu_torch.kernels.jacobi_batch import jacobi_batch_ctas
+
+    def same(a, b):
+        return all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+
+    rows = []
+    for name, (args, batch) in ensemble_states(dev).items():
+        scene = args[-1]
+        g, sor = scene.grid, name.endswith("sor")
+        parent = substep_batch(*args, form="block")
+        iters = int(parent[5][:, 1].max())
+        row = {"kernel": name, "shape": [batch, g.ny, g.nx],
+               "pick": substep_batch_ctas(batch, g.ny, g.nx, dev, sor),
+               "admitted": kcl.admitted_clusters("cfd_substep_batch_cluster_admit", dev,
+                                                 g.ny, g.nx, int(sor)),
+               "iterations": iters, "forms": {}}
+        calls = {"block": lambda: substep_batch(*args, form="block")}
+        for c in kcl.CTAS:
+            if kcl.tight(g.ny, g.nx, c):
+                calls[c] = lambda c=c: substep_batch(*args, ctas=c)
+        for form, call in calls.items():
+            if not same(call(), parent):
+                raise RuntimeError(f"{name} at {form} CTAs changed the block form's bits")
+            ms = median_ms(call, 5)
+            row["forms"][str(form)] = {"ms": ms, "us_per_iteration": 1e3 * ms / iters}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    jargs, _ = batch_solve_state(dev)
+    ny, nx = jargs[0].shape[1:]
+    parent = jacobi_batch(*jargs, form="cooperative")
+    sweeps = int(parent[2].max())
+    row = {"kernel": "jacobi_batch", "shape": list(jargs[0].shape),
+           "pick": jacobi_batch_ctas(8, ny, nx, dev),
+           "admitted": kcl.admitted_clusters("cfd_jacobi_batch_cluster_admit", dev, ny, nx),
+           "iterations": sweeps, "forms": {}}
+    calls = {"cooperative": lambda: jacobi_batch(*jargs, form="cooperative")}
+    for c in kcl.CTAS:
+        if kcl.slab_plan(ny, nx, c) is not None:
+            calls[c] = lambda c=c: jacobi_batch(*jargs, ctas=c)
+    for form, call in calls.items():
+        if not same(call(), parent):
+            raise RuntimeError(f"jacobi_batch at {form} CTAs changed the cooperative "
+                               f"form's bits")
+        ms = median_ms(call, 20)
+        row["forms"][str(form)] = {"ms": ms, "us_per_iteration": 1e3 * ms / sweeps}
+    print(json.dumps(row), flush=True)
+    rows.append(row)
+    return rows
 
 
 # (ny, nx) of the default scene's channel, from the JS twin's 400x132 up
@@ -125,7 +278,10 @@ ROUNDS_SHAPES = [(132, 400), (165, 500), (198, 600), (231, 700), (264, 800)]
 def rounds_form_times(dev) -> list:
     """Both forms of the rounds kernel on the same inputs at each of
     ROUNDS_SHAPES (the cluster form where the card takes it): ms a launch
-    and the sweeps it ran, median of 5 means of 5 launches each."""
+    and the sweeps it ran, median of 5 means of 5 launches each; where
+    the tree has kernels.cluster's plan, also the cluster form at each C
+    it may pick and at 16 CTAs (two idle at 800x264), each held to the
+    cooperative form's bits."""
     out, g = [], tc.default_grid()
     for ny, nx in ROUNDS_SHAPES:
         scene = tc.make_scene(tc.Grid(nx=nx, ny=ny, lx=g.lx, ly=g.ly, obstacles=g.obstacles))
@@ -139,9 +295,80 @@ def rounds_form_times(dev) -> list:
                 continue
             row[form] = {"ms": median_ms(lambda: solve_correct_rounds(*args, form=form), 5),
                          "counts": counts}
+        try:
+            from cfd_demo_tpu_torch.kernels import cluster as kcl
+            from cfd_demo_tpu_torch.kernels.rounds import rounds_ctas
+        except ImportError:  # a tree before the shared plan
+            kcl = None
+        if kcl is not None and "cluster" in row:
+            row["pick"] = rounds_ctas(ny, nx, dev)
+            coop = solve_correct_rounds(*args, form="cooperative")
+            row["by_ctas"] = {}
+            for c in sorted({*kcl.candidates(ny, nx), 16}):
+                if kcl.slab_plan(ny, nx, c) is None:
+                    continue
+                call = lambda c=c: solve_correct_rounds(*args, form="cluster", ctas=c)
+                if not all(bool(torch.equal(x, y)) for x, y in zip(call(), coop)):
+                    raise RuntimeError(f"rounds {ny}x{nx} at {c} CTAs changed the bits")
+                row["by_ctas"][str(c)] = median_ms(call, 5)
         print(json.dumps(row), flush=True)
         out.append(row)
     return out
+
+
+def distinct_scenes(dev, batch: int = 150, seed: int = 9) -> list:
+    """Kernel 20 on tests/test_torch_cuda.py's ``test_substep_batch_waves``
+    inputs (``batch`` distinct noisy 40x24 scenes from ``seed``, the
+    viscosity and inlet swept, scene 0 at rest; Jacobi and SOR; two
+    substeps, the second warm-started from the plain version's fields):
+    whether the route gives the block form's bits, and each scene where
+    the block form's exits or fields (beyond 2e-5 + 2e-5 |plain|) differ
+    from the plain version's, beside the plain version run in f64."""
+    grid = tc.Grid(nx=40, ny=24, lx=3.0, ly=1.5, obstacles=(tc.Cylinder(0.9, 0.75, 0.3),))
+    rows = []
+    for solver in ("JACOBI", "SOR"):
+        scene = tc.make_scene(grid, tc.SimulationParams(
+            dt=0.002, viscosity=1e-4, pressure_solver=tc.PressureSolver[solver]),
+            tc.solver_options_for(tc.Semantics.RUST, early_exit=False))
+        g = torch.Generator().manual_seed(seed)
+        mk = lambda sd, *shape: sd * torch.randn(batch, *shape, generator=g)
+        u, v, p = mk(0.05, 24, 41), mk(0.05, 24, 40), mk(0.01, 24, 40)
+        u[0], v[0], p[0] = 0.0, 0.0, 0.0
+        inlet = torch.linspace(0.5, 1.5, batch)
+        inlet[0] = 0.0
+        args = (u, v, p, torch.zeros(batch, 24, 40), torch.full((batch,), 0.002),
+                torch.logspace(-5, -3, batch), inlet)
+        for sub in (1, 2):
+            d = tuple(a.to(dev) for a in args)
+            block = [x.cpu() for x in substep_batch(*d, scene, form="block")]
+            route = [x.cpu() for x in substep_batch(*d, scene)]
+            ref = substep_batch_plain(*args, scene)
+            ref64 = substep_batch_plain(*(a.double() for a in args), scene)
+            row = {"solver": solver, "substep": sub, "scenes": batch,
+                   "route_bits_eq_block": all(bool(torch.equal(a, b))
+                                              for a, b in zip(route, block)),
+                   "exits": [], "fields": []}
+            for s_ in (block[5] != ref[5]).any(1).nonzero().flatten().tolist():
+                row["exits"].append({"scene": s_, "kernel": block[5][s_].tolist(),
+                                     "plain": ref[5][s_].tolist(),
+                                     "plain_f64": ref64[5][s_].tolist(),
+                                     "kernel_err": float(block[4][s_]),
+                                     "plain_err": float(ref[4][s_])})
+            for name, k in (("u", 0), ("v", 1), ("p", 2), ("pp", 3)):
+                a, b, b64 = block[k].double(), ref[k].double(), ref64[k]
+                over = (a - b).abs() - 2e-5 - 2e-5 * b.abs()
+                for s_ in (over > 0).reshape(batch, -1).any(1).nonzero().flatten().tolist():
+                    row["fields"].append({
+                        "field": name, "scene": s_,
+                        "max_d": float((a[s_] - b[s_]).abs().max()),
+                        "max_abs": float(b[s_].abs().max()),
+                        "over_bound": float(over[s_].max()),
+                        "kernel_vs_f64": float((a[s_] - b64[s_]).abs().max()),
+                        "plain_vs_f64": float((b[s_] - b64[s_]).abs().max())})
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+            args = (*ref[:4], *args[4:])
+    return rows
 
 
 def tile_times(dev) -> list:
@@ -193,6 +420,37 @@ def tile_times(dev) -> list:
     return out
 
 
+def sass_rows() -> list:
+    """Instructions a strip row of each cluster kernel of the built
+    library: in ``cuobjdump -sass``, from an exchange's first SHFL.UP (row
+    0's W) to its REDUX (the warp's max), over the kernel's rows a thread
+    (its first template argument). Needs the CUDA toolkit's cuobjdump."""
+    import os
+    import re
+    lib = _build.build()
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    out = []
+    for block in sass.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        kernel = re.search(r"([a-z_]+_cluster_kernel)I(Li\d+E(?:Lb[01]E)+)", name)
+        if kernel is None:
+            continue
+        rt = int(re.match(r"Li(\d+)E", kernel.group(2)).group(1))
+        instr = [ln for ln in block.splitlines() if re.search(r"/\*[0-9a-f]{4}\*/", ln)]
+        first = next((k for k, ln in enumerate(instr) if "SHFL.UP" in ln), None)
+        if first is None:
+            continue
+        last = next(k for k in range(first, len(instr)) if "REDUX" in instr[k])
+        local = sum(("LDL" in ln or "STL" in ln) for ln in instr[first:last])
+        out.append({"kernel": kernel.group(1), "template": kernel.group(2), "rows": rt,
+                    "instructions": last - first, "per_row": (last - first) / rt,
+                    "local_memory": local})
+        print(json.dumps(out[-1]), flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--label", default="", help="a name for this tree in the output")
@@ -201,6 +459,12 @@ def main() -> int:
                     help="time jacobi_fused_k built with each tile of TILES instead")
     ap.add_argument("--rounds-forms", action="store_true",
                     help="time the rounds kernel's two forms at ROUNDS_SHAPES instead")
+    ap.add_argument("--ensemble-forms", action="store_true",
+                    help="time kernels 12 and 20 in each form and C instead")
+    ap.add_argument("--distinct-scenes", action="store_true",
+                    help="kernel 20 against its plain version on 150 distinct scenes instead")
+    ap.add_argument("--sass", action="store_true",
+                    help="count the cluster kernels' SASS instructions a strip row instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_times: needs a CUDA device")
@@ -209,7 +473,9 @@ def main() -> int:
                          text=True, check=True, timeout=60).stdout.strip()
     dev = torch.device("cuda", 0)
     times = (tile_times(dev) if args.tiles else rounds_form_times(dev) if args.rounds_forms
-             else kernel_times(dev))
+             else ensemble_form_times(dev) if args.ensemble_forms
+             else distinct_scenes(dev) if args.distinct_scenes
+             else sass_rows() if args.sass else kernel_times(dev))
     report = {"label": args.label, "package": tc.__file__, "nvidia_smi": smi,
               "ms": times}
     print(json.dumps(report), flush=True)

@@ -57,15 +57,19 @@ _SIGNATURES = {
     "cfd_correct_bc": [P] * 14 + [I] * 6 + [F, F, I, F, F, P],
     "cfd_correct_div": [P] * 9 + [I, I, F, F, P],
     "cfd_rounds": _ROUNDS,
-    "cfd_rounds_cluster": _ROUNDS,
-    "cfd_rounds_cluster_size": [I, I],
+    "cfd_rounds_cluster": _ROUNDS[:-1] + [I, P],
+    "cfd_rounds_cluster_admit": [I, I, I],
     "cfd_mgp_res": [P] * 7 + [I] * 3 + [F] * 7 + [P],
     "cfd_mgp_restrict": [P] * 7 + [I] * 3 + [F] * 7 + [P],
     "cfd_mgp_corr": [P] * 9 + [I] * 3 + [F] * 7 + [P],
     "cfd_cc_sweeps": [P] * 5 + [I] * 3 + [F] * 8 + [P],
     "cfd_substep_batch_smem": [I, I],
     "cfd_substep_batch": [P] * 16 + [I] * 3 + [F] * 9 + [I, I, F, I, F, P],
+    "cfd_substep_batch_cluster": [P] * 16 + [I] * 3 + [F] * 9 + [I, I, F, I, F, I, P],
+    "cfd_substep_batch_cluster_admit": [I, I, I, I],
     "cfd_jacobi_batch": [P] * 8 + [I] * 4 + [F] * 5 + [P],
+    "cfd_jacobi_batch_cluster": [P] * 6 + [I] * 4 + [F] * 5 + [I, P],
+    "cfd_jacobi_batch_cluster_admit": [I, I, I],
     "cfd_sor_partials": [I, I],
     "cfd_sor_fused_k": [P] * 4 + [I] * 3 + [F] * 5 + [P],
     "cfd_sor_fused_k_shard": [P] * 4 + [I] * 11 + [F] * 5 + [P],

@@ -17,29 +17,39 @@ run of that scene (tests/test_sharding.py:167-173).
 
 An ensemble scene is small (24,576 cells at the app's 256x96) and a
 substep is a thousand or so sweeps, each needing the whole field of the
-last: what bounds it is the barrier per sweep. One thread block per
-scene makes that barrier a ``__syncthreads()`` and keeps the scene on
-one SM: p' in shared memory (two buffers, 192 KB at 256x96, under the
-227 KB a block may opt in to), u, v, p and the divergence in global
-memory; the fields it updates (u, v, p and the divergence: 25 MB for
-64 scenes) stay in the 50 MB L2. A batch
-of 64 fills 64 of the 132 SMs; clusters of blocks per scene sharing
-their shared memory would use the rest (later work). A block has 1024
-threads: a sweep waits on its rhs reads from L2, and 32 warps hide more
-of them than 16 (9.04 ms a launch against 13.5 on the 64x256x96 state
-after 20 steps, NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py phase 3;
-rhs kept in registers instead spilled and ran slower, PERF.md).
+last: what bounds it is the exchange a sweep (a barrier and a max), not
+bytes. Two forms, the same bits and counts:
+
+- **The cluster form** (``ensemble_cluster_kernel``): one thread-block
+  cluster of C CTAs of 1024 threads per scene, on csrc/cluster.cuh's
+  machinery (the rounds kernel's): each CTA runs the predictor on its
+  slab of rows, the divergence, the solve with p' in the cluster's
+  shared memory (ar * rhs beside it where it fits, a thread's 4-column
+  strip of rows in registers, each sweep's max and edge rows pushed by
+  ``st.async`` onto the receivers' mbarriers), the corrector, the outer
+  rounds and the BCs; u, v, p and the divergence stay in L2. SOR runs a
+  red and a black half in place, each ending in that exchange; its err
+  is the max over both halves. C comes from kernels.cluster
+  ``cluster_ctas`` on the card's own admission (the fewest waves of the
+  shortest strips), so a batch fills the card's 132 SMs where one block
+  a scene filled B of them: 2 CTAs a scene for 64 scenes of 256x96, 6
+  for 16 (PERF.md).
+- **The block form** (``ensemble_substep_kernel``), kept to compare with
+  and for scenes the pick gives no cluster (wider than 1024 columns,
+  or a card that admits no such cluster): one block of
+  1024 threads per scene, p' in its shared memory, a
+  ``__syncthreads()`` barrier and a block max a sweep.
 
 The TPU gate, a VMEM bound, is not carried over; the port's is
 :func:`substep_batch_fits`, the two p' buffers in one block's shared
-memory. Beyond it the ensemble takes the solver's plain batched
+memory (the cluster form takes every such scene up to 1024 columns).
+Beyond it the ensemble takes the solver's plain batched
 substep with the batched solve kernel (kernels.jacobi_batch), as the JAX
 package takes its vmapped substep with ``jacobi_pallas_batch`` beyond
 its gate; a SOR batch there takes the plain masked ``sor``, as the JAX
-package vmaps ``sor``. The SOR form sweeps its one p' buffer in place,
-red half, barrier, black half (a cell reads only the other colour), and
-keeps the two-buffer gate. The JAX package sends a SOR batch to its
-kernel only at B <= 16 (piso.py:624-632), a TPU reading that is not
+package vmaps ``sor``. The SOR form keeps the two-buffer gate. The JAX
+package sends a SOR batch to its kernel only at B <= 16
+(piso.py:624-632), a TPU reading that is not
 carried over: chip_smoke.py times the SOR form against the plain batched
 SOR at B = 16 and 64 (PERF.md).
 
@@ -58,6 +68,7 @@ from ..core.config import InletProfile, PressureSolver, Semantics, VelocitySchem
 from ..core.unported import BATCHES, OTHER_SOLVERS, unported
 from ..ops.bc import check_channel
 from ._build import check, load, mask_ptrs, on_cpu, scene_scalars, stream_of
+from .cluster import check_route, pick_ctas, route_ctas
 from .jacobi import _multipliers
 from .sor import _coefficients
 
@@ -104,14 +115,27 @@ def substep_batch_plain(u, v, p, pp0, dt_sub, nu, inlet, scene):
     return _substep_jnp(plain, u, v, p, pp0, dt_sub, nu, inlet)
 
 
-def _launch(u, v, p, pp0, dt_sub, nu, inlet, scene, sor: bool):
-    """Check the inputs and launch the kernel on CUDA tensors; None on
-    CPU tensors."""
+def substep_batch_ctas(batch: int, ny: int, nx: int, device, sor: bool = False):
+    """The CTAs a scene of the cluster form (``sor``: its SOR solve) for
+    a batch of ``batch`` (ny, nx) scenes on ``device`` (kernels.cluster
+    pick_ctas on the card's admission), or None where it takes no
+    cluster: the block form runs. Needs the card for a scene a cluster
+    holds."""
+    return pick_ctas("cfd_substep_batch_cluster_admit", batch, ny, nx, device, int(sor))
+
+
+def _launch(u, v, p, pp0, dt_sub, nu, inlet, scene, sor: bool, form, ctas):
+    """Check the inputs and launch the kernel on CUDA tensors, in
+    ``form`` (None: the cluster form where :func:`substep_batch_ctas`
+    picks a cluster, else the block form; "cluster" or "block"), ``ctas``
+    CTAs a scene (None: that pick); None on CPU tensors. Returns the
+    outputs and whether the cluster form ran."""
     g, opts = scene.grid, scene.opts
     check_batchable(scene)
     if not substep_batch_fits(g):
         raise ValueError(f"substep_batch: a {g.nx}x{g.ny} scene does not fit one "
                          f"block's shared memory (substep_batch_fits)")
+    check_route("substep_batch", form, "cluster", "block", g.ny, g.nx, ctas)
     if u.dim() != 3:
         raise ValueError(f"substep_batch takes (B, ny, nx+1) u, got {tuple(u.shape)}")
     B, ny, nx = u.shape[0], g.ny, g.nx
@@ -132,42 +156,58 @@ def _launch(u, v, p, pp0, dt_sub, nu, inlet, scene, sor: bool):
         coef = (bx, by, br, omc, om)
     else:
         coef = (*_multipliers(g.dx, g.dy, opts.jacobi_omega), 0.0)
-    with torch.cuda.device(u.device):
-        check(lib.cfd_substep_batch(
-            u.data_ptr(), v.data_ptr(), p.data_ptr(), pp0.data_ptr(),
+    args = (u.data_ptr(), v.data_ptr(), p.data_ptr(), pp0.data_ptr(),
             scal.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
             p_out.data_ptr(), pp.data_ptr(), rhs.data_ptr(), err.data_ptr(),
             counts.data_ptr(), *masks, B, ny, nx, f32(g.dx), f32(g.dy),
             f32(g.dx * g.dx), f32(g.dy * g.dy), *coef, int(sor),
             opts.jacobi_iters, opts.jacobi_tol, opts.outer_corrector_rounds,
-            opts.outer_corrector_tol, stream_of(u)), "substep_batch")
-    return u_out, v_out, p_out, pp, err, counts
+            opts.outer_corrector_tol)
+    c = route_ctas("substep_batch", form, "block", B, ny, nx, ctas,
+                   "cfd_substep_batch_cluster_admit", u.device, int(sor))
+    with torch.cuda.device(u.device):
+        if c is not None:
+            check(lib.cfd_substep_batch_cluster(*args, c, stream_of(u)),
+                  f"substep_batch (cluster form, {c} CTAs a scene)")
+        else:
+            check(lib.cfd_substep_batch(*args, stream_of(u)), "substep_batch")
+    return (u_out, v_out, p_out, pp, err, counts), c is not None
 
 
-def substep_batch(u, v, p, pp0, dt_sub, nu, inlet, scene):
+def substep_batch(u, v, p, pp0, dt_sub, nu, inlet, scene, form: str | None = None,
+                  ctas: int | None = None):
     """One substep of every scene: ``u`` (B, ny, nx+1); ``v``, ``p``,
     ``pp0`` (BC-consistent) (B, ny, nx); ``dt_sub``, ``nu``, ``inlet``
     (B,) tensors or scalars. Returns (u, v, p, p', err (B,), counts
     (B, 2) int32: outer rounds and solver iterations each scene ran). A
     SOR scene goes to :func:`substep_batch_sor`, which counts its own
-    launches."""
+    launches. ``form`` None takes the cluster form where
+    :func:`substep_batch_ctas` picks a cluster and the block form elsewhere;
+    "cluster" and "block" take that form (to hold the two against each
+    other). ``ctas`` forces the cluster form's CTAs a scene (one of
+    kernels.cluster.CTAS that ``slab_plan`` splits the scene over).
+    ``.launches`` counts launches of either form, ``.cluster_launches``
+    those of the cluster form."""
     solver = scene.params.pressure_solver
     if solver == PressureSolver.SOR:
-        return substep_batch_sor(u, v, p, pp0, dt_sub, nu, inlet, scene)
+        return substep_batch_sor(u, v, p, pp0, dt_sub, nu, inlet, scene, form, ctas)
     if solver != PressureSolver.JACOBI:
         raise unported(f"the whole-substep kernel with the {solver.value} solver",
                        OTHER_SOLVERS)
-    out = _launch(u, v, p, pp0, dt_sub, nu, inlet, scene, sor=False)
+    out = _launch(u, v, p, pp0, dt_sub, nu, inlet, scene, False, form, ctas)
     if out is None:
         return substep_batch_plain(u, v, p, pp0, dt_sub, nu, inlet, scene)
     substep_batch.launches += 1
-    return out
+    substep_batch.cluster_launches += out[1]
+    return out[0]
 
 
 substep_batch.launches = 0
+substep_batch.cluster_launches = 0
 
 
-def substep_batch_sor(u, v, p, pp0, dt_sub, nu, inlet, scene):
+def substep_batch_sor(u, v, p, pp0, dt_sub, nu, inlet, scene, form: str | None = None,
+                      ctas: int | None = None):
     """:func:`substep_batch` with the red/black SOR solve
     (sor_ordering "redblack"); the counts are (outer rounds, SOR
     iterations) per scene."""
@@ -177,11 +217,13 @@ def substep_batch_sor(u, v, p, pp0, dt_sub, nu, inlet, scene):
     if scene.opts.sor_ordering != "redblack":
         raise ValueError(f'the whole-substep kernel sweeps red/black, not '
                          f'sor_ordering="{scene.opts.sor_ordering}"')
-    out = _launch(u, v, p, pp0, dt_sub, nu, inlet, scene, sor=True)
+    out = _launch(u, v, p, pp0, dt_sub, nu, inlet, scene, True, form, ctas)
     if out is None:
         return substep_batch_plain(u, v, p, pp0, dt_sub, nu, inlet, scene)
     substep_batch_sor.launches += 1
-    return out
+    substep_batch_sor.cluster_launches += out[1]
+    return out[0]
 
 
 substep_batch_sor.launches = 0
+substep_batch_sor.cluster_launches = 0

@@ -11,18 +11,35 @@ columns. The kernel stops when every scene has frozen: the same fields,
 as the vmapped masked loop gives (ops.poisson._masked_while). Scenes
 marked ``done`` on entry (the masked outer rounds' converged scenes)
 are never swept, so a launch in a round where every scene has converged
-ends after its first grid-wide barrier, with no host read.
+only copies pp0, with no host read.
 
 The ensemble takes this route when a scene is too large for the
 whole-substep kernel (kernels.ensemble), as the reference's own
 800x264 grid is: a field is 845 KB there, more than one SM's shared
 memory, and a sweep needs every neighbour of the last. What bounds it
-on the H100 is the barrier per sweep, not bytes: the batch's p', its
-ping-pong buffer and rhs (20 MB at 8x800x264) stay in the 50 MB L2. So
-it is the persistent cooperative form of csrc/rounds.cu: one block of
-1024 threads per SM, a grid-wide barrier per sweep, and per scene a
-rotating three-slot ``atomicMax`` for the sweep's max, so every exit is
-decided on the device and nothing is read back.
+on the H100 is the exchange a sweep (the barrier and the max), not
+bytes: a sweep is a few microseconds of work. Two forms, the same bits
+and counts:
+
+- **The cluster form** (``jacobi_batch_cluster_kernel``): the scenes are
+  independent, so each gets its own thread-block cluster of C CTAs
+  (kernels.cluster picks C from the card's admission: 14 at 8x800x264
+  on an H100, which holds 7 such clusters at once, so two waves) and no
+  grid-wide barrier is needed. The scene's p' sits in the cluster's shared
+  memory, ar * rhs beside it where it fits, a thread's 4-column strip
+  in registers, each sweep's max and edge rows pushed with ``st.async``
+  onto the receivers' mbarriers (csrc/cluster.cuh, the rounds kernel's
+  machinery). A scene flagged done only copies its pp0: a launch with
+  every scene done is a copy.
+- **The cooperative form** (``jacobi_batch_kernel``) takes the scenes
+  for which kernels.cluster picks no cluster (one too wide or tall for
+  16 CTAs, or a card that admits no such cluster): one block of
+  1024 threads per SM, a grid-wide barrier per sweep, and per scene a
+  rotating three-slot ``atomicMax`` for the sweep's max.
+
+In both, every exit is decided on the device and nothing is read back.
+``jacobi_batch.launches`` counts launches of either form,
+``.cluster_launches`` those of the cluster form.
 """
 from __future__ import annotations
 
@@ -30,6 +47,7 @@ import torch
 
 from ..ops.poisson import jacobi
 from ._build import check, load, on_cpu, stream_of
+from .cluster import check_route, pick_ctas, route_ctas
 from .jacobi import _multipliers
 
 
@@ -40,13 +58,27 @@ def jacobi_batch_plain(pp0, rhs, dx: float, dy: float, omega: float,
                   done=done)
 
 
+def jacobi_batch_ctas(batch: int, ny: int, nx: int, device):
+    """The CTAs a scene of the cluster form for a batch of ``batch``
+    (ny, nx) scenes on ``device`` (kernels.cluster pick_ctas on the card's
+    admission), or None where it takes no cluster: the cooperative form
+    runs. Needs the card for a scene a cluster holds."""
+    return pick_ctas("cfd_jacobi_batch_cluster_admit", batch, ny, nx, device)
+
+
 def jacobi_batch(pp0, rhs, dx: float, dy: float, omega: float, tol: float,
-                 iters: int, done=None):
+                 iters: int, done=None, form: str | None = None,
+                 ctas: int | None = None):
     """Batched masked-convergence Jacobi solve (CHANNEL p' BCs) of
     (B, ny, nx) BC-consistent ``pp0`` and ``rhs``. Returns (p' (B, ny,
     nx), err (B,), sweeps run (B,) int32); max(1, iters) sweeps at
     most. The scenes a (B,) bool ``done`` marks are not swept: p' = pp0,
-    err inf, 0 sweeps."""
+    err inf, 0 sweeps. ``form`` None takes the cluster form where
+    :func:`jacobi_batch_ctas` picks a cluster and the cooperative form
+    elsewhere; "cluster" and "cooperative" take that form (to hold the
+    two against each other), "cluster" raising where it picks none.
+    ``ctas`` forces the cluster form's CTAs a scene (one of
+    kernels.cluster.CTAS that ``slab_plan`` splits the scene over)."""
     if pp0.dim() != 3:
         raise ValueError(f"jacobi_batch takes (B, ny, nx) fields, got {tuple(pp0.shape)}")
     B, ny, nx = pp0.shape
@@ -58,22 +90,34 @@ def jacobi_batch(pp0, rhs, dx: float, dy: float, omega: float, tol: float,
         raise ValueError(f"jacobi_batch: done must be a contiguous ({B},) bool "
                          f"tensor on {pp0.device}, got {done.dtype} "
                          f"{tuple(done.shape)} on {done.device}")
+    check_route("jacobi_batch", form, "cluster", "cooperative", ny, nx, ctas)
     if on_cpu("jacobi_batch", {"pp0": (pp0, (B, ny, nx)), "rhs": (rhs, (B, ny, nx))}):
         return jacobi_batch_plain(pp0, rhs, dx, dy, omega, tol, iters, done)
     lib = load()
-    out, tmp = torch.empty_like(pp0), torch.empty_like(pp0)
-    slots = torch.empty(3 * B, dtype=torch.float32, device=pp0.device)
+    out = torch.empty_like(pp0)
     err = torch.empty(B, dtype=torch.float32, device=pp0.device)
     n = torch.empty(B, dtype=torch.int32, device=pp0.device)
+    done_ptr = None if done is None else done.data_ptr()
+    mult = _multipliers(dx, dy, omega)
+    c = route_ctas("jacobi_batch", form, "cooperative", B, ny, nx, ctas,
+                   "cfd_jacobi_batch_cluster_admit", pp0.device)
     with torch.cuda.device(pp0.device):
-        check(lib.cfd_jacobi_batch(
-            pp0.data_ptr(), rhs.data_ptr(),
-            None if done is None else done.data_ptr(), out.data_ptr(),
-            tmp.data_ptr(), slots.data_ptr(), err.data_ptr(), n.data_ptr(),
-            B, ny, nx, iters,
-            tol, *_multipliers(dx, dy, omega), stream_of(pp0)), "jacobi_batch")
+        if c is not None:
+            check(lib.cfd_jacobi_batch_cluster(
+                pp0.data_ptr(), rhs.data_ptr(), done_ptr, out.data_ptr(), err.data_ptr(),
+                n.data_ptr(), B, ny, nx, iters, tol, *mult, c, stream_of(pp0)),
+                f"jacobi_batch (cluster form, {c} CTAs a scene)")
+        else:
+            tmp = torch.empty_like(pp0)
+            slots = torch.empty(3 * B, dtype=torch.float32, device=pp0.device)
+            check(lib.cfd_jacobi_batch(
+                pp0.data_ptr(), rhs.data_ptr(), done_ptr, out.data_ptr(), tmp.data_ptr(),
+                slots.data_ptr(), err.data_ptr(), n.data_ptr(), B, ny, nx, iters, tol,
+                *mult, stream_of(pp0)), "jacobi_batch")
     jacobi_batch.launches += 1
+    jacobi_batch.cluster_launches += c is not None
     return out, err, n
 
 
 jacobi_batch.launches = 0
+jacobi_batch.cluster_launches = 0

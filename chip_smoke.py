@@ -27,6 +27,9 @@ Phases, one line each; any failure raises and exits non-zero:
    steps and the batched Jacobi kernel on the 8x800x264 ensemble's next
    rhs after 5, each with the same per-scene exits required, and the
    latter again with scenes flagged done, as the masked rounds call it;
+   each of these routes in its cluster form, one thread-block cluster a
+   scene, held to its parent form (the block form, the cooperative form)
+   bit for bit, both timed;
    the SOR kernels: the colour-split kernel at k = 8 and k = 10 on the
    2048^2 SOR state after 3 steps, the full-layout kernel on the 2047^2
    one, the whole-substep kernel's SOR form on the 16x256x96 SOR ensemble
@@ -102,7 +105,10 @@ Phases, one line each; any failure raises and exits non-zero:
    and 3 on the CPU path (the 800x264 one sharded on the CPU, its
    solves exiting k sweeps apart at most);
 8. require every kernel of each path to have launched in that path's
-   run (counts set to 0 just before it, read just after).
+   run (counts set to 0 just before it, read just after), the rounds
+   kernel in its cluster form on the 800x264 and 400x132 JS runs, and
+   kernels 20 and 12 in their cluster forms on the three ensemble runs
+   (printing the CTAs a scene each took).
 
 The line before the last is a JSON object with each kernel's numbers;
 the last is {"ok": true, "device": {...}}. It needs one card and no
@@ -138,14 +144,14 @@ from cfd_demo_tpu_torch.kernels import _build
 from cfd_demo_tpu_torch.kernels import mg as kmg
 from cfd_demo_tpu_torch.kernels import mgp
 from cfd_demo_tpu_torch.kernels import sor as ksor
-from cfd_demo_tpu_torch.kernels.ensemble import (substep_batch, substep_batch_plain,
-                                                 substep_batch_sor)
+from cfd_demo_tpu_torch.kernels.ensemble import (substep_batch, substep_batch_ctas,
+                                                 substep_batch_plain, substep_batch_sor)
 from cfd_demo_tpu_torch.kernels.jacobi import (jacobi_fused_k, jacobi_fused_k_plain,
                                                jacobi_fused_k_shard,
                                                jacobi_fused_k_shard_plain, jacobi_tile)
-from cfd_demo_tpu_torch.kernels.jacobi_batch import jacobi_batch, jacobi_batch_plain
-from cfd_demo_tpu_torch.kernels.rounds import (rounds_cluster_fits, rounds_cluster_size,
-                                               solve_correct_rounds,
+from cfd_demo_tpu_torch.kernels.jacobi_batch import (jacobi_batch, jacobi_batch_ctas,
+                                                     jacobi_batch_plain)
+from cfd_demo_tpu_torch.kernels.rounds import (rounds_ctas, solve_correct_rounds,
                                                solve_correct_rounds_plain)
 from cfd_demo_tpu_torch.kernels.substep import (correct_bc, correct_bc_plain,
                                                 correct_div, correct_div_plain,
@@ -220,6 +226,10 @@ KERNELS = {
 VERTEX = ("mg_residual_restrict", "mg_prolong_add")
 # The rounds kernel's launches in its cluster form (of its "launches").
 CLUSTER = "rounds_cluster"
+# The batched kernels' launches in their cluster form (of their "launches").
+BATCH_CLUSTER = {"substep_batch": "substep_batch_cluster",
+                 "jacobi_batch": "jacobi_batch_cluster",
+                 "substep_batch_sor": "substep_batch_sor_cluster"}
 # The kernels each path must launch.
 PATHS = {
     REF: ("rounds", CLUSTER),
@@ -228,12 +238,12 @@ PATHS = {
            "jacobi_fused_k_corr", "cc_sweeps"),
     ODD: ("predict_div", "correct_bc", "jacobi_fused_k_res", "cc_sweeps"),
     REF_PROD: ("jacobi_fused_k_restrict", "jacobi_fused_k_corr", "cc_sweeps"),
-    ENS64: ("substep_batch",),
-    ENS8: ("jacobi_batch",),
+    ENS64: ("substep_batch", BATCH_CLUSTER["substep_batch"]),
+    ENS8: ("jacobi_batch", BATCH_CLUSTER["jacobi_batch"]),
     SOR: ("predict_div", "sor_fused_k_rb2", "correct_bc"),
     SOR_ODD: ("predict_div", "sor_fused_k", "correct_bc"),
     REF_SOR: (),
-    ENS_SOR: ("substep_batch_sor",),
+    ENS_SOR: ("substep_batch_sor", BATCH_CLUSTER["substep_batch_sor"]),
     MG: ("predict_div", "correct_bc", "mg_smooth", *VERTEX),
     MG_ODD: ("predict_div", "correct_bc", "mg_smooth", *VERTEX),
     REF_MG: ("mg_smooth", *VERTEX),
@@ -472,15 +482,15 @@ def check_kernels(dev, results):
 
 
 def check_rounds_refused(dev, results):
-    """The rounds kernel's cooperative form where rounds_cluster_fits
-    refuses the grid (1024 x 512 cells: past the cluster's shared memory),
+    """The rounds kernel's cooperative form where kernels.cluster's plan
+    gives the grid no cluster (1024 x 512 cells: past 16 CTAs' strips),
     on seeded random fields (an rhs large enough that every solve runs its
     40 sweeps and all 3 outer rounds run), against the plain version: the
     same counts, u and v at the 800x264 check's bound, p and p' with the
     mean difference removed."""
     grid = tc.Grid(nx=1024, ny=512, lx=8.0, ly=4.0, obstacles=(tc.Cylinder(2.0, 2.0, 0.3),))
-    require(not rounds_cluster_fits(grid.ny, grid.nx),
-            "rounds: the rule takes the cluster form at 1024x512")
+    require(rounds_ctas(grid.ny, grid.nx, dev) is None,
+            "rounds: the plan takes the cluster form at 1024x512")
     scene = tc.make_scene(grid, tc.SimulationParams(dt=0.002, viscosity=1e-4),
                           tc.solver_options_for(tc.Semantics.RUST, jacobi_iters=40,
                                                 outer_corrector_rounds=3))
@@ -515,10 +525,11 @@ def check_rounds_refused(dev, results):
 
 def check_rounds_forms(args, got, label, results):
     """The rounds kernel's other form on the same inputs as ``got`` (the
-    form rounds_cluster_fits names for the shape): the same counts and
+    form kernels.cluster's plan names for the shape): the same counts and
     the same bits in u, v, p, p' and err; both forms timed."""
     g = args[-1].grid
-    fits = rounds_cluster_fits(g.ny, g.nx)
+    ctas = rounds_ctas(g.ny, g.nx, args[0].device)
+    fits = ctas is not None
     other = "cooperative" if fits else "cluster"
     alt = solve_correct_rounds(*args, form=other)
     require(alt[5].tolist() == got[5].tolist(),
@@ -530,7 +541,7 @@ def check_rounds_forms(args, got, label, results):
              for form in ("cluster", "cooperative")}
     entry = results["rounds"].setdefault("forms", {})
     entry[label] = {"rule": "cluster" if fits else "cooperative",
-                    "ctas": rounds_cluster_size(g.ny, g.nx), **{f + "_ms": t
+                    "ctas": ctas, **{f + "_ms": t
                                                                  for f, t in times.items()}}
     print(f"[3] rounds {label}: the cluster form ({entry[label]['ctas']} CTAs) and the "
           f"cooperative form give the same bits and counts; cluster "
@@ -706,12 +717,33 @@ def check_multigrid_solve(dev, report):
     require(d <= total[0], f"multigrid solve: p' max|d| {d} > {total[0]}")
 
 
+def same_bits(a, b) -> bool:
+    return all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+
+
+def check_parent_form(name, label, got, parent, ctas, times, results):
+    """The route's cluster form (``got``, ``ctas`` CTAs a scene) against
+    the parent form on the same inputs: every output, counts included,
+    to the bit. Records both times (``times``: cluster ms, parent ms)."""
+    require(same_bits(got, parent), f"{name} {label}: the cluster form and the parent "
+            f"form differ (max|d| {max(max_abs(a, b) for a, b in zip(got, parent))})")
+    entry = results[name].setdefault("forms", {})
+    entry.update({"ctas": ctas, label + "_cluster_ms": times[0],
+                  label + "_parent_form_ms": times[1]})
+    print(f"[3] {name} {label}: the route takes the cluster form, {ctas} CTAs a scene, "
+          f"the same bits and counts as the parent form; cluster {times[0]:.4f} ms, "
+          f"parent form {times[1]:.4f} ms", flush=True)
+
+
 def check_ensemble_kernels(dev, results):
     """Kernels 20 and 12 on the ensembles' own states: the whole-substep
     kernel on the 64x256x96 ensemble after 20 steps, fed what the step
     feeds it; the batched Jacobi kernel on the next rhs of the 8x800x264
     ensemble after 5 steps. Both exits are exact on both sides, so each
-    scene must run the same sweeps (and rounds) as the plain version."""
+    scene must run the same sweeps (and rounds) as the plain version.
+    Each route's cluster form is also held to its parent form (the block
+    form, the cooperative form) bit for bit, with and without done flags
+    for kernel 12."""
     scene = ensemble_scene()
     g = scene.grid
     state, _ = tc.make_run(scene, 20)(ensemble_state(scene, 64, dev))
@@ -748,6 +780,12 @@ def check_ensemble_kernels(dev, results):
                + 64 * PREDICT) * cells))
     results["substep_batch"]["sweeps_per_scene"] = counts[:, 1].tolist()
     results["substep_batch"]["rounds_per_scene"] = counts[:, 0].tolist()
+    check_parent_form("substep_batch", "64x256x96", got,
+                      substep_batch(*args, form="block"),
+                      substep_batch_ctas(64, g.ny, g.nx, dev),
+                      (results["substep_batch"]["ms"],
+                       time_ms(lambda: substep_batch(*args, form="block"), 5, warmup=1)),
+                      results)
 
     scene = ensemble_scene(800, 264)
     g, opts = scene.grid, scene.opts
@@ -771,10 +809,16 @@ def check_ensemble_kernels(dev, results):
         bound(nbytes(state.p_prime, rhs, got[0]),
               int(n.sum()) * (SWEEP + SWEEP_ERR) * g.nx * g.ny))
     results["jacobi_batch"]["sweeps_per_scene"] = n.tolist()
+    coop = lambda **kw: jacobi_batch(*jargs, form="cooperative", **kw)
+    check_parent_form("jacobi_batch", "8x800x264", got, coop(),
+                      jacobi_batch_ctas(8, g.ny, g.nx, dev),
+                      (results["jacobi_batch"]["ms"], time_ms(coop, 10)), results)
     # As a masked outer round calls it: the scenes flagged done are not
     # swept, and with all of them flagged the launch sweeps nothing.
     done = torch.arange(8, device=dev) % 2 == 0
     got = jacobi_batch(*jargs, done=done)
+    require(same_bits(got, coop(done=done)),
+            "jacobi_batch with done flags: the cluster form and the cooperative form differ")
     ref = jacobi_batch_plain(*jargs, done=done)
     require(got[2].tolist() == ref[2].tolist() == torch.where(done.cpu(), 0, n).tolist(),
             f"jacobi_batch with done flags: the kernel ran {got[2].tolist()} sweeps, "
@@ -787,17 +831,24 @@ def check_ensemble_kernels(dev, results):
     # all but the last (nu 1e-2, the one that runs the most rounds).
     every = torch.ones_like(done)
     ms_done = time_ms(lambda: jacobi_batch(*jargs, done=every), 10)
-    require(jacobi_batch(*jargs, done=every)[2].sum().item() == 0,
-            "jacobi_batch: a launch with every scene done swept")
+    all_done = jacobi_batch(*jargs, done=every)
+    require(all_done[2].sum().item() == 0, "jacobi_batch: a launch with every scene done swept")
+    require(same_bits(all_done, coop(done=every)), "jacobi_batch with every scene done: "
+            "the cluster form and the cooperative form differ")
+    ms_done_coop = time_ms(lambda: coop(done=every), 10)
     last = every.clone()
     last[-1] = False
     ms_last = time_ms(lambda: jacobi_batch(*jargs, done=last), 10)
+    ms_last_coop = time_ms(lambda: coop(done=last), 10)
     results["jacobi_batch"]["ms_all_done"] = ms_done
     results["jacobi_batch"]["ms_last_scene_only"] = ms_last
+    results["jacobi_batch"]["forms"].update(
+        {"all_done_parent_form_ms": ms_done_coop, "last_scene_only_parent_form_ms": ms_last_coop})
     print(f"[3] jacobi_batch with scenes 0, 2, 4, 6 flagged done: sweeps "
-          f"{got[2].tolist()} on both sides, p' max|d|={d:.3e}; a launch with "
-          f"every scene done {ms_done:.4f} ms, with only scene 7 active "
-          f"{ms_last:.4f} ms ({int(n[-1])} sweeps)", flush=True)
+          f"{got[2].tolist()} on both sides, p' max|d|={d:.3e}, the cooperative form's "
+          f"bits; a launch with every scene done {ms_done:.4f} ms (cooperative "
+          f"{ms_done_coop:.4f}), with only scene 7 active {ms_last:.4f} ms (cooperative "
+          f"{ms_last_coop:.4f}; {int(n[-1])} sweeps)", flush=True)
 
 
 def check_sor_kernels(dev, results, report):
@@ -890,15 +941,22 @@ def check_sor_ensemble(dev, report):
         require(torch.equal(counts, ref_counts), f"substep_batch_sor B={B}: the kernel "
                 f"ran {counts.tolist()} (rounds, iterations per scene), the plain "
                 f"version {ref_counts.tolist()}")
+        block = substep_batch_sor(*args, form="block")
+        require(same_bits(got, block), f"substep_batch_sor B={B}: the cluster form and "
+                f"the block form differ")
         ms = time_ms(lambda: substep_batch_sor(*args), 5, warmup=1)
+        block_ms = time_ms(lambda: substep_batch_sor(*args, form="block"), 5, warmup=1)
         plain_ms = time_ms(lambda: substep_batch_plain(*args), 2, warmup=1)
-        timing[B] = {"ms": ms, "plain_ms": plain_ms}
+        ctas = substep_batch_ctas(B, g.ny, g.nx, dev, sor=True)
+        timing[B] = {"ms": ms, "plain_ms": plain_ms, "block_ms": block_ms, "ctas": ctas}
         rounds, iters = (int(x) for x in counts.sum(dim=0))
         print(f"[3] substep_batch_sor {B}x256x96 after 20 steps: the same exits on "
               f"both sides, per scene {int(counts[:, 0].min())}-"
               f"{int(counts[:, 0].max())} rounds and {int(counts[:, 1].min())}-"
-              f"{int(counts[:, 1].max())} iterations; kernel {ms:.4f} ms, plain "
-              f"batched SOR {plain_ms:.4f} ms ({plain_ms / ms:.2f}x)", flush=True)
+              f"{int(counts[:, 1].max())} iterations; the cluster form ({ctas} CTAs a "
+              f"scene) the block form's bits; kernel {ms:.4f} ms, block form "
+              f"{block_ms:.4f} ms, plain batched SOR {plain_ms:.4f} ms "
+              f"({plain_ms / ms:.2f}x)", flush=True)
         if B != 16:
             continue
         err_k, err_p = got[4].cpu().double(), ref[4].cpu().double()
@@ -924,6 +982,8 @@ def check_sor_ensemble(dev, report):
                    + B * PREDICT) * g.nx * g.ny))
         out["substep_batch_sor"]["iterations_per_scene"] = counts[:, 1].tolist()
         out["substep_batch_sor"]["rounds_per_scene"] = counts[:, 0].tolist()
+        out["substep_batch_sor"]["forms"] = {"ctas": ctas, "16x256x96_cluster_ms": ms,
+                                             "16x256x96_parent_form_ms": block_ms}
     report["substep_batch_sor_gate"] = timing
     return out
 
@@ -1906,12 +1966,15 @@ def dev_of(sharded_state):
 def reset_counts():
     for wrapper, _, _, _ in KERNELS.values():
         wrapper.launches = 0
-    solve_correct_rounds.cluster_launches = 0
+    for wrapper in (solve_correct_rounds, substep_batch, jacobi_batch, substep_batch_sor):
+        wrapper.cluster_launches = 0
 
 
 def read_counts():
     counts = {name: w.launches for name, (w, _, _, _) in KERNELS.items()}
     counts[CLUSTER] = solve_correct_rounds.cluster_launches
+    for name, key in BATCH_CLUSTER.items():
+        counts[key] = KERNELS[name][0].cluster_launches
     return counts
 
 
@@ -2124,13 +2187,21 @@ def main() -> int:
     # The rounds kernel takes its cluster form on both scenes that launch
     # it: the default 800x264 scene and the JS twin's 400x132.
     for path, g in ((REF, tc.default_grid()), (JS_DEF, tc.default_js_grid())):
-        require(rounds_cluster_fits(g.ny, g.nx),
-                f"rounds_cluster_fits refuses the {path} grid")
+        require(rounds_ctas(g.ny, g.nx, dev) is not None,
+                f"kernels.cluster's plan gives the {path} grid no cluster")
         want = launches[path]["rounds"]
         require(launches[path][CLUSTER] == want,
                 f"the {path} run launched the rounds kernel's cluster form "
                 f"{launches[path][CLUSTER]} times of {launches[path]['rounds']}, "
                 f"expected {want}")
+    # The ensembles' kernels take their cluster forms on all three paths.
+    for path, kernel in ((ENS64, "substep_batch"), (ENS8, "jacobi_batch"),
+                         (ENS_SOR, "substep_batch_sor")):
+        n, n_cluster = launches[path][kernel], launches[path][BATCH_CLUSTER[kernel]]
+        require(n_cluster == n, f"the {path} run launched {kernel}'s cluster form "
+                f"{n_cluster} times of {n}")
+        print(f"[8] the {path} run took {kernel}'s cluster form, {n} launches, "
+              f"{results[kernel]['forms']['ctas']} CTAs a scene", flush=True)
     report["launches"] = launches
 
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,

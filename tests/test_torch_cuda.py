@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import cfd_demo_tpu_torch as tc
+from cfd_demo_tpu_torch.kernels import cluster as kcl
 from cfd_demo_tpu_torch.kernels import ensemble as kens
 from cfd_demo_tpu_torch.kernels import jacobi as kjac
 from cfd_demo_tpu_torch.kernels import jacobi_batch as kjb
@@ -276,25 +277,114 @@ def _ensemble_inputs(scene, B, seed):
     return u, v, p, pp, dt, nu, inlet
 
 
+def _cluster_sizes(ny, nx):
+    """Every CTAs a scene that the cluster form can split an (ny, nx)
+    scene over (kernels.cluster.slab_plan)."""
+    return [c for c in kcl.CTAS if kcl.slab_plan(ny, nx, c) is not None]
+
+
+def _same_bits(got, ref, what):
+    """Every output of two forms of a kernel equal to the bit."""
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert torch.equal(a, b), (what, i, float((a.double() - b.double()).abs().max()))
+
+
+def _substep_forms(args, scene):
+    """Kernel 20 on ``args`` (CUDA) in its block form and its cluster form
+    at every C it can take: each cluster form bit for bit the block form
+    (the parent form), the same counts. Returns the block form's outputs."""
+    g = scene.grid
+    block = kens.substep_batch(*args, scene, form="block")
+    for c in _cluster_sizes(g.ny, g.nx):
+        _same_bits(kens.substep_batch(*args, scene, ctas=c), block, f"{c} CTAs")
+    return block
+
+
 @pytest.mark.parametrize("nx,ny,B", [(40, 24, 4), (53, 37, 3)])
 def test_substep_batch(cuda, nx, ny, B):
     """The whole-substep kernel against its plain version, twice (the
     second warm-started): the same exits, fields at the bound of
-    tests/test_ensemble_pallas.py."""
+    tests/test_ensemble_pallas.py; the route takes the cluster form, and
+    the cluster form at every C gives the block form's bits."""
     scene = _ensemble_scene(nx, ny)
     args = _ensemble_inputs(scene, B, seed=9)
     for _ in range(2):
-        got = kens.substep_batch(*(a.to(cuda) for a in args), scene)
+        dev_args = tuple(a.to(cuda) for a in args)
+        n_cluster = kens.substep_batch.cluster_launches
+        got = kens.substep_batch(*dev_args, scene)
+        assert kens.substep_batch.cluster_launches == n_cluster + 1
         ref = kens.substep_batch_plain(*args, scene)
         assert got[5].tolist() == ref[5].tolist()
         assert ref[5][0].tolist()[1] == 1  # scene 0 exits on its first sweep
         for name, a, b in zip(("u", "v", "p", "pp", "err"), got, ref):
             torch.testing.assert_close(a.cpu(), b, rtol=2e-5, atol=2e-5, msg=name)
+        _same_bits(got, _substep_forms(dev_args, scene), "the route")
         args = (*ref[:4], *args[4:])
 
 
+@pytest.mark.parametrize("solver", ["JACOBI", "SOR"])
+def test_substep_batch_waves(cuda, solver):
+    """150 distinct scenes, more than the card holds clusters of one CTA
+    (132 SMs), so the batch runs in waves at every C: twice (the second
+    warm-started), the block form's bits and counts at every C, and the
+    batch cut into launches of 7 scenes gives the same bits (no scene
+    reads another's data, in any wave). Against the plain version:
+    Jacobi's exits; the fields' bound is test_substep_batch's, which the
+    block form misses here in p at one scene, and SOR's exits are
+    test_substep_batch_sor's, which the block form misses here by one
+    iteration at two scenes whose error ends within 1.1e-7 of the
+    tolerance (PERF.md: the plain version's rounding, not the
+    kernels')."""
+    scene = _ensemble_scene(40, 24)
+    scene = dataclasses.replace(scene, params=dataclasses.replace(
+        scene.params, pressure_solver=tc.PressureSolver[solver]))
+    args = _ensemble_inputs(scene, 150, seed=9)
+    for _ in range(2):
+        dev_args = tuple(a.to(cuda) for a in args)
+        n_cluster = kens.substep_batch.cluster_launches + kens.substep_batch_sor.cluster_launches
+        got = kens.substep_batch(*dev_args, scene)
+        assert (kens.substep_batch.cluster_launches
+                + kens.substep_batch_sor.cluster_launches) == n_cluster + 1
+        ref = kens.substep_batch_plain(*args, scene)
+        if solver == "JACOBI":
+            assert got[5].tolist() == ref[5].tolist()
+        _same_bits(got, _substep_forms(dev_args, scene), "the route")
+        parts = [kens.substep_batch(*(a[i:i + 7] for a in dev_args), scene)
+                 for i in range(0, 150, 7)]
+        _same_bits(got, [torch.cat([p[k] for p in parts]) for k in range(6)], "7 a launch")
+        args = (*ref[:4], *args[4:])
+
+
+def test_substep_batch_ctas_refused(cuda):
+    """A C the plan cannot split the scene over raises before any launch."""
+    scene = _ensemble_scene(1100, 12)  # wider than a cluster takes: the block form
+    args = tuple(a.to(cuda) for a in _ensemble_inputs(scene, 2, seed=9))
+    assert not kcl.cluster_fits(12, 1100)
+    n = kens.substep_batch.launches
+    with pytest.raises(ValueError, match="cluster"):
+        kens.substep_batch(*args, scene, ctas=2)
+    assert kens.substep_batch.launches == n
+    n_cluster = kens.substep_batch.cluster_launches
+    got = kens.substep_batch(*args, scene)
+    assert kens.substep_batch.cluster_launches == n_cluster
+    ref = kens.substep_batch_plain(*(a.cpu() for a in args), scene)
+    assert got[5].tolist() == ref[5].tolist()
+
+
+def _jacobi_forms(pp, rhs, *solve, done=None):
+    """Kernel 12 in its cooperative form and its cluster form at every C
+    it can take: each cluster form bit for bit the cooperative form (the
+    parent form). Returns the cooperative form's outputs."""
+    ny, nx = pp.shape[1:]
+    coop = kjb.jacobi_batch(pp, rhs, *solve, done=done, form="cooperative")
+    for c in _cluster_sizes(ny, nx):
+        _same_bits(kjb.jacobi_batch(pp, rhs, *solve, done=done, ctas=c), coop, f"{c} CTAs")
+    return coop
+
+
+# (140, 16, 24): more scenes than the card holds clusters of one CTA.
 @pytest.mark.parametrize("shape,tol", [((3, 16, 24), 0.0), ((3, 37, 53), 1e-4),
-                                       ((5, 64, 96), 1e-3)])
+                                       ((5, 64, 96), 1e-3), ((140, 16, 24), 1e-4)])
 def test_jacobi_batch(cuda, shape, tol):
     g = torch.Generator().manual_seed(10)
     pp = _apply_pprime_bcs(0.1 * torch.randn(shape, generator=g))
@@ -302,13 +392,17 @@ def test_jacobi_batch(cuda, shape, tol):
     rhs[0] = 0.0
     pp[0] = 0.0  # scene 0 exits on its first sweep when tol > 0
     dx, dy = 1 / shape[2], 1 / shape[1]
+    n_cluster = kjb.jacobi_batch.cluster_launches
     got = kjb.jacobi_batch(pp.to(cuda), rhs.to(cuda), dx, dy, 0.75, tol, 30)
+    assert kjb.jacobi_batch.cluster_launches == n_cluster + 1
     ref = kjb.jacobi_batch_plain(pp, rhs, dx, dy, 0.75, tol, 30)
     assert got[2].tolist() == ref[2].tolist()
     if tol > 0:
         assert ref[2][0] == 1
     assert_close(got[0], ref[0], rtol=1e-5)
     assert_close(got[1], ref[1], rtol=1e-5)
+    _same_bits(got, _jacobi_forms(pp.to(cuda), rhs.to(cuda), dx, dy, 0.75, tol, 30),
+               "the route")
 
 
 @pytest.mark.parametrize("shape", [(4, 16, 24), (3, 37, 53)])
@@ -327,7 +421,10 @@ def test_jacobi_batch_done_flags(cuda, shape):
         assert got[2].tolist() == ref[2].tolist()
         assert not got[2][flags.to(cuda)].any()
         assert torch.equal(got[0].cpu()[flags], pp[flags])
+        assert torch.isinf(got[1].cpu()[flags]).all()
         assert_close(got[0], ref[0], rtol=1e-5)
+        _same_bits(got, _jacobi_forms(pp.to(cuda), rhs.to(cuda), dx, dy, 0.75, 1e-4, 30,
+                                      done=flags.to(cuda)), "the route")
 
 
 @pytest.mark.parametrize("shape,k", [((64, 96), 5), ((37, 53), 1), ((40, 96), 8)])
@@ -401,7 +498,11 @@ def test_substep_batch_sor(cuda, nx, ny, B, opts):
     args = _ensemble_inputs(scene, B, seed=15)
     n0 = kens.substep_batch_sor.launches
     for _ in range(2):
-        got = kens.substep_batch(*(a.to(cuda) for a in args), scene)
+        n_cluster = kens.substep_batch_sor.cluster_launches
+        dev_args = tuple(a.to(cuda) for a in args)
+        got = kens.substep_batch(*dev_args, scene)
+        assert kens.substep_batch_sor.cluster_launches == n_cluster + 1
+        _same_bits(got, _substep_forms(dev_args, scene), "the route")
         ref = kens.substep_batch_plain(*args, scene)
         assert got[5].tolist() == ref[5].tolist()
         assert ref[5][0].tolist()[1] == (30 if opts else 1)  # scene 0: at rest
@@ -417,7 +518,8 @@ def test_substep_batch_sor(cuda, nx, ny, B, opts):
                 d = d - d.mean(dim=(-2, -1), keepdim=True)
                 assert float(d.abs().max()) <= drift * max(1.0, float(b.abs().max())), name
         args = (*ref[:4], *args[4:])
-    assert kens.substep_batch_sor.launches == n0 + 2
+    # the route, the block form and the cluster form at every C, twice
+    assert kens.substep_batch_sor.launches == n0 + 2 * (2 + len(_cluster_sizes(ny, nx)))
 
 
 # The vertex multigrid's kernels (csrc/mg.cu) on even, odd and 3-wide
@@ -627,11 +729,13 @@ def test_six_cylinder_batch(cuda):
     scene = tc.make_scene(SIX, tc.SimulationParams(dt=0.002, viscosity=1e-4),
                           tc.solver_options_for(RUST, early_exit=False))
     args = _ensemble_inputs(scene, 3, seed=15)
-    got = kens.substep_batch(*(a.to(cuda) for a in args), scene)
+    dev_args = tuple(a.to(cuda) for a in args)
+    got = kens.substep_batch(*dev_args, scene)
     ref = kens.substep_batch_plain(*args, scene)
     assert got[5].tolist() == ref[5].tolist()
     for name, a, b in zip(("u", "v", "p", "pp", "err"), got, ref):
         torch.testing.assert_close(a.cpu(), b, rtol=2e-5, atol=2e-5, msg=name)
+    _same_bits(got, _substep_forms(dev_args, scene), "the route")
 
 
 def test_js_adaptive_steps_like_cpu(cuda):
@@ -882,22 +986,22 @@ def _rounds_state(which, cuda):
 @pytest.mark.parametrize("which", ["800x264", "400x132 js parabolic"])
 def test_rounds_cluster_equals_cooperative(cuda, which):
     """Kernel 4's cluster and cooperative forms on the same inputs: the
-    same counts, the same bits in u, v, p, p' and err; the call without a
-    form takes the cluster form, which rounds_cluster_fits names for both
-    shapes."""
+    same counts, the same bits in u, v, p, p' and err, at every C the
+    cluster form can split the grid over; the call without a form takes
+    the cluster form at the C kernels.cluster picks for both shapes."""
     args = _rounds_state(which, cuda)
     g = args[-1].grid
-    a = krounds.solve_correct_rounds(*args, form="cluster")
     b = krounds.solve_correct_rounds(*args, form="cooperative")
-    assert a[5].tolist() == b[5].tolist()
-    for name, x, y in zip(("u", "v", "p", "pp", "err"), a, b):
-        assert torch.equal(x, y), (name, float((x - y).abs().max()))
+    for ctas in [None, *_cluster_sizes(g.ny, g.nx)]:
+        a = krounds.solve_correct_rounds(*args, form="cluster", ctas=ctas)
+        assert a[5].tolist() == b[5].tolist(), ctas
+        for name, x, y in zip(("u", "v", "p", "pp", "err"), a, b):
+            assert torch.equal(x, y), (ctas, name, float((x - y).abs().max()))
     n_cluster = krounds.solve_correct_rounds.cluster_launches
     c = krounds.solve_correct_rounds(*args)
-    assert krounds.rounds_cluster_fits(g.ny, g.nx)
     assert krounds.solve_correct_rounds.cluster_launches == n_cluster + 1
     assert torch.equal(c[3], b[3])
-    assert krounds.rounds_cluster_size(g.ny, g.nx) in (8, 16)
+    assert krounds.rounds_ctas(g.ny, g.nx, cuda) in kcl.candidates(g.ny, g.nx)
 
 
 def test_rounds_cooperative_where_the_rule_refuses(cuda):
@@ -905,7 +1009,7 @@ def test_rounds_cooperative_where_the_rule_refuses(cuda):
     form, held against the plain version with the same counts."""
     grid = tc.Grid(nx=1024, ny=512, lx=8.0, ly=4.0,
                    obstacles=(tc.Cylinder(2.0, 2.0, 0.3),))
-    assert not krounds.rounds_cluster_fits(grid.ny, grid.nx)
+    assert krounds.rounds_ctas(grid.ny, grid.nx, cuda) is None
     scene = tc.make_scene(grid, tc.SimulationParams(dt=0.002, viscosity=1e-4),
                           tc.solver_options_for(RUST, jacobi_iters=40,
                                                 outer_corrector_rounds=3))

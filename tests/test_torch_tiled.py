@@ -22,8 +22,7 @@ from cfd_demo_tpu.kernels.jacobi_pallas import jacobi_fused_k as j_fused_k
 
 from cfd_demo_tpu_torch.kernels.jacobi import (block_pprime_bcs,
                                                jacobi_fused_k_shard_plain)
-from cfd_demo_tpu_torch.kernels.rounds import (CLUSTER_COLS, cluster_plan,
-                                               rounds_cluster_fits)
+from cfd_demo_tpu_torch.kernels import cluster as kcl
 from cfd_demo_tpu_torch.ops.poisson import _apply_pprime_bcs
 
 torch.set_num_threads(1)
@@ -144,12 +143,14 @@ def test_tiled_schedule_matches_pallas(shape, tile, k, t):
     (321, 800, False),      # a row more needs strips of 6 rows: past the capacity
     (256, 1024, True),
     (257, 1024, False),
-    (16, CLUSTER_COLS + 1, False),
+    (16, kcl.MAX_COLS + 1, False),
     (512, 1024, False),
     (3, 3, True),
 ])
 def test_rounds_cluster_rule(ny, nx, fits):
-    assert rounds_cluster_fits(ny, nx) is fits
+    """The rounds kernel takes its cluster form where kernels.cluster's
+    plan holds the grid (the batched kernels' plan)."""
+    assert kcl.cluster_fits(ny, nx) is fits
 
 
 @pytest.mark.parametrize("ny,nx,plan", [
@@ -162,4 +163,10 @@ def test_rounds_cluster_rule(ny, nx, fits):
     (257, 1024, None),
 ])
 def test_rounds_cluster_plan(ny, nx, plan):
-    assert cluster_plan(ny, nx) == plan
+    """(rows a thread, rows a slab) of the rounds kernel's cluster on a
+    card that admits a cluster of every size: kernels.cluster's pick for
+    one scene, with ar * rhs in shared memory."""
+    c = kcl.cluster_ctas(1, ny, nx, {k: 1 for k in kcl.CTAS})
+    got = None if c is None else kcl.slab_plan(ny, nx, c)
+    assert got is None or got[2]
+    assert (got and got[:2]) == plan
