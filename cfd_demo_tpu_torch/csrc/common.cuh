@@ -12,6 +12,16 @@ __device__ __forceinline__ float pmax(float a, float b) {
     return (a > b || a != a) ? a : b;
 }
 
+// x / y, correctly rounded, as the plain versions divide; a zero x over a
+// positive y is x itself (IEEE: +-0 / y = +-0), returned without the
+// division, whose out-of-line slow path a zero dividend takes. Fields
+// that are zero over most of the grid (a flow starting from rest) divide
+// zeros in most cells.
+__device__ __forceinline__ float div_rn(float x, float y) {
+    if (x == 0.0f && y > 0.0f) return x;
+    return x / y;
+}
+
 // One face of an obstacle mask (core/masks.py masks_traced, one byte a
 // face, (ny, nx+1) for u and (ny, nx) for v); null means no obstacles.
 __device__ __forceinline__ bool masked(const uint8_t* m, size_t k) {

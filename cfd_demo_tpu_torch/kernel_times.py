@@ -50,7 +50,26 @@ the block form's exits or fields differ from the plain version's
 counts, in the built library's SASS (``cuobjdump -sass``), each cluster
 kernel's instructions an exchange from its first shuffle to its warp
 max (the strip's rows, unrolled) over its rows a thread, and the spill
-loads and stores (LDL, STL) among them, and
+loads and stores (LDL, STL) among them, and kernels 1 and 3's
+instances' static instructions a cell (``substep_sass_rows``),
+
+    python3 -m cfd_demo_tpu_torch.kernel_times --substep-forms [--out FILE.json]
+
+times kernels 1 and 3 in both forms (tiled and pointwise predict_div,
+one-launch and pointwise correct_bc) on chip_smoke.py's 2048² states,
+every instance the main paths run, in turns and with repeats (kernel 3
+varies between launch sets), by CUDA events and by torch.profiler's
+device time, each pair held to the same bits; predict_div also on
+seeded random fields (no exact zeros, so every division runs); and
+predict_div.cu and correct_bc.cu rebuilt for each candidate tile and
+strip length (PREDICT_TILES, STRIP_ROWS), each held to the built
+library's bits,
+
+    python3 -m cfd_demo_tpu_torch.kernel_times --step-rates [--out FILE.json]
+
+times the 2048² fast and JS QUICK rollouts (rates, and the host's cost
+of a step while the device sleeps), with ``make_run`` only, so two
+trees can be compared A, B, B, A, and
 
     python3 -m cfd_demo_tpu_torch.kernel_times --tiles [--out FILE.json]
 
@@ -69,6 +88,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -451,6 +471,336 @@ def sass_rows() -> list:
     return out
 
 
+# Kernel 1's candidate tiles (rows, cols) and kernel 3's candidate strip
+# rows, each rebuilt from csrc/ (kPD_TY, kPD_TX; kCB_R) and timed on the
+# fast state; the built library's are PREDICT_TILE and CORRECT_STRIP.
+PREDICT_TILES = [(31, 32), (15, 32), (7, 32), (63, 32), (31, 64)]
+STRIP_ROWS = [4, 8, 16, 32]
+SUBSTEP_REPEATS = 9
+
+
+def _device_sum_us(fn, calls: int, names: tuple) -> float:
+    """Device µs a call of fn spends in kernels whose names hold one of
+    ``names``: the mean of each such kernel's launches in torch.profiler's
+    trace of ``calls`` calls, summed over the kernels (a trace that drops
+    a launch leaves the means right)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and any(n in e.name for n in names):
+            spans.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return sum(sum(t) / len(t) for t in spans.values())
+
+
+def _host_us(fn, calls: int = 20) -> float:
+    """The host's µs a call of fn: the time to enqueue ``calls`` calls
+    while the device sleeps, so no launch waits on it."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / calls
+
+
+def _pair_times(calls: dict, n: int = SUBSTEP_REPEATS) -> dict:
+    """Each of ``calls`` (name -> fn) timed in turns, n rounds of a mean of
+    CALLS launches by CUDA events: {name: {"ms": median, "ms_range":
+    [min, max], "device_us": the device time a call spends in kernels 1
+    and 3 (both launches of correct_bc's pointwise form), torch.profiler;
+    "host_us": the host's time a call}}. Where a call's host time exceeds
+    its device time, the events time the host."""
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    rounds = {name: [] for name in calls}
+    for _ in range(n):
+        for name, fn in calls.items():
+            rounds[name].append(_mean_ms(fn, CALLS))
+    return {name: {"ms": statistics.median(t), "ms_range": [min(t), max(t)],
+                   "device_us": _device_sum_us(calls[name], 20,
+                                               ("predict_div", "correct_bc", "reduce3")),
+                   "host_us": _host_us(calls[name])}
+            for name, t in rounds.items()}
+
+
+def row_offset_forms(out: dict, scene, state) -> None:
+    """Kernels 1 and 3's forms at a row offset, as chip_smoke.py's phase 3
+    and the sharded step give them: shard 2 of 4 of the 2048² fast state
+    with an 8-row halo (528 rows from global row 1016, 512 owned)."""
+    g, opts = scene.grid, scene.opts
+    sch, sem = scene.params.velocity_scheme, opts.semantics
+    off, rows, halo = 1016, 528, 8
+    blk = lambda x: x[off:off + rows].contiguous()
+    u, v, dt, nu = blk(state.u), blk(state.v), state.dt, state.nu
+    calls = {form: (lambda form=form: predict_div(u, v, dt, nu, g, sch, sem,
+                                                  row_offset=off, form=form))
+             for form in ("tiled", "pointwise")}
+    if not all(bool(torch.equal(a, b)) for a, b in zip(calls["tiled"](), calls["pointwise"]())):
+        raise RuntimeError("predict_div row_offset: the forms differ")
+    out["predict_div"]["row_offset"] = _pair_times(calls)
+    print(json.dumps({"predict_div": "row_offset", **out["predict_div"]["row_offset"]}),
+          flush=True)
+    us, vs, _ = calls["tiled"]()
+    args = (us, vs, blk(state.p), blk(state.p_prime), u, v, dt, ramped_inlet(opts, state), g,
+            scene.params.inlet_profile, scene.params.flow_case, sem)
+    kw = dict(row_offset=off, own_rows=(halo, rows - halo))
+    calls = {form: (lambda form=form: correct_bc(*args, **kw, form=form))
+             for form in ("fused", "pointwise")}
+    if not all(bool(torch.equal(a, b)) for a, b in zip(calls["fused"](), calls["pointwise"]())):
+        raise RuntimeError("correct_bc row_offset: the forms differ")
+    out["correct_bc"]["row_offset"] = _pair_times(calls)
+    print(json.dumps({"correct_bc": "row_offset", **out["correct_bc"]["row_offset"]}),
+          flush=True)
+
+
+def substep_form_times(dev) -> dict:
+    """Kernels 1 and 3 in both forms on chip_smoke.py's states: predict_div
+    (tiled, pointwise) with Rust FIRST on the 2048² fast state after 3
+    steps and SECOND/QUICK x Rust/JS on the 2048² JS QUICK state after 3
+    steps, and with Rust FIRST on seeded random fields (no zeros);
+    correct_bc (fused, pointwise) with UNIFORM on the fast state and
+    PARABOLIC, PARABOLIC_UPPER on the JS QUICK state; both at a row offset
+    (:func:`row_offset_forms`). Each pair must give
+    the same bits and is timed in turns (SUBSTEP_REPEATS rounds). Then
+    every tile of PREDICT_TILES and strip length of STRIP_ROWS, rebuilt,
+    on the fast state (Rust FIRST, UNIFORM), each held to the built
+    library's bits."""
+    import concurrent.futures as cf
+    import ctypes
+    from cfd_demo_tpu_torch.cells import js_quick_scene
+    from cfd_demo_tpu_torch.kernels import substep as ksub
+    from cfd_demo_tpu_torch.kernels._build import device_scalars, mask_ptrs, stream_of
+
+    def same(a, b):
+        return all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+
+    out = {"predict_div": {}, "correct_bc": {}}
+    states = {}
+    for mk in (fast_scene, js_quick_scene):
+        scene = mk()
+        g, opts = scene.grid, scene.opts
+        state, _ = tc.make_run(scene, 3)(scene.init_state(dev))
+        states[mk] = (scene, state)
+        u, v, dt, nu = state.u, state.v, state.dt, state.nu
+        insts = ([(scene.params.velocity_scheme, opts.semantics, "")] if mk is fast_scene
+                 else [(s, m, "") for m in (tc.Semantics.RUST, tc.Semantics.JS)
+                       for s in (tc.VelocityScheme.SECOND, tc.VelocityScheme.QUICK)])
+        if mk is fast_scene:
+            gen = torch.Generator(device=dev).manual_seed(1)
+            rnd = (0.1 * torch.randn(g.ny, g.nx + 1, device=dev, generator=gen),
+                   0.1 * torch.randn(g.ny, g.nx, device=dev, generator=gen))
+            insts.append((scene.params.velocity_scheme, opts.semantics, " random"))
+        for sch, sem, tag in insts:
+            a, b = (rnd if tag else (u, v))
+            calls = {form: (lambda form=form, a=a, b=b: predict_div(
+                         a, b, dt, nu, g, sch, sem, form=form))
+                     for form in ("tiled", "pointwise")}
+            if not same(calls["tiled"](), calls["pointwise"]()):
+                raise RuntimeError(f"predict_div {sem.value} {sch.value}{tag}: the forms differ")
+            row = _pair_times(calls)
+            out["predict_div"][f"{sem.value} {sch.value}{tag}"] = row
+            print(json.dumps({"predict_div": f"{sem.value} {sch.value}{tag}", **row}), flush=True)
+        us, vs, _ = predict_div(u, v, dt, nu, g, scene.params.velocity_scheme, opts.semantics)
+        profiles = ((scene.params.inlet_profile,) if mk is fast_scene
+                    else (tc.InletProfile.PARABOLIC, tc.InletProfile.PARABOLIC_UPPER))
+        for prof in profiles:
+            args = (us, vs, state.p, state.p_prime, u, v, dt, ramped_inlet(opts, state), g,
+                    prof, scene.params.flow_case, opts.semantics)
+            calls = {form: (lambda form=form: correct_bc(*args, form=form))
+                     for form in ("fused", "pointwise")}
+            if not same(calls["fused"](), calls["pointwise"]()):
+                raise RuntimeError(f"correct_bc {prof.value}: the forms differ")
+            row = _pair_times(calls)
+            out["correct_bc"][prof.value] = row
+            print(json.dumps({"correct_bc": prof.value, **row}), flush=True)
+        if mk is fast_scene:  # the row-offset forms on a sharded step's block
+            row_offset_forms(out, scene, state)
+
+    # the candidate shapes, each rebuilt from csrc/
+    def build(tag, src, defines):
+        lib = _build.BUILD_DIR / "substep_forms" / f"{tag}.so"
+        _build.compile_library(lib, [_build.SRC_DIR / src, _build.SRC_DIR / "errors.cu"],
+                               [*_build.FLAGS, *defines])
+        return lib
+
+    with cf.ThreadPoolExecutor(len(PREDICT_TILES) + len(STRIP_ROWS)) as pool:
+        tiles = {t: pool.submit(build, f"predict_{t[0]}x{t[1]}", "predict_div.cu",
+                                [f"-DkPD_TY={t[0]}", f"-DkPD_TX={t[1]}"])
+                 for t in PREDICT_TILES}
+        strips = {r: pool.submit(build, f"correct_{r}", "correct_bc.cu", [f"-DkCB_R={r}"])
+                  for r in STRIP_ROWS}
+        tiles = {t: f.result() for t, f in tiles.items()}
+        strips = {r: f.result() for r, f in strips.items()}
+    scene, state = states[fast_scene]
+    g, opts = scene.grid, scene.opts
+    sch, sem = scene.params.velocity_scheme, opts.semantics
+    u, v, dt, nu = state.u, state.v, state.dt, state.nu
+    ny, nx = g.ny, g.nx
+    ref = predict_div(u, v, dt, nu, g, sch, sem)
+    scal = device_scalars(dev, dt, nu)
+    mask_u, mask_v, mask_u_bc, mask_v_bc = mask_ptrs(g, sem, dev)
+    f32 = ksub._f32
+    rows = {}
+    for t, path in tiles.items():
+        fn = ctypes.CDLL(str(path)).cfd_predict_div_tiled
+        fn.argtypes = _build._SIGNATURES["cfd_predict_div_tiled"]
+        plan = ksub.predict_tile_plan(ny, nx, sch, 0, ny, tile=t)
+        outs = tuple(torch.empty_like(x) for x in ref)
+
+        def call(fn=fn, plan=plan, outs=outs, t=t):
+            _build.check(fn(u.data_ptr(), v.data_ptr(), scal.data_ptr(),
+                            *(x.data_ptr() for x in outs), mask_u, mask_v, ny, nx, 0, ny,
+                            f32(g.dx), f32(g.dy), f32(g.dx * g.dx), f32(g.dy * g.dy),
+                            ksub._SCHEME[sch], int(sem == tc.Semantics.JS), *plan["tile"],
+                            *plan["fast"], stream_of(u)), f"predict_div tile {t}")
+
+        call()
+        torch.cuda.synchronize()
+        if not same(outs, ref):
+            raise RuntimeError(f"predict_div with {t} tiles changed the bits")
+        rows[f"predict_div {t[0]}x{t[1]}"] = call
+    us, vs, _ = ref
+    args = (us, vs, state.p, state.p_prime, u, v, dt, ramped_inlet(opts, state), g,
+            scene.params.inlet_profile, scene.params.flow_case, sem)
+    cref = correct_bc(*args)
+    scal3 = device_scalars(dev, dt, ramped_inlet(opts, state))
+    for r, path in strips.items():
+        lib = ctypes.CDLL(str(path))
+        fn, parts_of = lib.cfd_correct_bc_fused, lib.cfd_correct_bc_fused_partials
+        fn.argtypes = _build._SIGNATURES["cfd_correct_bc_fused"]
+        parts_of.argtypes = _build._SIGNATURES["cfd_correct_bc_fused_partials"]
+        parts = torch.empty(3 * parts_of(ny, nx), device=dev)
+        ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+        outs = tuple(torch.empty_like(x) for x in cref[:3])
+        red = torch.empty(3, device=dev)
+
+        def call(fn=fn, parts=parts, ticket=ticket, outs=outs, red=red, r=r):
+            _build.check(fn(*(x.data_ptr() for x in args[:6]), scal3.data_ptr(),
+                            *(x.data_ptr() for x in outs), parts.data_ptr(),
+                            ticket.data_ptr(), red.data_ptr(), mask_u_bc, mask_v_bc, ny, nx,
+                            0, ny, 0, ny, f32(g.dx), f32(g.dy),
+                            *ksub.inlet_args(g, scene.params.inlet_profile), stream_of(u)),
+                         f"correct_bc {r} rows")
+
+        call()
+        torch.cuda.synchronize()
+        if not same((*outs, *red), cref):
+            raise RuntimeError(f"correct_bc with {r}-row strips changed the bits")
+        rows[f"correct_bc {r} rows"] = call
+    out["candidates"] = _pair_times(rows)
+    for name, row in out["candidates"].items():
+        print(json.dumps({"candidate": name, **row}), flush=True)
+    return out
+
+
+STEP_RATE_REPEATS, STEP_RATE_STEPS, HOST_STEPS = 5, 100, 10
+
+
+def step_rates(dev) -> dict:
+    """The 2048² fast and JS QUICK shapes (cells.py's and chip_smoke.py's
+    phases 5-6): after 5 warm-up steps, STEP_RATE_REPEATS timed rollouts
+    of STEP_RATE_STEPS steps each (host clock up to a synchronize:
+    cell-updates/s, median, min, max), and the host's own cost of a step:
+    the time to enqueue HOST_STEPS steps while the device sleeps
+    (``torch.cuda._sleep``, so no launch waits on it; the rollout reads
+    nothing back), per step. A step whose host cost exceeds its device
+    time is host-bound. Uses only ``make_run``, so it times any tree."""
+    from cfd_demo_tpu_torch.cells import js_quick_scene
+    out = {}
+    for name, mk in (("2048^2 fast", fast_scene), ("2048^2 js quick", js_quick_scene)):
+        scene = mk()
+        cells = scene.grid.nx * scene.grid.ny
+        state, _ = tc.make_run(scene, 5)(scene.init_state(dev))
+        run, host_run = tc.make_run(scene, STEP_RATE_STEPS), tc.make_run(scene, HOST_STEPS)
+        rates, host = [], []
+        for _ in range(STEP_RATE_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = run(state)
+            torch.cuda.synchronize()
+            rates.append(cells * STEP_RATE_STEPS / (time.perf_counter() - t0))
+            torch.cuda._sleep(200_000_000)  # ~0.1 s of device time: more than the enqueue
+            t0 = time.perf_counter()
+            state, _ = host_run(state)
+            host.append(1e6 * (time.perf_counter() - t0) / HOST_STEPS)
+            torch.cuda.synchronize()
+        out[name] = {"cell_updates_per_s": statistics.median(rates),
+                     "range": [min(rates), max(rates)],
+                     "host_us_per_step": statistics.median(host),
+                     "host_range": [min(host), max(host)]}
+        print(json.dumps({name: out[name]}), flush=True)
+    return out
+
+
+# Kernels 1 and 3 in the built library: (name in the SASS, cells or
+# faces a thread covers, bodies: the tiled kernel holds an interior and
+# a boundary copy of its tile's code).
+SUBSTEP_KERNELS = {"predict_div_kernel": ("pointwise", 1, 1),
+                   "predict_div_tiled_kernel": ("tiled", None, 2),
+                   "correct_bc_kernel": ("pointwise", 1, 1),
+                   "correct_bc_fused_kernel": ("fused", None, 1)}
+
+
+def substep_sass_rows() -> list:
+    """Instructions a cell of kernels 1 and 3's instances in the built
+    library's SASS, counted statically: the instructions up to the last
+    EXIT (the divisions' out-of-line slow path after it left out), with
+    a loop's body (a backward branch and its target) counted once a cell
+    and the rest spread over the cells a thread covers, over the kernel's
+    bodies; also the MUFU.RCP (one a division), LDG, LDS and STG counts.
+    A static count: it takes every branch, so it bounds what a thread
+    runs from above, the division slow path aside."""
+    import os
+    import re
+    from cfd_demo_tpu_torch.kernels.substep import CORRECT_STRIP, PREDICT_TILE
+    cells = {"tiled": PREDICT_TILE[0] * PREDICT_TILE[1] / 256, "fused": CORRECT_STRIP[2]}
+    lib = _build.build()
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    out = []
+    for block in sass.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        kernel = re.search(r"(predict_div_kernel|predict_div_tiled_kernel|correct_bc_kernel|"
+                           r"correct_bc_fused_kernel)(I\w*?E)?(?:EvNS|ENS)", name)
+        if kernel is None:
+            continue
+        form, per_thread, bodies = SUBSTEP_KERNELS[kernel.group(1)]
+        per_thread = per_thread or cells[form]
+        instr = []
+        for ln in block.splitlines():
+            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", ln)
+            if m:
+                instr.append((int(m.group(1), 16), m.group(2).strip()))
+        last_exit = max(k for k, (_, op) in enumerate(instr) if re.search(r"\bEXIT\b", op))
+        main = instr[:last_exit + 1]
+        addr = {a: k for k, (a, _) in enumerate(main)}
+        loop = 0
+        for k, (_, op) in enumerate(main):
+            b = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", op)
+            if b and int(b.group(1), 16) in addr and addr[int(b.group(1), 16)] < k:
+                loop += k - addr[int(b.group(1), 16)] + 1
+        count = lambda pat: sum(bool(re.search(pat, op)) for _, op in main)
+        per_cell = (loop + (len(main) - loop) / per_thread) / bodies
+        out.append({"kernel": kernel.group(1), "template": kernel.group(2) or "",
+                    "form": form, "instructions": len(main), "in_loops": loop,
+                    "slow_path": len(instr) - len(main), "cells_a_thread": per_thread,
+                    "per_cell": per_cell, "mufu_rcp": count(r"MUFU\.RCP"),
+                    "ldg": count(r"^(@\S+ )?LDG"), "lds": count(r"^(@\S+ )?LDS"),
+                    "stg": count(r"^(@\S+ )?STG")})
+        print(json.dumps(out[-1]), flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--label", default="", help="a name for this tree in the output")
@@ -464,7 +814,13 @@ def main() -> int:
     ap.add_argument("--distinct-scenes", action="store_true",
                     help="kernel 20 against its plain version on 150 distinct scenes instead")
     ap.add_argument("--sass", action="store_true",
-                    help="count the cluster kernels' SASS instructions a strip row instead")
+                    help="count the cluster kernels' SASS instructions a strip row, and "
+                         "kernels 1 and 3's a cell, instead")
+    ap.add_argument("--step-rates", action="store_true",
+                    help="the 2048^2 fast and JS quick rates and host cost a step instead")
+    ap.add_argument("--substep-forms", action="store_true",
+                    help="time kernels 1 and 3 in both forms, and their candidate tiles, "
+                         "instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_times: needs a CUDA device")
@@ -475,7 +831,10 @@ def main() -> int:
     times = (tile_times(dev) if args.tiles else rounds_form_times(dev) if args.rounds_forms
              else ensemble_form_times(dev) if args.ensemble_forms
              else distinct_scenes(dev) if args.distinct_scenes
-             else sass_rows() if args.sass else kernel_times(dev))
+             else substep_form_times(dev) if args.substep_forms
+             else step_rates(dev) if args.step_rates
+             else sass_rows() + substep_sass_rows() if args.sass
+             else kernel_times(dev))
     report = {"label": args.label, "package": tc.__file__, "nvidia_smi": smi,
               "ms": times}
     print(json.dumps(report), flush=True)

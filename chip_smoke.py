@@ -54,7 +54,12 @@ Phases, one line each; any failure raises and exits non-zero:
    (544 rows: 512 owned, a 16-row halo) through jacobi_fused_k_shard at
    k = 10 and sor_fused_k_shard at k = 5, and each once on a column
    block, owned rows against the plain twins; predict_div and correct_bc
-   on a shard's 8-row-haloed block at a nonzero row offset;
+   on a shard's 8-row-haloed block at a nonzero row offset; wherever
+   predict_div and correct_bc are checked (the 2048^2 fast state, the JS
+   QUICK state's four predictor forms and two inlets, the row-offset
+   block), their main-path forms (the tiled predict_div, the one-launch
+   correct_bc) also against their pointwise forms bit for bit, both
+   timed;
 4. run the 800x264 default scene (the Rust app's) for 50 steps with
    make_run, print steps/s and check its physical invariants;
 5. run the benchmark's fast shape at 2048^2 (bench.py --mode fast):
@@ -105,8 +110,10 @@ Phases, one line each; any failure raises and exits non-zero:
    and 3 on the CPU path (the 800x264 one sharded on the CPU, its
    solves exiting k sweeps apart at most);
 8. require every kernel of each path to have launched in that path's
-   run (counts set to 0 just before it, read just after), the rounds
-   kernel in its cluster form on the 800x264 and 400x132 JS runs, and
+   run (counts set to 0 just before it, read just after), predict_div
+   and correct_bc in their tiled and one-launch forms on every path that
+   launches them, the rounds kernel in its cluster form on the 800x264
+   and 400x132 JS runs, and
    kernels 20 and 12 in their cluster forms on the three ensemble runs
    (printing the CTAs a scene each took).
 
@@ -226,6 +233,9 @@ KERNELS = {
 VERTEX = ("mg_residual_restrict", "mg_prolong_add")
 # The rounds kernel's launches in its cluster form (of its "launches").
 CLUSTER = "rounds_cluster"
+# Kernels 1 and 3's launches in their main-path forms (of their "launches").
+TILED, FUSED = "predict_div_tiled", "correct_bc_fused"
+FORM_OF = {TILED: "predict_div", FUSED: "correct_bc"}
 # The batched kernels' launches in their cluster form (of their "launches").
 BATCH_CLUSTER = {"substep_batch": "substep_batch_cluster",
                  "jacobi_batch": "jacobi_batch_cluster",
@@ -267,13 +277,14 @@ F32_FLOPS = 67e12
 # f32 operations per cell, counted from the kernels' sources: a folded
 # damped sweep 9 and its |change| max 3; a folded residual 8 and its
 # |r| max 2; the 2x2 restriction 1.5; the corr add 3; a cell-centred
-# sweep 10; predict_div about 100 with FIRST faces (u* and v*: 25 each,
-# each computed twice, the rhs 6), 160 with SECOND (35 each) and 200 with
-# QUICK (50 each); correct_bc about 20; a round's divergence 6 and
-# corrector 9, and correct_div about 30 (the corrector of three faces).
+# sweep 10; predict_div about 56 with FIRST faces (u* and v*: 25 each, the
+# rhs 6), 76 with SECOND (35 each) and 106 with QUICK (50 each): each face
+# once, as the function needs it; correct_bc about 20; a round's
+# divergence 6 and corrector 9, and correct_div about 30 (the corrector of
+# three faces).
 SWEEP, SWEEP_ERR, RES, RES_MAX, RESTRICT, CORR_ADD, CC_SWEEP = 9, 3, 8, 2, 1.5, 3, 10
-PREDICT, DIV_CORRECT, CORRECT_DIV = 100, 15, 30
-PREDICT_BY_SCHEME = {"FIRST": PREDICT, "SECOND": 160, "QUICK": 200}
+PREDICT, DIV_CORRECT, CORRECT_DIV = 56, 15, 30
+PREDICT_BY_SCHEME = {"FIRST": PREDICT, "SECOND": 76, "QUICK": 106}
 # A red/black SOR iteration: 10 a cell (two sums, four products, the rhs
 # term, three adds), and its |change| max 3.
 SOR_ITER = 10
@@ -366,6 +377,28 @@ def compare(name, pairs, results, timing, bnd):
                      **bnd, "library_ms": None}
 
 
+def require_pointwise_bits(name, got, ref) -> None:
+    """Every output of a kernel's form equal to its pointwise form's."""
+    for k, (a, b) in enumerate(zip(got, ref)):
+        require(bool(torch.equal(a, b)), f"{name}: output {k} differs from the pointwise "
+                f"form by {max_abs(a, b)}")
+
+
+def check_forms(name, call, entry, main, n=20):
+    """Kernels 1 and 3's main-path form (``main``: "tiled" or "fused")
+    against their pointwise form on the same inputs, bit for bit, and
+    both timed in turns (main, pointwise, pointwise, main), the means
+    recorded in ``entry`` as "<form>_ms"."""
+    require_pointwise_bits(name, call(main), call("pointwise"))
+    t = {main: [], "pointwise": []}
+    for form in (main, "pointwise", "pointwise", main):
+        t[form].append(time_ms(lambda: call(form), n))
+    entry.update({f"{f}_ms": sum(v) / len(v) for f, v in t.items()})
+    print(f"[3] {name}: the {main} form equals the pointwise form bit for bit; "
+          f"{main} {entry[main + '_ms']:.4f} ms, pointwise {entry['pointwise_ms']:.4f} ms",
+          flush=True)
+
+
 def check_kernels(dev, results):
     # 2048^2 kernels on the state after 3 steps of the fast shape.
     scene = fast_scene()
@@ -388,6 +421,8 @@ def check_kernels(dev, results):
         (time_ms(lambda: predict_div(u, v, dt, nu, g, sch, sem), 20),
          time_ms(lambda: predict_div_plain(u, v, dt, nu, g, sch, sem), 20)),
         bound(nbytes(u, v, *got, *masks_traced(g, sem, dev)[:2]), PREDICT * g.nx * g.ny))
+    check_forms("predict_div", lambda form: predict_div(u, v, dt, nu, g, sch, sem, form=form),
+                results["predict_div"].setdefault("forms", {}), "tiled")
     u_star, v_star, rhs = got
 
     k = 16
@@ -433,6 +468,8 @@ def check_kernels(dev, results):
          time_ms(lambda: correct_bc_plain(*args), 20)),
         bound(nbytes(*args[:6], *got[:3], *masks_traced(g, sem, dev)[2:]),
               20 * g.nx * g.ny))
+    check_forms("correct_bc", lambda form: correct_bc(*args, form=form),
+                results["correct_bc"].setdefault("forms", {}), "fused")
 
     # The rounds kernel at 800x264 on the state phase 4 ends at (55 steps),
     # where every step runs all its outer rounds, fed what the main path
@@ -586,12 +623,15 @@ def check_js_kernels(dev, results):
             got, ref = call(), plain()
             uv_scale = max(1.0, float(ref[0].abs().max()), float(ref[1].abs().max()))
             rhs_tol = 4 * EPS32 * uv_scale * (1 / g.dx + 1 / g.dy) / h
-            record("predict_div", f"{sem.value} {sch.value}", [
+            entry = record("predict_div", f"{sem.value} {sch.value}", [
                 ("u*", got[0], ref[0], scaled(ref[0], 1e-6)),
                 ("v*", got[1], ref[1], scaled(ref[1], 1e-6)),
                 ("rhs", got[2], ref[2], rhs_tol)], call, plain,
                 bound(nbytes(u, v, *got, *masks[:2]),
                       PREDICT_BY_SCHEME[sch.name] * cells))
+            check_forms(f"predict_div {sem.value} {sch.value}",
+                        lambda form: predict_div(u, v, dt, nu, g, sch, sem, form=form),
+                        entry, "tiled")
 
     js = tc.Semantics.JS
     u_star, v_star, _ = predict_div(u, v, dt, nu, g, scene.params.velocity_scheme, js)
@@ -599,12 +639,14 @@ def check_js_kernels(dev, results):
         args = (u_star, v_star, state.p, state.p_prime, u, v, dt, inlet, g, prof,
                 tc.FlowCase.CHANNEL, js)
         got, ref = correct_bc(*args), correct_bc_plain(*args)
-        record("correct_bc", f"js {prof.value}", [
+        entry = record("correct_bc", f"js {prof.value}", [
             (lb, a, b, scaled(b, 1e-6))
             for lb, a, b in zip(("u", "v", "p", "res_u", "res_v", "max_vel"), got, ref)],
             lambda: correct_bc(*args), lambda: correct_bc_plain(*args),
             bound(nbytes(*args[:6], *got[:3], *masks_traced(g, js, dev)[2:]),
                   20 * cells))
+        check_forms(f"correct_bc js {prof.value}",
+                    lambda form: correct_bc(*args, form=form), entry, "fused")
 
     # The rounds kernel's JS form on the JS twin's grid with QUICK faces and
     # the PARABOLIC inlet, fed what the rounds route feeds it.
@@ -1830,6 +1872,9 @@ def check_shard_kernels(dev, results, report):
          time_ms(lambda: predict_div_plain(ue, ve, dt, nu, g, sch, sem, row_offset=off),
                  5)),
         bound(nbytes(ue, ve, *got), PREDICT * ue.numel()))
+    check_forms("predict_div row_offset",
+                lambda form: predict_div(ue, ve, dt, nu, g, sch, sem, row_offset=off, form=form),
+                report["predict_div row_offset"].setdefault("forms", {}), "tiled")
     us, vs, rhs = got
     pad = lambda x: torch.nn.functional.pad(x[s * loc:(s + 1) * loc], (0, 0, loc_h, loc_h))
     ppe = shard_blocks(state.p_prime, shards, loc_h)[s]
@@ -1845,6 +1890,8 @@ def check_shard_kernels(dev, results, report):
         (time_ms(lambda: correct_bc(*args, **kw), 20),
          time_ms(lambda: correct_bc_plain(*args, **kw), 5)),
         bound(nbytes(*args[:6], *got[:3]), 20 * us.numel()))
+    check_forms("correct_bc row_offset", lambda form: correct_bc(*args, **kw, form=form),
+                report["correct_bc row_offset"].setdefault("forms", {}), "fused")
 
 
 def sharded_run(scene, state, shards, steps, no_sync):
@@ -1968,6 +2015,8 @@ def reset_counts():
         wrapper.launches = 0
     for wrapper in (solve_correct_rounds, substep_batch, jacobi_batch, substep_batch_sor):
         wrapper.cluster_launches = 0
+    predict_div.tiled_launches = 0
+    correct_bc.fused_launches = 0
 
 
 def read_counts():
@@ -1975,6 +2024,8 @@ def read_counts():
     counts[CLUSTER] = solve_correct_rounds.cluster_launches
     for name, key in BATCH_CLUSTER.items():
         counts[key] = KERNELS[name][0].cluster_launches
+    counts[TILED] = predict_div.tiled_launches
+    counts[FUSED] = correct_bc.fused_launches
     return counts
 
 
@@ -2182,7 +2233,8 @@ def main() -> int:
         for k, c in counts.items():
             require(c > 0, f"kernel {k} was not launched by the {path} run")
         if path in EXACT_PATHS:
-            others = {k: c for k, c in launches[path].items() if c and k not in names}
+            others = {k: c for k, c in launches[path].items()
+                      if c and k not in names and FORM_OF.get(k) not in names}
             require(not others, f"the {path} run launched {others} as well")
     # The rounds kernel takes its cluster form on both scenes that launch
     # it: the default 800x264 scene and the JS twin's 400x132.
@@ -2194,6 +2246,15 @@ def main() -> int:
                 f"the {path} run launched the rounds kernel's cluster form "
                 f"{launches[path][CLUSTER]} times of {launches[path]['rounds']}, "
                 f"expected {want}")
+    # Kernels 1 and 3 take their tiled and one-launch forms on every path
+    # that launches them.
+    for path in PATHS:
+        for kernel, key in (("predict_div", TILED), ("correct_bc", FUSED)):
+            n = launches[path][kernel]
+            require(launches[path][key] == n, f"the {path} run launched {kernel}'s "
+                    f"{key.split('_')[-1]} form {launches[path][key]} times of {n}")
+    print(f"[8] every path's predict_div and correct_bc launches took the tiled and "
+          f"one-launch forms", flush=True)
     # The ensembles' kernels take their cluster forms on all three paths.
     for path, kernel in ((ENS64, "substep_batch"), (ENS8, "jacobi_batch"),
                          (ENS_SOR, "substep_batch_sor")):

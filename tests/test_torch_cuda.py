@@ -1031,3 +1031,146 @@ def test_rounds_cooperative_where_the_rule_refuses(cuda):
     assert got[5].tolist() == ref[5].tolist() == [3, 160]
     with pytest.raises(ValueError, match="cluster form"):
         krounds.solve_correct_rounds(*args, 0.002, 1.0, scene, form="cluster")
+
+
+# ---------------------------------------------------------------------------
+# Kernels 1 and 3's main-path forms against their pointwise forms
+# ---------------------------------------------------------------------------
+
+# (nx, ny): odd and even, a one-tile grid, tiles straddling every edge,
+# and grids large enough for interior tiles.
+TILE_SHAPES = [(65, 47), (64, 48), (33, 17), (20, 12), (130, 97), (200, 160)]
+SIX_INSTANCES = [(s, m) for s in ("FIRST", "SECOND", "QUICK") for m in ("RUST", "JS")]
+
+
+def _tile_grid(nx, ny, six=False):
+    lx, ly = 3.0, 3.0 * ny / nx
+    obstacles = (tuple(tc.Cylinder(lx * (0.15 + 0.12 * k), ly * (0.3 + 0.4 * (k % 2)),
+                                   0.05 * ly) for k in range(6))
+                 if six else (tc.Cylinder(0.3 * lx, 0.5 * ly, 0.2 * ly),))
+    return tc.Grid(nx=nx, ny=ny, lx=lx, ly=ly, obstacles=obstacles)
+
+
+def _predict_forms(u, v, grid, scheme, semantics, **kw):
+    args = (DT, NU, grid, tc.VelocityScheme[scheme], tc.Semantics[semantics])
+    before = (ksub.predict_div.launches, ksub.predict_div.tiled_launches)
+    tiled = ksub.predict_div(u, v, *args, **kw)
+    pointwise = ksub.predict_div(u, v, *args, form="pointwise", **kw)
+    assert (ksub.predict_div.launches, ksub.predict_div.tiled_launches) == (
+        before[0] + 2, before[1] + 1)
+    return tiled, pointwise
+
+
+@pytest.mark.parametrize("scheme,semantics", SIX_INSTANCES)
+@pytest.mark.parametrize("nx,ny", TILE_SHAPES)
+def test_predict_div_tiled_is_pointwise(cuda, nx, ny, scheme, semantics):
+    """The tiled predict_div gives the pointwise form's bits on every
+    instance, one cylinder and six; and stays within the plain version's
+    tolerance."""
+    for six in (False, True):
+        grid = _tile_grid(nx, ny, six)
+        u, v, _, _ = fields(50 + nx + ny, grid, cuda)
+        tiled, pointwise = _predict_forms(u, v, grid, scheme, semantics)
+        _same_bits(tiled, pointwise, f"predict_div {nx}x{ny} six={six}")
+    ref = ksub.predict_div_plain(u.cpu(), v.cpu(), DT, NU, grid, tc.VelocityScheme[scheme],
+                                 tc.Semantics[semantics])
+    assert_close(tiled[0], ref[0])
+    assert_close(tiled[1], ref[1])
+    assert_close(tiled[2], ref[2], rtol=1e-6 / (grid.dx * DT))
+
+
+@pytest.mark.parametrize("scheme,semantics", SIX_INSTANCES)
+@pytest.mark.parametrize("off", [-16, 16, 61, 88])
+def test_predict_div_tiled_row_offset(cuda, off, scheme, semantics):
+    """Row blocks of a 200x160 grid at negative and positive offsets (the
+    top one past the grid), 96 rows: interior tiles at an offset."""
+    grid = _tile_grid(200, 160)
+    rows = 96
+    u, v, _, _ = fields(60 + off, grid, "cpu")
+    u, v = (torch.nn.functional.pad(x, (0, 0, 16, 16))[off + 16:off + 16 + rows]
+            .contiguous().to(cuda) for x in (u, v))
+    tiled, pointwise = _predict_forms(u, v, grid, scheme, semantics, row_offset=off)
+    _same_bits(tiled, pointwise, f"predict_div row_offset {off}")
+    plan = ksub.predict_tile_plan(rows, grid.nx, tc.VelocityScheme[scheme], off, grid.ny)
+    assert plan["fast"][1] > plan["fast"][0]
+
+
+def _correct_inputs(seed, grid, device):
+    return fields(seed, grid, device) + fields(seed + 1, grid, device)[:2]
+
+
+def _correct_forms(args, rest, **kw):
+    before = (ksub.correct_bc.launches, ksub.correct_bc.fused_launches)
+    fused = ksub.correct_bc(*args, *rest, **kw)
+    pointwise = ksub.correct_bc(*args, *rest, form="pointwise", **kw)
+    assert (ksub.correct_bc.launches, ksub.correct_bc.fused_launches) == (
+        before[0] + 2, before[1] + 1)
+    return fused, pointwise
+
+
+@pytest.mark.parametrize("semantics", ["RUST", "JS"])
+@pytest.mark.parametrize("profile", ["UNIFORM", "PARABOLIC", "PARABOLIC_UPPER"])
+@pytest.mark.parametrize("nx,ny", TILE_SHAPES)
+def test_correct_bc_fused_is_pointwise(cuda, nx, ny, profile, semantics):
+    """The one-launch correct_bc gives the pointwise form's bits on u, v,
+    p and the three maxima, and the plan's CTA count is the kernel's."""
+    grid = _tile_grid(nx, ny, six=True)
+    args = _correct_inputs(70 + nx, grid, cuda)
+    rest = (DT, INLET, grid, tc.InletProfile[profile], tc.FlowCase.CHANNEL,
+            tc.Semantics[semantics])
+    fused, pointwise = _correct_forms(args, rest)
+    _same_bits(fused, pointwise, f"correct_bc {nx}x{ny} {profile}")
+    ref = ksub.correct_bc_plain(*(a.cpu() for a in args), *rest)
+    for a, b in zip(fused, ref):
+        assert_close(a, b)
+    lib = ksub.load()
+    assert (lib.cfd_correct_bc_fused_partials(ny, nx)
+            == ksub.correct_strip_plan(ny, nx)["partials"])
+
+
+@pytest.mark.parametrize("own", [(16, 80), (0, 96), (1, 2), (63, 95)])
+@pytest.mark.parametrize("off", [-16, 40, 80])
+def test_correct_bc_fused_owned_rows(cuda, off, own):
+    """Owned-row windows of a row block: only they enter the maxima, as
+    in the pointwise form (the same bits)."""
+    grid = _tile_grid(200, 160)
+    rows = 96
+    args = tuple(torch.nn.functional.pad(x, (0, 0, 16, 16))[off + 16:off + 16 + rows]
+                 .contiguous().to(cuda) for x in _correct_inputs(80 + off, grid, "cpu"))
+    rest = (DT, INLET, grid, tc.InletProfile.PARABOLIC, tc.FlowCase.CHANNEL, RUST)
+    kw = dict(row_offset=off, own_rows=own)
+    fused, pointwise = _correct_forms(args, rest, **kw)
+    _same_bits(fused, pointwise, f"correct_bc row_offset {off} own {own}")
+    ref = ksub.correct_bc_plain(*(a.cpu() for a in args), *rest, **kw)
+    for a, b in zip(fused[3:], ref[3:]):
+        assert_close(a, b)
+
+
+@pytest.mark.parametrize("form", ["fused", "pointwise"])
+def test_correct_bc_nan_comes_out(cuda, form):
+    """A NaN in u* comes out in res_u and max_vel, as pmax (and
+    torch.amax) give it, not in res_v."""
+    grid = _tile_grid(200, 160)
+    args = list(_correct_inputs(90, grid, cuda))
+    args[0][77, 101] = float("nan")
+    rest = (DT, INLET, grid, tc.InletProfile.UNIFORM, tc.FlowCase.CHANNEL, RUST)
+    got = ksub.correct_bc(*args, *rest, form=form)
+    assert torch.isnan(got[3]) and torch.isnan(got[5]) and not torch.isnan(got[4])
+    ref = ksub.correct_bc_plain(*(a.cpu() for a in args), *rest)
+    assert torch.isnan(ref[3]) and torch.isnan(ref[5])
+
+
+def test_correct_bc_ticket_resets(cuda):
+    """Calls in a row (the same shape and stream: the same partials and
+    counter) give the same result; a smaller maximum after a larger one
+    comes out, so no stale partial survives."""
+    grid = _tile_grid(200, 160)
+    rest = (DT, INLET, grid, tc.InletProfile.UNIFORM, tc.FlowCase.CHANNEL, RUST)
+    big = _correct_inputs(91, grid, cuda)
+    small = tuple(0.01 * x for x in big)
+    first = ksub.correct_bc(*big, *rest)
+    second = ksub.correct_bc(*big, *rest)
+    _same_bits(first, second, "two calls")
+    third = ksub.correct_bc(*small, *rest)
+    _same_bits(third, ksub.correct_bc(*small, *rest, form="pointwise"), "after a larger")
+    assert float(third[5]) < float(first[5])
