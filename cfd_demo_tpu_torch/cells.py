@@ -1,6 +1,6 @@
 """The port's measured shapes, and where their device time goes.
 
-Twelve cells, each at full size, from the JAX package's own defaults:
+Thirteen cells, each at full size, from the JAX package's own defaults:
 
 - :func:`reference_scene`: the README quick start, the Rust app's
   800x264 cylinder channel with default parameters and solver options
@@ -35,7 +35,12 @@ Twelve cells, each at full size, from the JAX package's own defaults:
   start; the rounds-kernel route once a substep);
 - :func:`js_quick_scene`: ``bench.py --mode fast``'s grid and fixed
   schedule with JS semantics, QUICK faces and the PARABOLIC inlet, one
-  substep (the fused route with those kernel variants).
+  substep (the fused route with those kernel variants);
+- :func:`cavity_scene` at 1024²: ``python -m cfd_demo_tpu.apps.cavity
+  --n 1024`` (BASELINE config 2, the lid-driven cavity with the app's
+  dt 0.002, viscosity 1e-2 and lid 1.0, Rust defaults: up to 20 outer
+  rounds; the rounds kernel's CAVITY instance in its cooperative form,
+  since no cluster holds 1024 columns).
 
 :data:`SHARDED` names the row-sharded paths (shard/step_shmap.py) that
 ``chip_smoke.py`` runs, each a scene above on a row mesh of n shards
@@ -72,8 +77,8 @@ import time
 
 import torch
 
-from .core.config import (Cylinder, Grid, InletProfile, PressureSolver,
-                          Semantics, SimulationParams, VelocityScheme,
+from .core.config import (Cylinder, FlowCase, Grid, InletProfile, PressureSolver,
+                          Semantics, SimulationParams, VelocityScheme, cavity_grid,
                           default_grid, default_js_grid, solver_options_for)
 from .apps.ensemble import ensemble_scene, ensemble_state
 from .kernels import mg, mgp
@@ -98,13 +103,16 @@ def _bench_grid(n):
                 obstacles=(Cylinder(7.5, 15.0, 0.75),))
 
 
+# bench.py --mode fast's schedule (bench.py:78-86): a fixed 50-sweep
+# Jacobi, no outer rounds, no host read.
+FAST_SCHEDULE = dict(ramp_up_steps=10, jacobi_tol=0.0, jacobi_iters=50,
+                     outer_corrector_rounds=0, early_exit=False)
+
+
 def fast_scene(n: int = 2048):
     """bench.py --mode fast (bench.py:78-86)."""
-    opts = solver_options_for(
-        Semantics.RUST, ramp_up_steps=10, jacobi_tol=0.0, jacobi_iters=50,
-        outer_corrector_rounds=0, early_exit=False)
     return make_scene(_bench_grid(n), SimulationParams(dt=0.002, viscosity=1e-4),
-                      opts)
+                      solver_options_for(Semantics.RUST, **FAST_SCHEDULE))
 
 
 def reference_mode_scene(n: int = 2048, rounds_impl: str = "auto"):
@@ -137,6 +145,21 @@ def js_quick_scene(n: int = 2048):
         inlet_profile=InletProfile.PARABOLIC), opts)
 
 
+def cavity_scene(n: int = 1024, **opts):
+    """The cavity app's scene (cfd_demo_tpu/apps/cavity.py): cavity_grid(n),
+    dt 0.002, viscosity 1e-2, lid speed 1.0, Rust semantics with ``opts``
+    over its defaults."""
+    return make_scene(cavity_grid(n), SimulationParams(
+        dt=0.002, viscosity=1e-2, target_inlet_velocity=1.0, flow_case=FlowCase.CAVITY),
+        solver_options_for(Semantics.RUST, **opts))
+
+
+def cavity_fast_scene(n: int = 2048):
+    """The cavity app's scene on bench.py --mode fast's schedule: at 2048²
+    the fused route, kernels 1, 2 and 3 in their cavity forms."""
+    return cavity_scene(n, **FAST_SCHEDULE)
+
+
 def production_scene(n: int = 2048):
     """bench.py --mode production (bench.py:87-96)."""
     return make_scene(
@@ -149,11 +172,9 @@ def production_scene(n: int = 2048):
 
 def sor_scene(n: int = 2048):
     """bench.py --mode sor (bench.py:105-116)."""
-    opts = solver_options_for(
-        Semantics.RUST, ramp_up_steps=10, jacobi_tol=0.0, jacobi_iters=50,
-        outer_corrector_rounds=0, early_exit=False)
     return make_scene(_bench_grid(n), SimulationParams(
-        dt=0.002, viscosity=1e-4, pressure_solver=PressureSolver.SOR), opts)
+        dt=0.002, viscosity=1e-4, pressure_solver=PressureSolver.SOR),
+        solver_options_for(Semantics.RUST, **FAST_SCHEDULE))
 
 
 def fdm_scene(n: int = 2048):
@@ -259,6 +280,7 @@ CELLS = {
     "2048^2 production legacy": (legacy_production_scene, 5, 20, None),
     "400x132 js default": (js_default_scene, 100, 50, None),
     "2048^2 js quick": (js_quick_scene, 5, 100, None),
+    "1024^2 cavity": (cavity_scene, 5, 20, None),
 }
 # The sharded paths: name -> (scene, shards, warm-up steps, timed steps).
 SHARDED = {
@@ -280,9 +302,9 @@ def _counts(*wrappers):
 TRACED = {"predict_div_kernel<": lambda: predict_div.launches - predict_div.tiled_launches,
           "predict_div_tiled_kernel<": lambda: predict_div.tiled_launches,
           "correct_bc_kernel(": lambda: correct_bc.launches - correct_bc.fused_launches,
-          "correct_bc_fused_kernel(": lambda: correct_bc.fused_launches,
+          "correct_bc_fused_kernel<": lambda: correct_bc.fused_launches,
           "correct_div_kernel(": _counts(correct_div),
-          "rounds_kernel(": lambda: (solve_correct_rounds.launches
+          "rounds_kernel<": lambda: (solve_correct_rounds.launches
                                      - solve_correct_rounds.cluster_launches),
           "rounds_cluster_kernel<": lambda: solve_correct_rounds.cluster_launches,
           "ensemble_substep_kernel(": lambda: (

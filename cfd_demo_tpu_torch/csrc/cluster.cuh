@@ -167,6 +167,9 @@ __device__ __forceinline__ Slab slab_setup(cg::cluster_group cl, int ny, int nx,
 // err < tol`, under which a NaN error sweeps on), the folded boundary
 // reads, then the p' BCs once, rows then columns, from interior values
 // only; the result lands in cur, other is the ping-pong buffer.
+// CAVITY (Jacobi only; the rounds kernel's cavity instances): E at
+// column nx-2 reads the cell itself (jacobi_pallas.py:133-134), and the
+// BCs copy column nx-2 into column nx-1 and pin (0, 0) to 0.
 // Thread t holds columns 4g .. 4g + 3 (g = t % (P / 4)) of RT slab rows
 // from RT (t / (P / 4)) as float4s in registers; E and W come from the
 // neighbouring lanes by shuffle (from shared memory where the lane or the
@@ -176,7 +179,11 @@ __device__ __forceinline__ Slab slab_setup(cg::cluster_group cl, int ny, int nx,
 // into the halo row. Two folds are kept as invariants instead of tests:
 // the outlet column holds 0 (E at nx - 2 reads 0) and column 0 holds
 // column 1's value (W at 1 reads the cell); the BC pass restores both
-// anyway. So a row of interior cells needs no test a cell: it is computed
+// anyway. In CAVITY, where columns nx-2 and nx-1 share a float4 ((nx-1)
+// % 4 != 0), column nx-1 holds column nx-2's value, one lane copy after
+// each sweep, so E at nx - 2 reads the cell with no test; where column
+// nx-1 is the next thread's .x it keeps the outlet's 0 and the thread
+// holding nx-2 as .w takes its own .w for E (one select a row). So a row of interior cells needs no test a cell: it is computed
 // whole, its outlet and padding columns set back to 0 and column 0 to
 // column 1 (|delta| there is then 0, or column 1's); only the rows next
 // to the field's edge or past the slab take the tests. arr: ar * rhs in
@@ -197,7 +204,7 @@ __device__ __forceinline__ Slab slab_setup(cg::cluster_group cl, int ny, int nx,
 // column 1. err is the max over both halves of each cell's |change| at
 // its own update. Every exchange carries every CTA's max, so no CTA runs
 // more than one exchange ahead of another, as the mbarrier phases need.
-template <int RT, bool RHS_SMEM, bool SOR, bool MASKED, typename Args>
+template <int RT, bool RHS_SMEM, bool SOR, bool MASKED, bool CAVITY = false, typename Args>
 __device__ float cluster_solve(const Args& A, Slab& S, unsigned* cmax, const float* arr,
                                float*& cur, float*& other) {
     const int ny = A.ny, nx = A.nx, P = S.P, n4 = P / 4, nrow = S.nrow;
@@ -207,11 +214,14 @@ __device__ float cluster_solve(const Args& A, Slab& S, unsigned* cmax, const flo
     const bool w_shfl = lane > 0 && g > 0, e_shfl = lane < 31 && g < n4 - 1;
     const bool shared_cols = lane == 0 || lane == 31;  // read by the next warp
     bool cin[4], zero[4];  // interior column; outlet or padding column
+    bool mir[4];           // CAVITY: column nx-1 mirroring nx-2 in this float4
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
         cin[q] = gi0 + q >= 1 && gi0 + q <= nx - 2;
-        zero[q] = gi0 + q >= nx - 1;
+        mir[q] = CAVITY && q > 0 && gi0 + q == nx - 1;
+        zero[q] = CAVITY ? gi0 + q >= nx || (q == 0 && gi0 == nx - 1) : gi0 + q >= nx - 1;
     }
+    const bool e_self = CAVITY && gi0 + 3 == nx - 2;  // E of .w is column nx-1's 0
     // rows that take the tests: past the slab, or within 1 of the edge
     unsigned tested = 0;
 #pragma unroll
@@ -232,8 +242,10 @@ __device__ float cluster_solve(const Args& A, Slab& S, unsigned* cmax, const flo
             v = *at;
             if (g == 0) v.x = v.y;
 #pragma unroll
-            for (int q = 0; q < 4; ++q)
-                if (gi0 + q == nx - 1) at4(v, q) = 0.0f;
+            for (int q = 0; q < 4; ++q) {
+                if (CAVITY ? zero[q] : gi0 + q == nx - 1) at4(v, q) = 0.0f;
+                if (mir[q]) at4(v, q) = at4(v, q - 1);
+            }
             *at = v;
         }
         val[r] = v;
@@ -280,6 +292,7 @@ __device__ float cluster_solve(const Args& A, Slab& S, unsigned* cmax, const flo
                     const float* crow = row_of(S, cur, lr);
                     if (!w_shfl) Wl = (g > 0) ? crow[gi0 - 1] : C.x;
                     if (!e_shfl) Er = (g < n4 - 1) ? crow[gi0 + 4] : C.w;
+                    if (CAVITY && e_self) Er = C.w;
                     float4 R;
                     if (RHS_SMEM) {
                         R = *reinterpret_cast<const float4*>(arr + (size_t)lr * P + gi0);
@@ -335,8 +348,14 @@ __device__ float cluster_solve(const Args& A, Slab& S, unsigned* cmax, const flo
                                               ? at4(nv, q) : at4(C, q);
                     }
                     // column 0 mirrors column 1, whose old value it holds:
-                    // its |delta| is column 1's
+                    // its |delta| is column 1's (CAVITY: and column nx-1
+                    // column nx-2's)
                     if (g == 0) out.x = out.y;
+                    if constexpr (CAVITY) {
+#pragma unroll
+                        for (int q = 1; q < 4; ++q)
+                            if (mir[q]) at4(out, q) = at4(out, q - 1);
+                    }
                     // |out - C| is 0 where nothing changed
                     mbits = max(mbits, __float_as_uint(out.x - C.x) & 0x7fffffffu);
                     mbits = max(mbits, __float_as_uint(out.y - C.y) & 0x7fffffffu);
@@ -384,16 +403,18 @@ __device__ float cluster_solve(const Args& A, Slab& S, unsigned* cmax, const flo
                 *reinterpret_cast<float4*>(row_of(S, cur, lr0 + r) + gi0) = val[r];
     }
     cluster_barrier();  // the last exchange's rows, before the BC pass reads them
-    // p' BCs, rows then columns, from interior values only.
+    // p' BCs, rows then columns, from interior values only (CAVITY: the
+    // right column from column nx-2, then the gauge cell (0, 0) 0).
     for (int q = t; q < nrow * nx; q += kCThreads) {
         const int r = q / nx, i = q - r * nx, j = S.r0 + r;
         if (j >= 1 && j <= ny - 2 && i >= 1 && i <= nx - 2) continue;
         float v = 0.0f;
-        if (i != nx - 1) {
-            const int ii = (i == 0) ? 1 : i;
+        if (CAVITY || i != nx - 1) {
+            const int ii = (i == 0) ? 1 : (CAVITY && i == nx - 1) ? nx - 2 : i;
             const int jj = (j == 0) ? 1 : (j == ny - 1) ? ny - 2 : j;
             v = slab_at(S, cur, jj, ii);
         }
+        if (CAVITY && i == 0 && j == 0) v = 0.0f;
         row_of(S, cur, r)[i] = v;
     }
     cluster_barrier();
@@ -449,28 +470,40 @@ __device__ void cluster_divergence(const Args& A, const Slab& S, int scene, floa
 // The velocity BCs (ops/bc.py) on the slab's rows of scene `scene`: the
 // inlet (UNIFORM, or a parabola), the outlet copying the corrected
 // u[:, nx-1] (staged in `stage` before the solid mask may zero it), the
-// walls, A's BC masks (one for every scene).
-template <typename Args>
+// walls, A's BC masks (one for every scene). CAVITY: the lid (`in` holds
+// the lid's profile, lid_at), the floor and the side walls.
+template <bool CAVITY = false, typename Args>
 __device__ void cluster_bcs(const Args& A, const Slab& S, int scene, float* stage,
                             const Inlet& in, float inlet) {
     const int ny = A.ny, nx = A.nx, tid = threadIdx.x;
     float* u = A.u + (size_t)scene * ny * (nx + 1);
     float* v = A.v + (size_t)scene * ny * nx;
     const size_t o = (size_t)S.r0 * nx, ou = (size_t)S.r0 * (nx + 1);
-    for (int r = tid; r < S.nrow; r += kCThreads)
-        stage[r] = __ldcg(u + (size_t)(S.r0 + r) * (nx + 1) + nx - 1);
-    __syncthreads();
+    if constexpr (!CAVITY) {
+        for (int r = tid; r < S.nrow; r += kCThreads)
+            stage[r] = __ldcg(u + (size_t)(S.r0 + r) * (nx + 1) + nx - 1);
+        __syncthreads();
+    }
     for (int q = tid; q < S.nrow * (nx + 1); q += kCThreads) {
         const int r = q / (nx + 1), i = q - r * (nx + 1), j = S.r0 + r;
         const size_t ku = ou + q;
-        float x = (i == 0) ? inlet_at(in, inlet, j) : (i == nx) ? stage[r] : __ldcg(u + ku);
-        if (j == 0 || j == ny - 1) x = 0.0f;
+        float x;
+        if constexpr (CAVITY) {
+            x = (j == ny - 1) ? lid_at(in, inlet, i) : __ldcg(u + ku);
+            if (j == 0 || i == 0 || i == nx) x = 0.0f;
+        } else {
+            x = (i == 0) ? inlet_at(in, inlet, j) : (i == nx) ? stage[r] : __ldcg(u + ku);
+            if (j == 0 || j == ny - 1) x = 0.0f;
+        }
         if (masked(A.mask_u_bc, ku)) x = 0.0f;
         u[ku] = x;
     }
     for (int q = tid; q < S.nrow * nx; q += kCThreads) {
         const size_t k = o + q;
-        if (S.r0 + q / nx == 0 || masked(A.mask_v_bc, k)) v[k] = 0.0f;
+        const int i = q % nx;
+        if (S.r0 + q / nx == 0 || (CAVITY && (i == 0 || i == nx - 1)) ||
+            masked(A.mask_v_bc, k))
+            v[k] = 0.0f;
     }
 }
 

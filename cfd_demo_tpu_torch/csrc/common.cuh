@@ -31,16 +31,28 @@ __device__ __forceinline__ bool masked(const uint8_t* m, size_t k) {
 // The inlet profile (ops/bc.py inlet_profile_column): UNIFORM gives the
 // ramped inlet speed; a parabola of centre c and half-width r (PARABOLIC
 // or PARABOLIC_UPPER) gives max(inlet (1 - ((y - c) / r)^2), 0) at
-// y = (j + 0.5) dy, in the JAX package's f32 order (inlet_profile_traced).
+// y = (j + 0.5) h, h = dy, in the JAX package's f32 order
+// (inlet_profile_traced). The cavity's lid (lid_at) takes the same
+// struct with h = dx and c = r = lx / 2.
 struct Inlet {
     int parabolic;
-    float dy, c, r;
+    float h, c, r;  // the spacing along the profile, its centre and half-width
 };
 
 __device__ __forceinline__ float inlet_at(const Inlet& in, float inlet, int j) {
     if (!in.parabolic) return inlet;
-    const float t = (((float)j + 0.5f) * in.dy - in.c) / in.r;
+    const float t = (((float)j + 0.5f) * in.h - in.c) / in.r;
     return pmax(inlet * (1.0f - t * t), 0.0f);
+}
+
+// The cavity's lid at u face i (ops/bc.py lid_profile_row, JAX
+// ops/bc.py:99-110): UNIFORM gives the ramped lid speed; a parabola (either
+// parabolic profile) max(lid (1 - ((x - c) / r)^2), 0) at x = i h, h = dx,
+// c = r = lx / 2, in the JAX package's f32 order.
+__device__ __forceinline__ float lid_at(const Inlet& in, float lid, int i) {
+    if (!in.parabolic) return lid;
+    const float t = ((float)i * in.h - in.c) / in.r;
+    return pmax(lid * (1.0f - t * t), 0.0f);
 }
 
 // Max over all threads of a block; every thread gets the result.

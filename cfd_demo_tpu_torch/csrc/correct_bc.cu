@@ -1,5 +1,7 @@
 // Fused corrector + velocity BCs + step reductions, CHANNEL flow with a
-// UNIFORM, PARABOLIC or PARABOLIC_UPPER inlet and either semantics' BC masks.
+// UNIFORM, PARABOLIC or PARABOLIC_UPPER inlet and either semantics' BC masks,
+// or (the one-launch form's CAVITY instance, a template flag) the
+// lid-driven cavity's walls and its UNIFORM or parabolic lid.
 // Replaces cfd_demo_tpu/kernels/substep_pallas.py correct_bc_pallas
 // (_kernel_post). See kernels/substep.py for the design note.
 //
@@ -12,7 +14,7 @@
 //
 // Two forms, the same bits: the one-launch kernel (the main path) and the
 // pointwise kernel with its second, reducing launch, kept to hold it
-// against.
+// against (CHANNEL only).
 #include "common.cuh"
 
 namespace {
@@ -168,10 +170,13 @@ __device__ __forceinline__ FaceIn load_face(const CorrArgs& A, bool in, int j, i
 // inputs loaded before this row's outputs are computed and stored (one
 // row in flight ahead: read-only loads, issued before the stores in
 // program order). Each face gets the pointwise form's arithmetic: the
-// corrector, the BCs in ops/bc.py's order (inlet, the outlet's copy of
-// the corrected u[j, nx-1], no-slip rows, solid mask), v with p'[j-1]
-// carried from the row below (0 past the block's first row, a halo row),
-// p; owned rows fold into m.
+// corrector, the BCs in ops/bc.py's order (CHANNEL: inlet, the outlet's
+// copy of the corrected u[j, nx-1], no-slip rows, solid mask; CAVITY: the
+// lid on row gny-1, the floor, the side walls u[:, 0] = u[:, nx] = 0 and
+// v[:, 0] = v[:, nx-1] = 0, solid mask), v with p'[j-1] carried from the
+// row below (0 past the block's first row, a halo row), p; owned rows
+// fold into m.
+template <bool CAVITY>
 __device__ __forceinline__ void correct_strip(const CorrArgs& A, int jb, int i, float m[3]) {
     const int ny = A.ny, nx = A.nx, wu = nx + 1, gny = A.gny;
     const float dt = A.scal[0], inlet = A.scal[1];
@@ -186,10 +191,16 @@ __device__ __forceinline__ void correct_strip(const CorrArgs& A, int jb, int i, 
         const FaceIn nxt = load_face(A, r + 1 < kCR && j + 1 < ny, j + 1, i, ic, hv, corr);
         const bool own = j >= A.own_lo && j < A.own_hi;
         float uval;
-        if (i == 0) uval = inlet_at(A.in, inlet, gj);
-        else if (corr) uval = cur.us - div_rn(dt * (cur.pc - cur.pw), A.dx);
-        else uval = cur.us;
-        if (gj == 0 || gj == gny - 1) uval = 0.0f;
+        if constexpr (CAVITY) {
+            uval = corr ? cur.us - div_rn(dt * (cur.pc - cur.pw), A.dx) : cur.us;
+            if (gj == gny - 1) uval = lid_at(A.in, inlet, i);
+            if (gj == 0 || i == 0 || i == nx) uval = 0.0f;
+        } else {
+            if (i == 0) uval = inlet_at(A.in, inlet, gj);
+            else if (corr) uval = cur.us - div_rn(dt * (cur.pc - cur.pw), A.dx);
+            else uval = cur.us;
+            if (gj == 0 || gj == gny - 1) uval = 0.0f;
+        }
         if (cur.mu) uval = 0.0f;
         A.u[(size_t)j * wu + i] = uval;
         if (own) {
@@ -201,6 +212,7 @@ __device__ __forceinline__ void correct_strip(const CorrArgs& A, int jb, int i, 
             float vval = cur.vs;
             if (gj >= 1) vval = vval - div_rn(dt * (cur.pc - pS), A.dy);
             if (gj == 0) vval = 0.0f;
+            if (CAVITY && (i == 0 || i == nx - 1)) vval = 0.0f;
             if (cur.mv) vval = 0.0f;
             A.v[k] = vval;
             A.p_out[k] = cur.p + cur.pc;
@@ -219,6 +231,7 @@ __device__ __forceinline__ void correct_strip(const CorrArgs& A, int jb, int i, 
 // to finish (a ticket: the counter's atomicAdd after a __threadfence)
 // reduces the partials into red and sets the counter back to 0 for the
 // next launch.
+template <bool CAVITY>
 __global__ void __launch_bounds__(kCThreads) correct_bc_fused_kernel(CorrArgs A,
                                                                      unsigned* ticket,
                                                                      float* red) {
@@ -227,7 +240,7 @@ __global__ void __launch_bounds__(kCThreads) correct_bc_fused_kernel(CorrArgs A,
     const int i = blockIdx.x * kCX + threadIdx.x;
     const int jb = (blockIdx.y * kCY + threadIdx.y) * kCR;
     float m[3] = {0.0f, 0.0f, 0.0f};
-    if (i <= A.nx && jb < A.ny) correct_strip(A, jb, i, m);
+    if (i <= A.nx && jb < A.ny) correct_strip<CAVITY>(A, jb, i, m);
     cta_max3(m, sh);
     const unsigned nctas = gridDim.x * gridDim.y;
     if (threadIdx.x == 0 && threadIdx.y == 0) {
@@ -283,9 +296,10 @@ extern "C" int cfd_correct_bc_fused_partials(int ny, int nx) {
     return ((nx + 1 + kCX - 1) / kCX) * ((ny + kCY * kCR - 1) / (kCY * kCR));
 }
 
-// The one-launch form: the same arguments, and `ticket`, a device counter
+// The one-launch form: the same arguments, `ticket`, a device counter
 // that is 0 before the launch and 0 after it (the partials and the
-// counter belong to one launch at a time: one stream).
+// counter belong to one launch at a time: one stream), and `cavity`: the
+// CAVITY instance, whose lid (center, radius: lx / 2) runs along x.
 extern "C" int cfd_correct_bc_fused(const float* us, const float* vs, const float* p,
                                     const float* pp, const float* ue, const float* ve,
                                     const float* scal, float* u, float* v, float* p_out,
@@ -293,12 +307,16 @@ extern "C" int cfd_correct_bc_fused(const float* us, const float* vs, const floa
                                     const uint8_t* mask_u_bc, const uint8_t* mask_v_bc,
                                     int ny, int nx, int row_off, int gny, int own_lo,
                                     int own_hi, float dx, float dy, int parabolic,
-                                    float center, float radius, void* stream) {
+                                    float center, float radius, int cavity,
+                                    void* stream) {
     CorrArgs A{us, vs, p, pp, ue, ve, scal, u, v, p_out, partials, mask_u_bc, mask_v_bc,
                ny, nx, row_off, gny, own_lo, own_hi, dx, dy,
-               Inlet{parabolic, dy, center, radius}};
+               Inlet{parabolic, cavity ? dx : dy, center, radius}};
     dim3 block(kCX, kCY);
     dim3 grid((nx + 1 + kCX - 1) / kCX, (ny + kCY * kCR - 1) / (kCY * kCR));
-    correct_bc_fused_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(A, ticket, red);
+    if (cavity)
+        correct_bc_fused_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(A, ticket, red);
+    else
+        correct_bc_fused_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(A, ticket, red);
     return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
-// k damped-Jacobi sweeps on p' with folded boundary reads, CHANNEL flow.
-// Replaces cfd_demo_tpu/kernels/jacobi_pallas.py jacobi_fused_k (_kernel)
-// and, on a sharded tier's halo-extended block, jacobi_fused_k_shard
-// (_kernel_shard).
+// k damped-Jacobi sweeps on p' with folded boundary reads. Replaces
+// cfd_demo_tpu/kernels/jacobi_pallas.py jacobi_fused_k (_kernel), CHANNEL
+// and CAVITY flow, and, on a sharded tier's halo-extended block (CHANNEL
+// only), jacobi_fused_k_shard (_kernel_shard).
 //
 // jacobi_fused_k (kernel 2) is temporally blocked, as the TPU kernel's
 // VMEM window was: one launch runs up to kT sweeps of a tile in shared
@@ -37,6 +37,12 @@
 //   (8, 32, 4) 112x112 0.1656  (8, 8, 16) 112x112 0.1936  (16, 16, 8) 96x96 0.1613
 //   (16, 32, 4) 96x96 0.1816
 // t = 8 on 512 threads of 8 rows, a 128x128 window, is the constant.
+//
+// CAVITY is a template flag (jacobi_pallas.py:133-134, :185-187): E at
+// column nx-2 folds to the cell itself instead of the outlet's 0, and the
+// last launch's ring copies column nx-2 into column nx-1 and pins (0, 0)
+// to 0 (the all-Neumann system's gauge). The channel instance is the
+// code it was before the flag.
 //
 // jacobi_fused_k_shard (kernel 11) keeps the per-sweep kernels of
 // sweep.cuh; see kernels/jacobi.py for the design notes.
@@ -90,6 +96,7 @@ __device__ __forceinline__ int tile_origin(int b, int t, int n) {
 // Thread (lane, ty) holds window columns 4 lane .. 4 lane + 3 of rows
 // ty kR .. ty kR + kR - 1 as float4s; E and W come from the neighbouring
 // lanes by shuffle, the strip's end rows from the previous sweep's buffer.
+template <bool CAVITY>
 __global__ void __launch_bounds__(kTThreads) tiled_kernel(
     const float* __restrict__ src, const float* __restrict__ rhs, float* __restrict__ dst,
     float* err, int ny, int nx, int ts, int last, float ax, float ay, float ar, float ac) {
@@ -182,7 +189,7 @@ __global__ void __launch_bounds__(kTThreads) tiled_kernel(
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
                 const float c = comp(C, q);
-                const float e = (gi0 + q == nx - 2) ? 0.0f : comp(E, q);
+                const float e = (gi0 + q == nx - 2) ? (CAVITY ? c : 0.0f) : comp(E, q);
                 const float w = (gi0 + q == 1) ? c : comp(W, q);
                 const float n = (gj == ny - 2) ? c : comp(N, q);
                 const float sv = (gj == 1) ? c : comp(S, q);
@@ -201,7 +208,9 @@ __global__ void __launch_bounds__(kTThreads) tiled_kernel(
     }
 
     // The owned cells; in the last launch the ring cells take the p' BCs
-    // (ring_cell's rule) from the final sweep's buffer.
+    // from the final sweep's buffer: the interior cell they copy (rows
+    // first, then columns: a corner takes the diagonal cell), the outlet 0
+    // (CHANNEL) or column nx-2 and the gauge cell (0, 0) 0 (CAVITY).
     const float* fin = (ts & 1) ? buf1 : buf0;
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
@@ -213,11 +222,12 @@ __global__ void __launch_bounds__(kTThreads) tiled_kernel(
             const int gi = gi0 + q;
             if (last && (gi == 0 || gi == nx - 1 || gj == 0 || gj == ny - 1)) {
                 float x = 0.0f;  // the outlet (Dirichlet)
-                if (gi != nx - 1) {
-                    const int ii = (gi == 0) ? 1 : gi;
+                if (CAVITY || gi != nx - 1) {
+                    const int ii = (gi == 0) ? 1 : (CAVITY && gi == nx - 1) ? nx - 2 : gi;
                     const int jj = (gj == 0) ? 1 : (gj == ny - 1) ? ny - 2 : gj;
                     x = fin[(jj - wy0) * kWX + (ii - wx0)];
                 }
+                if (CAVITY && gi == 0 && gj == 0) x = 0.0f;
                 comp(o, q) = x;
             }
         }
@@ -241,13 +251,15 @@ __global__ void __launch_bounds__(kTThreads) tiled_kernel(
 
 // Kernel 2: k sweeps from pp_in into `out` (pp_in is not written),
 // ping-ponging whole launches through `tmp`; err[0] gets the last
-// sweep's max |delta| over the interior.
+// sweep's max |delta| over the interior. `cavity` takes the CAVITY
+// instance.
 extern "C" int cfd_jacobi_fused_k(const float* pp_in, const float* rhs, float* out,
                                   float* tmp, float* err, int ny, int nx, int k, float ax,
-                                  float ay, float ar, float ac, void* stream) {
+                                  float ay, float ar, float ac, int cavity, void* stream) {
     if (k < 1 || ny < 3 || nx < 3) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    cudaError_t e = cudaFuncSetAttribute(tiled_kernel,
+    const auto kern = cavity ? tiled_kernel<true> : tiled_kernel<false>;
+    cudaError_t e = cudaFuncSetAttribute(kern,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kSmem);
     if (e == cudaSuccess) e = cudaMemsetAsync(err, 0, sizeof(float), st);
@@ -258,8 +270,8 @@ extern "C" int cfd_jacobi_fused_k(const float* pp_in, const float* rhs, float* o
     for (int l = 0; l < n; ++l) {
         const int ts = (l == n - 1) ? k - (n - 1) * kT : kT;
         float* dst = ((n - 1 - l) & 1) ? tmp : out;
-        tiled_kernel<<<grid, dim3(32, kTBY), kSmem, st>>>(src, rhs, dst, err, ny, nx, ts,
-                                                         l == n - 1, ax, ay, ar, ac);
+        kern<<<grid, dim3(32, kTBY), kSmem, st>>>(src, rhs, dst, err, ny, nx, ts, l == n - 1,
+                                                 ax, ay, ar, ac);
         e = cudaGetLastError();
         if (e != cudaSuccess) return (int)e;
         src = dst;

@@ -1,7 +1,9 @@
 // The whole pressure projection of one scene in one launch: exact
 // do-while Jacobi, corrector, up to `rounds` outer corrector rounds with an
 // exact exit, then the velocity BCs (CHANNEL, UNIFORM or parabolic inlet,
-// either semantics' BC masks). JS's zero warm start arrives as pp0.
+// either semantics' BC masks; or CAVITY, a template flag of both forms:
+// the all-Neumann p' folds and BCs with the (0, 0) gauge, the lid and the
+// walls). JS's zero warm start arrives as pp0.
 // Replaces cfd_demo_tpu/kernels/rounds_pallas.py solve_correct_rounds_pallas
 // (_kernel_rounds) with its in-kernel solver ensemble_pallas.make_jacobi_solve.
 // See kernels/rounds.py for the design note.
@@ -97,8 +99,10 @@ __device__ float grid_max(const RoundsArgs& A, Ctx& c, float m) {
 }
 
 // ensemble_pallas.make_jacobi_solve: do-while `it == 0 or (it < iters and
-// err >= tol)`, folded boundary reads, p' BCs once after the loop. The
-// result lands in cur; other is the ping-pong buffer.
+// err >= tol)`, folded boundary reads, p' BCs once after the loop (CAVITY:
+// E at nx-2 reads the cell, the right column copies column nx-2, (0, 0)
+// is pinned to 0). The result lands in cur; other is the ping-pong buffer.
+template <bool CAVITY>
 __device__ float jacobi_solve(const RoundsArgs& A, Ctx& c, const float* rhs,
                               float*& cur, float*& other) {
     const int ny = A.ny, nx = A.nx;
@@ -110,7 +114,7 @@ __device__ float jacobi_solve(const RoundsArgs& A, Ctx& c, const float* rhs,
         FOR_CELLS(1, ny - 1, 1, nx - 1) {
             const size_t k = (size_t)j * nx + i;
             const float C = __ldcg(cur + k);
-            const float E = (i == nx - 2) ? 0.0f : __ldcg(cur + k + 1);
+            const float E = (i == nx - 2) ? (CAVITY ? C : 0.0f) : __ldcg(cur + k + 1);
             const float W = (i == 1) ? C : __ldcg(cur + k - 1);
             const float N = (j == ny - 2) ? C : __ldcg(cur + k + nx);
             const float S = (j == 1) ? C : __ldcg(cur + k - nx);
@@ -128,11 +132,12 @@ __device__ float jacobi_solve(const RoundsArgs& A, Ctx& c, const float* rhs,
         if (b < 2 * nx) { j = (b < nx) ? 0 : ny - 1; i = b % nx; }
         else { const int q = b - 2 * nx; j = 1 + q % (ny - 2); i = (q < ny - 2) ? 0 : nx - 1; }
         float val = 0.0f;
-        if (i != nx - 1) {
-            const int ii = (i == 0) ? 1 : i;
+        if (CAVITY || i != nx - 1) {
+            const int ii = (i == 0) ? 1 : (CAVITY && i == nx - 1) ? nx - 2 : i;
             const int jj = (j == 0) ? 1 : (j == ny - 1) ? ny - 2 : j;
             val = __ldcg(cur + (size_t)jj * nx + ii);
         }
+        if (CAVITY && i == 0 && j == 0) val = 0.0f;
         cur[(size_t)j * nx + i] = val;
     }
     c.grid.sync();
@@ -172,6 +177,7 @@ __device__ void divergence(const RoundsArgs& A, Ctx& c, float dt) {
     c.grid.sync();
 }
 
+template <bool CAVITY>
 __global__ void __launch_bounds__(kThreads) rounds_kernel(RoundsArgs A) {
     __shared__ float sh[33];
     Ctx c{cg::this_grid(), sh, 0, 0, 0, 0, 0, 0};
@@ -193,34 +199,44 @@ __global__ void __launch_bounds__(kThreads) rounds_kernel(RoundsArgs A) {
     c.grid.sync();
     float* cur = A.pp;
     float* other = A.pp_tmp;
-    float err = jacobi_solve(A, c, A.rhs0, cur, other);
+    float err = jacobi_solve<CAVITY>(A, c, A.rhs0, cur, other);
     correct_inplace(A, c, cur, dt);
     // Outer rounds (piso.py _outer_rounds): `it < rounds and err >= outer_tol`.
     int rounds_run = 0;
     for (; rounds_run < A.rounds && err >= A.outer_tol; ++rounds_run) {
         divergence(A, c, dt);
-        err = jacobi_solve(A, c, A.rhs_w, cur, other);
+        err = jacobi_solve<CAVITY>(A, c, A.rhs_w, cur, other);
         correct_inplace(A, c, cur, dt);
     }
     if (cur != A.pp) {
         for (int k = c.gtid; k < ny * nx; k += c.gthreads) A.pp[k] = __ldcg(cur + k);
     }
     // BCs (ops/bc.py). The outlet copies the corrected u[:, nx-1] before the
-    // solid mask may zero it, so stage that column first.
-    for (int j = c.gtid; j < ny; j += c.gthreads)
-        A.rhs_w[j] = __ldcg(A.u + (size_t)j * (nx + 1) + nx - 1);
-    c.grid.sync();
+    // solid mask may zero it, so stage that column first. CAVITY: the lid
+    // (A.in holds its profile), the floor and the side walls.
+    if constexpr (!CAVITY) {
+        for (int j = c.gtid; j < ny; j += c.gthreads)
+            A.rhs_w[j] = __ldcg(A.u + (size_t)j * (nx + 1) + nx - 1);
+        c.grid.sync();
+    }
     FOR_CELLS(0, ny, 0, nx + 1) {
         const size_t ku = (size_t)j * (nx + 1) + i;
-        float val = (i == 0) ? inlet_at(A.in, inlet, j)
-                    : (i == nx) ? __ldcg(A.rhs_w + j) : __ldcg(A.u + ku);
-        if (j == 0 || j == ny - 1) val = 0.0f;
+        float val;
+        if constexpr (CAVITY) {
+            val = (j == ny - 1) ? lid_at(A.in, inlet, i) : __ldcg(A.u + ku);
+            if (j == 0 || i == 0 || i == nx) val = 0.0f;
+        } else {
+            val = (i == 0) ? inlet_at(A.in, inlet, j)
+                  : (i == nx) ? __ldcg(A.rhs_w + j) : __ldcg(A.u + ku);
+            if (j == 0 || j == ny - 1) val = 0.0f;
+        }
         if (masked(A.mask_u_bc, ku)) val = 0.0f;
         A.u[ku] = val;
     }
     FOR_CELLS(0, ny, 0, nx) {
         const size_t k = (size_t)j * nx + i;
-        if (j == 0 || masked(A.mask_v_bc, k)) A.v[k] = 0.0f;
+        if (j == 0 || (CAVITY && (i == 0 || i == nx - 1)) || masked(A.mask_v_bc, k))
+            A.v[k] = 0.0f;
     }
     if (c.gtid == 0) {
         A.err_out[0] = err;
@@ -235,8 +251,9 @@ __global__ void __launch_bounds__(kThreads) rounds_kernel(RoundsArgs A) {
 // ---------------------------------------------------------------------------
 
 // RT: slab rows a thread; RHS_SMEM: keep ar * rhs in shared memory or read
-// rhs from device memory (slab_plan's rhs_smem).
-template <int RT, bool RHS_SMEM>
+// rhs from device memory (slab_plan's rhs_smem); CAVITY: the cavity's p'
+// folds and BCs and its velocity BCs.
+template <int RT, bool RHS_SMEM, bool CAVITY>
 __global__ void __launch_bounds__(kCThreads, 1) rounds_cluster_kernel(RoundsArgs A, int RP) {
     extern __shared__ __align__(16) float smem[];
     __shared__ unsigned cmax[3];  // the CTA's max a sweep, in rotation
@@ -266,22 +283,22 @@ __global__ void __launch_bounds__(kCThreads, 1) rounds_cluster_kernel(RoundsArgs
         if (RHS_SMEM) rb[q] = rr;
     }
     cluster_barrier();  // every slab loaded, every mbarrier initialised
-    float err = cluster_solve<RT, RHS_SMEM, false, false>(A, S, cmax, RHS_SMEM ? rb : A.rhs0,
-                                                          cur, other);
+    float err = cluster_solve<RT, RHS_SMEM, false, false, CAVITY>(
+        A, S, cmax, RHS_SMEM ? rb : A.rhs0, cur, other);
     cluster_correct(A, S, 0, cur, dt);
     int rounds_run = 0;
     for (; rounds_run < A.rounds && err >= A.outer_tol; ++rounds_run) {
         cluster_divergence<RHS_SMEM>(A, S, 0, rb, dt);
         __syncthreads();  // the rhs, before another thread's sweep reads it
-        err = cluster_solve<RT, RHS_SMEM, false, false>(A, S, cmax, RHS_SMEM ? rb : A.rhs_w,
-                                                        cur, other);
+        err = cluster_solve<RT, RHS_SMEM, false, false, CAVITY>(
+            A, S, cmax, RHS_SMEM ? rb : A.rhs_w, cur, other);
         cluster_correct(A, S, 0, cur, dt);
     }
     for (int q = tid; q < ncell; q += kCThreads) {
         const int r = q / nx, i = q - r * nx;
         A.pp[o + q] = row_of(S, cur, r)[i];
     }
-    cluster_bcs(A, S, 0, other, A.in, inlet);
+    cluster_bcs<CAVITY>(A, S, 0, other, A.in, inlet);
     if (S.rank == 0 && tid == 0) {
         A.err_out[0] = err;
         A.counts[0] = rounds_run;
@@ -291,18 +308,27 @@ __global__ void __launch_bounds__(kCThreads, 1) rounds_cluster_kernel(RoundsArgs
 
 using ClusterFn = void (*)(RoundsArgs, int);
 
-// The instance of the kernel for cluster.cuh's slab_plan.
-ClusterFn rounds_cluster_fn(const SlabPlan& pl) {
-#define CFD_RT(R) \
-    case R: return pl.rhs_smem ? rounds_cluster_kernel<R, true> : rounds_cluster_kernel<R, false>;
+// The instance of the kernel for cluster.cuh's slab_plan and the flow.
+template <bool CAVITY>
+ClusterFn rounds_cluster_instance(const SlabPlan& pl) {
+#define CFD_RT(R)                                                        \
+    case R:                                                              \
+        return pl.rhs_smem ? rounds_cluster_kernel<R, true, CAVITY>      \
+                           : rounds_cluster_kernel<R, false, CAVITY>;
     switch (pl.rt) { CFD_RT(1) CFD_RT(2) CFD_RT(3) CFD_RT(4) CFD_RT(6) }
 #undef CFD_RT
     return nullptr;
 }
 
+ClusterFn rounds_cluster_fn(const SlabPlan& pl, int cavity) {
+    return cavity ? rounds_cluster_instance<true>(pl) : rounds_cluster_instance<false>(pl);
+}
+
 }  // namespace
 
 // One block per SM, all resident as the grid-wide barrier requires.
+// `cavity` takes the CAVITY instance, whose lid (center, radius: lx / 2)
+// runs along x.
 extern "C" int cfd_rounds(const float* us, const float* vs, const float* p_in,
                           const float* pp0, const float* rhs0, const float* scal,
                           float* u, float* v, float* p, float* pp, float* pp_tmp,
@@ -311,19 +337,21 @@ extern "C" int cfd_rounds(const float* us, const float* vs, const float* p_in,
                           int ny, int nx, float dx, float dy, float ax, float ay,
                           float ar, float ac, int iters, float tol, int rounds,
                           float outer_tol, int parabolic, float center, float radius,
-                          void* stream) {
+                          int cavity, void* stream) {
     RoundsArgs A{us, vs, p_in, pp0, rhs0, scal, u, v, p, pp, pp_tmp, rhs_w, slots,
                  err_out, counts, ny, nx, dx, dy, ax, ay, ar, ac, iters, tol, rounds,
-                 outer_tol, mask_u_bc, mask_v_bc, Inlet{parabolic, dy, center, radius}};
+                 outer_tol, mask_u_bc, mask_v_bc,
+                 Inlet{parabolic, cavity ? dx : dy, center, radius}};
+    const auto kern = cavity ? rounds_kernel<true> : rounds_kernel<false>;
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rounds_kernel, kThreads, 0);
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, 0);
     if (e != cudaSuccess) return (int)e;
     if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
     void* args[] = {&A};
-    e = cudaLaunchCooperativeKernel((const void*)rounds_kernel, dim3(sms), dim3(kThreads),
+    e = cudaLaunchCooperativeKernel((const void*)kern, dim3(sms), dim3(kThreads),
                                     args, 0, (cudaStream_t)stream);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
@@ -333,10 +361,10 @@ extern "C" int cfd_rounds(const float* us, const float* vs, const float* p_in,
 // for an (ny, nx) grid (cudaOccupancyMaxActiveClusters), or minus the CUDA
 // error; minus cudaErrorInvalidValue where slab_plan cannot split the grid
 // over C CTAs. Sets the kernel's attributes (on the current device).
-extern "C" int cfd_rounds_cluster_admit(int ny, int nx, int C) {
+extern "C" int cfd_rounds_cluster_admit(int ny, int nx, int C, int cavity) {
     const SlabPlan pl = slab_plan(ny, nx, C);
     if (pl.rt == 0) return -(int)cudaErrorInvalidValue;
-    return cluster_admit(rounds_cluster_fn(pl), C, pl.smem);
+    return cluster_admit(rounds_cluster_fn(pl, cavity), C, pl.smem);
 }
 
 // The cluster form (the same arguments, then C): one cluster of C CTAs
@@ -350,13 +378,14 @@ extern "C" int cfd_rounds_cluster(const float* us, const float* vs, const float*
                                   int ny, int nx, float dx, float dy, float ax, float ay,
                                   float ar, float ac, int iters, float tol, int rounds,
                                   float outer_tol, int parabolic, float center,
-                                  float radius, int C, void* stream) {
+                                  float radius, int cavity, int C, void* stream) {
     RoundsArgs A{us, vs, p_in, pp0, rhs0, scal, u, v, p, pp, pp_tmp, rhs_w, slots,
                  err_out, counts, ny, nx, dx, dy, ax, ay, ar, ac, iters, tol, rounds,
-                 outer_tol, mask_u_bc, mask_v_bc, Inlet{parabolic, dy, center, radius}};
+                 outer_tol, mask_u_bc, mask_v_bc,
+                 Inlet{parabolic, cavity ? dx : dy, center, radius}};
     const SlabPlan pl = slab_plan(ny, nx, C);
     if (pl.rt == 0) return (int)cudaErrorInvalidValue;
-    const ClusterFn fn = rounds_cluster_fn(pl);
+    const ClusterFn fn = rounds_cluster_fn(pl, cavity);
     cudaError_t e = cluster_attributes(fn, C);
     if (e != cudaSuccess) return (int)e;
     cudaLaunchAttribute attr;

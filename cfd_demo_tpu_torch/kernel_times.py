@@ -50,8 +50,11 @@ the block form's exits or fields differ from the plain version's
 counts, in the built library's SASS (``cuobjdump -sass``), each cluster
 kernel's instructions an exchange from its first shuffle to its warp
 max (the strip's rows, unrolled) over its rows a thread, and the spill
-loads and stores (LDL, STL) among them, and kernels 1 and 3's
-instances' static instructions a cell (``substep_sass_rows``),
+loads and stores (LDL, STL) among them, kernels 1 and 3's instances'
+static instructions a cell (``substep_sass_rows``) and every kernel
+function's static instruction count (``sass_totals``: run from two
+trees' roots, the channel instances' counts are compared across a
+change that adds a template flag),
 
     python3 -m cfd_demo_tpu_torch.kernel_times --substep-forms [--out FILE.json]
 
@@ -423,7 +426,7 @@ def tile_times(dev) -> list:
 
         def call():
             _build.check(fn(pp.data_ptr(), rhs.data_ptr(), o.data_ptr(), t.data_ptr(),
-                            e.data_ptr(), ny, nx, k, *mult, _build.stream_of(pp)),
+                            e.data_ptr(), ny, nx, k, *mult, 0, _build.stream_of(pp)),
                          f"jacobi_fused_k tile {tile}")
 
         call()
@@ -468,6 +471,25 @@ def sass_rows() -> list:
                     "instructions": last - first, "per_row": (last - first) / rt,
                     "local_memory": local})
         print(json.dumps(out[-1]), flush=True)
+    return out
+
+
+def sass_totals() -> list:
+    """Every kernel function of the built library with its static SASS
+    instruction count and its spill loads and stores (LDL, STL), by its
+    mangled name. Needs the CUDA toolkit's cuobjdump."""
+    import os
+    import re
+    lib = _build.build()
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    out = []
+    for block in sass.split("Function : ")[1:]:
+        instr = [ln for ln in block.splitlines() if re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", ln)]
+        out.append({"function": block.split("\n", 1)[0].strip(), "instructions": len(instr),
+                    "local_memory": sum(("LDL" in ln or "STL" in ln) for ln in instr)})
+    print(json.dumps({"sass_totals": out}), flush=True)
     return out
 
 
@@ -688,7 +710,8 @@ def substep_form_times(dev) -> dict:
                             *(x.data_ptr() for x in outs), parts.data_ptr(),
                             ticket.data_ptr(), red.data_ptr(), mask_u_bc, mask_v_bc, ny, nx,
                             0, ny, 0, ny, f32(g.dx), f32(g.dy),
-                            *ksub.inlet_args(g, scene.params.inlet_profile), stream_of(u)),
+                            *ksub.inlet_args(g, scene.params.inlet_profile), 0,
+                            stream_of(u)),
                          f"correct_bc {r} rows")
 
         call()
@@ -833,7 +856,7 @@ def main() -> int:
              else distinct_scenes(dev) if args.distinct_scenes
              else substep_form_times(dev) if args.substep_forms
              else step_rates(dev) if args.step_rates
-             else sass_rows() + substep_sass_rows() if args.sass
+             else sass_rows() + substep_sass_rows() + sass_totals() if args.sass
              else kernel_times(dev))
     report = {"label": args.label, "package": tc.__file__, "nvidia_smi": smi,
               "ms": times}

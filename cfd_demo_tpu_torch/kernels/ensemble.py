@@ -90,8 +90,10 @@ def check_batchable(scene):
     one substep, what the whole-substep kernel computes; JS semantics
     (its zero p' and adaptive substeps), SECOND/QUICK faces, the
     parabolic inlets and more substeps raise on every route, CPU and
-    card alike (queue 1 item 9)."""
+    card alike (queue 1 item 9), and CAVITY flow before them (item 6b:
+    kernels 12 and 20 are built for the channel alone)."""
     params, opts = scene.params, scene.opts
+    check_channel(params.flow_case, " in a batch")
     if opts.semantics != Semantics.RUST:
         raise unported("a batched JS-semantics scene", BATCHES)
     if params.velocity_scheme != VelocityScheme.FIRST:
@@ -102,7 +104,6 @@ def check_batchable(scene):
                        f"inlet", BATCHES)
     if opts.substeps_adaptive or opts.substeps_init != 1:
         raise unported("a batched scene with more than one substep", BATCHES)
-    check_channel(params.flow_case)
 
 
 def substep_batch_plain(u, v, p, pp0, dt_sub, nu, inlet, scene):

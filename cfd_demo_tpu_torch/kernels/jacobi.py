@@ -5,7 +5,10 @@ body ``_kernel`` :50), csrc/jacobi.cu: k damped sweeps on p' with the
 multipliers ``ax, ay, ar, ac`` of jacobi_pallas.py:87-94 and folded
 boundary reads (a Neumann neighbour reads the cell itself, the outlet
 reads 0), the p' BCs once at the end, rows then columns, and the max
-|delta| of the last sweep over interior cells. Folding makes the result
+|delta| of the last sweep over interior cells. ``cavity`` takes the
+kernel's CAVITY instance (jacobi_pallas.py:133-134, :185-187): the east
+neighbour of column nx-2 reads the cell itself, and the BCs copy column
+nx-2 into column nx-1 and pin the cell (0, 0) to 0. Folding makes the result
 equal to k plain sweeps only for BC-consistent input p', which the
 solver always passes (zeros or a previous solve's output).
 
@@ -23,7 +26,9 @@ grid, so a ring cell and the interior cell it copies share a tile) and
 folds its max |delta| into err with an atomicMax. t and the tile are
 constants of csrc/jacobi.cu, chosen on the card (its note and PERF.md
 give the measurements); ``jacobi_tile()`` reports them. The result is
-``jacobi_fused_k_shard_plain`` on the whole field, bit for bit.
+``jacobi_fused_k_folded`` (the whole field's folded sweeps in the
+Pallas kernel's arithmetic, ``jacobi_fused_k_shard_plain`` on one
+block) bit for bit.
 
 ``jacobi_chain`` replaces ``jacobi_pallas`` (jacobi_pallas.py:1114) and
 keeps its schedule: iters//k launches of k, the tolerance checked
@@ -55,7 +60,7 @@ import numpy as np
 import torch
 
 from ..core.unported import CAVITY, unported
-from ..ops.poisson import _jacobi_sweep
+from ..ops.poisson import _apply_pprime_bcs, _apply_pprime_bcs_cavity, _jacobi_sweep
 from ._build import check, load, on_cpu, stream_of
 
 
@@ -68,36 +73,43 @@ def _multipliers(dx: float, dy: float, omega: float):
             1.0 - omega)
 
 
-def jacobi_fused_k_plain(pp, rhs, dx: float, dy: float, omega: float, k: int):
-    """k ops.poisson._jacobi_sweep's; returns (p', last sweep's error)."""
+def jacobi_fused_k_plain(pp, rhs, dx: float, dy: float, omega: float, k: int,
+                         bc=_apply_pprime_bcs):
+    """k ops.poisson._jacobi_sweep's with the p' BCs ``bc``; returns (p',
+    last sweep's error)."""
     for _ in range(k):
-        pp, err = _jacobi_sweep(pp, rhs, dx, dy, omega)
+        pp, err = _jacobi_sweep(pp, rhs, dx, dy, omega, bc)
     return pp, err
 
 
-def jacobi_fused_k(pp, rhs, dx: float, dy: float, omega: float, k: int):
-    """k fused damped-Jacobi sweeps (CHANNEL p' BCs). Returns
-    (p', last-sweep max error as a 0-d tensor)."""
+def jacobi_fused_k(pp, rhs, dx: float, dy: float, omega: float, k: int,
+                   cavity: bool = False):
+    """k fused damped-Jacobi sweeps with the CHANNEL p' BCs, or with
+    ``cavity`` the CAVITY ones. Returns (p', last-sweep max error as a
+    0-d tensor)."""
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     ny, nx = pp.shape
     if ny < 3 or nx < 3:
         raise ValueError(f"jacobi_fused_k needs at least 3x3 cells, got {pp.shape}")
     if on_cpu("jacobi_fused_k", {"pp": (pp, (ny, nx)), "rhs": (rhs, (ny, nx))}):
-        return jacobi_fused_k_plain(pp, rhs, dx, dy, omega, k)
+        return jacobi_fused_k_plain(pp, rhs, dx, dy, omega, k,
+                                    _apply_pprime_bcs_cavity if cavity else _apply_pprime_bcs)
     lib = load()
     out, tmp = torch.empty_like(pp), torch.empty_like(pp)
     err = torch.empty((), dtype=torch.float32, device=pp.device)
     with torch.cuda.device(pp.device):
         check(lib.cfd_jacobi_fused_k(
             pp.data_ptr(), rhs.data_ptr(), out.data_ptr(), tmp.data_ptr(),
-            err.data_ptr(), ny, nx, k, *_multipliers(dx, dy, omega), stream_of(pp)),
-            "jacobi_fused_k")
+            err.data_ptr(), ny, nx, k, *_multipliers(dx, dy, omega), int(cavity),
+            stream_of(pp)), "jacobi_fused_k")
     jacobi_fused_k.launches += 1
+    jacobi_fused_k.cavity_launches += cavity
     return out, err
 
 
 jacobi_fused_k.launches = 0
+jacobi_fused_k.cavity_launches = 0
 
 
 def jacobi_tile() -> dict:
@@ -109,25 +121,27 @@ def jacobi_tile() -> dict:
 
 
 def jacobi_chain(pp0, rhs, dx: float, dy: float, omega: float, tol: float,
-                 iters: int, k: int = 16, early_exit: bool = True):
+                 iters: int, k: int = 16, early_exit: bool = True,
+                 cavity: bool = False):
     """Returns (p', last error, iterations run), exactly ``iters``
     iterations when no early exit fires.
 
     With ``early_exit`` and tol > 0 the error is read on the host once
     per k-launch (K-granularity exit, jacobi_pallas.py:28-30). Moving
     that test onto the device (a device-side loop or a CUDA graph) is
-    later work; with tol == 0 the chain never reads back."""
+    later work; with tol == 0 the chain never reads back. ``cavity``
+    takes the CAVITY p' BCs."""
     n_full, rem = divmod(iters, k)
     pp = pp0
     err = torch.full((), float("inf"), dtype=torch.float32, device=pp0.device)
     n_run = 0
     for _ in range(n_full):
-        pp, err = jacobi_fused_k(pp, rhs, dx, dy, omega, k)
+        pp, err = jacobi_fused_k(pp, rhs, dx, dy, omega, k, cavity)
         n_run += k
         if early_exit and tol > 0.0 and not bool(err >= tol):
             break
     if rem:
-        pp, err = jacobi_fused_k(pp, rhs, dx, dy, omega, rem)
+        pp, err = jacobi_fused_k(pp, rhs, dx, dy, omega, rem, cavity)
         n_run += rem
     return pp, err, n_run
 
@@ -185,31 +199,37 @@ def _edge_shift(x, dim: int, step: int):
     return torch.cat([x.narrow(dim, 0, 1), x.narrow(dim, 0, n - 1)], dim)
 
 
-def folded_neighbours(pp, blk):
+def folded_neighbours(pp, blk, cavity: bool = False):
     """(E, W, N, S) of every cell of a block with the kernels' folds
     (sweep.cuh ``folded``): a Neumann neighbour reads the cell itself,
-    the outlet reads 0, a neighbour past the block's edge the cell."""
+    the outlet reads 0 (with ``cavity`` the cell itself too), a neighbour
+    past the block's edge the cell."""
     gny, gnx = blk[2], blk[3]
     gr, gc = block_indices(pp.shape, blk, pp.device)
-    zero = pp.new_zeros(())
-    E = torch.where(gc == gnx - 2, zero, _edge_shift(pp, 1, 1))
+    east_fold = pp if cavity else pp.new_zeros(())
+    E = torch.where(gc == gnx - 2, east_fold, _edge_shift(pp, 1, 1))
     W = torch.where(gc == 1, pp, _edge_shift(pp, 1, -1))
     N = torch.where(gr == gny - 2, pp, _edge_shift(pp, 0, 1))
     S = torch.where(gr == 1, pp, _edge_shift(pp, 0, -1))
     return E, W, N, S
 
 
-def block_pprime_bcs(pp, blk):
+def block_pprime_bcs(pp, blk, cavity: bool = False):
     """The p' BCs on a block's global boundary cells, in the Pallas
-    kernels' order (jacobi_pallas.py:1388-1396): the bottom and top rows
-    from their neighbours, then the left column from column 1, then the
-    outlet 0; a corner takes the diagonal cell."""
+    kernels' order (jacobi_pallas.py:1388-1396, :185-187): the bottom and
+    top rows from their neighbours, then the left column from column 1,
+    then the outlet 0, or with ``cavity`` the right column from column
+    nx-2 and the cell (0, 0) pinned to 0; a corner takes the diagonal
+    cell."""
     gny, gnx = blk[2], blk[3]
     gr, gc = block_indices(pp.shape, blk, pp.device)
     pp = torch.where(gr == 0, _edge_shift(pp, 0, 1), pp)
     pp = torch.where(gr == gny - 1, _edge_shift(pp, 0, -1), pp)
     pp = torch.where(gc == 0, _edge_shift(pp, 1, 1), pp)
-    return torch.where(gc == gnx - 1, pp.new_zeros(()), pp)
+    if not cavity:
+        return torch.where(gc == gnx - 1, pp.new_zeros(()), pp)
+    pp = torch.where(gc == gnx - 1, _edge_shift(pp, 1, -1), pp)
+    return torch.where((gr == 0) & (gc == 0), pp.new_zeros(()), pp)
 
 
 def jacobi_fused_k_shard_plain(pp_ext, rhs_ext, row_offset: int, gny: int, dx: float,
@@ -223,17 +243,33 @@ def jacobi_fused_k_shard_plain(pp_ext, rhs_ext, row_offset: int, gny: int, dx: f
     BC pass."""
     blk = shard_block("jacobi_fused_k_shard", pp_ext, row_offset, gny, own_lo,
                       own_hi, col_offset, gnx, own_cols, cavity)
+    return _folded_sweeps(pp_ext, rhs_ext, blk, dx, dy, omega, k, False)
+
+
+def _folded_sweeps(pp_ext, rhs_ext, blk, dx, dy, omega, k, cavity):
+    """jacobi_fused_k_shard_plain's sweeps and BCs on a validated block."""
     ax, ay, ar, ac = (torch.tensor(np.float32(c), device=pp_ext.device)
                       for c in _multipliers(dx, dy, omega))
     interior, owned = block_masks(pp_ext.shape, blk, pp_ext.device)
     rhs_s = ar * rhs_ext
     pp, zero = pp_ext, pp_ext.new_zeros(())
     for _ in range(k):
-        E, W, N, S = folded_neighbours(pp, blk)
+        E, W, N, S = folded_neighbours(pp, blk, cavity)
         new = ax * (E + W) + ay * (N + S) + ac * pp - rhs_s
         err = torch.amax(torch.where(owned, torch.abs(new - pp), zero))
         pp = torch.where(interior, new, pp)
-    return block_pprime_bcs(pp, blk), err
+    return block_pprime_bcs(pp, blk, cavity), err
+
+
+def jacobi_fused_k_folded(pp, rhs, dx: float, dy: float, omega: float, k: int,
+                          cavity: bool = False):
+    """The whole field's k folded sweeps in the Pallas kernel's arithmetic
+    and the p' BCs of CHANNEL flow, or with ``cavity`` of CAVITY flow:
+    what kernel 2 computes, bit for bit (``jacobi_fused_k_shard_plain``
+    on one block holding the grid)."""
+    ny, nx = pp.shape
+    blk = (0, 0, ny, nx, 0, ny, 0, nx)
+    return _folded_sweeps(pp, rhs, blk, dx, dy, omega, k, cavity)
 
 
 def jacobi_fused_k_shard(pp_ext, rhs_ext, row_offset: int, gny: int, dx: float,

@@ -10,7 +10,11 @@ rounds of divergence, warm-started Jacobi and corrector, each exiting
 exactly, then the BCs (model.rs:696-724). A JS substep (the JS twin's
 400x132 scene) has no outer rounds and arrives with a zero warm start;
 its BC masks and a parabolic inlet come in as the correct_bc kernel's
-do (kernels/substep.py). On the reference's 800x264
+do (kernels/substep.py). In CAVITY flow (rounds_pallas.py:64 hands
+``cavity`` to make_jacobi_solve, ensemble_pallas.py:127, :141) both
+forms take their CAVITY instance: the east neighbour of column nx-2
+reads the cell itself, the p' BCs copy column nx-2 into column nx-1 and
+pin (0, 0) to 0, and the velocity BCs are the lid's and the walls'. On the reference's 800x264
 scene that is about a hundred sweeps per step, and each sweep needs a
 barrier across the whole field and a global max.
 
@@ -49,7 +53,8 @@ with the same bits and counts:
 
 In both, the exits are decided on the device with no host read.
 ``solve_correct_rounds.launches`` counts launches of either form,
-``.cluster_launches`` those of the cluster form.
+``.cluster_launches`` those of the cluster form, ``.cavity_launches``
+those of either form's CAVITY instance.
 
 Both versions also return how many outer rounds and Jacobi sweeps ran,
 so a check can hold the kernel's exits against the plain version's.
@@ -60,10 +65,11 @@ import numpy as np
 import torch
 
 from ..core.masks import masks_traced
-from ..ops.bc import apply_bcs, check_channel
+from ..core.config import FlowCase
+from ..ops.bc import apply_bcs
 from ..ops.corrector import correct
 from ..ops.divergence import divergence_rhs
-from ..ops.poisson import jacobi
+from ..ops.poisson import jacobi, pprime_bc_fn
 from ._build import check, device_scalars, load, mask_ptrs, on_cpu, stream_of
 from .cluster import check_route, pick_ctas, route_ctas
 from .jacobi import _multipliers
@@ -74,14 +80,16 @@ def solve_correct_rounds_plain(u_star, v_star, p, pp0, rhs, dt_sub, inlet,
                                scene):
     """ops.poisson.jacobi (exact exit) + correct + outer rounds +
     apply_bcs, as tests/test_ensemble_pallas.py builds the reference.
-    The exits read the error on the host."""
+    The exits read the error on the host; the p' BCs are the scene's
+    flow case's."""
     g, opts = scene.grid, scene.opts
+    bc = pprime_bc_fn(scene.params.flow_case)
     sweeps = 0
 
     def solve(pp, rhs_):
         nonlocal sweeps
         pp, err, n = jacobi(pp, rhs_, g.dx, g.dy, opts.jacobi_omega,
-                            opts.jacobi_tol, opts.jacobi_iters)
+                            opts.jacobi_tol, opts.jacobi_iters, bc=bc)
         sweeps += n
         return pp, err
 
@@ -99,13 +107,14 @@ def solve_correct_rounds_plain(u_star, v_star, p, pp0, rhs, dt_sub, inlet,
     return u, v, p, pp, err, counts
 
 
-def rounds_ctas(ny: int, nx: int, device):
+def rounds_ctas(ny: int, nx: int, device, cavity: bool = False):
     """The CTAs of the cluster the rounds kernel takes for an (ny, nx)
     grid on ``device`` (kernels.cluster pick_ctas for one scene on the
-    card's admission: 14 at 800x264 on an H100), or None where it takes
-    no cluster: the cooperative form runs. Needs the card for a grid a
+    card's admission of the channel or, with ``cavity``, the CAVITY
+    instance: 14 at 800x264 on an H100), or None where it takes no
+    cluster: the cooperative form runs. Needs the card for a grid a
     cluster holds."""
-    return pick_ctas("cfd_rounds_cluster_admit", 1, ny, nx, device)
+    return pick_ctas("cfd_rounds_cluster_admit", 1, ny, nx, device, int(cavity))
 
 
 def solve_correct_rounds(u_star, v_star, p, pp0, rhs, dt_sub, inlet, scene,
@@ -121,7 +130,7 @@ def solve_correct_rounds(u_star, v_star, p, pp0, rhs, dt_sub, inlet, scene,
     CTAs (one of kernels.cluster.CTAS that ``slab_plan`` splits the grid
     over)."""
     g, opts = scene.grid, scene.opts
-    check_channel(scene.params.flow_case)
+    cavity = scene.params.flow_case == FlowCase.CAVITY
     ny, nx = g.ny, g.nx
     check_route("solve_correct_rounds", form, "cluster", "cooperative", ny, nx, ctas)
     shapes = {"u_star": (u_star, (ny, nx + 1)), "v_star": (v_star, (ny, nx)),
@@ -139,7 +148,7 @@ def solve_correct_rounds(u_star, v_star, p, pp0, rhs, dt_sub, inlet, scene,
     _, _, mask_u_bc, mask_v_bc = mask_ptrs(g, opts.semantics, p.device)
     f32 = lambda x: float(np.float32(x))
     c = route_ctas("solve_correct_rounds", form, "cooperative", 1, ny, nx, ctas,
-                   "cfd_rounds_cluster_admit", p.device)
+                   "cfd_rounds_cluster_admit", p.device, int(cavity))
     args = (u_star.data_ptr(), v_star.data_ptr(), p.data_ptr(), pp0.data_ptr(),
             rhs.data_ptr(), scal.data_ptr(), u.data_ptr(), v.data_ptr(),
             p_out.data_ptr(), pp.data_ptr(), pp_tmp.data_ptr(),
@@ -147,7 +156,8 @@ def solve_correct_rounds(u_star, v_star, p, pp0, rhs, dt_sub, inlet, scene,
             counts.data_ptr(), mask_u_bc, mask_v_bc, ny, nx, f32(g.dx),
             f32(g.dy), *_multipliers(g.dx, g.dy, opts.jacobi_omega),
             opts.jacobi_iters, opts.jacobi_tol, opts.outer_corrector_rounds,
-            opts.outer_corrector_tol, *inlet_args(g, scene.params.inlet_profile))
+            opts.outer_corrector_tol,
+            *inlet_args(g, scene.params.inlet_profile, scene.params.flow_case), int(cavity))
     with torch.cuda.device(p.device):
         if c is None:
             check(lib.cfd_rounds(*args, stream_of(p)), "solve_correct_rounds")
@@ -156,8 +166,10 @@ def solve_correct_rounds(u_star, v_star, p, pp0, rhs, dt_sub, inlet, scene,
                   f"solve_correct_rounds (cluster form, {c} CTAs)")
     solve_correct_rounds.launches += 1
     solve_correct_rounds.cluster_launches += c is not None
+    solve_correct_rounds.cavity_launches += cavity
     return u, v, p_out, pp, err, counts
 
 
 solve_correct_rounds.launches = 0
 solve_correct_rounds.cluster_launches = 0
+solve_correct_rounds.cavity_launches = 0

@@ -40,7 +40,10 @@ the step-entry u and v and the BC masks and writes u, v, p: 38 bytes
 per cell, bandwidth-bound. Every face gets the corrector, then the
 CHANNEL BCs in the reference's order, the inlet profile evaluated per
 row (UNIFORM, PARABOLIC, PARABOLIC_UPPER); the outlet face recomputes
-the corrected u[:, nx-1] it copies. res_u, res_v and max|vel|
+the corrected u[:, nx-1] it copies. In CAVITY flow (a template flag of
+the one-launch kernel) the BCs are ops/bc.py's cavity branch: the lid,
+UNIFORM or the parabola along x evaluated per face (csrc/common.cuh
+``lid_at``), the floor and the side walls. res_u, res_v and max|vel|
 (model.rs:333-348, :877-889) are reduced in the same pass. The
 one-launch form (the main path; :data:`CORRECT_STRIP`,
 :func:`correct_strip_plan`): CTAs of 32x8 threads, each thread a column
@@ -96,7 +99,7 @@ import torch
 from ..core.config import (FlowCase, Grid, InletProfile, Semantics,
                            VelocityScheme)
 from ..core.masks import masks_traced
-from ..ops.bc import apply_bcs, check_channel, parabola
+from ..ops.bc import apply_bcs, parabola
 from ..ops.corrector import correct
 from ..ops.divergence import divergence_rhs
 from ..ops.predictor import predict
@@ -110,11 +113,15 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def inlet_args(grid: Grid, profile: InletProfile):
+def inlet_args(grid: Grid, profile: InletProfile,
+               flow_case: FlowCase = FlowCase.CHANNEL):
     """(parabolic, f32 center, f32 radius): a kernel's inlet profile
-    arguments (csrc/common.cuh ``Inlet``)."""
+    arguments (csrc/common.cuh ``Inlet``); in CAVITY flow the lid's, whose
+    parabola (either parabolic profile) is centred along x."""
     if profile == InletProfile.UNIFORM:
         return 0, 0.0, 1.0
+    if flow_case == FlowCase.CAVITY:
+        return 1, _f32(grid.lx / 2.0), _f32(grid.lx / 2.0)
     center, radius = parabola(grid, profile)
     return 1, _f32(center), _f32(radius)
 
@@ -317,9 +324,11 @@ def correct_bc(u_star, v_star, p, p_prime, u_entry, v_entry, dt_sub, inlet,
     block of the grid and the maxima count the local rows ``own_rows`` =
     (lo, hi) only (all rows when None). ``form``: None or "fused"
     launches the one-launch kernel, "pointwise" the parent's two
-    launches (the same bits)."""
+    launches (the same bits; CHANNEL flow only)."""
     _check_form("correct_bc", form, "fused", "pointwise")
-    check_channel(flow_case)
+    cavity = flow_case == FlowCase.CAVITY
+    if cavity and form == "pointwise":
+        raise ValueError("correct_bc: the pointwise form takes CHANNEL flow only")
     ny, nx = _block_rows(grid, u_star, row_offset), grid.nx
     own_lo, own_hi = own_rows or (0, ny)
     if not 0 <= own_lo < own_hi <= ny:
@@ -342,7 +351,7 @@ def correct_bc(u_star, v_star, p, p_prime, u_entry, v_entry, dt_sub, inlet,
            u_entry.data_ptr(), v_entry.data_ptr(), scal.data_ptr(), u.data_ptr(),
            v.data_ptr(), p_new.data_ptr())
     rest = (ny, nx, row_offset or 0, grid.ny, own_lo, own_hi, _f32(grid.dx),
-            _f32(grid.dy), *inlet_args(grid, profile))
+            _f32(grid.dy), *inlet_args(grid, profile, flow_case))
     fused = form != "pointwise"
     with torch.cuda.device(dev):
         stream = stream_of(u_star)
@@ -351,7 +360,7 @@ def correct_bc(u_star, v_star, p, p_prime, u_entry, v_entry, dt_sub, inlet,
                                               correct_strip_plan(ny, nx)["partials"])
             check(lib.cfd_correct_bc_fused(
                 *ins, partials.data_ptr(), ticket.data_ptr(), red.data_ptr(), mask_u_bc,
-                mask_v_bc, *rest, stream), "correct_bc (fused)")
+                mask_v_bc, *rest, int(cavity), stream), "correct_bc (fused)")
         else:
             partials = torch.empty(3 * lib.cfd_correct_bc_partials(ny, nx),
                                    dtype=torch.float32, device=dev)
@@ -359,11 +368,13 @@ def correct_bc(u_star, v_star, p, p_prime, u_entry, v_entry, dt_sub, inlet,
                                      mask_v_bc, *rest, stream), "correct_bc (pointwise)")
     correct_bc.launches += 1
     correct_bc.fused_launches += fused
+    correct_bc.cavity_launches += cavity
     return u, v, p_new, red[0], red[1], red[2]
 
 
 correct_bc.launches = 0
 correct_bc.fused_launches = 0
+correct_bc.cavity_launches = 0
 
 
 def correct_div_plain(u_star, v_star, p, p_prime, dt_sub, grid: Grid):

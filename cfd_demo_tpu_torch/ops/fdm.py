@@ -9,6 +9,13 @@ dense products per side and an elementwise scale:
 
     e = -Qy @ ((Qy^T r Qx) * S) @ Qx^T,   S = 1/(ly + lx)
 
+In CAVITY flow the east end is a Neumann mirror too (``east_dirichlet``
+False): both axes take the Neumann-Neumann DCT basis, the operator is
+singular with its one zero eigenvalue at mode (0, 0), and S is its
+pseudo-inverse there (0 for that mode), so the solve returns the
+zero-mean solution of the compatible part of r (JAX ops/fdm.py:153-180,
+tests/test_projection.py:237).
+
 It is the exact bottom solve of the aligned MG_PRODUCTION hierarchy
 (ops.poisson) and, on the whole interior, PressureSolver.FDM
 (solver.piso ``_solve_fdm``). The bases are built once per (shape, h, d_wall, device) on the CPU,
@@ -117,16 +124,20 @@ def _dct_basis(m: int, dirichlet_right: bool):
 
 @lru_cache(maxsize=64)
 def _fdm_bases(my: int, mx: int, dx: float, dy: float, d_wall: float,
-               device: torch.device):
+               device: torch.device, east_dirichlet: bool = True):
     """(Qy, Qx, S) f32 on ``device``, built on the CPU and cached per
-    geometry. d_wall == dx (the fine-level operator) takes the
-    closed-form DCT bases; the coarse levels' d != h fold takes the
-    f64-eigh constants."""
-    if d_wall == dx:
+    geometry. d_wall == dx (the fine-level operator) and the all-Neumann
+    operator take the closed-form DCT bases; the coarse levels' d != h
+    fold takes the f64-eigh constants."""
+    if d_wall == dx or not east_dirichlet:
         Qy, ly = _dct_basis(my, False)
-        Qx, lx = _dct_basis(mx, True)
-        S = 1.0 / (ly[:, None] / float(np.float32(dy * dy))
-                   + lx[None, :] / float(np.float32(dx * dx)))
+        Qx, lx = _dct_basis(mx, east_dirichlet)
+        L = (ly[:, None] / float(np.float32(dy * dy))
+             + lx[None, :] / float(np.float32(dx * dx)))
+        if east_dirichlet:
+            S = 1.0 / L
+        else:  # the pseudo-inverse: lam ascends, so the one 0 is at (0, 0)
+            S = torch.where(L == 0.0, 0.0, 1.0 / torch.where(L == 0.0, 1.0, L))
     else:
         Qy, Qx, S = map(torch.from_numpy, _fdm_constants(my, mx, dy, dx,
                                                          d_wall))
@@ -140,14 +151,15 @@ def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def fdm_solve_interior(r: torch.Tensor, dx: float, dy: float,
-                       d_wall: float) -> torch.Tensor:
+                       d_wall: float, east_dirichlet: bool = True) -> torch.Tensor:
     """Exact solve A e = r of the folded interior operator (+Laplacian
     convention, Neumann west, south and north, the Dirichlet outlet east
-    at d_wall from the last centre); ``r`` is an interior-unknown array
-    (my, mx)."""
+    at d_wall from the last centre, or with ``east_dirichlet`` False a
+    Neumann east and the pseudo-inverse); ``r`` is an interior-unknown
+    array (my, mx)."""
     my, mx = r.shape
     Qy, Qx, S = _fdm_bases(my, mx, float(dx), float(dy), float(d_wall),
-                           r.device)
+                           r.device, bool(east_dirichlet))
     t = _matmul_f32(Qy.T, _matmul_f32(r, Qx))
     t = t * S
     return -_matmul_f32(Qy, _matmul_f32(t, Qx.T))

@@ -1,10 +1,12 @@
-"""Pressure-correction solves, CHANNEL flow (↔ the Jacobi, SOR,
-MULTIGRID and MG_PRODUCTION slices of cfd_demo_tpu/ops/poisson.py).
+"""Pressure-correction solves (↔ the Jacobi, SOR, MULTIGRID and
+MG_PRODUCTION slices of cfd_demo_tpu/ops/poisson.py).
 
 Jacobi, model.rs:733-824: a whole-array damped sweep with the
 per-iteration p' BCs (model.rs:807-815: Neumann bottom/top/left,
-Dirichlet 0 at the outlet column), looped as a do-while that exits after
-the first sweep whose max interior change is below ``tol``.
+Dirichlet 0 at the outlet column; in CAVITY flow all-Neumann with the
+(0, 0) cell pinned, ``bc=_apply_pprime_bcs_cavity``), looped as a
+do-while that exits after the first sweep whose max interior change is
+below ``tol``. SOR and MG_PRODUCTION take the channel BCs only.
 
 SOR, index.html:741-774: red/black over-relaxed sweeps (the parallel
 form), or the JS-exact lexicographic ordering as a wavefront; the same
@@ -29,6 +31,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..core.config import FlowCase
 from .fdm import fdm_solve_interior
 
 
@@ -44,10 +47,32 @@ def _apply_pprime_bcs(pp: torch.Tensor) -> torch.Tensor:
     return pp
 
 
-def _jacobi_sweep(pp, rhs, dx, dy, omega) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One damped-Jacobi iteration incl. p' BCs; returns (pp, max_err)
-    with max_err over the interior cells, one per scene of a batch (a
-    0-d tensor for one scene)."""
+def _apply_pprime_bcs_cavity(pp: torch.Tensor) -> torch.Tensor:
+    """All-Neumann p' BCs of closed (CAVITY) flow (JAX ops/poisson.py:
+    55-66): rows first, then the left column, then the right column from
+    column nx-2; the pure-Neumann system is singular, so the bottom-left
+    cell is pinned to 0 last (the gauge)."""
+    ny, nx = pp.shape[-2:]
+    pp = pp.clone()
+    pp[..., 0, :] = pp[..., 1, :]
+    pp[..., ny - 1, :] = pp[..., ny - 2, :]
+    pp[..., :, 0] = pp[..., :, 1]
+    pp[..., :, nx - 1] = pp[..., :, nx - 2]
+    pp[..., 0, 0] = 0.0
+    return pp
+
+
+def pprime_bc_fn(flow_case):
+    """The p' BCs of ``flow_case`` (JAX ops/poisson.py:69-72)."""
+    return (_apply_pprime_bcs if flow_case == FlowCase.CHANNEL
+            else _apply_pprime_bcs_cavity)
+
+
+def _jacobi_sweep(pp, rhs, dx, dy, omega,
+                  bc=_apply_pprime_bcs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One damped-Jacobi iteration incl. the p' BCs ``bc``; returns (pp,
+    max_err) with max_err over the interior cells, one per scene of a
+    batch (a 0-d tensor for one scene)."""
     dx2, dy2 = dx * dx, dy * dy
     denom = 2.0 / dx2 + 2.0 / dy2
     c = pp[..., 1:-1, 1:-1]
@@ -58,7 +83,7 @@ def _jacobi_sweep(pp, rhs, dx, dy, omega) -> Tuple[torch.Tensor, torch.Tensor]:
     err = torch.amax(torch.abs(new_val - c), dim=(-2, -1))
     out = pp.clone()
     out[..., 1:-1, 1:-1] = new_val
-    return _apply_pprime_bcs(out), err
+    return bc(out), err
 
 
 def _sweep_loop(sweep, pp0, tol, iters, early_exit, done=None):
@@ -105,10 +130,11 @@ def _sweep_loop(sweep, pp0, tol, iters, early_exit, done=None):
 
 def jacobi(pp0: torch.Tensor, rhs: torch.Tensor, dx: float, dy: float,
            omega: float, tol: float, iters: int, early_exit: bool = True,
-           done=None):
-    """Damped Jacobi; returns (p_prime, max_error_of_last_sweep,
-    iterations_run), looped by :func:`_sweep_loop`."""
-    return _sweep_loop(lambda pp: _jacobi_sweep(pp, rhs, dx, dy, omega), pp0,
+           done=None, bc=_apply_pprime_bcs):
+    """Damped Jacobi with the p' BCs ``bc`` (the channel's by default);
+    returns (p_prime, max_error_of_last_sweep, iterations_run), looped by
+    :func:`_sweep_loop`."""
+    return _sweep_loop(lambda pp: _jacobi_sweep(pp, rhs, dx, dy, omega, bc), pp0,
                        tol, iters, early_exit, done)
 
 

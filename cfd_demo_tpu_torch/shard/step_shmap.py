@@ -42,12 +42,12 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from ..core.config import FlowCase, PressureSolver, Semantics
+from ..core.config import PressureSolver, Semantics
 from ..core.masks import masks_traced
 from ..core.state import State
-from ..core.unported import CAVITY, SHARDED, unported
+from ..core.unported import SHARDED, unported
 from ..kernels.substep import correct_bc, predict_div
-from ..ops.bc import apply_bcs
+from ..ops.bc import apply_bcs, check_channel
 from ..solver.piso import (Scene, StepDiagnostics, _solve_fdm, adapt_substeps,
                            dt_control, ramped_inlet, resolve_fuse_k)
 from .halo import exchange_rows, pmax
@@ -77,8 +77,7 @@ def _check_supported(scene: Scene, mesh: RowMesh):
     opts, g = scene.opts, scene.grid
     S = mesh.size
     solver = scene.params.pressure_solver
-    if scene.params.flow_case != FlowCase.CHANNEL:
-        raise unported(f"{scene.params.flow_case.value} flow on the sharded step", CAVITY)
+    check_channel(scene.params.flow_case, " on the sharded step")
     if solver in (PressureSolver.MULTIGRID, PressureSolver.MG_PRODUCTION):
         raise unported(f"the sharded {solver.value} solve (shard/mg_shmap.py)", SHARDED)
     if solver == PressureSolver.JACOBI:

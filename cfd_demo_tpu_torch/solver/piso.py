@@ -163,6 +163,15 @@ the outer rounds' error                         once per round, the fused route 
 The fixed schedules, MULTIGRID, the rounds kernel and the batch routes
 read nothing.
 
+CAVITY flow (the lid-driven cavity, BASELINE config 2) takes the same
+routes with JACOBI, FDM and MULTIGRID: the Jacobi chain, the rounds
+kernel and the one-launch ``correct_bc`` in their CAVITY instances, the
+cavity p' BCs in the plain Jacobi, the all-Neumann operator in FDM, and
+apply_bcs's cavity branch; MULTIGRID's vertex cycles take no flow case
+(JAX ops/poisson.py:1330). CAVITY with SOR, MG_PRODUCTION or
+differentiable, in a batch or on the sharded step raises (queue 1 item
+6b).
+
 The TPU gates (``_pallas_ok``'s ny % 8 and backend test, ``_tile_rows``,
 ``rounds_pallas_ok``'s VMEM bound) are not carried over; each kernel
 checks its own limits. Nor are the lane padding of u, buffer donation
@@ -194,8 +203,8 @@ from ..ops.bc import apply_bcs
 from ..ops.corrector import correct
 from ..ops.divergence import divergence_rhs
 from ..ops.fdm import fdm_solve_interior
-from ..ops.poisson import (_apply_pprime_bcs, _mg_residual, check_mgp_scheme,
-                           jacobi, multigrid, multigrid_production, sor,
+from ..ops.poisson import (_mg_residual, check_mgp_scheme, jacobi, multigrid,
+                           multigrid_production, pprime_bc_fn, sor,
                            sor_lexicographic)
 from ..ops.predictor import predict
 
@@ -260,8 +269,14 @@ def make_scene(grid: Grid, params: Optional[SimulationParams] = None,
     if grid.nx < 3 or grid.ny < 3:
         raise ValueError(f"the grid needs at least 3x3 cells, got "
                          f"{grid.nx}x{grid.ny}")
-    if params.flow_case != FlowCase.CHANNEL:
-        raise unported(f"{params.flow_case.value} flow", CAVITY)
+    if params.flow_case == FlowCase.CAVITY:
+        # The lid-driven cavity takes JACOBI, FDM and MULTIGRID (the JS
+        # kit's vertex V-cycles take no flow case, JAX ops/poisson.py:1330).
+        if params.pressure_solver in (PressureSolver.SOR, PressureSolver.MG_PRODUCTION):
+            raise unported(f"cavity flow with the {params.pressure_solver.value} "
+                           f"pressure solver", CAVITY)
+        if opts.differentiable:
+            raise unported("cavity flow with SolverOptions.differentiable", CAVITY)
     for obs in grid.obstacles:
         if not isinstance(obs, Cylinder):
             raise unported(f"obstacle {type(obs).__name__}", BOX_FLOAT64)
@@ -330,12 +345,19 @@ def _solve_sor(scene: Scene, pp0, rhs, done=None):
     return sor(pp0, rhs, *args, early_exit=opts.early_exit)
 
 
+def _cavity(scene: Scene) -> bool:
+    return scene.params.flow_case == FlowCase.CAVITY
+
+
 def _solve_fdm(scene: Scene, rhs):
     """The FDM branch of the JAX package's ``_solve_pressure``
-    (piso.py:475-497), one scene."""
+    (piso.py:475-497), one scene: in CAVITY flow the all-Neumann
+    operator's pseudo-inverse and the cavity p' BCs."""
     g = scene.grid
-    e_int = fdm_solve_interior(rhs[1:-1, 1:-1], g.dx, g.dy, g.dx)
-    pp = _apply_pprime_bcs(torch.nn.functional.pad(e_int, (1, 1, 1, 1)))
+    e_int = fdm_solve_interior(rhs[1:-1, 1:-1], g.dx, g.dy, g.dx,
+                               east_dirichlet=not _cavity(scene))
+    bc = pprime_bc_fn(scene.params.flow_case)
+    pp = bc(torch.nn.functional.pad(e_int, (1, 1, 1, 1)))
     err = torch.amax(torch.abs(_mg_residual(pp, rhs, g.dx, g.dy)))
     return pp, err, torch.ones((), dtype=torch.int32, device=rhs.device)
 
@@ -372,9 +394,10 @@ def _solve_pressure(scene: Scene, pp0, rhs, dt_sub, done=None):
         return jacobi_chain(pp0, rhs, g.dx, g.dy, opts.jacobi_omega,
                             opts.jacobi_tol, opts.jacobi_iters,
                             k=resolve_fuse_k(opts),
-                            early_exit=opts.early_exit)
+                            early_exit=opts.early_exit, cavity=_cavity(scene))
     return jacobi(pp0, rhs, g.dx, g.dy, opts.jacobi_omega, opts.jacobi_tol,
-                  opts.jacobi_iters, early_exit=opts.early_exit)
+                  opts.jacobi_iters, early_exit=opts.early_exit,
+                  bc=pprime_bc_fn(scene.params.flow_case))
 
 
 def _outer_rounds(scene: Scene, u, v, p, pp, err, dt_sub):

@@ -59,7 +59,14 @@ Phases, one line each; any failure raises and exits non-zero:
    QUICK state's four predictor forms and two inlets, the row-offset
    block), their main-path forms (the tiled predict_div, the one-launch
    correct_bc) also against their pointwise forms bit for bit, both
-   timed;
+   timed; the CAVITY instances of kernels 2, 3 and 4 (the lid-driven
+   cavity, BASELINE config 2): jacobi_fused_k and correct_bc (UNIFORM and
+   parabolic lids) on the 2048^2 cavity fast state after 3 steps, kernel
+   2 also bit for bit against the whole field's folded twin, each beside
+   its channel instance's time on the same inputs; the rounds kernel's
+   cluster form on the 512^2 cavity after 20 steps (against its
+   cooperative form too) and its cooperative form on the 1024^2 cavity
+   after 20, the same rounds and sweeps as the plain version required;
 4. run the 800x264 default scene (the Rust app's) for 50 steps with
    make_run, print steps/s and check its physical invariants;
 5. run the benchmark's fast shape at 2048^2 (bench.py --mode fast):
@@ -98,8 +105,13 @@ Phases, one line each; any failure raises and exits non-zero:
    warm-up steps then 100 timed under set_sync_debug_mode("error"), each
    beside its unsharded rate; the 800x264 default scene on 3 shards (88
    rows each, early exits, outer rounds) for 3 steps from phase 4's end
-   state; 2048^2 FDM on 4 shards, 3 steps; each of these paths must
-   launch exactly its kernels;
+   state; 2048^2 FDM on 4 shards, 3 steps; the cavity with the cavity
+   app's constants and Rust defaults at 512^2 (5 warm-up steps, then
+   50), 1024^2 (3, then 10) and 2048^2 (2, then 5), the 2048^2 cavity on
+   the fast schedule (5, then 100 under the sync check), a 128^2 JS
+   cavity (5, then 50) and the Re = 100 cavity at 64^2 for 8000 steps,
+   its centre lines within 0.06 of Ghia et al. (1982); each of these
+   paths must launch exactly its kernels;
 7. from the end states of 4, 5, 6 and the ensembles (2 of the 8
    800x264 scenes, 2 of the 16 SOR scenes), run 3 steps (the 2048^2 JS
    QUICK shape 2, the reference mode 1) on CUDA and on the port's CPU
@@ -108,12 +120,15 @@ Phases, one line each; any failure raises and exits non-zero:
    MULTIGRID on u, v and grad p alone); from each sharded path's end
    state 3 steps sharded on the card, against 3 unsharded on the card
    and 3 on the CPU path (the 800x264 one sharded on the CPU, its
-   solves exiting k sweeps apart at most);
+   solves exiting k sweeps apart at most); the 512^2 cavity and the
+   2048^2 cavity fast shape, 3 steps on CUDA and on the CPU path;
 8. require every kernel of each path to have launched in that path's
    run (counts set to 0 just before it, read just after), predict_div
    and correct_bc in their tiled and one-launch forms on every path that
    launches them, the rounds kernel in its cluster form on the 800x264
-   and 400x132 JS runs, and
+   and 400x132 JS runs, kernels 2-4 in their CAVITY instances on every
+   cavity path and never on another (kernel 4's cluster form at 512^2,
+   128^2 and 64^2, its cooperative form at 1024^2), and
    kernels 20 and 12 in their cluster forms on the three ensemble runs
    (printing the CTAs a scene each took).
 
@@ -135,7 +150,8 @@ import torch
 
 import cfd_demo_tpu_torch as tc
 from cfd_demo_tpu_torch.apps.ensemble import ensemble_scene, ensemble_state
-from cfd_demo_tpu_torch.cells import (SHARDED, ensemble_args, fast_scene, js_default_scene,
+from cfd_demo_tpu_torch.cells import (SHARDED, cavity_fast_scene, cavity_scene,
+                                      ensemble_args, fast_scene, js_default_scene,
                                       js_quick_scene, legacy_production_scene,
                                       multigrid_scene, production_scene,
                                       reference_mode_scene, reference_scene,
@@ -153,7 +169,8 @@ from cfd_demo_tpu_torch.kernels import mgp
 from cfd_demo_tpu_torch.kernels import sor as ksor
 from cfd_demo_tpu_torch.kernels.ensemble import (substep_batch, substep_batch_ctas,
                                                  substep_batch_plain, substep_batch_sor)
-from cfd_demo_tpu_torch.kernels.jacobi import (jacobi_fused_k, jacobi_fused_k_plain,
+from cfd_demo_tpu_torch.kernels.jacobi import (jacobi_fused_k, jacobi_fused_k_folded,
+                                               jacobi_fused_k_plain,
                                                jacobi_fused_k_shard,
                                                jacobi_fused_k_shard_plain, jacobi_tile)
 from cfd_demo_tpu_torch.kernels.jacobi_batch import (jacobi_batch, jacobi_batch_ctas,
@@ -164,9 +181,11 @@ from cfd_demo_tpu_torch.kernels.substep import (correct_bc, correct_bc_plain,
                                                 correct_div, correct_div_plain,
                                                 predict_div, predict_div_plain)
 from cfd_demo_tpu_torch.ops import fdm
-from cfd_demo_tpu_torch.ops.poisson import (MgKit, _cc_prolong_x, _cc_vcycle, _mg_kit,
-                                            _mg_vcycle, _smoothers, multigrid)
-from cfd_demo_tpu_torch.solver.piso import ramped_inlet, resolve_fuse_k
+from cfd_demo_tpu_torch.ops.poisson import (MgKit, _apply_pprime_bcs_cavity, _cc_prolong_x,
+                                            _cc_vcycle, _mg_kit, _mg_vcycle, _smoothers,
+                                            multigrid)
+from cfd_demo_tpu_torch.solver.piso import _use_fused_substep, ramped_inlet, resolve_fuse_k
+from cfd_demo_tpu_torch.validation import GHIA_STEPS, ghia_deviation, ghia_scene
 
 EPS32 = float(np.finfo(np.float32).eps)
 # p's f32 resolution. p reaches thousands on the 800x264 scene, and there
@@ -184,6 +203,9 @@ LEG, REF_LEG = "2048^2 production legacy", "800x264 production legacy"
 JS_DEF, JS_QUICK = "400x132 js default", "2048^2 js quick"
 REF_CD = "2048^2 reference correct_div"
 FAST_SH, SOR_SH, REF_SH, FDM_SH = SHARDED  # the sharded paths, cells.py
+CAV512, CAV1024, CAV2048 = "512^2 cavity", "1024^2 cavity", "2048^2 cavity"
+CAV_FAST, CAV_JS, GHIA = "2048^2 cavity fast", "128^2 js cavity", "64^2 ghia cavity"
+CAVITY_PATHS = (CAV512, CAV1024, CAV2048, CAV_FAST, CAV_JS, GHIA)
 # name -> (wrapper, source, the Pallas call site it replaces, the path
 # whose launches the JSON line reports)
 KERNELS = {
@@ -235,7 +257,11 @@ VERTEX = ("mg_residual_restrict", "mg_prolong_add")
 CLUSTER = "rounds_cluster"
 # Kernels 1 and 3's launches in their main-path forms (of their "launches").
 TILED, FUSED = "predict_div_tiled", "correct_bc_fused"
-FORM_OF = {TILED: "predict_div", FUSED: "correct_bc"}
+# Kernels 2, 3 and 4's launches of their CAVITY instances (of their "launches").
+CAVITY_OF = {"jacobi_fused_k": "jacobi_fused_k_cavity", "correct_bc": "correct_bc_cavity",
+             "rounds": "rounds_cavity"}
+FORM_OF = {TILED: "predict_div", FUSED: "correct_bc",
+           **{form: kernel for kernel, form in CAVITY_OF.items()}}
 # The batched kernels' launches in their cluster form (of their "launches").
 BATCH_CLUSTER = {"substep_batch": "substep_batch_cluster",
                  "jacobi_batch": "jacobi_batch_cluster",
@@ -266,10 +292,21 @@ PATHS = {
     SOR_SH: ("predict_div", "sor_fused_k_shard", "correct_bc"),
     REF_SH: ("predict_div", "jacobi_fused_k_shard"),
     FDM_SH: ("predict_div", "correct_bc"),
+    # the cavity (BASELINE config 2): kernel 4 below 2M cells (the cluster
+    # form at 512^2, 128^2 and 64^2, the cooperative at 1024^2), kernels 1
+    # and 2 on the fused route with outer rounds at 2048^2, and 1-3 on the
+    # fast shape, each of 2-4 in its CAVITY instance
+    CAV512: ("rounds", CLUSTER, CAVITY_OF["rounds"]),
+    CAV1024: ("rounds", CAVITY_OF["rounds"]),
+    CAV2048: ("predict_div", "jacobi_fused_k", CAVITY_OF["jacobi_fused_k"]),
+    CAV_FAST: ("predict_div", "jacobi_fused_k", "correct_bc",
+               CAVITY_OF["jacobi_fused_k"], CAVITY_OF["correct_bc"]),
+    CAV_JS: ("rounds", CLUSTER, CAVITY_OF["rounds"]),
+    GHIA: ("rounds", CLUSTER, CAVITY_OF["rounds"]),
 }
 # Paths that must launch their kernels and no other.
 EXACT_PATHS = (SOR, SOR_ODD, REF_SOR, ENS_SOR, MG, MG_ODD, REF_MG, LEG, REF_LEG,
-               JS_DEF, JS_QUICK, REF_CD, FAST_SH, SOR_SH, REF_SH, FDM_SH)
+               JS_DEF, JS_QUICK, REF_CD, FAST_SH, SOR_SH, REF_SH, FDM_SH, *CAVITY_PATHS)
 # The card's peaks (NVIDIA's H100 SXM data sheet, at the 700 W limit):
 # device-memory bytes/s and f32 FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -565,7 +602,8 @@ def check_rounds_forms(args, got, label, results):
     form kernels.cluster's plan names for the shape): the same counts and
     the same bits in u, v, p, p' and err; both forms timed."""
     g = args[-1].grid
-    ctas = rounds_ctas(g.ny, g.nx, args[0].device)
+    ctas = rounds_ctas(g.ny, g.nx, args[0].device,
+                       args[-1].params.flow_case == tc.FlowCase.CAVITY)
     fits = ctas is not None
     other = "cooperative" if fits else "cluster"
     alt = solve_correct_rounds(*args, form=other)
@@ -586,6 +624,18 @@ def check_rounds_forms(args, got, label, results):
           f"rule takes the {entry[label]['rule']} form", flush=True)
 
 
+def record(results, name, label, pairs, call, plain, bnd, n=20, n_plain=5):
+    """compare() under results[name]["variants"][label]: a form of a
+    kernel whose launches the JSON line counts under its kernel."""
+    out = {}
+    compare(f"{name} {label}", pairs, out, (time_ms(call, n), time_ms(plain, n_plain)), bnd)
+    entry = out.popitem()[1]
+    del entry["library_ms"]
+    results[name].setdefault("variants", {})[label] = entry
+    results[name]["max_abs_err"] = max(results[name]["max_abs_err"], entry["max_abs_err"])
+    return entry
+
+
 def check_js_kernels(dev, results):
     """Kernels 1, 3 and 4's new forms and kernel 5 on their paths' states.
     On the 2048^2 JS QUICK PARABOLIC state after 3 steps: predict_div with
@@ -603,18 +653,6 @@ def check_js_kernels(dev, results):
     inlet = ramped_inlet(opts, state)
     h, cells = float(dt), g.nx * g.ny
 
-    def record(name, label, pairs, call, plain, bnd, n=20, n_plain=5):
-        """compare() under results[name]["variants"][label]."""
-        out = {}
-        compare(f"{name} {label}", pairs, out, (time_ms(call, n), time_ms(plain, n_plain)),
-                bnd)
-        entry = out.popitem()[1]
-        del entry["library_ms"]
-        results[name].setdefault("variants", {})[label] = entry
-        results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
-                                           entry["max_abs_err"])
-        return entry
-
     for sem in (tc.Semantics.RUST, tc.Semantics.JS):
         masks = masks_traced(g, sem, dev)
         for sch in (tc.VelocityScheme.SECOND, tc.VelocityScheme.QUICK):
@@ -623,7 +661,7 @@ def check_js_kernels(dev, results):
             got, ref = call(), plain()
             uv_scale = max(1.0, float(ref[0].abs().max()), float(ref[1].abs().max()))
             rhs_tol = 4 * EPS32 * uv_scale * (1 / g.dx + 1 / g.dy) / h
-            entry = record("predict_div", f"{sem.value} {sch.value}", [
+            entry = record(results, "predict_div", f"{sem.value} {sch.value}", [
                 ("u*", got[0], ref[0], scaled(ref[0], 1e-6)),
                 ("v*", got[1], ref[1], scaled(ref[1], 1e-6)),
                 ("rhs", got[2], ref[2], rhs_tol)], call, plain,
@@ -639,7 +677,7 @@ def check_js_kernels(dev, results):
         args = (u_star, v_star, state.p, state.p_prime, u, v, dt, inlet, g, prof,
                 tc.FlowCase.CHANNEL, js)
         got, ref = correct_bc(*args), correct_bc_plain(*args)
-        entry = record("correct_bc", f"js {prof.value}", [
+        entry = record(results, "correct_bc", f"js {prof.value}", [
             (lb, a, b, scaled(b, 1e-6))
             for lb, a, b in zip(("u", "v", "p", "res_u", "res_v", "max_vel"), got, ref)],
             lambda: correct_bc(*args), lambda: correct_bc_plain(*args),
@@ -664,7 +702,7 @@ def check_js_kernels(dev, results):
             f"rounds, sweeps), the plain version {ref_counts}")
     require(counts[0] == 0, f"rounds (JS): {counts[0]} outer rounds ran")
     demean = lambda a, b: a - (a - b).mean()
-    entry = record("rounds", "js quick parabolic 400x132", [
+    entry = record(results, "rounds", "js quick parabolic 400x132", [
         ("u", got[0], ref[0], 5e-5 + 1e-4 * float(ref[0].abs().max())),
         ("v", got[1], ref[1], 5e-5 + 1e-4 * float(ref[1].abs().max())),
         ("p-mean", demean(got[2], ref[2]), ref[2], scaled(ref[2], 1e-4)),
@@ -697,6 +735,87 @@ def check_js_kernels(dev, results):
         results, (time_ms(lambda: correct_div(*args), 20),
                   time_ms(lambda: correct_div_plain(*args), 5)),
         bound(nbytes(*args[:4], *got), CORRECT_DIV * g.nx * g.ny))
+
+
+def check_cavity_kernels(dev, results):
+    """Kernels 2, 3 and 4's CAVITY instances where the cavity paths launch
+    them, each under its kernel's "variants" beside its channel twin's
+    time on the same inputs. On the 2048^2 cavity fast state after 3
+    steps: kernel 2 at k = 16 against the plain sweeps with the cavity
+    BCs, and bit for bit against the whole field's folded twin at k = 16
+    and at a k its sweeps a launch do not divide; kernel 3 with the
+    UNIFORM and the parabolic lid. Kernel 4's cluster form on the 512^2
+    cavity (BASELINE config 2) after 20 steps, its cooperative form on
+    the 1024^2 one after 20, each fed what the rounds route feeds it, the
+    same rounds and sweeps as the plain version required, and the two
+    forms against each other where both apply."""
+    scene = cavity_fast_scene()
+    g, opts = scene.grid, scene.opts
+    state, _ = tc.make_run(scene, 3)(scene.init_state(dev))
+    u, v, dt, nu = state.u, state.v, state.dt, state.nu
+    inlet = ramped_inlet(opts, state)
+    sem, om, cells = opts.semantics, opts.jacobi_omega, g.nx * g.ny
+    u_star, v_star, rhs = predict_div(u, v, dt, nu, g, scene.params.velocity_scheme, sem)
+    pp, k = state.p_prime, 16
+    call = lambda: jacobi_fused_k(pp, rhs, g.dx, g.dy, om, k, cavity=True)
+    plain = lambda: jacobi_fused_k_plain(pp, rhs, g.dx, g.dy, om, k, _apply_pprime_bcs_cavity)
+    got, ref = call(), plain()
+    entry = record(results, "jacobi_fused_k", "cavity 2048^2", [
+        ("p'", got[0], ref[0], scaled(ref[0], 1e-5)),
+        ("err", got[1], ref[1], scaled(ref[0], 1e-5))], call, plain,
+        bound(nbytes(pp, rhs, got[0]), k * (SWEEP + SWEEP_ERR) * cells), n=10, n_plain=3)
+    entry["channel_ms"] = time_ms(lambda: jacobi_fused_k(pp, rhs, g.dx, g.dy, om, k), 10)
+    for kk in (16, jacobi_tile()["sweeps"] + 5):
+        a = jacobi_fused_k(pp, rhs, g.dx, g.dy, om, kk, cavity=True)
+        b = jacobi_fused_k_folded(pp, rhs, g.dx, g.dy, om, kk, cavity=True)
+        d = max(max_abs(a[0], b[0]), max_abs(a[1], b[1]))
+        require(d == 0.0, f"jacobi_fused_k cavity: k={kk} differs from the folded twin by {d}")
+    print(f"[3] jacobi_fused_k cavity: equals the whole field's folded twin bit for bit "
+          f"at k=16 and k={jacobi_tile()['sweeps'] + 5}; {entry['ms']:.4f} ms against the "
+          f"channel instance's {entry['channel_ms']:.4f} on the same inputs", flush=True)
+    pp = got[0]
+    for prof in (tc.InletProfile.UNIFORM, tc.InletProfile.PARABOLIC):
+        args = (u_star, v_star, state.p, pp, u, v, dt, inlet, g, prof, tc.FlowCase.CAVITY,
+                sem)
+        got, ref = correct_bc(*args), correct_bc_plain(*args)
+        entry = record(results, "correct_bc", f"cavity {prof.value}", [
+            (lb, a, b, scaled(b, 1e-6))
+            for lb, a, b in zip(("u", "v", "p", "res_u", "res_v", "max_vel"), got, ref)],
+            lambda: correct_bc(*args), lambda: correct_bc_plain(*args),
+            bound(nbytes(*args[:6], *got[:3]), 20 * cells))
+        channel = args[:10] + (tc.FlowCase.CHANNEL, sem)
+        entry["channel_ms"] = time_ms(lambda: correct_bc(*channel), 20)
+
+    for n, steps, form in ((512, 20, "cluster"), (1024, 20, "cooperative")):
+        scene = cavity_scene(n)
+        state, _ = tc.make_run(scene, steps)(scene.init_state(dev))
+        args = rounds_args(scene, state)
+        fits = rounds_ctas(n, n, dev, True) is not None
+        require(fits == (form == "cluster"), f"rounds cavity {n}^2: the plan takes the "
+                f"{'cluster' if fits else 'cooperative'} form, expected the {form} form")
+        n_cluster = solve_correct_rounds.cluster_launches
+        got, ref = solve_correct_rounds(*args), solve_correct_rounds_plain(*args)
+        require(solve_correct_rounds.cluster_launches - n_cluster == (form == "cluster"),
+                f"rounds cavity {n}^2: the {form} form was not the one launched")
+        counts, ref_counts = got[5].tolist(), ref[5].tolist()
+        require(counts == ref_counts, f"rounds cavity {n}^2: the kernel ran {counts} "
+                f"(outer rounds, sweeps), the plain version {ref_counts}")
+        demean = lambda a, b: a - (a - b).mean()
+        entry = record(results, "rounds", f"cavity {n}^2 {form}", [
+            ("u", got[0], ref[0], 5e-5 + 1e-4 * float(ref[0].abs().max())),
+            ("v", got[1], ref[1], 5e-5 + 1e-4 * float(ref[1].abs().max())),
+            ("p-mean", demean(got[2], ref[2]), ref[2], scaled(ref[2], 1e-4)),
+            ("p'-mean", demean(got[3], ref[3]), ref[3], scaled(ref[3], 1e-4))],
+            lambda: solve_correct_rounds(*args), lambda: solve_correct_rounds_plain(*args),
+            bound(nbytes(*args[:5], *got[:4]),
+                  (counts[1] * (SWEEP + SWEEP_ERR) + (counts[0] + 1) * DIV_CORRECT) * n * n),
+            n=5, n_plain=2)
+        entry.update({"rounds": counts[0], "sweeps": counts[1],
+                      "us_a_sweep": 1e3 * entry["ms"] / counts[1]})
+        print(f"[3] rounds cavity {n}^2: {counts[0]} outer rounds, {counts[1]} sweeps on "
+              f"both sides ({form} form, {entry['us_a_sweep']:.3f} us a sweep)", flush=True)
+        if fits:
+            check_rounds_forms(args, got, f"cavity {n}^2", results)
 
 
 def check_multigrid_solve(dev, report):
@@ -1166,11 +1285,21 @@ def check_fdm(dev, report):
 
 
 def check_invariants(scene, state, label):
+    """Finite fields and the walls: CHANNEL u rows 0 and ny-1 and v row 0
+    zero; CAVITY u's floor and side walls, v's row 0 and side columns
+    zero, the lid moving; u zero on the BC-masked faces."""
     u, v = state.u.cpu().numpy(), state.v.cpu().numpy()
     for name, a in (("u", u), ("v", v), ("p", state.p.cpu().numpy())):
         require(bool(np.isfinite(a).all()), f"{label}: {name} not finite")
-    require(not u[..., 0, :].any() and not u[..., -1, :].any(),
-            f"{label}: u rows 0/ny-1 not 0")
+    if scene.params.flow_case == tc.FlowCase.CAVITY:
+        require(not u[..., 0, :].any() and not u[..., :, 0].any() and not u[..., :, -1].any(),
+                f"{label}: u's floor or side walls not 0")
+        require(not v[..., :, 0].any() and not v[..., :, -1].any(),
+                f"{label}: v's side columns not 0")
+        require(float(u[..., -1, :].max()) > 0, f"{label}: the lid does not move")
+    else:
+        require(not u[..., 0, :].any() and not u[..., -1, :].any(),
+                f"{label}: u rows 0/ny-1 not 0")
     require(not v[..., 0, :].any(), f"{label}: v row 0 not 0")
     require(not u[..., scene.mask_u_bc > 0].any(), f"{label}: u on mask_u_bc not 0")
     return float(u.min()), float(u.max())
@@ -1785,6 +1914,58 @@ def run_js(dev, launches, report):
     return out
 
 
+def run_cavity(dev, launches, report):
+    """The lid-driven cavity (BASELINE config 2) with the cavity app's
+    constants (dt 0.002, viscosity 1e-2, lid 1.0) and Rust defaults: 512^2
+    (5 warm-up steps, 50 timed), 1024^2 (3, then 10) and 2048^2 (2, then
+    5); the 2048^2 cavity on the fast schedule (5, then 100 under
+    set_sync_debug_mode("error")); a 128^2 JS cavity (5, then 50, adaptive
+    substeps); the Re = 100 cavity of tests/test_physics.py at 64^2 for
+    its 8000 steps, against Ghia et al. (1982) within 0.06. Returns the
+    (scene, end state, label) triples of the 512^2 and fast-shape runs."""
+    out = []
+    runs = ((CAV512, cavity_scene(512), 5, 50, False),
+            (CAV1024, cavity_scene(1024), 3, 10, False),
+            (CAV2048, cavity_scene(2048), 2, 5, False),
+            (CAV_FAST, cavity_fast_scene(), 5, 100, True),
+            (CAV_JS, tc.make_scene(tc.cavity_grid(128), tc.SimulationParams(
+                dt=0.002, viscosity=1e-2, flow_case=tc.FlowCase.CAVITY),
+                tc.solver_options_for(tc.Semantics.JS)), 5, 50, False))
+    for label, scene, warm, steps, no_sync in runs:
+        g = scene.grid
+        state, _ = tc.make_run(scene, warm)(scene.init_state(dev))
+        state, sec, launches[label] = timed_run(scene, state, steps, no_sync)
+        umin, umax = check_invariants(scene, state, label)
+        entry = {"steps_per_s": steps / sec, "cell_updates_per_s": g.nx * g.ny * steps / sec,
+                 "res_p": float(state.res_p), "u_range": [umin, umax]}
+        if not _use_fused_substep(scene):
+            entry["rounds_sweeps_next_step"] = solve_correct_rounds(
+                *rounds_args(scene, state))[5].tolist()
+        report[label] = entry
+        print(f"[6] {label}: {steps} steps in {sec:.4f} s = {steps / sec:.2f} steps/s "
+              f"({entry['cell_updates_per_s']:.4e} cell-updates/s)"
+              + (", no host sync (set_sync_debug_mode error)" if no_sync else "")
+              + (f"; the next step's rounds and sweeps {entry['rounds_sweeps_next_step']}"
+                 if "rounds_sweeps_next_step" in entry else "")
+              + f"; u in [{umin:.4f}, {umax:.4f}], res_p {entry['res_p']:.3e}; invariants "
+              f"hold", flush=True)
+        if label in (CAV512, CAV_FAST):
+            out.append((scene, state, label))
+
+    scene = ghia_scene()
+    state, sec, launches[GHIA] = timed_run(scene, scene.init_state(dev), GHIA_STEPS, False)
+    check_invariants(scene, state, GHIA)
+    du, dv = ghia_deviation(state)
+    report[GHIA] = {"steps_per_s": GHIA_STEPS / sec, "res_u": float(state.res_u),
+                    "max_dev_u": du, "max_dev_v": dv}
+    print(f"[6] {GHIA}: Re = 100, {GHIA_STEPS} steps in {sec:.4f} s = "
+          f"{GHIA_STEPS / sec:.2f} steps/s; res_u {float(state.res_u):.3e}; max deviation "
+          f"from Ghia et al. (1982): u {du:.4f}, v {dv:.4f} (bound 0.06)", flush=True)
+    require(float(state.res_u) < 1e-4, f"{GHIA}: not at steady state")
+    require(du < 0.06 and dv < 0.06, f"{GHIA}: deviation u {du}, v {dv} >= 0.06")
+    return out
+
+
 def shard_blocks(x, shards, halo):
     """A global field's halo-extended row blocks, as the sharded step's
     exchange gives them (zero rows past the grid)."""
@@ -2017,6 +2198,8 @@ def reset_counts():
         wrapper.cluster_launches = 0
     predict_div.tiled_launches = 0
     correct_bc.fused_launches = 0
+    for kernel in CAVITY_OF:
+        KERNELS[kernel][0].cavity_launches = 0
 
 
 def read_counts():
@@ -2026,6 +2209,8 @@ def read_counts():
         counts[key] = KERNELS[name][0].cluster_launches
     counts[TILED] = predict_div.tiled_launches
     counts[FUSED] = correct_bc.fused_launches
+    for kernel, key in CAVITY_OF.items():
+        counts[key] = KERNELS[kernel][0].cavity_launches
     return counts
 
 
@@ -2097,6 +2282,7 @@ def main() -> int:
     check_mg_kernels(dev, results)
     check_multigrid_solve(dev, report)
     check_shard_kernels(dev, results, report)
+    check_cavity_kernels(dev, results)
     launches = {}
 
     scene_a = reference_scene()
@@ -2200,6 +2386,7 @@ def main() -> int:
     vertex_runs = run_vertex(dev, launches, report)
     js_runs = run_js(dev, launches, report)
     sharded_runs = run_sharded(dev, launches, report, state_a)
+    cavity_runs = run_cavity(dev, launches, report)
 
     report["cpu_compare"] = {
         "800x264": compare_with_cpu(scene_a, state_a, "800x264"),
@@ -2226,6 +2413,8 @@ def main() -> int:
             scene, state, label, steps, knife_edge=label != JS_QUICK)
     for scene, state, shards, label in sharded_runs:
         report["cpu_compare"][label] = compare_sharded(scene, state, shards, label)
+    for scene, state, label in cavity_runs:
+        report["cpu_compare"][label] = compare_with_cpu(scene, state, label)
 
     for path, names in PATHS.items():
         counts = {k: launches[path][k] for k in names}
@@ -2246,6 +2435,25 @@ def main() -> int:
                 f"the {path} run launched the rounds kernel's cluster form "
                 f"{launches[path][CLUSTER]} times of {launches[path]['rounds']}, "
                 f"expected {want}")
+    # The cavity paths launch kernels 2, 3 and 4 in their CAVITY instances
+    # alone, the channel paths never; kernel 4 takes its cluster form at
+    # 512^2, 128^2 and 64^2, its cooperative form at 1024^2.
+    for path in PATHS:
+        for kernel, key in CAVITY_OF.items():
+            n, want = launches[path][key], launches[path][kernel]
+            want = want if path in CAVITY_PATHS else 0
+            require(n == want, f"the {path} run launched {kernel}'s CAVITY instance "
+                    f"{n} times of {launches[path][kernel]}, expected {want}")
+    for path, n in ((CAV512, 512), (CAV1024, 1024), (CAV_JS, 128), (GHIA, 64)):
+        cluster = path != CAV1024
+        require((rounds_ctas(n, n, dev, True) is not None) == cluster,
+                f"the plan gives the {path} grid the wrong form")
+        want = launches[path]["rounds"] if cluster else 0
+        require(launches[path][CLUSTER] == want, f"the {path} run launched the rounds "
+                f"kernel's cluster form {launches[path][CLUSTER]} times, expected {want}")
+    print(f"[8] the cavity paths launched kernels 2-4 in their CAVITY instances only, "
+          f"kernel 4 in its cluster form at 512^2, 128^2 and 64^2 and its cooperative "
+          f"form at 1024^2; no channel path launched a CAVITY instance", flush=True)
     # Kernels 1 and 3 take their tiled and one-launch forms on every path
     # that launches them.
     for path in PATHS:

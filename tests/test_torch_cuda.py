@@ -1174,3 +1174,147 @@ def test_correct_bc_ticket_resets(cuda):
     third = ksub.correct_bc(*small, *rest)
     _same_bits(third, ksub.correct_bc(*small, *rest, form="pointwise"), "after a larger")
     assert float(third[5]) < float(first[5])
+
+
+# ---------------------------------------------------------------------------
+# CAVITY flow: kernels 2, 3 and 4's cavity instances, and the cavity's steps
+# ---------------------------------------------------------------------------
+
+CAVITY = tc.FlowCase.CAVITY
+# nx of every residue mod 4: kernel 4's cluster form mirrors column nx-2
+# into nx-1 within a float4, or (nx - 1) % 4 == 0 folds E from the .w
+CAVITY_SHAPES = [(24, 40), (24, 41), (24, 42), (24, 43), (37, 53), (64, 96)]
+
+
+def _cavity_grid(ny, nx, cylinders=1):
+    lx, ly = nx / ny, 1.0
+    obstacles = tuple(tc.Cylinder(lx * (0.25 + 0.5 * k / max(cylinders - 1, 1)),
+                                  0.3 + 0.4 * (k % 2), 0.12) for k in range(cylinders))
+    return tc.Grid(nx=nx, ny=ny, lx=lx, ly=ly, obstacles=obstacles)
+
+
+def _cavity_pp(seed, shape):
+    from cfd_demo_tpu_torch.ops.poisson import _apply_pprime_bcs_cavity
+    g = torch.Generator().manual_seed(seed)
+    pp = _apply_pprime_bcs_cavity(0.1 * torch.randn(shape, generator=g))
+    return pp, torch.randn(shape, generator=g)
+
+
+@pytest.mark.parametrize("k", ["1", "t", "t+1", "16"])
+@pytest.mark.parametrize("shape", [*CAVITY_SHAPES, (3, 3), (130, 258), (2048, 2048)])
+def test_jacobi_fused_k_cavity_bit_for_bit(cuda, shape, k):
+    """Kernel 2's CAVITY instance equals the whole field's folded twin
+    with the cavity BCs bit for bit, and the plain sweeps within the
+    channel form's tolerance."""
+    k = TILED_KS[k](kjac.jacobi_tile()["sweeps"])
+    ny, nx = shape
+    pp, rhs = _cavity_pp(ny + nx + k, shape)
+    n = kjac.jacobi_fused_k.cavity_launches
+    got = kjac.jacobi_fused_k(pp.to(cuda), rhs.to(cuda), 1 / nx, 1 / ny, 0.75, k, cavity=True)
+    assert kjac.jacobi_fused_k.cavity_launches == n + 1
+    ref = kjac.jacobi_fused_k_folded(pp, rhs, 1 / nx, 1 / ny, 0.75, k, cavity=True)
+    assert torch.equal(got[0].cpu(), ref[0]), float((got[0].cpu() - ref[0]).abs().max())
+    assert torch.equal(got[1].cpu(), ref[1]), (float(got[1]), float(ref[1]))
+    if ny * nx < 1e5:
+        plain = kjac.jacobi_fused_k(pp, rhs, 1 / nx, 1 / ny, 0.75, k, cavity=True)
+        assert_close(got[0], plain[0], rtol=1e-5)
+        assert_close(got[1], plain[1], rtol=1e-5)
+
+
+@pytest.mark.parametrize("semantics", ["RUST", "JS"])
+@pytest.mark.parametrize("profile", ["UNIFORM", "PARABOLIC", "PARABOLIC_UPPER"])
+@pytest.mark.parametrize("shape,cylinders", [((24, 40), 1), ((47, 65), 2), ((97, 130), 3)])
+def test_correct_bc_cavity(cuda, shape, cylinders, profile, semantics):
+    """Kernel 3's CAVITY instance (the one-launch form) against the plain
+    corrector, the cavity BCs and the three maxima."""
+    grid = _cavity_grid(*shape, cylinders)
+    args = fields(1, grid, cuda) + fields(2, grid, cuda)[:2]
+    rest = (DT, INLET, grid, tc.InletProfile[profile], CAVITY, tc.Semantics[semantics])
+    n = ksub.correct_bc.cavity_launches
+    got = ksub.correct_bc(*args, *rest)
+    assert ksub.correct_bc.cavity_launches == n + 1
+    ref = ksub.correct_bc_plain(*(a.cpu() for a in args), *rest)
+    for a, b in zip(got, ref):
+        assert_close(a, b)
+    with pytest.raises(ValueError, match="CHANNEL"):
+        ksub.correct_bc(*args, *rest, form="pointwise")
+
+
+def _cavity_rounds_scene(ny, nx, cylinders=1, **opts):
+    return tc.make_scene(_cavity_grid(ny, nx, cylinders), tc.SimulationParams(
+        dt=0.002, viscosity=1e-2, flow_case=CAVITY,
+        inlet_profile=tc.InletProfile.PARABOLIC if cylinders > 1 else tc.InletProfile.UNIFORM),
+        tc.solver_options_for(RUST, **opts))
+
+
+@pytest.mark.parametrize("schedule", ["exits", "all sweeps"])
+@pytest.mark.parametrize("shape,cylinders", [((24, 40), 1), ((24, 41), 2), ((24, 42), 1),
+                                             ((24, 43), 3), ((37, 53), 2)])
+def test_rounds_cavity(cuda, shape, cylinders, schedule):
+    """Kernel 4's CAVITY instance in both forms against the plain version:
+    the same outer rounds and sweeps, u and v at the channel form's bound,
+    p and p' with the mean difference removed (the all-Neumann solve's
+    gauge); the cluster form at every C it can split the grid over and
+    the cooperative form bit for bit the same."""
+    ny, nx = shape
+    kw = {} if schedule == "exits" else {"jacobi_iters": 40, "outer_corrector_rounds": 3}
+    scene = _cavity_rounds_scene(ny, nx, cylinders, **kw)
+    u, v, p, rhs = fields(4, scene.grid, cuda, scale=0.1)
+    pp0, _ = _cavity_pp(5, shape)
+    args = (u, v, p, 0.01 * pp0.to(cuda), (10 if schedule == "exits" else 1000) * rhs)
+    n = krounds.solve_correct_rounds.cavity_launches
+    b = krounds.solve_correct_rounds(*args, 0.002, 1.0, scene, form="cooperative")
+    ref = krounds.solve_correct_rounds_plain(*(a.cpu() for a in args), 0.002, 1.0, scene)
+    assert b[5].tolist() == ref[5].tolist()
+    if schedule == "all sweeps":
+        assert ref[5].tolist() == [3, 160]
+    for name, x, y in zip(("u", "v"), b, ref):
+        torch.testing.assert_close(x.cpu(), y, rtol=1e-4, atol=5e-5, msg=name)
+    for name, x, y in zip(("p", "pp"), b[2:4], ref[2:4]):
+        d = x.cpu() - y
+        assert float((d - d.mean()).abs().max()) <= 1e-4 * max(1.0, float(y.abs().max())), name
+    assert float(b[3][0, 0]) == 0.0 and torch.equal(b[3][:, -1], b[3][:, -2])
+    sizes = _cluster_sizes(ny, nx)
+    for ctas in sizes:
+        a = krounds.solve_correct_rounds(*args, 0.002, 1.0, scene, form="cluster", ctas=ctas)
+        assert a[5].tolist() == b[5].tolist(), ctas
+        for name, x, y in zip(("u", "v", "p", "pp", "err"), a, b):
+            assert torch.equal(x, y), (ctas, name, float((x - y).abs().max()))
+    assert krounds.solve_correct_rounds.cavity_launches == n + 1 + len(sizes)
+
+
+@pytest.mark.parametrize("route", ["rounds", "fused", "fdm", "multigrid"])
+def test_cavity_steps_match_cpu_path(cuda, route):
+    """Five cavity steps on the card and on the CPU path: u and v, p with
+    the mean difference removed (MULTIGRID's three cycles leave the
+    smoothest modes apart: u, v alone, as the channel's are held)."""
+    grid = _cavity_grid(48, 64, cylinders=0)
+    solver = {"fdm": "FDM", "multigrid": "MULTIGRID"}.get(route, "JACOBI")
+    opts = dict(substep_impl="pallas", jacobi_tol=0.0, outer_corrector_rounds=0,
+                early_exit=False) if route == "fused" else {}
+    scene = tc.make_scene(grid, tc.SimulationParams(
+        dt=0.002, viscosity=1e-2, flow_case=CAVITY,
+        pressure_solver=tc.PressureSolver[solver],
+        inlet_profile=tc.InletProfile.PARABOLIC), tc.solver_options_for(RUST, **opts))
+    run = tc.make_run(scene, 5)
+    a, _ = run(scene.init_state(cuda))
+    b, _ = run(scene.init_state("cpu"))
+    for f in ("u", "v"):
+        assert_close(getattr(a, f), getattr(b, f), rtol=1e-5)
+    if route != "multigrid":
+        d = (a.p.cpu() - b.p).double()
+        assert float((d - d.mean()).abs().max()) <= 1e-5 * max(1.0, float(b.p.abs().max()))
+
+
+def test_cavity_ghia_re100_on_the_card(cuda):
+    """The steady Re = 100 cavity against Ghia et al. (1982) as
+    tests/test_physics.py:134-170 runs it: 8000 steps through the rounds
+    kernel's CAVITY instance, max deviation below 0.06."""
+    from cfd_demo_tpu_torch.validation import GHIA_STEPS, ghia_deviation, ghia_scene
+    scene = ghia_scene()
+    n = krounds.solve_correct_rounds.cavity_launches
+    state, _ = tc.make_run(scene, GHIA_STEPS)(scene.init_state(cuda))
+    assert krounds.solve_correct_rounds.cavity_launches == n + GHIA_STEPS
+    assert float(state.res_u) < 1e-4, "not at steady state"
+    du, dv = ghia_deviation(state)
+    assert du < 0.06 and dv < 0.06, (du, dv)

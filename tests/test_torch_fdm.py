@@ -38,8 +38,8 @@ def _floor(e, r, dx, dy, mult):
     ((1, 8), 0.32, 0.4, 0.9 / 0.32),
 ])
 def test_fdm_solve_interior_matches_jax(shape, dx, dy, d_mult):
-    """The CHANNEL operator (Dirichlet outlet); the all-Neumann one is
-    CAVITY's (ROADMAP.md queue 1 item 6b)."""
+    """The CHANNEL operator (Dirichlet outlet); the all-Neumann one,
+    CAVITY's, is held by tests/test_torch_cavity.py."""
     rng = np.random.default_rng(9)
     r = rng.standard_normal(shape).astype(np.float32)
     d_wall = d_mult * dx

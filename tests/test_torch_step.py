@@ -263,22 +263,29 @@ def _bench_jax_scene(mode, n):
 
 
 @pytest.mark.parametrize("cell", ["800x264 default", "2048^2 fast",
-                                  "2048^2 reference", "2048^2 production"])
+                                  "2048^2 reference", "2048^2 production",
+                                  "1024^2 cavity"])
 def test_cells_are_the_reference_configs(cell):
-    """cells.py's scenes are the README quick start and bench.py's modes,
-    and each takes the route its cell is meant to exercise."""
+    """cells.py's scenes are the README quick start, bench.py's modes and
+    the cavity app's scene (apps/cavity.py), and each takes the route its
+    cell is meant to exercise."""
     make = cells.CELLS[cell][0]
     scene = make()
     if cell == "800x264 default":
         want = jc.make_scene(jc.default_grid())
+    elif cell == "1024^2 cavity":
+        want = jc.make_scene(jc.cavity_grid(1024), jc.SimulationParams(
+            dt=0.002, viscosity=1e-2, target_inlet_velocity=1.0,
+            flow_case=jc.FlowCase.CAVITY), jc.solver_options_for(jc.Semantics.RUST))
     else:
         want = _bench_jax_scene(cell.split()[1], 2048)
     for part in ("grid", "params", "opts"):
         assert repr(getattr(scene, part)) == repr(getattr(want, part)), part
+    rounds_route = cell in ("800x264 default", "1024^2 cavity")
     fused = tpiso._use_fused_substep(scene)
-    assert fused == (cell != "800x264 default")
+    assert fused == (not rounds_route)
     assert ((scene.opts.outer_corrector_rounds > 0)
-            == (cell in ("800x264 default", "2048^2 reference")))
+            == (cell in ("800x264 default", "2048^2 reference", "1024^2 cavity")))
 
 
 def test_cells_rounds_args_and_busy_time():
