@@ -1,6 +1,6 @@
 """The port's measured shapes, and where their device time goes.
 
-Thirteen cells, each at full size, from the JAX package's own defaults:
+Fourteen cells, each at full size, from the JAX package's own defaults:
 
 - :func:`reference_scene`: the README quick start, the Rust app's
   800x264 cylinder channel with default parameters and solver options
@@ -40,7 +40,12 @@ Thirteen cells, each at full size, from the JAX package's own defaults:
   --n 1024`` (BASELINE config 2, the lid-driven cavity with the app's
   dt 0.002, viscosity 1e-2 and lid 1.0, Rust defaults: up to 20 outer
   rounds; the rounds kernel's CAVITY instance in its cooperative form,
-  since no cluster holds 1024 columns).
+  since no cluster holds 1024 columns);
+- :func:`cavity_production_scene` at 2048²: ``python -m
+  cfd_demo_tpu.apps.cavity --n 2048 --solver mg-production`` (the same
+  scene with the production projection: the fused route, aligned
+  V-cycles through kernels 7, 8 and 9's CAVITY instances and the
+  all-Neumann FDM bottom).
 
 :data:`SHARDED` names the row-sharded paths (shard/step_shmap.py) that
 ``chip_smoke.py`` runs, each a scene above on a row mesh of n shards
@@ -151,6 +156,16 @@ def cavity_scene(n: int = 1024, **opts):
     over its defaults."""
     return make_scene(cavity_grid(n), SimulationParams(
         dt=0.002, viscosity=1e-2, target_inlet_velocity=1.0, flow_case=FlowCase.CAVITY),
+        solver_options_for(Semantics.RUST, **opts))
+
+
+def cavity_production_scene(n: int = 2048, **opts):
+    """The cavity app's scene with ``--solver mg-production``
+    (cfd_demo_tpu/apps/cavity.py:21-28, apps/common.py:28): MG_PRODUCTION
+    with the Rust defaults and ``opts`` over them."""
+    return make_scene(cavity_grid(n), SimulationParams(
+        dt=0.002, viscosity=1e-2, target_inlet_velocity=1.0, flow_case=FlowCase.CAVITY,
+        pressure_solver=PressureSolver.MG_PRODUCTION),
         solver_options_for(Semantics.RUST, **opts))
 
 
@@ -281,6 +296,8 @@ CELLS = {
     "400x132 js default": (js_default_scene, 100, 50, None),
     "2048^2 js quick": (js_quick_scene, 5, 100, None),
     "1024^2 cavity": (cavity_scene, 5, 20, None),
+    # the app's dt grows the 2048^2 flow without bound within ~13 steps
+    "2048^2 cavity production": (cavity_production_scene, 2, 5, None),
 }
 # The sharded paths: name -> (scene, shards, warm-up steps, timed steps).
 SHARDED = {
@@ -315,10 +332,10 @@ TRACED = {"predict_div_kernel<": lambda: predict_div.launches - predict_div.tile
           "jacobi_batch_kernel(": lambda: (jacobi_batch.launches
                                            - jacobi_batch.cluster_launches),
           "jacobi_batch_cluster_kernel<": lambda: jacobi_batch.cluster_launches,
-          "restrict_kernel(": _counts(mgp.jacobi_fused_k_restrict),
+          "restrict_kernel<": _counts(mgp.jacobi_fused_k_restrict),
           "corr_add_kernel(": _counts(mgp.jacobi_fused_k_corr),
           "vertex_restriction_kernel(": _counts(mg.mg_residual_restrict),
-          "vertex_prolong_add_kernel(": _counts(mg.mg_prolong_add)}
+          "vertex_prolong_add_kernel<": _counts(mg.mg_prolong_add)}
 
 
 def _busy_us(spans):

@@ -4,7 +4,10 @@
 // and cfd_demo_tpu/kernels/mg_pallas.py mg_smooth_int (_kernel_smooth),
 // mg_residual_restrict_int (_kernel_restrict), mg_prolong_add_int
 // (_kernel_prolong) and mgp_smooth_int (_kernel_smooth_mgp). See
-// kernels/mg.py for the design note.
+// kernels/mg.py for the design note. The p' BCs of the damped smoother and
+// of the prolongation's sum take CHANNEL or CAVITY flow (a template flag,
+// mg_pallas.py:998-1023; the CHANNEL instances are the code they were
+// before the flag).
 #include "sweep.cuh"
 
 namespace {
@@ -78,19 +81,23 @@ vertex_smooth_block_kernel(const float* p, const float* rhs, float* out, int ny,
 }
 
 // ---------------------------------------------------------------------------
-// Damped sweeps with the channel p' BCs (mg_pallas.py:890-918): the folded
-// sweep of sweep.cuh, then one BC refresh, rows then columns.
+// Damped sweeps with the p' BCs (mg_pallas.py:890-918): the folded sweep of
+// sweep.cuh, then one BC refresh, rows then columns; CAVITY folds the east
+// edge and takes the cavity's ring (the right column from column nx-2, the
+// gauge cell (0, 0) pinned to 0).
 // ---------------------------------------------------------------------------
 
 // The p' BCs on an array whose interior is final (sweep.cuh ring_cell).
+template <bool CAVITY>
 __global__ void pprime_ring_kernel(float* pp, int ny, int nx) {
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= 2 * nx + 2 * (ny - 2)) return;
     int j, i, jj, ii;
-    const bool copy = ring_cell(b, ny, nx, j, i, jj, ii);
+    const bool copy = ring_cell<CAVITY>(b, ny, nx, j, i, jj, ii);
     pp[(size_t)j * nx + i] = copy ? pp[(size_t)jj * nx + ii] : 0.0f;
 }
 
+template <bool CAVITY>
 __global__ void __launch_bounds__(kBlockThreads)
 mgp_smooth_block_kernel(const float* p, const float* rhs, float* out, int ny, int nx,
                         int k, float ax, float ay, float ar, float ac) {
@@ -109,7 +116,7 @@ mgp_smooth_block_kernel(const float* p, const float* rhs, float* out, int ny, in
             const int j = t / nx, i = t - j * nx;
             if (i < 1 || i > nx - 2 || j < 1 || j > ny - 2) continue;
             const float c = a[t];
-            const float E = (i == nx - 2) ? 0.0f : a[t + 1];
+            const float E = (i == nx - 2) ? (CAVITY ? c : 0.0f) : a[t + 1];
             const float W = (i == 1) ? c : a[t - 1];
             const float N = (j == ny - 2) ? c : a[t + nx];
             const float S = (j == 1) ? c : a[t - nx];
@@ -127,7 +134,7 @@ mgp_smooth_block_kernel(const float* p, const float* rhs, float* out, int ny, in
     const int nbc = 2 * nx + 2 * (ny - 2);
     for (int q = threadIdx.x; q < nbc; q += blockDim.x) {
         int j, i, jj, ii;
-        const bool copy = ring_cell(q, ny, nx, j, i, jj, ii);
+        const bool copy = ring_cell<CAVITY>(q, ny, nx, j, i, jj, ii);
         out[j * nx + i] = copy ? a[jj * nx + ii] : 0.0f;
     }
 }
@@ -191,8 +198,10 @@ __device__ __forceinline__ float prolong_at(const float* e, int j, int i, int ny
 }
 
 // out = p + prolong(e) over the whole fine array; with bc, the p' BCs of
-// that sum: a ring cell takes the sum at the cell the BCs copy from, the
-// outlet column 0 (ops/poisson.py:663).
+// that sum (ops/poisson.py:663): a ring cell takes the sum at the cell the
+// BCs copy from (sweep.cuh ring_cell), a cell they zero 0 (the outlet
+// column; CAVITY: the gauge cell (0, 0)).
+template <bool CAVITY>
 __global__ void vertex_prolong_add_kernel(const float* e, const float* p, float* out,
                                           int ny, int nx, int nyc, int nxc, int bc) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -201,11 +210,11 @@ __global__ void vertex_prolong_add_kernel(const float* e, const float* p, float*
     const size_t k = (size_t)j * nx + i;
     int jj = j, ii = i;
     if (bc) {
-        if (i == nx - 1) {
+        if (CAVITY ? (i == 0 && j == 0) : (i == nx - 1)) {
             out[k] = 0.0f;
             return;
         }
-        ii = (i == 0) ? 1 : i;
+        ii = (i == 0) ? 1 : (CAVITY && i == nx - 1) ? nx - 2 : i;
         jj = (j == 0) ? 1 : (j == ny - 1) ? ny - 2 : j;
     }
     out[k] = p[(size_t)jj * nx + ii] + prolong_at(e, jj, ii, nyc, nxc);
@@ -261,36 +270,47 @@ extern "C" int cfd_mg_restrict(const float* p, const float* rhs, float* rc, int 
     return (int)cudaGetLastError();
 }
 
-// out = p + prolong(e), e of ((ny+1)/2, (nx+1)/2); with bc != 0 the p' BCs
-// of the sum.
+// out = p + prolong(e), e of ((ny+1)/2, (nx+1)/2); bc: 0 none, 1 the
+// CHANNEL p' BCs of the sum, 2 the CAVITY ones.
 extern "C" int cfd_mg_prolong_add(const float* e, const float* p, float* out, int ny,
                                   int nx, int bc, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    if (ny < 3 || nx < 3) return (int)cudaErrorInvalidValue;
-    vertex_prolong_add_kernel<<<grid_for(ny, nx), dim3(kBX, kBY), 0, st>>>(
-        e, p, out, ny, nx, (ny + 1) / 2, (nx + 1) / 2, bc);
+    if (ny < 3 || nx < 3 || bc < 0 || bc > 2) return (int)cudaErrorInvalidValue;
+    const auto kern = (bc == 2) ? vertex_prolong_add_kernel<true>
+                                : vertex_prolong_add_kernel<false>;
+    kern<<<grid_for(ny, nx), dim3(kBX, kBY), 0, st>>>(e, p, out, ny, nx, (ny + 1) / 2,
+                                                      (nx + 1) / 2, bc);
     return (int)cudaGetLastError();
 }
 
-// k damped sweeps with the channel p' BCs from p into out: the folded
-// sweep (no ring cell read) and one BC refresh. k == 0 copies p.
+template <bool CAVITY>
+cudaError_t mgp_smooth(const float* p, const float* rhs, float* out, float* tmp, int ny,
+                       int nx, int k, float ax, float ay, float ar, float ac,
+                       cudaStream_t st) {
+    cudaError_t e;
+    if (fits_block(ny, nx)) {
+        e = allow_block_smem((const void*)mgp_smooth_block_kernel<CAVITY>);
+        if (e != cudaSuccess) return e;
+        mgp_smooth_block_kernel<CAVITY><<<1, kBlockThreads, 12 * ny * nx, st>>>(
+            p, rhs, out, ny, nx, k, ax, ay, ar, ac);
+        return cudaGetLastError();
+    }
+    e = run_sweeps<CAVITY>(p, rhs, out, tmp, nullptr, ny, nx, k, ax, ay, ar, ac, st);
+    if (e != cudaSuccess) return e;
+    const int nbc = 2 * nx + 2 * (ny - 2);
+    pprime_ring_kernel<CAVITY><<<(nbc + 255) / 256, 256, 0, st>>>(out, ny, nx);
+    return cudaGetLastError();
+}
+
+// k damped sweeps with the p' BCs from p into out: the folded sweep (no
+// ring cell read) and one BC refresh. k == 0 copies p. `cavity` takes the
+// CAVITY instance.
 extern "C" int cfd_mgp_smooth(const float* p, const float* rhs, float* out, float* tmp,
                               int ny, int nx, int k, float ax, float ay, float ar,
-                              float ac, void* stream) {
+                              float ac, int cavity, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     if (ny < 3 || nx < 3 || k < 0) return (int)cudaErrorInvalidValue;
     if (k == 0) return (int)copy_level(out, p, ny, nx, st);
-    cudaError_t e;
-    if (fits_block(ny, nx)) {
-        e = allow_block_smem((const void*)mgp_smooth_block_kernel);
-        if (e != cudaSuccess) return (int)e;
-        mgp_smooth_block_kernel<<<1, kBlockThreads, 12 * ny * nx, st>>>(
-            p, rhs, out, ny, nx, k, ax, ay, ar, ac);
-        return (int)cudaGetLastError();
-    }
-    e = run_sweeps(p, rhs, out, tmp, nullptr, ny, nx, k, ax, ay, ar, ac, st);
-    if (e != cudaSuccess) return (int)e;
-    const int nbc = 2 * nx + 2 * (ny - 2);
-    pprime_ring_kernel<<<(nbc + 255) / 256, 256, 0, st>>>(out, ny, nx);
-    return (int)cudaGetLastError();
+    const auto run = cavity ? mgp_smooth<true> : mgp_smooth<false>;
+    return (int)run(p, rhs, out, tmp, ny, nx, k, ax, ay, ar, ac, st);
 }

@@ -56,6 +56,16 @@ function's static instruction count (``sass_totals``: run from two
 trees' roots, the channel instances' counts are compared across a
 change that adds a template flag),
 
+    python3 -m cfd_demo_tpu_torch.kernel_times --sweep-bits [--out FILE.json]
+
+runs the channel instances of the kernels built on csrc/sweep.cuh's sweep
+and ring (kernels 6-9, 11, 13-15 and 17-19: csrc/mgp.cu, mg.cu, sor.cu,
+jacobi.cu's shard form) on seeded inputs at 2048², 2047² and 130x97 and
+prints each one's outputs' sha256 and its median time, with the entry
+points every version of the port since its sharded slice has, so that
+two trees' bits and times compare (A, B, B, A as above); where the tree
+has CAVITY instances of kernels 6-9, 18 and 19 they are timed too,
+
     python3 -m cfd_demo_tpu_torch.kernel_times --substep-forms [--out FILE.json]
 
 times kernels 1 and 3 in both forms (tiled and pointwise predict_div,
@@ -208,6 +218,78 @@ def kernel_times(dev) -> dict:
         out["jacobi_batch_all_done_cooperative_form_device_us"] = device_us(
             lambda: jacobi_batch(*jargs, done=done, form="cooperative"), 20, "jacobi_batch")
     return out
+
+
+def sweep_bits(dev) -> dict:
+    """{"<kernel> <ny>x<nx>": {"sha256": of its outputs' bytes, "ms": its
+    median}} for the channel instances of kernels 6-9, 11, 13-15 and
+    17-19 on seeded fields (p' with the channel's BCs, a random rhs, k = 3
+    for the smoothers, 8 for SOR), and "<kernel> cavity <ny>x<nx>" times
+    of the CAVITY instances where the tree has them."""
+    import hashlib
+    from cfd_demo_tpu_torch.kernels import mg as kmg
+    from cfd_demo_tpu_torch.kernels import mgp as kmgp
+    from cfd_demo_tpu_torch.kernels.jacobi import jacobi_fused_k_shard
+    from cfd_demo_tpu_torch.ops.poisson import _apply_pprime_bcs, _cc_prolong_x
+    cavity = hasattr(kmgp.jacobi_fused_k_res, "cavity_launches")
+    gen = torch.Generator().manual_seed(12)
+
+    def field(shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen)).to(dev)
+
+    def digest(outs):
+        h = hashlib.sha256()
+        for o in (outs if isinstance(outs, tuple) else (outs,)):
+            if o is not None:
+                h.update(o.detach().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    out = {}
+    for ny, nx in ((2048, 2048), (2047, 2047), (130, 97)):
+        pp, rhs = _apply_pprime_bcs(field((ny, nx), 0.1)), field((ny, nx))
+        dx, dy, om = 1 / nx, 1 / ny, 0.75
+        nyc, nxc = (ny - 2) // 2, (nx - 2) // 2
+        rc, e_v = field((nyc, nxc)), field(kmg.coarse_shape(ny, nx), 0.05)
+        lo, rows = ny // 2 - 16, ny // 4 + 32  # a shard's block: 16 halo rows each side
+        calls = {
+            "jacobi_fused_k_res": lambda c=False: kmgp.jacobi_fused_k_res(
+                pp, rhs, dx, dy, om, 3, **({"cavity": True} if c else {})),
+            "cc_sweeps": lambda c=False: kmgp.cc_sweeps(
+                torch.zeros_like(rc), rc, 2 * dx, 2 * dy, om, 3, 1.5 * dx, True,
+                **({"east_dirichlet": False} if c else {})),
+            "mgp_smooth": lambda c=False: kmg.mgp_smooth(
+                pp, rhs, dx, dy, om, 3, **({"cavity": True} if c else {})),
+            "mg_residual_restrict": lambda: kmg.mg_residual_restrict(pp, rhs, dx, dy),
+            "mg_prolong_add": lambda c=False: kmg.mg_prolong_add(
+                e_v, pp, True, **({"cavity": True} if c else {})),
+            "sor_fused_k": lambda: ksor.sor_fused_k(pp, rhs, dx, dy, 1.7, 8),
+            "jacobi_fused_k_shard": lambda: jacobi_fused_k_shard(
+                pp[lo:lo + rows].contiguous(), rhs[lo:lo + rows].contiguous(), lo, ny, dx,
+                dy, om, 8, 16, rows - 16),
+            "sor_fused_k_shard": lambda: ksor.sor_fused_k_shard(
+                pp[lo:lo + rows].contiguous(), rhs[lo:lo + rows].contiguous(), lo, ny, dx,
+                dy, 1.7, 4, 16, rows - 16),
+        }
+        if ny % 2 == 0 and nx % 2 == 0:
+            row = _cc_prolong_x(field((nyc, nxc), 0.05), nx - 2).contiguous()
+            split = ksor.sor_compress(pp) + ksor.sor_compress(rhs)
+            calls.update({
+                "jacobi_fused_k_restrict": lambda c=False: kmgp.jacobi_fused_k_restrict(
+                    pp, rhs, dx, dy, om, 3, **({"cavity": True} if c else {})),
+                "jacobi_fused_k_corr": lambda c=False: kmgp.jacobi_fused_k_corr(
+                    pp, rhs, row, dx, dy, om, 3, **({"cavity": True} if c else {})),
+                "sor_fused_k_rb2": lambda: ksor.sor_fused_k_rb2(*split, dx, dy, 1.7, 8)})
+        for name, call in calls.items():
+            key = f"{name} {ny}x{nx}"
+            out[key] = {"sha256": digest(call()), "ms": median_ms(call, 20)}
+            if cavity and name in CAVITY_INSTANCES:
+                out[f"{name} cavity {ny}x{nx}"] = {"ms": median_ms(lambda: call(True), 20)}
+    return out
+
+
+# The kernels of sweep_bits whose CAVITY instances it times.
+CAVITY_INSTANCES = ("jacobi_fused_k_res", "jacobi_fused_k_restrict", "jacobi_fused_k_corr",
+                    "cc_sweeps", "mgp_smooth", "mg_prolong_add")
 
 
 def ensemble_states(dev) -> dict:
@@ -839,6 +921,8 @@ def main() -> int:
     ap.add_argument("--sass", action="store_true",
                     help="count the cluster kernels' SASS instructions a strip row, and "
                          "kernels 1 and 3's a cell, instead")
+    ap.add_argument("--sweep-bits", action="store_true",
+                    help="the bits and times of the kernels on csrc/sweep.cuh instead")
     ap.add_argument("--step-rates", action="store_true",
                     help="the 2048^2 fast and JS quick rates and host cost a step instead")
     ap.add_argument("--substep-forms", action="store_true",
@@ -856,6 +940,7 @@ def main() -> int:
              else distinct_scenes(dev) if args.distinct_scenes
              else substep_form_times(dev) if args.substep_forms
              else step_rates(dev) if args.step_rates
+             else sweep_bits(dev) if args.sweep_bits
              else sass_rows() + substep_sass_rows() + sass_totals() if args.sass
              else kernel_times(dev))
     report = {"label": args.label, "package": tc.__file__, "nvidia_smi": smi,

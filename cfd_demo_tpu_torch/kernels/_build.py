@@ -62,10 +62,10 @@ _SIGNATURES = {
     "cfd_rounds": _ROUNDS,
     "cfd_rounds_cluster": _ROUNDS[:-1] + [I, P],
     "cfd_rounds_cluster_admit": [I, I, I, I],
-    "cfd_mgp_res": [P] * 7 + [I] * 3 + [F] * 7 + [P],
-    "cfd_mgp_restrict": [P] * 7 + [I] * 3 + [F] * 7 + [P],
-    "cfd_mgp_corr": [P] * 9 + [I] * 3 + [F] * 7 + [P],
-    "cfd_cc_sweeps": [P] * 5 + [I] * 3 + [F] * 8 + [P],
+    "cfd_mgp_res": [P] * 7 + [I] * 3 + [F] * 7 + [I, P],
+    "cfd_mgp_restrict": [P] * 7 + [I] * 3 + [F] * 7 + [I, P],
+    "cfd_mgp_corr": [P] * 9 + [I] * 3 + [F] * 7 + [I, P],
+    "cfd_cc_sweeps": [P] * 5 + [I] * 3 + [F] * 8 + [I, P],
     "cfd_substep_batch_smem": [I, I],
     "cfd_substep_batch": [P] * 16 + [I] * 3 + [F] * 9 + [I, I, F, I, F, P],
     "cfd_substep_batch_cluster": [P] * 16 + [I] * 3 + [F] * 9 + [I, I, F, I, F, I, P],
@@ -81,7 +81,7 @@ _SIGNATURES = {
     "cfd_mg_smooth": [P] * 4 + [I] * 3 + [F] * 3 + [P],
     "cfd_mg_restrict": [P] * 3 + [I] * 2 + [F] * 3 + [P],
     "cfd_mg_prolong_add": [P] * 3 + [I] * 3 + [P],
-    "cfd_mgp_smooth": [P] * 4 + [I] * 3 + [F] * 4 + [P],
+    "cfd_mgp_smooth": [P] * 4 + [I] * 3 + [F] * 4 + [I, P],
 }
 
 

@@ -16,16 +16,17 @@ Four wrappers, on compact levels of any size from 3x3, odd or even:
   _mg_residual, compact; its ring is 0, as a residual's is.
 - ``mg_prolong_add`` replaces ``mg_prolong_add_int`` (mg_pallas.py:687,
   ``_kernel_prolong`` :575), kernel 18: p + _mg_prolong(e), and with
-  ``bc`` the channel p' BCs of that sum, which the legacy cycle applies
-  before its post-smoother (ops/poisson.py:663 of the JAX package; the
-  TPU kernel leaves that to its post-smoother's folded reads,
-  mg_pallas.py:1107-1108).
+  ``bc`` the p' BCs of that sum (the channel's, or with ``cavity`` the
+  cavity's), which the legacy cycle applies before its post-smoother
+  (ops/poisson.py:663 of the JAX package; the TPU kernel leaves that to
+  its post-smoother's folded reads, mg_pallas.py:1107-1108).
 - ``mgp_smooth`` replaces ``mgp_smooth_int`` (mg_pallas.py:1023,
-  ``_kernel_smooth_mgp`` :826), kernel 19, channel only: k damped sweeps
-  with the p' BCs (ops.poisson._mgp_smooth), as csrc/sweep.cuh's folded
-  sweep (no ring cell read) and one BC refresh at the end. That equals
-  the plain sweeps only on BC-consistent input, which the legacy cycle
-  always passes: zeros, a smoother's output, bc(p + prolong(e)).
+  ``_kernel_smooth_mgp`` :826), kernel 19: k damped sweeps with the p'
+  BCs (ops.poisson._mgp_smooth), the channel's or with ``cavity`` the
+  cavity's (mg_pallas.py:998-1010), as csrc/sweep.cuh's folded sweep (no
+  ring cell read) and one BC refresh at the end. That equals the plain
+  sweeps only on BC-consistent input, which the legacy cycle always
+  passes: zeros, a smoother's output, bc(p + prolong(e)).
 
 Arithmetic: the sweeps use the TPU kernels' multipliers (``bx, by, br``,
 mg_pallas.py:100-104; ``ax, ay, ar, ac``, :871-875) and the restriction
@@ -48,17 +49,18 @@ launch each, a thread a coarse (restriction) or fine (prolongation)
 cell.
 
 On CPU tensors each wrapper runs its plain version; on CUDA tensors it
-launches its kernel or raises, and adds one to its ``launches``.
+launches its kernel or raises, and adds one to its ``launches``, and
+``mgp_smooth`` and ``mg_prolong_add`` one to their ``cavity_launches``
+for a CAVITY instance.
 """
 from __future__ import annotations
 
 import torch
 
-from ..ops.poisson import (_apply_pprime_bcs, _mg_prolong, _mg_residual,
-                           _mg_restrict, _mg_smooth, _mgp_smooth)
+from ..ops.poisson import _mg_prolong, _mg_residual, _mg_restrict, _mg_smooth, _mgp_smooth
 from ._build import check, load, on_cpu, stream_of
 from .jacobi import _multipliers
-from .mgp import _check_fine, _residual_multipliers
+from .mgp import _check_fine, _residual_multipliers, pprime_bcs
 from .sor import _coefficients
 
 
@@ -88,15 +90,17 @@ def mg_residual_restrict_plain(p, rhs, dx, dy):
     return _mg_restrict(_mg_residual(p, rhs, dx, dy), nx_c, ny_c)
 
 
-def mg_prolong_add_plain(e, p, bc=False):
-    """p + _mg_prolong(e), with the p' BCs when ``bc``."""
+def mg_prolong_add_plain(e, p, bc=False, cavity=False):
+    """p + _mg_prolong(e), with the p' BCs when ``bc`` (the cavity's
+    with ``cavity``)."""
     out = p + _mg_prolong(e, p.shape[1], p.shape[0])
-    return _apply_pprime_bcs(out) if bc else out
+    return pprime_bcs(cavity)(out) if bc else out
 
 
-def mgp_smooth_plain(p, rhs, dx, dy, omega, k):
-    """ops.poisson._mgp_smooth."""
-    return _mgp_smooth(p, rhs, dx, dy, omega, k)
+def mgp_smooth_plain(p, rhs, dx, dy, omega, k, cavity=False):
+    """ops.poisson._mgp_smooth, with the cavity's p' BCs when
+    ``cavity``."""
+    return _mgp_smooth(p, rhs, dx, dy, omega, k, pprime_bcs(cavity))
 
 
 # ---------------------------------------------------------------------------
@@ -142,40 +146,46 @@ def mg_residual_restrict(p, rhs, dx, dy):
 mg_residual_restrict.launches = 0
 
 
-def mg_prolong_add(e, p, bc=False):
+def mg_prolong_add(e, p, bc=False, cavity=False):
     """p + the prolongation of the next level's ``e``; with ``bc`` the
-    channel p' BCs of that sum."""
+    p' BCs of that sum, the channel's or with ``cavity`` the cavity's."""
     _check_fine("mg_prolong_add", p, 0)
     shape = tuple(p.shape)
     if on_cpu("mg_prolong_add", {"e": (e, coarse_shape(*shape)), "p": (p, shape)}):
-        return mg_prolong_add_plain(e, p, bc)
+        return mg_prolong_add_plain(e, p, bc, cavity)
     lib = load()
     out = torch.empty_like(p)
+    mode = (2 if cavity else 1) if bc else 0
     with torch.cuda.device(p.device):
         check(lib.cfd_mg_prolong_add(e.data_ptr(), p.data_ptr(), out.data_ptr(), *shape,
-                                     int(bool(bc)), stream_of(p)), "mg_prolong_add")
+                                     mode, stream_of(p)), "mg_prolong_add")
     mg_prolong_add.launches += 1
+    mg_prolong_add.cavity_launches += mode == 2
     return out
 
 
 mg_prolong_add.launches = 0
+mg_prolong_add.cavity_launches = 0
 
 
-def mgp_smooth(p, rhs, dx, dy, omega, k):
-    """k damped sweeps with the channel p' BCs (BC-consistent ``p``)."""
+def mgp_smooth(p, rhs, dx, dy, omega, k, cavity=False):
+    """k damped sweeps with the p' BCs, the channel's or with ``cavity``
+    the cavity's (BC-consistent ``p``)."""
     _check_fine("mgp_smooth", p, k)
     shape = tuple(p.shape)
     if on_cpu("mgp_smooth", {"p": (p, shape), "rhs": (rhs, shape)}):
-        return mgp_smooth_plain(p, rhs, dx, dy, omega, k)
+        return mgp_smooth_plain(p, rhs, dx, dy, omega, k, cavity)
     lib = load()
     out, tmp = torch.empty_like(p), torch.empty_like(p)
     with torch.cuda.device(p.device):
         check(lib.cfd_mgp_smooth(p.data_ptr(), rhs.data_ptr(), out.data_ptr(),
                                  tmp.data_ptr(), *shape, k, *_multipliers(dx, dy, omega),
-                                 stream_of(p)), "mgp_smooth")
+                                 int(cavity), stream_of(p)), "mgp_smooth")
     if k:  # k == 0 is a copy
         mgp_smooth.launches += 1
+        mgp_smooth.cavity_launches += bool(cavity)
     return out
 
 
 mgp_smooth.launches = 0
+mgp_smooth.cavity_launches = 0

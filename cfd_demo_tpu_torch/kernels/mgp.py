@@ -20,6 +20,16 @@
   level, outlet diagonal (1 + dx/d)/dx^2 + 2/dy^2 when d != dx, in the
   reciprocal-multiplier form; optionally the residual.
 
+Each kernel takes CHANNEL or CAVITY flow: ``cavity`` on the three
+fine-level kernels (jacobi_pallas.py:302, :334-340, :639, :661) folds
+the east neighbour of column nx-2 to the cell itself and gives the ring
+the cavity's BCs (column nx-2 copied into column nx-1, the cell (0, 0)
+pinned to 0); ``east_dirichlet`` False on ``cc_sweeps`` (:1690, :1704,
+:1751) mirrors the coarse level's east edge instead of reading the
+outlet's 0 ghost, with a uniform diagonal. On the card each is a
+template flag of the kernel (csrc/sweep.cuh, csrc/mgp.cu), counted in
+the wrapper's ``cavity_launches`` too.
+
 The sweeps use the TPU kernels' multipliers (``ax, ay, ar, ac``,
 jacobi_pallas.py:268-274; ``bx, by, denom`` for the residual; ``inv_dg``
 for the coarse levels, :1670-1680), so each kernel differs from its plain
@@ -47,8 +57,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.poisson import (_apply_pprime_bcs, _cc_prolong_y, _cc_residual,
-                           _cc_restrict, _cc_sweeps, _mg_residual, _mgp_smooth)
+from ..ops.poisson import (_apply_pprime_bcs, _apply_pprime_bcs_cavity, _cc_prolong_y,
+                           _cc_residual, _cc_restrict, _cc_sweeps, _mg_residual,
+                           _mgp_smooth)
 from ._build import check, load, on_cpu, stream_of
 from .jacobi import _multipliers
 
@@ -80,34 +91,41 @@ def _check_fine(what, pp, k):
 # Plain versions
 # ---------------------------------------------------------------------------
 
-def jacobi_fused_k_res_plain(pp, rhs, dx, dy, omega, k, emit_res=True):
-    """ops.poisson._mgp_smooth + _mg_residual; (p', r or None, max|r|)."""
-    p = _mgp_smooth(pp, rhs, dx, dy, omega, k)
+def pprime_bcs(cavity: bool):
+    """The p' BCs of CAVITY flow when ``cavity``, else CHANNEL's."""
+    return _apply_pprime_bcs_cavity if cavity else _apply_pprime_bcs
+
+
+def jacobi_fused_k_res_plain(pp, rhs, dx, dy, omega, k, emit_res=True, cavity=False):
+    """ops.poisson._mgp_smooth (with the cavity's p' BCs when ``cavity``)
+    + _mg_residual; (p', r or None, max|r|)."""
+    p = _mgp_smooth(pp, rhs, dx, dy, omega, k, pprime_bcs(cavity))
     r = _mg_residual(p, rhs, dx, dy)
     return p, (r if emit_res else None), torch.amax(torch.abs(r))
 
 
-def jacobi_fused_k_restrict_plain(pp, rhs, dx, dy, omega, k):
+def jacobi_fused_k_restrict_plain(pp, rhs, dx, dy, omega, k, cavity=False):
     """As jacobi_fused_k_res_plain, with the interior residual restricted
     by ops.poisson._cc_restrict; (p', r_c, max|r|)."""
-    p, r, err = jacobi_fused_k_res_plain(pp, rhs, dx, dy, omega, k)
+    p, r, err = jacobi_fused_k_res_plain(pp, rhs, dx, dy, omega, k, True, cavity)
     return p, _cc_restrict(r[1:-1, 1:-1]).contiguous(), err
 
 
-def jacobi_fused_k_corr_plain(pp, rhs, row, dx, dy, omega, k):
+def jacobi_fused_k_corr_plain(pp, rhs, row, dx, dy, omega, k, cavity=False):
     """bc(p' + pad(_cc_prolong_y(row))), then the res smoother without
     the residual array (ops/poisson.py:1052-1056); (p', max|r|, max|p'|)."""
     e = torch.nn.functional.pad(_cc_prolong_y(row, pp.shape[0] - 2),
                                 (1, 1, 1, 1))
-    p = _apply_pprime_bcs(pp + e)
-    p, _, err = jacobi_fused_k_res_plain(p, rhs, dx, dy, omega, k, False)
+    p = pprime_bcs(cavity)(pp + e)
+    p, _, err = jacobi_fused_k_res_plain(p, rhs, dx, dy, omega, k, False, cavity)
     return p, err, torch.amax(torch.abs(p))
 
 
-def cc_sweeps_plain(p, rhs, dx, dy, omega, k, d_wall, emit_res=False):
+def cc_sweeps_plain(p, rhs, dx, dy, omega, k, d_wall, emit_res=False,
+                    east_dirichlet=True):
     """ops.poisson._cc_sweeps (+ _cc_residual); (p, r or None)."""
-    p = _cc_sweeps(p, rhs, dx, dy, omega, k, d_wall)
-    r = _cc_residual(p, rhs, dx, dy, d_wall) if emit_res else None
+    p = _cc_sweeps(p, rhs, dx, dy, omega, k, d_wall, east_dirichlet)
+    r = _cc_residual(p, rhs, dx, dy, d_wall, east_dirichlet) if emit_res else None
     return p, r
 
 
@@ -115,12 +133,12 @@ def cc_sweeps_plain(p, rhs, dx, dy, omega, k, d_wall, emit_res=False):
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def jacobi_fused_k_res(pp, rhs, dx, dy, omega, k, emit_res=True):
+def jacobi_fused_k_res(pp, rhs, dx, dy, omega, k, emit_res=True, cavity=False):
     """k fused sweeps + the residual; (p', r or None, max|r| as 0-d)."""
     _check_fine("jacobi_fused_k_res", pp, k)
     ny, nx = pp.shape
     if on_cpu("jacobi_fused_k_res", {"pp": (pp, (ny, nx)), "rhs": (rhs, (ny, nx))}):
-        return jacobi_fused_k_res_plain(pp, rhs, dx, dy, omega, k, emit_res)
+        return jacobi_fused_k_res_plain(pp, rhs, dx, dy, omega, k, emit_res, cavity)
     lib = load()
     out, tmp = torch.empty_like(pp), torch.empty_like(pp)
     r = torch.empty_like(pp) if emit_res else None
@@ -131,15 +149,17 @@ def jacobi_fused_k_res(pp, rhs, dx, dy, omega, k, emit_res=True):
             pp.data_ptr(), rhs.data_ptr(), out.data_ptr(), tmp.data_ptr(),
             r.data_ptr() if emit_res else None, parts.data_ptr(), err.data_ptr(),
             ny, nx, k, *_multipliers(dx, dy, omega), *_residual_multipliers(dx, dy),
-            stream_of(pp)), "jacobi_fused_k_res")
+            int(cavity), stream_of(pp)), "jacobi_fused_k_res")
     jacobi_fused_k_res.launches += 1
+    jacobi_fused_k_res.cavity_launches += cavity
     return out, r, err
 
 
 jacobi_fused_k_res.launches = 0
+jacobi_fused_k_res.cavity_launches = 0
 
 
-def jacobi_fused_k_restrict(pp, rhs, dx, dy, omega, k):
+def jacobi_fused_k_restrict(pp, rhs, dx, dy, omega, k, cavity=False):
     """k fused sweeps + the restricted residual; (p', r_c of
     ((ny-2)//2, (nx-2)//2), max|r| as 0-d). Even ny and nx."""
     _check_fine("jacobi_fused_k_restrict", pp, k)
@@ -149,7 +169,7 @@ def jacobi_fused_k_restrict(pp, rhs, dx, dy, omega, k):
                          f"got {ny}x{nx}")
     if on_cpu("jacobi_fused_k_restrict",
               {"pp": (pp, (ny, nx)), "rhs": (rhs, (ny, nx))}):
-        return jacobi_fused_k_restrict_plain(pp, rhs, dx, dy, omega, k)
+        return jacobi_fused_k_restrict_plain(pp, rhs, dx, dy, omega, k, cavity)
     lib = load()
     ncy, ncx = (ny - 2) // 2, (nx - 2) // 2
     out, tmp = torch.empty_like(pp), torch.empty_like(pp)
@@ -162,15 +182,17 @@ def jacobi_fused_k_restrict(pp, rhs, dx, dy, omega, k):
             pp.data_ptr(), rhs.data_ptr(), out.data_ptr(), tmp.data_ptr(),
             rc.data_ptr(), parts.data_ptr(), err.data_ptr(), ny, nx, k,
             *_multipliers(dx, dy, omega), *_residual_multipliers(dx, dy),
-            stream_of(pp)), "jacobi_fused_k_restrict")
+            int(cavity), stream_of(pp)), "jacobi_fused_k_restrict")
     jacobi_fused_k_restrict.launches += 1
+    jacobi_fused_k_restrict.cavity_launches += cavity
     return out, rc, err
 
 
 jacobi_fused_k_restrict.launches = 0
+jacobi_fused_k_restrict.cavity_launches = 0
 
 
-def jacobi_fused_k_corr(pp, rhs, row, dx, dy, omega, k):
+def jacobi_fused_k_corr(pp, rhs, row, dx, dy, omega, k, cavity=False):
     """Correction (y pass of ``row``, ((ny-2)//2, nx-2)) + k fused
     sweeps; (p', max|r|, max|p'|) with 0-d maxima. Even ny and nx."""
     _check_fine("jacobi_fused_k_corr", pp, k)
@@ -180,7 +202,7 @@ def jacobi_fused_k_corr(pp, rhs, row, dx, dy, omega, k):
                          f"got {ny}x{nx}")
     if on_cpu("jacobi_fused_k_corr", {"pp": (pp, (ny, nx)), "rhs": (rhs, (ny, nx)),
                                       "row": (row, ((ny - 2) // 2, nx - 2))}):
-        return jacobi_fused_k_corr_plain(pp, rhs, row, dx, dy, omega, k)
+        return jacobi_fused_k_corr_plain(pp, rhs, row, dx, dy, omega, k, cavity)
     lib = load()
     out, tmp = torch.empty_like(pp), torch.empty_like(pp)
     n = lib.cfd_jacobi_partials(ny, nx)
@@ -193,24 +215,27 @@ def jacobi_fused_k_corr(pp, rhs, row, dx, dy, omega, k):
             pp.data_ptr(), rhs.data_ptr(), row.data_ptr(), out.data_ptr(),
             tmp.data_ptr(), part_r.data_ptr(), part_p.data_ptr(), err.data_ptr(),
             pmax.data_ptr(), ny, nx, k, *_multipliers(dx, dy, omega),
-            *_residual_multipliers(dx, dy), stream_of(pp)), "jacobi_fused_k_corr")
+            *_residual_multipliers(dx, dy), int(cavity), stream_of(pp)),
+            "jacobi_fused_k_corr")
     jacobi_fused_k_corr.launches += 1
+    jacobi_fused_k_corr.cavity_launches += cavity
     return out, err, pmax
 
 
 jacobi_fused_k_corr.launches = 0
+jacobi_fused_k_corr.cavity_launches = 0
 
 
-def _cc_multipliers(dx, dy, omega, d_wall):
+def _cc_multipliers(dx, dy, omega, d_wall, east_dirichlet=True):
     """(bx, by, om, 1 - om, inv_dg, inv_dg_last, dg, dg_last) as f32,
-    rounded as _kernel_cc rounds them (jacobi_pallas.py:1670-1680): with
-    an outlet extra term both reciprocals are taken in f32, else 1/denom
-    is rounded once."""
+    rounded as _kernel_cc rounds them (jacobi_pallas.py:1670-1680, :1751):
+    with an outlet extra term (an outlet, d != dx) both reciprocals are
+    taken in f32, else (no outlet, or d == dx) 1/denom is rounded once."""
     f32 = np.float32
     denom = 2.0 / (dx * dx) + 2.0 / (dy * dy)
     om = f32(omega)
     out = [f32(1.0 / (dx * dx)), f32(1.0 / (dy * dy)), om, f32(1.0) - om]
-    if d_wall != dx:
+    if east_dirichlet and d_wall != dx:
         dg, dg_last = f32(denom), f32(denom + (dx / d_wall - 1.0) / (dx * dx))
         out += [f32(1.0) / dg, f32(1.0) / dg_last, dg, dg_last]
     else:
@@ -218,15 +243,17 @@ def _cc_multipliers(dx, dy, omega, d_wall):
     return [float(x) for x in out]
 
 
-def cc_sweeps(p, rhs, dx, dy, omega, k, d_wall, emit_res=False):
-    """k damped sweeps on a cell-centred coarse level; (p, r or None)."""
+def cc_sweeps(p, rhs, dx, dy, omega, k, d_wall, emit_res=False, east_dirichlet=True):
+    """k damped sweeps on a cell-centred coarse level, the outlet's 0
+    ghost at its east edge or, without ``east_dirichlet``, a mirror;
+    (p, r or None)."""
     if k < 0:
         raise ValueError(f"cc_sweeps: k must be >= 0, got {k}")
     if p.dim() != 2:
         raise ValueError(f"cc_sweeps needs a 2-D array, got {tuple(p.shape)}")
     ny, nx = p.shape
     if on_cpu("cc_sweeps", {"p": (p, (ny, nx)), "rhs": (rhs, (ny, nx))}):
-        return cc_sweeps_plain(p, rhs, dx, dy, omega, k, d_wall, emit_res)
+        return cc_sweeps_plain(p, rhs, dx, dy, omega, k, d_wall, emit_res, east_dirichlet)
     lib = load()
     out, tmp = torch.empty_like(p), torch.empty_like(p)
     r = torch.empty_like(p) if emit_res else None
@@ -234,9 +261,12 @@ def cc_sweeps(p, rhs, dx, dy, omega, k, d_wall, emit_res=False):
         check(lib.cfd_cc_sweeps(
             p.data_ptr(), rhs.data_ptr(), out.data_ptr(), tmp.data_ptr(),
             r.data_ptr() if emit_res else None, ny, nx, k,
-            *_cc_multipliers(dx, dy, omega, d_wall), stream_of(p)), "cc_sweeps")
+            *_cc_multipliers(dx, dy, omega, d_wall, east_dirichlet),
+            int(east_dirichlet), stream_of(p)), "cc_sweeps")
     cc_sweeps.launches += 1
+    cc_sweeps.cavity_launches += not east_dirichlet
     return out, r
 
 
 cc_sweeps.launches = 0
+cc_sweeps.cavity_launches = 0

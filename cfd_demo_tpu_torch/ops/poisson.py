@@ -6,7 +6,7 @@ per-iteration p' BCs (model.rs:807-815: Neumann bottom/top/left,
 Dirichlet 0 at the outlet column; in CAVITY flow all-Neumann with the
 (0, 0) cell pinned, ``bc=_apply_pprime_bcs_cavity``), looped as a
 do-while that exits after the first sweep whose max interior change is
-below ``tol``. SOR and MG_PRODUCTION take the channel BCs only.
+below ``tol``. SOR takes the channel BCs only.
 
 SOR, index.html:741-774: red/black over-relaxed sweeps (the parallel
 form), or the JS-exact lexicographic ordering as a wavefront; the same
@@ -20,8 +20,8 @@ prolongation, coarsening (n+1)//2.
 MG_PRODUCTION (``multigrid_production``): V-cycles of the aligned
 cell-centred hierarchy (or, with mgp_scheme "legacy", the JS kit's
 hierarchy with damped p'-BC sweeps) until max|rhs - A p'| falls below
-the divergence-calibrated tolerance or the f32 noise floor; see the
-sections below.
+the divergence-calibrated tolerance or the f32 noise floor, with the p'
+BCs ``bc`` of either flow case; see the sections below.
 """
 from __future__ import annotations
 
@@ -237,12 +237,13 @@ def sor_lexicographic(pp0, rhs, dx: float, dy: float, omega: float, tol: float,
 # interior cells, with the boundary slaving folded into the stencil
 # (Neumann mirror: ghost = self; outlet: a 0-valued ghost at the tracked
 # centre-to-wall distance d, d_0 = 1.5 h_fine on the first coarse level,
-# d_{l+1} = d_l + h_l / 2); 2x2-average restriction and bilinear
-# prolongation, odd sizes mirror-padding or aggregating on the west and
-# south sides; levels at or below mgp_coarse_stop cells a side solve
-# exactly by FDM (ops.fdm). The fine level keeps the full-array damped
-# sweeps with the p' BCs, through the fused smoother kernels
-# (kernels.mgp).
+# d_{l+1} = d_l + h_l / 2; in CAVITY flow, east_dirichlet False, the
+# east edge mirrors too and FDM takes the pseudo-inverse); 2x2-average
+# restriction and bilinear prolongation, odd sizes mirror-padding or
+# aggregating on the west and south sides; levels at or below
+# mgp_coarse_stop cells a side solve exactly by FDM (ops.fdm). The fine
+# level keeps the full-array damped sweeps with the p' BCs, through the
+# fused smoother kernels (kernels.mgp).
 # ---------------------------------------------------------------------------
 
 def _mg_residual(p, rhs, dx, dy):
@@ -256,10 +257,11 @@ def _mg_residual(p, rhs, dx, dy):
     return r
 
 
-def _mgp_smooth(p, rhs, dx, dy, omega, iterations):
-    """Damped-Jacobi sweeps with the p' BCs re-applied every sweep."""
+def _mgp_smooth(p, rhs, dx, dy, omega, iterations, bc=_apply_pprime_bcs):
+    """Damped-Jacobi sweeps with the p' BCs ``bc`` re-applied every
+    sweep (JAX ops/poisson.py:607)."""
     for _ in range(iterations):
-        p, _ = _jacobi_sweep(p, rhs, dx, dy, omega)
+        p, _ = _jacobi_sweep(p, rhs, dx, dy, omega, bc)
     return p
 
 
@@ -324,8 +326,9 @@ def _mg_prolong(coarse, nx_f: int, ny_f: int):
 class MgKit(NamedTuple):
     """The vertex cycles' four kernels (kernels.mg), or their plain
     versions: smooth(p, rhs, dx, dy, k); restrict(p, rhs, dx, dy) ->
-    the coarse residual; prolong(e, p, bc) -> p + prolong(e), with the
-    p' BCs when bc; mgp_smooth(p, rhs, dx, dy, omega, k)."""
+    the coarse residual; prolong(e, p, bc, cavity) -> p + prolong(e),
+    with the channel p' BCs when bc (the cavity's with cavity);
+    mgp_smooth(p, rhs, dx, dy, omega, k, cavity)."""
 
     smooth: object
     restrict: object
@@ -375,39 +378,43 @@ def multigrid(pp0, rhs, dx: float, dy: float, opts):
                                device=pp0.device)
 
 
-def _mgp_vcycle(p, rhs, dx, dy, opts, kit: MgKit):
+def _mgp_vcycle(p, rhs, dx, dy, opts, kit: MgKit, bc=_apply_pprime_bcs):
     """One legacy MG_PRODUCTION V-cycle (JAX ops/poisson.py:647): the JS
-    kit's hierarchy with mgp_smooth damped sweeps and the p' BCs at every
-    level (the correction obeys the same homogeneous BCs as p'), and
-    bc(p + prolong(e)) before the post-smoother."""
+    kit's hierarchy with mgp_smooth damped sweeps and the p' BCs ``bc``
+    at every level (the correction obeys the same homogeneous BCs as
+    p'), and bc(p + prolong(e)) before the post-smoother."""
     ny, nx = p.shape
     omega, nu = opts.jacobi_omega, opts.mgp_smooth
-    p = kit.mgp_smooth(p, rhs, dx, dy, omega, nu)
+    cavity = bc is _apply_pprime_bcs_cavity
+    p = kit.mgp_smooth(p, rhs, dx, dy, omega, nu, cavity)
     if nx <= opts.mg_coarsest or ny <= opts.mg_coarsest:
-        return kit.mgp_smooth(p, rhs, dx, dy, omega, opts.mg_coarse_smooth)
+        return kit.mgp_smooth(p, rhs, dx, dy, omega, opts.mg_coarse_smooth, cavity)
     r_c = kit.restrict(p, rhs, dx, dy)
-    e_c = _mgp_vcycle(torch.zeros_like(r_c), r_c, 2 * dx, 2 * dy, opts, kit)
-    p = kit.prolong(e_c, p, True)
-    return kit.mgp_smooth(p, rhs, dx, dy, omega, nu)
+    e_c = _mgp_vcycle(torch.zeros_like(r_c), r_c, 2 * dx, 2 * dy, opts, kit, bc)
+    p = kit.prolong(e_c, p, True, cavity)
+    return kit.mgp_smooth(p, rhs, dx, dy, omega, nu, cavity)
 
 
-def _cc_neighbors(p):
+def _cc_neighbors(p, east_dirichlet=True):
     """Folded neighbour reads (E, W, N, S) on an interior-unknown array:
     Neumann edges mirror (ghost = self), the outlet (east) edge reads
-    the 0-valued Dirichlet ghost."""
-    e = torch.cat([p[:, 1:], torch.zeros_like(p[:, -1:])], dim=1)
+    the 0-valued Dirichlet ghost, or with ``east_dirichlet`` False (the
+    cavity's all-Neumann operator) mirrors too."""
+    east_ghost = torch.zeros_like(p[:, -1:]) if east_dirichlet else p[:, -1:]
+    e = torch.cat([p[:, 1:], east_ghost], dim=1)
     w = torch.cat([p[:, :1], p[:, :-1]], dim=1)
     n = torch.cat([p[1:], p[-1:]], dim=0)
     s = torch.cat([p[:1], p[:-1]], dim=0)
     return e, w, n, s
 
 
-def _cc_diag(shape, dx, dy, d_wall, device):
+def _cc_diag(shape, dx, dy, d_wall, device, east_dirichlet=True):
     """Diagonal of -A: 2/dx^2 + 2/dy^2, and in the outlet column, when
     the wall sits at d != dx from the last centre, (1 + dx/d)/dx^2 in
-    place of the x part. A float, or an f32 (1, nx) row."""
+    place of the x part; uniform without an outlet (``east_dirichlet``
+    False). A float, or an f32 (1, nx) row."""
     denom = 2.0 / (dx * dx) + 2.0 / (dy * dy)
-    if d_wall == dx:
+    if not east_dirichlet or d_wall == dx:
         return denom
     extra = (dx / d_wall - 1.0) / (dx * dx)
     dg = torch.full((1, shape[1]), denom, dtype=torch.float32, device=device)
@@ -415,19 +422,19 @@ def _cc_diag(shape, dx, dy, d_wall, device):
     return dg
 
 
-def _cc_residual(p, rhs, dx, dy, d_wall):
+def _cc_residual(p, rhs, dx, dy, d_wall, east_dirichlet=True):
     dx2, dy2 = dx * dx, dy * dy
-    e, w, n, s = _cc_neighbors(p)
-    dg = _cc_diag(p.shape, dx, dy, d_wall, p.device)
+    e, w, n, s = _cc_neighbors(p, east_dirichlet)
+    dg = _cc_diag(p.shape, dx, dy, d_wall, p.device, east_dirichlet)
     return rhs - ((e + w) / dx2 + (n + s) / dy2 - dg * p)
 
 
-def _cc_sweeps(p, rhs, dx, dy, omega, iters, d_wall):
+def _cc_sweeps(p, rhs, dx, dy, omega, iters, d_wall, east_dirichlet=True):
     """Damped-Jacobi sweeps on the folded cell-centred operator."""
     dx2, dy2 = dx * dx, dy * dy
-    dg = _cc_diag(p.shape, dx, dy, d_wall, p.device)
+    dg = _cc_diag(p.shape, dx, dy, d_wall, p.device, east_dirichlet)
     for _ in range(iters):
-        e, w, n, s = _cc_neighbors(p)
+        e, w, n, s = _cc_neighbors(p, east_dirichlet)
         upd = ((e + w) / dx2 + (n + s) / dy2 - rhs) / dg
         p = (1.0 - omega) * p + omega * upd
     return p
@@ -478,15 +485,18 @@ def _cc_restrict(fine):
     return _cc_restrict_y(_cc_restrict_x(fine))
 
 
-def _cc_prolong_x(coarse, nx_f):
+def _cc_prolong_x(coarse, nx_f, east_dirichlet=True):
     """The x pass of _cc_prolong: coarse columns interpolated to nx_f
     fine columns, at coarse rows. The Neumann west edge clamps, the
-    outlet edge interpolates toward the 0 ghost."""
+    outlet edge interpolates toward the 0 ghost, or clamps too when not
+    ``east_dirichlet`` (JAX ops/poisson.py:848-851)."""
     ny_c, nx_c = coarse.shape
     if nx_f == nx_c:  # saturated axis (width 1): identity
         return coarse
     left = torch.cat([coarse[:, :1], coarse[:, :-1]], dim=1)
-    rightn = torch.cat([coarse[:, 1:], torch.zeros_like(coarse[:, -1:])], dim=1)
+    east_ghost = (torch.zeros_like(coarse[:, -1:]) if east_dirichlet
+                  else coarse[:, -1:])
+    rightn = torch.cat([coarse[:, 1:], east_ghost], dim=1)
     rw = 0.75 * coarse + 0.25 * rightn
     if nx_f == 2 * nx_c + 1:  # aggregate west: first coarse = 3 fine
         lw = 0.75 * coarse + 0.25 * left
@@ -522,73 +532,76 @@ def _cc_prolong_y(row, ny_f):
     return out[2 * ny_c - ny_f:]
 
 
-def _cc_prolong(coarse, ny_f, nx_f):
+def _cc_prolong(coarse, ny_f, nx_f, east_dirichlet=True):
     """Cell-centred bilinear prolongation, the per-axis inverse of
     _cc_restrict's even, mirror-pad and aggregate cases."""
-    return _cc_prolong_y(_cc_prolong_x(coarse, nx_f), ny_f)
+    return _cc_prolong_y(_cc_prolong_x(coarse, nx_f, east_dirichlet), ny_f)
 
 
-def _cc_vcycle(rhs, dx, dy, opts, d_wall, smoothers):
+def _cc_vcycle(rhs, dx, dy, opts, d_wall, smoothers, east_dirichlet=True):
     """Solve A e = rhs from a zero guess on one coarse level. FDM at or
     below mgp_coarse_stop cells on the longer side; otherwise pre-smooth
     with the residual (the cc kernel), recurse, prolong, post-smooth.
-    A saturated axis keeps its own h and d_wall on the coarser level."""
+    A saturated axis keeps its own h and d_wall on the coarser level.
+    ``east_dirichlet`` False: the cavity's all-Neumann operator."""
     ny, nx = rhs.shape
     if max(ny, nx) <= opts.mgp_coarse_stop:
-        return fdm_solve_interior(rhs, dx, dy, d_wall)
+        return fdm_solve_interior(rhs, dx, dy, d_wall, east_dirichlet)
     omega, nu = opts.jacobi_omega, opts.mgp_smooth
     p, r = smoothers.cc(torch.zeros_like(rhs), rhs, dx, dy, omega, nu, d_wall,
-                        True)
+                        True, east_dirichlet)
     x_sat = _cc_coarse_size(nx) == nx
     y_sat = _cc_coarse_size(ny) == ny
     e_c = _cc_vcycle(_cc_restrict(r), dx if x_sat else 2 * dx,
                      dy if y_sat else 2 * dy, opts,
-                     d_wall if x_sat else d_wall + dx / 2, smoothers)
-    p = p + _cc_prolong(e_c, ny, nx)
-    return smoothers.cc(p, rhs, dx, dy, omega, nu, d_wall, False)[0]
+                     d_wall if x_sat else d_wall + dx / 2, smoothers, east_dirichlet)
+    p = p + _cc_prolong(e_c, ny, nx, east_dirichlet)
+    return smoothers.cc(p, rhs, dx, dy, omega, nu, d_wall, False, east_dirichlet)[0]
 
 
-def _mgp_aligned_correction(r_full, dx, dy, opts, smoothers):
+def _mgp_aligned_correction(r_full, dx, dy, opts, smoothers, east_dirichlet=True):
     """Full-size correction (zero ring) from a full residual array with
     a zero ring: FDM of the interior when it is at most mgp_coarse_stop
     on its shorter side, else restrict, coarse V-cycle, prolong."""
     ny, nx = r_full.shape
     r_int = r_full[1:-1, 1:-1]
     if min(ny - 2, nx - 2) <= opts.mgp_coarse_stop:
-        e_int = fdm_solve_interior(r_int, dx, dy, dx)
+        e_int = fdm_solve_interior(r_int, dx, dy, dx, east_dirichlet)
     else:
         e_c = _cc_vcycle(_cc_restrict(r_int), 2 * dx, 2 * dy, opts, 1.5 * dx,
-                         smoothers)
-        e_int = _cc_prolong(e_c, ny - 2, nx - 2)
+                         smoothers, east_dirichlet)
+        e_int = _cc_prolong(e_c, ny - 2, nx - 2, east_dirichlet)
     return torch.nn.functional.pad(e_int, (1, 1, 1, 1))
 
 
-def _mgp_vcycle_aligned(p, rhs, dx, dy, opts, smoothers):
-    """One aligned V-cycle on the full array; returns (p, max|rhs - A p|,
-    max|p| or None).
+def _mgp_vcycle_aligned(p, rhs, dx, dy, opts, smoothers, bc=_apply_pprime_bcs):
+    """One aligned V-cycle on the full array with the p' BCs ``bc``
+    (JAX ops/poisson.py:992); returns (p, max|rhs - A p|, max|p| or None).
 
     Interiors of at most mgp_coarse_stop on the shorter side take the
     FDM correction alone (exact in one cycle). Even grids run the
     restrict kernel (sweeps, residual, first restriction), the coarse
     cycle, the x pass of the last prolongation, and the corr kernel (y
     pass, add, sweeps, max|r|, max|p|); other grids the res kernel
-    before and after the full correction."""
+    before and after the full correction. The cavity's BCs take each
+    kernel's CAVITY instance and the coarse levels' all-Neumann
+    operator."""
     ny, nx = p.shape
+    cavity = bc is _apply_pprime_bcs_cavity
+    east_dirichlet = not cavity
     if min(ny - 2, nx - 2) <= opts.mgp_coarse_stop:
         r = _mg_residual(p, rhs, dx, dy)
-        p = _apply_pprime_bcs(p + _mgp_aligned_correction(r, dx, dy, opts,
-                                                          smoothers))
+        p = bc(p + _mgp_aligned_correction(r, dx, dy, opts, smoothers, east_dirichlet))
         return p, torch.amax(torch.abs(_mg_residual(p, rhs, dx, dy))), None
     omega, nu = opts.jacobi_omega, opts.mgp_smooth
     if ny % 2 == 0 and nx % 2 == 0:
-        p, r_c, _ = smoothers.restrict(p, rhs, dx, dy, omega, nu)
-        e_c = _cc_vcycle(r_c, 2 * dx, 2 * dy, opts, 1.5 * dx, smoothers)
-        row = _cc_prolong_x(e_c, nx - 2).contiguous()
-        return smoothers.corr(p, rhs, row, dx, dy, omega, nu)
-    p, r, _ = smoothers.res(p, rhs, dx, dy, omega, nu, True)
-    p = _apply_pprime_bcs(p + _mgp_aligned_correction(r, dx, dy, opts,
-                                                      smoothers))
-    p, _, err = smoothers.res(p, rhs, dx, dy, omega, nu, False)
+        p, r_c, _ = smoothers.restrict(p, rhs, dx, dy, omega, nu, cavity)
+        e_c = _cc_vcycle(r_c, 2 * dx, 2 * dy, opts, 1.5 * dx, smoothers, east_dirichlet)
+        row = _cc_prolong_x(e_c, nx - 2, east_dirichlet).contiguous()
+        return smoothers.corr(p, rhs, row, dx, dy, omega, nu, cavity)
+    p, r, _ = smoothers.res(p, rhs, dx, dy, omega, nu, True, cavity)
+    p = bc(p + _mgp_aligned_correction(r, dx, dy, opts, smoothers, east_dirichlet))
+    p, _, err = smoothers.res(p, rhs, dx, dy, omega, nu, False, cavity)
     return p, err, None
 
 
@@ -662,8 +675,10 @@ def _smoothers(opts):
                          mgp.jacobi_fused_k_corr, mgp.cc_sweeps)
 
 
-def multigrid_production(pp0, rhs, dx: float, dy: float, opts, tol_r):
-    """PressureSolver.MG_PRODUCTION, CHANNEL p' BCs.
+def multigrid_production(pp0, rhs, dx: float, dy: float, opts, tol_r,
+                         bc=_apply_pprime_bcs):
+    """PressureSolver.MG_PRODUCTION with the p' BCs ``bc``, the channel's
+    or the cavity's (JAX ops/poisson.py:1085).
 
     Aligned V-cycles (with mgp_scheme "legacy", :func:`_mgp_vcycle`, the
     error then max|_mg_residual| after the cycle, JAX
@@ -688,21 +703,21 @@ def multigrid_production(pp0, rhs, dx: float, dy: float, opts, tol_r):
 
     def cycle(p):
         if legacy:
-            p = _mgp_vcycle(p, rhs, dx, dy, opts, kit)
+            p = _mgp_vcycle(p, rhs, dx, dy, opts, kit, bc)
             err, pmax = torch.amax(torch.abs(_mg_residual(p, rhs, dx, dy))), None
         else:
-            p, err, pmax = _mgp_vcycle_aligned(p, rhs, dx, dy, opts, smoothers)
+            p, err, pmax = _mgp_vcycle_aligned(p, rhs, dx, dy, opts, smoothers, bc)
         if floor is None:
             return p, err, None
         if pmax is None:
             pmax = torch.amax(torch.abs(p))
         return p, err, floor(pmax, rhs_max)
 
-    p0 = _apply_pprime_bcs(pp0)
-    if opts.mgp_fixed_cycles > 0:
+    p0 = bc(pp0)
+    if opts.mgp_fixed_cycles > 0:  # JAX _mgp_fixed (ops/poisson.py:1282-1310)
         err = torch.zeros((), dtype=p0.dtype, device=p0.device)
         for _ in range(opts.mgp_fixed_cycles):
-            p0, err, _ = _mgp_vcycle_aligned(p0, rhs, dx, dy, opts, smoothers)
+            p0, err, _ = _mgp_vcycle_aligned(p0, rhs, dx, dy, opts, smoothers, bc)
         return p0, err, opts.mgp_fixed_cycles
     tol = torch.as_tensor(tol_r, dtype=torch.float32, device=pp0.device)
     if opts.mgp_rtol > 0.0:

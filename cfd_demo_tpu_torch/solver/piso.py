@@ -164,13 +164,16 @@ The fixed schedules, MULTIGRID, the rounds kernel and the batch routes
 read nothing.
 
 CAVITY flow (the lid-driven cavity, BASELINE config 2) takes the same
-routes with JACOBI, FDM and MULTIGRID: the Jacobi chain, the rounds
-kernel and the one-launch ``correct_bc`` in their CAVITY instances, the
-cavity p' BCs in the plain Jacobi, the all-Neumann operator in FDM, and
-apply_bcs's cavity branch; MULTIGRID's vertex cycles take no flow case
-(JAX ops/poisson.py:1330). CAVITY with SOR, MG_PRODUCTION or
-differentiable, in a batch or on the sharded step raises (queue 1 item
-6b).
+routes with JACOBI, FDM, MULTIGRID and MG_PRODUCTION: the Jacobi chain,
+the rounds kernel and the one-launch ``correct_bc`` in their CAVITY
+instances, the cavity p' BCs in the plain Jacobi, the all-Neumann
+operator in FDM, and apply_bcs's cavity branch; MULTIGRID's vertex
+cycles take no flow case (JAX ops/poisson.py:1330); MG_PRODUCTION takes
+the cavity p' BCs at every level (JAX piso.py:218-242): the CAVITY
+instances of its smoothers (kernels 6-9 on the aligned cycle, 18's ring
+and 19 on the legacy one) and the all-Neumann coarse operator with its
+FDM bottom. CAVITY with SOR or differentiable, in a batch or on the
+sharded step raises (queue 1 item 6b).
 
 The TPU gates (``_pallas_ok``'s ny % 8 and backend test, ``_tile_rows``,
 ``rounds_pallas_ok``'s VMEM bound) are not carried over; each kernel
@@ -270,9 +273,10 @@ def make_scene(grid: Grid, params: Optional[SimulationParams] = None,
         raise ValueError(f"the grid needs at least 3x3 cells, got "
                          f"{grid.nx}x{grid.ny}")
     if params.flow_case == FlowCase.CAVITY:
-        # The lid-driven cavity takes JACOBI, FDM and MULTIGRID (the JS
-        # kit's vertex V-cycles take no flow case, JAX ops/poisson.py:1330).
-        if params.pressure_solver in (PressureSolver.SOR, PressureSolver.MG_PRODUCTION):
+        # The lid-driven cavity takes JACOBI, FDM, MULTIGRID (the JS kit's
+        # vertex V-cycles take no flow case, JAX ops/poisson.py:1330) and
+        # MG_PRODUCTION.
+        if params.pressure_solver == PressureSolver.SOR:
             raise unported(f"cavity flow with the {params.pressure_solver.value} "
                            f"pressure solver", CAVITY)
         if opts.differentiable:
@@ -375,7 +379,8 @@ def _solve_pressure(scene: Scene, pp0, rhs, dt_sub, done=None):
         # tol_r = div_tol / dt bounds the post-correction max|div u| by
         # div_tol (JAX piso.py:220-243).
         return multigrid_production(pp0, rhs, g.dx, g.dy, opts,
-                                    opts.projection_div_tol / dt_sub)
+                                    opts.projection_div_tol / dt_sub,
+                                    bc=pprime_bc_fn(scene.params.flow_case))
     if solver == PressureSolver.SOR:
         return _solve_sor(scene, pp0, rhs, done)
     if solver == PressureSolver.MULTIGRID:  # JAX piso.py:473-474

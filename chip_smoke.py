@@ -67,6 +67,15 @@ Phases, one line each; any failure raises and exits non-zero:
    cluster form on the 512^2 cavity after 20 steps (against its
    cooperative form too) and its cooperative form on the 1024^2 cavity
    after 20, the same rounds and sweeps as the plain version required;
+   kernel 3's CAVITY instance's device time a launch (torch.profiler);
+   the CAVITY instances of kernels 6-9, 18 and 19 (MG_PRODUCTION under
+   the cavity, each a line of its own in the JSON line, beside its
+   channel instance's time on the same inputs): on the 2048^2 cavity
+   production state after 3 steps, kernel 7, kernel 9 on the 1023^2
+   level (east_dirichlet False) and kernel 8 with the cycle's own
+   correction; kernel 6 on the 2047^2 state; kernel 19 and kernel 18's
+   cavity ring on the 2048^2 legacy state, kernel 19 also on the 128^2
+   level (one block);
 4. run the 800x264 default scene (the Rust app's) for 50 steps with
    make_run, print steps/s and check its physical invariants;
 5. run the benchmark's fast shape at 2048^2 (bench.py --mode fast):
@@ -110,7 +119,11 @@ Phases, one line each; any failure raises and exits non-zero:
    50), 1024^2 (3, then 10) and 2048^2 (2, then 5), the 2048^2 cavity on
    the fast schedule (5, then 100 under the sync check), a 128^2 JS
    cavity (5, then 50) and the Re = 100 cavity at 64^2 for 8000 steps,
-   its centre lines within 0.06 of Ghia et al. (1982); each of these
+   its centre lines within 0.06 of Ghia et al. (1982); the cavity with
+   --solver mg-production (the app's constants, Rust defaults): aligned
+   at 512^2 (5 warm-up steps, then 20) and 2048^2 (2, then 5), 2047^2
+   (2, then 3), the legacy cycle at 512^2 (5) and 2048^2 (2, then 3),
+   each step timed one at a time with the V-cycles it ran; each of these
    paths must launch exactly its kernels;
 7. from the end states of 4, 5, 6 and the ensembles (2 of the 8
    800x264 scenes, 2 of the 16 SOR scenes), run 3 steps (the 2048^2 JS
@@ -121,14 +134,16 @@ Phases, one line each; any failure raises and exits non-zero:
    state 3 steps sharded on the card, against 3 unsharded on the card
    and 3 on the CPU path (the 800x264 one sharded on the CPU, its
    solves exiting k sweeps apart at most); the 512^2 cavity and the
-   2048^2 cavity fast shape, 3 steps on CUDA and on the CPU path;
+   2048^2 cavity fast shape, 3 steps on CUDA and on the CPU path; the
+   512^2 cavity production runs, aligned (3 steps) and legacy (2);
 8. require every kernel of each path to have launched in that path's
    run (counts set to 0 just before it, read just after), predict_div
    and correct_bc in their tiled and one-launch forms on every path that
    launches them, the rounds kernel in its cluster form on the 800x264
-   and 400x132 JS runs, kernels 2-4 in their CAVITY instances on every
-   cavity path and never on another (kernel 4's cluster form at 512^2,
-   128^2 and 64^2, its cooperative form at 1024^2), and
+   and 400x132 JS runs, kernels 2-4, 6-9, 18 and 19 in their CAVITY
+   instances on every cavity path and never on another (kernel 4's
+   cluster form at 512^2, 128^2 and 64^2, its cooperative form at
+   1024^2), and
    kernels 20 and 12 in their cluster forms on the three ensemble runs
    (printing the CTAs a scene each took).
 
@@ -150,8 +165,9 @@ import torch
 
 import cfd_demo_tpu_torch as tc
 from cfd_demo_tpu_torch.apps.ensemble import ensemble_scene, ensemble_state
-from cfd_demo_tpu_torch.cells import (SHARDED, cavity_fast_scene, cavity_scene,
-                                      ensemble_args, fast_scene, js_default_scene,
+from cfd_demo_tpu_torch.cells import (SHARDED, cavity_fast_scene, cavity_production_scene,
+                                      cavity_scene, ensemble_args, fast_scene,
+                                      js_default_scene,
                                       js_quick_scene, legacy_production_scene,
                                       multigrid_scene, production_scene,
                                       reference_mode_scene, reference_scene,
@@ -181,9 +197,10 @@ from cfd_demo_tpu_torch.kernels.substep import (correct_bc, correct_bc_plain,
                                                 correct_div, correct_div_plain,
                                                 predict_div, predict_div_plain)
 from cfd_demo_tpu_torch.ops import fdm
+from cfd_demo_tpu_torch.kernel_times import device_us
 from cfd_demo_tpu_torch.ops.poisson import (MgKit, _apply_pprime_bcs_cavity, _cc_prolong_x,
-                                            _cc_vcycle, _mg_kit, _mg_vcycle, _smoothers,
-                                            multigrid)
+                                            _cc_vcycle, _mg_kit, _mg_vcycle, _mgp_vcycle,
+                                            _smoothers, multigrid)
 from cfd_demo_tpu_torch.solver.piso import _use_fused_substep, ramped_inlet, resolve_fuse_k
 from cfd_demo_tpu_torch.validation import GHIA_STEPS, ghia_deviation, ghia_scene
 
@@ -205,7 +222,11 @@ REF_CD = "2048^2 reference correct_div"
 FAST_SH, SOR_SH, REF_SH, FDM_SH = SHARDED  # the sharded paths, cells.py
 CAV512, CAV1024, CAV2048 = "512^2 cavity", "1024^2 cavity", "2048^2 cavity"
 CAV_FAST, CAV_JS, GHIA = "2048^2 cavity fast", "128^2 js cavity", "64^2 ghia cavity"
-CAVITY_PATHS = (CAV512, CAV1024, CAV2048, CAV_FAST, CAV_JS, GHIA)
+CAV_MGP512, CAV_MGP, CAV_MGP_ODD = ("512^2 cavity production", "2048^2 cavity production",
+                                    "2047^2 cavity production")
+CAV_LEG512, CAV_LEG = "512^2 cavity production legacy", "2048^2 cavity production legacy"
+CAVITY_MGP_PATHS = (CAV_MGP512, CAV_MGP, CAV_MGP_ODD, CAV_LEG512, CAV_LEG)
+CAVITY_PATHS = (CAV512, CAV1024, CAV2048, CAV_FAST, CAV_JS, GHIA, *CAVITY_MGP_PATHS)
 # name -> (wrapper, source, the Pallas call site it replaces, the path
 # whose launches the JSON line reports)
 KERNELS = {
@@ -257,9 +278,23 @@ VERTEX = ("mg_residual_restrict", "mg_prolong_add")
 CLUSTER = "rounds_cluster"
 # Kernels 1 and 3's launches in their main-path forms (of their "launches").
 TILED, FUSED = "predict_div_tiled", "correct_bc_fused"
-# Kernels 2, 3 and 4's launches of their CAVITY instances (of their "launches").
-CAVITY_OF = {"jacobi_fused_k": "jacobi_fused_k_cavity", "correct_bc": "correct_bc_cavity",
-             "rounds": "rounds_cavity"}
+# The launches of kernels 2-4, 6-9, 18 and 19's CAVITY instances (of their
+# "launches"; kernel 9's is its east_dirichlet=False form, kernel 18's its
+# cavity ring).
+CAVITY_OF = {k: f"{k}_cavity" for k in (
+    "jacobi_fused_k", "correct_bc", "rounds", "jacobi_fused_k_res", "jacobi_fused_k_restrict",
+    "jacobi_fused_k_corr", "cc_sweeps", "mg_prolong_add", "mgp_smooth")}
+# The CAVITY instances of kernels 6-9, 18 and 19, each a line of its own in
+# the kernels' JSON line: name -> (the kernel, the path whose launches the
+# line reports).
+CAVITY_LINES = {
+    "jacobi_fused_k_res cavity": ("jacobi_fused_k_res", CAV_MGP_ODD),
+    "jacobi_fused_k_restrict cavity": ("jacobi_fused_k_restrict", CAV_MGP),
+    "jacobi_fused_k_corr cavity": ("jacobi_fused_k_corr", CAV_MGP),
+    "cc_sweeps cavity": ("cc_sweeps", CAV_MGP),
+    "mg_prolong_add cavity": ("mg_prolong_add", CAV_LEG),
+    "mgp_smooth cavity": ("mgp_smooth", CAV_LEG),
+}
 FORM_OF = {TILED: "predict_div", FUSED: "correct_bc",
            **{form: kernel for kernel, form in CAVITY_OF.items()}}
 # The batched kernels' launches in their cluster form (of their "launches").
@@ -303,6 +338,24 @@ PATHS = {
                CAVITY_OF["jacobi_fused_k"], CAVITY_OF["correct_bc"]),
     CAV_JS: ("rounds", CLUSTER, CAVITY_OF["rounds"]),
     GHIA: ("rounds", CLUSTER, CAVITY_OF["rounds"]),
+    # the cavity with MG_PRODUCTION (Rust defaults: outer rounds, so the
+    # fused route at 2048^2 and 2047^2 runs kernel 1 and the plain
+    # corrector): the aligned cycle's kernels (6 on the odd grid, 7 and 8
+    # on the even ones, 9 on every coarse level above the stop), the
+    # legacy cycle's (17, 18's cavity ring, 19), each of 6-9, 18 and 19 in
+    # its CAVITY instance
+    CAV_MGP512: ("jacobi_fused_k_restrict", "jacobi_fused_k_corr", "cc_sweeps",
+                 *(CAVITY_OF[k] for k in ("jacobi_fused_k_restrict",
+                                          "jacobi_fused_k_corr", "cc_sweeps"))),
+    CAV_MGP: ("predict_div", "jacobi_fused_k_restrict", "jacobi_fused_k_corr", "cc_sweeps",
+              *(CAVITY_OF[k] for k in ("jacobi_fused_k_restrict", "jacobi_fused_k_corr",
+                                       "cc_sweeps"))),
+    CAV_MGP_ODD: ("predict_div", "jacobi_fused_k_res", "cc_sweeps",
+                  *(CAVITY_OF[k] for k in ("jacobi_fused_k_res", "cc_sweeps"))),
+    CAV_LEG512: ("mgp_smooth", *VERTEX, CAVITY_OF["mgp_smooth"],
+                 CAVITY_OF["mg_prolong_add"]),
+    CAV_LEG: ("predict_div", "mgp_smooth", *VERTEX,
+              *(CAVITY_OF[k] for k in ("mgp_smooth", "mg_prolong_add"))),
 }
 # Paths that must launch their kernels and no other.
 EXACT_PATHS = (SOR, SOR_ODD, REF_SOR, ENS_SOR, MG, MG_ODD, REF_MG, LEG, REF_LEG,
@@ -785,6 +838,13 @@ def check_cavity_kernels(dev, results):
             bound(nbytes(*args[:6], *got[:3]), 20 * cells))
         channel = args[:10] + (tc.FlowCase.CHANNEL, sem)
         entry["channel_ms"] = time_ms(lambda: correct_bc(*channel), 20)
+        # CUDA events time the wrapper's host cost here: the device's own
+        # time a launch, from torch.profiler, beside the channel instance's
+        entry["device_us"] = device_us(lambda: correct_bc(*args), 20, "correct_bc")
+        entry["channel_device_us"] = device_us(lambda: correct_bc(*channel), 20,
+                                               "correct_bc")
+        print(f"[3] correct_bc cavity {prof.value}: device {entry['device_us']:.2f} us a "
+              f"launch, the channel instance {entry['channel_device_us']:.2f}", flush=True)
 
     for n, steps, form in ((512, 20, "cluster"), (1024, 20, "cooperative")):
         scene = cavity_scene(n)
@@ -816,6 +876,131 @@ def check_cavity_kernels(dev, results):
               f"both sides ({form} form, {entry['us_a_sweep']:.3f} us a sweep)", flush=True)
         if fits:
             check_rounds_forms(args, got, f"cavity {n}^2", results)
+
+
+def check_cavity_mgp_kernels(dev, results):
+    """The CAVITY instances of kernels 6-9, 18 (its ring) and 19 where the
+    cavity production paths launch them, each a line of its own in the
+    kernels' JSON line, at the tolerances check_mgp_kernels and
+    check_mg_kernels state for the channel instances, and timed beside
+    the channel instance on the same inputs ("channel_ms"). The cavity
+    app's constants with MG_PRODUCTION: on the 2048^2 state after 3 steps
+    (p' and the next rhs, as the fused route feeds them), kernel 7 at
+    k = 3, kernel 9 (east_dirichlet False) on the 1023^2 first coarse
+    level it gives, with and without the residual, and kernel 8 fed the
+    cycle's own all-Neumann correction; kernel 6 on the 2047^2 state after
+    3 steps; on the 2048^2 legacy state after 3 steps, kernel 19 at k = 3
+    (and on the 128^2 level, in one block) and kernel 18 with the cavity
+    ring, fed the legacy cycle's own coarse correction."""
+    def record_cavity(line, pairs, call, plain, channel, bnd, n=20):
+        compare(line, pairs, results, (time_ms(call, n), time_ms(plain, 5)), bnd)
+        results[line]["channel_ms"] = time_ms(channel, n)
+        print(f"[3] {line}: {results[line]['ms']:.4f} ms against the channel instance's "
+              f"{results[line]['channel_ms']:.4f} on the same inputs", flush=True)
+
+    def fine_state(scene):
+        state, _ = tc.make_run(scene, 3)(scene.init_state(dev))
+        g = scene.grid
+        rhs = predict_div(state.u, state.v, state.dt, state.nu, g,
+                          scene.params.velocity_scheme, scene.opts.semantics)[2]
+        return state.p_prime, rhs, g.dx, g.dy
+
+    scene = cavity_production_scene()
+    opts = scene.opts
+    om, k = opts.jacobi_omega, opts.mgp_smooth
+    pp, rhs, dx, dy = fine_state(scene)
+    denom, cells = 2 / dx ** 2 + 2 / dy ** 2, pp.numel()
+    got = mgp.jacobi_fused_k_restrict(pp, rhs, dx, dy, om, k, cavity=True)
+    ref = mgp.jacobi_fused_k_restrict_plain(pp, rhs, dx, dy, om, k, cavity=True)
+    tol = res_floor(ref[0], rhs, denom)
+    record_cavity("jacobi_fused_k_restrict cavity", [
+        ("p'", got[0], ref[0], scaled(ref[0], 1e-5)),
+        ("r_c", got[1], ref[1], tol), ("max|r|", got[2], ref[2], tol)],
+        lambda: mgp.jacobi_fused_k_restrict(pp, rhs, dx, dy, om, k, cavity=True),
+        lambda: mgp.jacobi_fused_k_restrict_plain(pp, rhs, dx, dy, om, k, cavity=True),
+        lambda: mgp.jacobi_fused_k_restrict(pp, rhs, dx, dy, om, k),
+        bound(nbytes(pp, rhs, got[0], got[1]), (k * SWEEP + RES + RES_MAX + RESTRICT) * cells))
+    p2, r_c = got[0], got[1]
+
+    z = torch.zeros_like(r_c)
+    cc_args = (2 * dx, 2 * dy, om, k, 1.5 * dx)
+    got_c = mgp.cc_sweeps(z, r_c, *cc_args, True, east_dirichlet=False)
+    ref_c = mgp.cc_sweeps_plain(z, r_c, *cc_args, True, east_dirichlet=False)
+    record_cavity("cc_sweeps cavity", [
+        ("e", got_c[0], ref_c[0], scaled(ref_c[0], 1e-5)),
+        ("r", got_c[1], ref_c[1], res_floor(ref_c[0], r_c, 2 / (2 * dx) ** 2 + 2 / (2 * dy) ** 2))],
+        lambda: mgp.cc_sweeps(z, r_c, *cc_args, True, east_dirichlet=False),
+        lambda: mgp.cc_sweeps_plain(z, r_c, *cc_args, True, east_dirichlet=False),
+        lambda: mgp.cc_sweeps(z, r_c, *cc_args, True),
+        bound(nbytes(z, r_c, *got_c), (k * CC_SWEEP + RES) * r_c.numel()))
+    results["cc_sweeps cavity"]["ms_no_residual"] = time_ms(
+        lambda: mgp.cc_sweeps(z, r_c, *cc_args, False, east_dirichlet=False), 20)
+
+    e_c = _cc_vcycle(r_c, 2 * dx, 2 * dy, opts, 1.5 * dx, _smoothers(opts), False)
+    row = _cc_prolong_x(e_c, scene.grid.nx - 2, False).contiguous()
+    got = mgp.jacobi_fused_k_corr(p2, rhs, row, dx, dy, om, k, cavity=True)
+    ref = mgp.jacobi_fused_k_corr_plain(p2, rhs, row, dx, dy, om, k, cavity=True)
+    require(float(got[0][0, 0]) == 0.0, "jacobi_fused_k_corr cavity: (0, 0) is not 0")
+    record_cavity("jacobi_fused_k_corr cavity", [
+        ("p'", got[0], ref[0], scaled(ref[0], 1e-5)),
+        ("max|r|", got[1], ref[1], res_floor(ref[0], rhs, denom)),
+        ("max|p'|", got[2], ref[2], scaled(ref[0], 1e-5))],
+        lambda: mgp.jacobi_fused_k_corr(p2, rhs, row, dx, dy, om, k, cavity=True),
+        lambda: mgp.jacobi_fused_k_corr_plain(p2, rhs, row, dx, dy, om, k, cavity=True),
+        lambda: mgp.jacobi_fused_k_corr(p2, rhs, row, dx, dy, om, k),
+        bound(nbytes(p2, rhs, row, got[0]), (CORR_ADD + k * SWEEP + RES + 2 * RES_MAX) * cells))
+
+    pp, rhs, dx, dy = fine_state(cavity_production_scene(2047))
+    got = mgp.jacobi_fused_k_res(pp, rhs, dx, dy, om, k, True, cavity=True)
+    ref = mgp.jacobi_fused_k_res_plain(pp, rhs, dx, dy, om, k, True, cavity=True)
+    tol = res_floor(ref[0], rhs, 2 / dx ** 2 + 2 / dy ** 2)
+    record_cavity("jacobi_fused_k_res cavity", [
+        ("p'", got[0], ref[0], scaled(ref[0], 1e-5)),
+        ("r", got[1], ref[1], tol), ("max|r|", got[2], ref[2], tol)],
+        lambda: mgp.jacobi_fused_k_res(pp, rhs, dx, dy, om, k, True, cavity=True),
+        lambda: mgp.jacobi_fused_k_res_plain(pp, rhs, dx, dy, om, k, True, cavity=True),
+        lambda: mgp.jacobi_fused_k_res(pp, rhs, dx, dy, om, k, True),
+        bound(nbytes(pp, rhs, got[0], got[1]), (k * SWEEP + RES + RES_MAX) * pp.numel()))
+
+    scene = cavity_production_scene(mgp_scheme="legacy")
+    pp, rhs, dx, dy = fine_state(scene)
+    ar_rhs = om * float(rhs.abs().max()) / (2 / dx ** 2 + 2 / dy ** 2)
+    got = kmg.mgp_smooth(pp, rhs, dx, dy, om, k, cavity=True)
+    ref = kmg.mgp_smooth_plain(pp, rhs, dx, dy, om, k, cavity=True)
+    require(float(got[0, 0]) == 0.0, "mgp_smooth cavity: (0, 0) is not 0")
+    record_cavity("mgp_smooth cavity", [("p'", got, ref, sweep_tol(k, ref, ar_rhs))],
+                  lambda: kmg.mgp_smooth(pp, rhs, dx, dy, om, k, cavity=True),
+                  lambda: kmg.mgp_smooth_plain(pp, rhs, dx, dy, om, k, cavity=True),
+                  lambda: kmg.mgp_smooth(pp, rhs, dx, dy, om, k),
+                  bound(nbytes(pp, rhs, got), k * SWEEP * pp.numel()))
+    r128, dx128, dy128 = coarse_levels(rhs, dx, dy, 4)
+    z = torch.zeros_like(r128)
+    got = kmg.mgp_smooth(z, r128, dx128, dy128, om, k, cavity=True)
+    ref = kmg.mgp_smooth_plain(z, r128, dx128, dy128, om, k, cavity=True)
+    ar128 = om * float(r128.abs().max()) / (2 / dx128 ** 2 + 2 / dy128 ** 2)
+    d, tol = max_abs(got, ref), sweep_tol(k, ref, ar128)
+    require(bool(torch.isfinite(got).all()) and d <= tol,
+            f"mgp_smooth cavity, the 128^2 level: max|d| {d} > {tol}")
+    entry = results["mgp_smooth cavity"]
+    entry["max_abs_err"] = max(entry["max_abs_err"], d)
+    entry["ms_128_one_block"] = time_ms(
+        lambda: kmg.mgp_smooth(z, r128, dx128, dy128, om, k, cavity=True), 20)
+    entry["channel_ms_128_one_block"] = time_ms(
+        lambda: kmg.mgp_smooth(z, r128, dx128, dy128, om, k), 20)
+    print(f"[3] mgp_smooth cavity on the 128^2 level, k={k} (one block): max|d|={d:.3e} "
+          f"(tol {tol:.1e}); {entry['ms_128_one_block']:.4f} ms, channel "
+          f"{entry['channel_ms_128_one_block']:.4f}", flush=True)
+
+    r_c = kmg.mg_residual_restrict(pp, rhs, dx, dy)
+    e = _mgp_vcycle(torch.zeros_like(r_c), r_c, 2 * dx, 2 * dy, opts, _mg_kit(opts),
+                    _apply_pprime_bcs_cavity)
+    got = kmg.mg_prolong_add(e, pp, True, cavity=True)
+    ref = kmg.mg_prolong_add_plain(e, pp, True, cavity=True)
+    record_cavity("mg_prolong_add cavity", [("p + e", got, ref, ulp_tol(ref))],
+                  lambda: kmg.mg_prolong_add(e, pp, True, cavity=True),
+                  lambda: kmg.mg_prolong_add_plain(e, pp, True, cavity=True),
+                  lambda: kmg.mg_prolong_add(e, pp, True),
+                  bound(nbytes(e, pp, got), MG_PROLONG * pp.numel()))
 
 
 def check_multigrid_solve(dev, report):
@@ -1305,10 +1490,16 @@ def check_invariants(scene, state, label):
     return float(u.min()), float(u.max())
 
 
-def lambda_min(g) -> float:
+def lambda_min(g, cavity=False) -> float:
     """The least eigenvalue of the folded p' operator on the interior:
     the x direction's Neumann-Dirichlet mode (the y direction's Neumann
-    pair has 0), 4 sin^2(pi / (2 (2m + 1))) / dx^2 with m = nx - 2."""
+    pair has 0), 4 sin^2(pi / (2 (2m + 1))) / dx^2 with m = nx - 2; in
+    CAVITY flow, all-Neumann, the least one off the constant mode (which
+    the mean-removed comparisons take out): the first Neumann-Neumann
+    mode of either direction, 4 sin^2(pi / (2m)) / h^2."""
+    if cavity:
+        return min(4 * float(np.sin(np.pi / (2 * (n - 2)))) ** 2 / h ** 2
+                   for n, h in ((g.nx, g.dx), (g.ny, g.dy)))
     m = g.nx - 2
     return 4 * float(np.sin(np.pi / (2 * (2 * m + 1)))) ** 2 / g.dx ** 2
 
@@ -1382,7 +1573,7 @@ def compare_runs(scene, run_a, run_b, label, steps, knife_edge=False,
     slack_uv = slack_grad = slack_p = 0.0
     if scene.params.pressure_solver == tc.PressureSolver.MG_PRODUCTION:
         e = (da.res_p.cpu().double() + db.res_p.double()).numpy()
-        lam = lambda_min(g)
+        lam = lambda_min(g, scene.params.flow_case == tc.FlowCase.CAVITY)
         slack_p, slack_grad = e.sum() / lam, e.sum() / np.sqrt(lam)
         slack_uv = float((da.dt.cpu().double().numpy() * e).sum()) / np.sqrt(lam)
     elif knife_edge:
@@ -1966,6 +2157,57 @@ def run_cavity(dev, launches, report):
     return out
 
 
+def run_cavity_production(dev, launches, report):
+    """The cavity with the cavity app's constants and --solver
+    mg-production (Rust defaults: up to 20 outer rounds, each a solve):
+    aligned at 512^2 (5 warm-up steps, then 20) and 2048^2 (2, then 5),
+    steps timed one at a time to read the V-cycles each ran; 2047^2 (odd:
+    kernel 6; 2, then 3); the legacy cycle at 512^2 (5 steps from rest)
+    and 2048^2 (2, then 3). Prints steps/s, cell-updates/s and V-cycles a step. With the
+    app's dt the flow outgrows the explicit scheme's limit and some
+    solves stop at the cycle cap, as the JAX package's do
+    (tests/test_torch_cavity_mgp.py). Returns the 512^2 runs' (scene, end
+    state, label) triples."""
+    out = []
+    runs = ((CAV_MGP512, cavity_production_scene(512), 5, 20),
+            (CAV_MGP, cavity_production_scene(), 2, 5),
+            (CAV_MGP_ODD, cavity_production_scene(2047), 2, 3),
+            (CAV_LEG512, cavity_production_scene(512, mgp_scheme="legacy"), 0, 5),
+            (CAV_LEG, cavity_production_scene(mgp_scheme="legacy"), 2, 3))
+    for label, scene, warm, steps in runs:
+        g = scene.grid
+        state = scene.init_state(dev)
+        if warm:
+            state, _ = tc.make_run(scene, warm)(state)
+        step = tc.make_step(scene)
+        cycles, res_p = [], []
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            c0 = vcycles_launched(scene)
+            state, d = step(state)
+            cycles.append(vcycles_launched(scene) - c0)
+            res_p.append(d.res_p)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches[label] = read_counts()
+        umin, umax = check_invariants(scene, state, label)
+        require(float(state.p_prime[0, 0]) == 0.0, f"{label}: p' at the gauge cell not 0")
+        rate = g.nx * g.ny * steps / sec
+        report[label] = {"steps_per_s": steps / sec, "cell_updates_per_s": rate,
+                         "vcycles_per_step": cycles, "res_p": [float(r) for r in res_p],
+                         "u_range": [umin, umax]}
+        print(f"[6] {label}: {steps} steps in {sec:.4f} s = {steps / sec:.2f} steps/s "
+              f"({rate:.4e} cell-updates/s); V-cycles per step {cycles} (mean "
+              f"{np.mean(cycles):.2f}, up to 20 outer rounds a step); res_p "
+              f"{[float(r) for r in res_p]}; u in [{umin:.4f}, {umax:.4f}]; invariants "
+              f"hold", flush=True)
+        if g.nx == 512:
+            out.append((scene, state, label))
+    return out
+
+
 def shard_blocks(x, shards, halo):
     """A global field's halo-extended row blocks, as the sharded step's
     exchange gives them (zero rows past the grid)."""
@@ -2283,6 +2525,7 @@ def main() -> int:
     check_multigrid_solve(dev, report)
     check_shard_kernels(dev, results, report)
     check_cavity_kernels(dev, results)
+    check_cavity_mgp_kernels(dev, results)
     launches = {}
 
     scene_a = reference_scene()
@@ -2387,6 +2630,7 @@ def main() -> int:
     js_runs = run_js(dev, launches, report)
     sharded_runs = run_sharded(dev, launches, report, state_a)
     cavity_runs = run_cavity(dev, launches, report)
+    cavity_mgp_runs = run_cavity_production(dev, launches, report)
 
     report["cpu_compare"] = {
         "800x264": compare_with_cpu(scene_a, state_a, "800x264"),
@@ -2415,6 +2659,9 @@ def main() -> int:
         report["cpu_compare"][label] = compare_sharded(scene, state, shards, label)
     for scene, state, label in cavity_runs:
         report["cpu_compare"][label] = compare_with_cpu(scene, state, label)
+    # the legacy cycle's 21 solves a step run 630 V-cycles on the CPU too
+    for (scene, state, label), steps in zip(cavity_mgp_runs, (3, 2)):
+        report["cpu_compare"][label] = compare_with_cpu(scene, state, label, steps)
 
     for path, names in PATHS.items():
         counts = {k: launches[path][k] for k in names}
@@ -2435,9 +2682,9 @@ def main() -> int:
                 f"the {path} run launched the rounds kernel's cluster form "
                 f"{launches[path][CLUSTER]} times of {launches[path]['rounds']}, "
                 f"expected {want}")
-    # The cavity paths launch kernels 2, 3 and 4 in their CAVITY instances
-    # alone, the channel paths never; kernel 4 takes its cluster form at
-    # 512^2, 128^2 and 64^2, its cooperative form at 1024^2.
+    # The cavity paths launch kernels 2-4, 6-9, 18 and 19 in their CAVITY
+    # instances alone, the channel paths never; kernel 4 takes its cluster
+    # form at 512^2, 128^2 and 64^2, its cooperative form at 1024^2.
     for path in PATHS:
         for kernel, key in CAVITY_OF.items():
             n, want = launches[path][key], launches[path][kernel]
@@ -2451,9 +2698,10 @@ def main() -> int:
         want = launches[path]["rounds"] if cluster else 0
         require(launches[path][CLUSTER] == want, f"the {path} run launched the rounds "
                 f"kernel's cluster form {launches[path][CLUSTER]} times, expected {want}")
-    print(f"[8] the cavity paths launched kernels 2-4 in their CAVITY instances only, "
-          f"kernel 4 in its cluster form at 512^2, 128^2 and 64^2 and its cooperative "
-          f"form at 1024^2; no channel path launched a CAVITY instance", flush=True)
+    print(f"[8] the cavity paths launched kernels 2-4, 6-9, 18 and 19 in their CAVITY "
+          f"instances only, kernel 4 in its cluster form at 512^2, 128^2 and 64^2 and its "
+          f"cooperative form at 1024^2; no channel path launched a CAVITY instance",
+          flush=True)
     # Kernels 1 and 3 take their tiled and one-launch forms on every path
     # that launches them.
     for path in PATHS:
@@ -2476,6 +2724,9 @@ def main() -> int:
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[path][k], **results[k]}
                for k, (_, src, rep, path) in KERNELS.items()]
+    kernels += [{"name": line, "route": "cuda", "source": KERNELS[k][1],
+                 "replaces": KERNELS[k][2], "launches": launches[path][CAVITY_OF[k]],
+                 **results[line]} for line, (k, path) in CAVITY_LINES.items()]
     report["kernels"] = kernels
     if args.out:
         with open(args.out, "w") as f:

@@ -93,8 +93,8 @@ _BOX = tcfg.Grid(nx=24, ny=16, lx=4.0, ly=1.5,
 _CAVITY = tcfg.FlowCase.CAVITY
 _UNPORTED = [
     # JS semantics, SECOND/QUICK faces, the parabolic inlets and CAVITY flow
-    # (with JACOBI, FDM and MULTIGRID) are ported; CAVITY with SOR, either
-    # MG_PRODUCTION scheme or differentiable, and a Box, are not.
+    # (with JACOBI, FDM, MULTIGRID and both MG_PRODUCTION schemes) are
+    # ported; CAVITY with SOR or differentiable, and a Box, are not.
     (_G, tcfg.SimulationParams(pressure_solver=tcfg.PressureSolver.SOR,
                                flow_case=_CAVITY),
      tcfg.solver_options_for(tcfg.Semantics.JS)),
@@ -107,19 +107,12 @@ _UNPORTED = [
     (_G, tcfg.SimulationParams(pressure_solver=tcfg.PressureSolver.SOR),
      tcfg.solver_options_for(tcfg.Semantics.RUST, differentiable=True,
                              early_exit=False, outer_corrector_rounds=0)),
-    # MULTIGRID and both MG_PRODUCTION cycles are ported; MG_PRODUCTION under
-    # CAVITY (legacy: the JS kit's hierarchy; aligned: its FDM bottom) and
-    # differentiable are not.
-    (_G, tcfg.SimulationParams(pressure_solver=tcfg.PressureSolver.MG_PRODUCTION,
-                               flow_case=_CAVITY),
-     tcfg.solver_options_for(tcfg.Semantics.RUST, mgp_scheme="legacy")),
+    # MULTIGRID and both MG_PRODUCTION cycles are ported, under CAVITY too;
+    # differentiable is not.
     (_G, tcfg.SimulationParams(pressure_solver=tcfg.PressureSolver.MG_PRODUCTION),
      tcfg.solver_options_for(tcfg.Semantics.RUST, mgp_scheme="legacy",
                              differentiable=True, early_exit=False,
                              outer_corrector_rounds=0)),
-    (_G, tcfg.SimulationParams(pressure_solver=tcfg.PressureSolver.MG_PRODUCTION,
-                               flow_case=_CAVITY),
-     tcfg.solver_options_for(tcfg.Semantics.RUST, mgp_scheme="aligned")),
     (_G, tcfg.SimulationParams(flow_case=_CAVITY),
      tcfg.solver_options_for(tcfg.Semantics.RUST, differentiable=True,
                              early_exit=False, outer_corrector_rounds=0)),
@@ -134,9 +127,8 @@ _UNPORTED = [
 
 
 @pytest.mark.parametrize("grid,params,opts", _UNPORTED,
-                         ids=["js", "second", "quick", "sor", "multigrid",
-                              "mg-production", "fdm", "cavity", "parabolic",
-                              "box", "differentiable"])
+                         ids=["js", "second", "quick", "sor", "mg-production",
+                              "cavity", "parabolic", "box", "differentiable"])
 def test_outside_the_slice_raises(grid, params, opts):
     item = "item 6b" if params.flow_case == _CAVITY else "ROADMAP.md"
     with pytest.raises(NotImplementedError, match=item):
@@ -148,6 +140,24 @@ def test_cavity_is_in_the_slice(solver):
     """CAVITY flow with the Jacobi, FDM and vertex multigrid solves."""
     ct.make_scene(ct.cavity_grid(32), tcfg.SimulationParams(
         flow_case=_CAVITY, pressure_solver=tcfg.PressureSolver[solver]), _RUST)
+
+
+@pytest.mark.parametrize("opts", [
+    tcfg.solver_options_for(tcfg.Semantics.RUST, mgp_scheme="legacy"),
+    tcfg.solver_options_for(tcfg.Semantics.RUST, mgp_scheme="aligned"),
+    tcfg.solver_options_for(tcfg.Semantics.RUST, mgp_fixed_cycles=2)],
+    ids=["legacy", "aligned", "fixed-cycles"])
+def test_cavity_mg_production_builds_and_steps(opts):
+    """CAVITY with MG_PRODUCTION: either scheme and fixed cycles build and
+    step with the cavity app's constants, the lid moving and p' pinned at
+    the gauge cell."""
+    opts = dataclasses.replace(opts, ramp_up_steps=1, mgp_coarse_stop=4)
+    scene = ct.make_scene(ct.cavity_grid(24), tcfg.SimulationParams(
+        dt=0.002, viscosity=1e-2, flow_case=_CAVITY,
+        pressure_solver=tcfg.PressureSolver.MG_PRODUCTION), opts)
+    state, _ = ct.make_run(scene, 4)(scene.init_state(device="cpu"))
+    assert bool(torch.isfinite(state.u).all()) and float(state.u[-1].max()) > 0.5
+    assert float(state.p_prime[0, 0]) == 0.0 and float(state.p_prime.abs().max()) > 0
 
 
 def test_batched_cavity_state_raises():

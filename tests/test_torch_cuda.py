@@ -1318,3 +1318,157 @@ def test_cavity_ghia_re100_on_the_card(cuda):
     assert float(state.res_u) < 1e-4, "not at steady state"
     du, dv = ghia_deviation(state)
     assert du < 0.06 and dv < 0.06, (du, dv)
+
+
+# ---------------------------------------------------------------------------
+# CAVITY flow with MG_PRODUCTION: kernels 6-9, 18's ring and 19's CAVITY
+# instances, and the cavity's production steps
+# ---------------------------------------------------------------------------
+
+def _assert_cavity_ring(p):
+    from cfd_demo_tpu_torch.ops.poisson import _apply_pprime_bcs_cavity
+    p = p.cpu()
+    assert torch.equal(p, _apply_pprime_bcs_cavity(p)) and float(p[0, 0]) == 0.0
+
+
+@pytest.mark.parametrize("shape,k,emit_res", [((64, 97), 3, True), ((37, 53), 3, False),
+                                              ((40, 96), 0, True), ((128, 130), 5, True)])
+def test_mgp_res_cavity(cuda, shape, k, emit_res):
+    """Kernel 6's CAVITY instance against its plain version, at the
+    channel instance's bounds."""
+    ny, nx = shape
+    pp, rhs = _cavity_pp(21, shape)
+    dx, dy = 1 / nx, 1 / ny
+    n = kmgp.jacobi_fused_k_res.cavity_launches
+    got = kmgp.jacobi_fused_k_res(pp.to(cuda), rhs.to(cuda), dx, dy, 0.75, k, emit_res,
+                                  cavity=True)
+    assert kmgp.jacobi_fused_k_res.cavity_launches == n + 1
+    ref = kmgp.jacobi_fused_k_res_plain(pp, rhs, dx, dy, 0.75, k, emit_res, cavity=True)
+    tol = _res_tol(ref[0], rhs, dx, dy)
+    assert_close(got[0], ref[0], rtol=1e-5)
+    if emit_res:
+        torch.testing.assert_close(got[1].cpu(), ref[1], rtol=0, atol=tol)
+    else:
+        assert got[1] is None
+    torch.testing.assert_close(got[2].cpu(), ref[2], rtol=1e-3, atol=tol)
+    _assert_cavity_ring(got[0])
+
+
+@pytest.mark.parametrize("shape,k", [((64, 96), 3), ((38, 130), 4), ((40, 96), 0)])
+def test_mgp_restrict_and_corr_cavity(cuda, shape, k):
+    """Kernels 7 and 8's CAVITY instances against their plain versions,
+    kernel 8 fed the x pass of an all-Neumann prolongation."""
+    ny, nx = shape
+    pp, rhs = _cavity_pp(22, shape)
+    dx, dy = 1 / nx, 1 / ny
+    n7, n8 = (kmgp.jacobi_fused_k_restrict.cavity_launches,
+              kmgp.jacobi_fused_k_corr.cavity_launches)
+    got = kmgp.jacobi_fused_k_restrict(pp.to(cuda), rhs.to(cuda), dx, dy, 0.75, k,
+                                       cavity=True)
+    ref = kmgp.jacobi_fused_k_restrict_plain(pp, rhs, dx, dy, 0.75, k, cavity=True)
+    tol = _res_tol(ref[0], rhs, dx, dy)
+    assert_close(got[0], ref[0], rtol=1e-5)
+    torch.testing.assert_close(got[1].cpu(), ref[1], rtol=0, atol=tol)
+    torch.testing.assert_close(got[2].cpu(), ref[2], rtol=1e-3, atol=tol)
+    _assert_cavity_ring(got[0])
+    g = torch.Generator().manual_seed(23)
+    e_c = 0.05 * torch.randn(((ny - 2) // 2, (nx - 2) // 2), generator=g)
+    row = _cc_prolong_x(e_c, nx - 2, False).contiguous()
+    got = kmgp.jacobi_fused_k_corr(ref[0].to(cuda), rhs.to(cuda), row.to(cuda),
+                                   dx, dy, 0.75, k, cavity=True)
+    ref = kmgp.jacobi_fused_k_corr_plain(ref[0], rhs, row, dx, dy, 0.75, k, cavity=True)
+    assert_close(got[0], ref[0], rtol=1e-5)
+    torch.testing.assert_close(got[1].cpu(), ref[1], rtol=1e-3,
+                               atol=_res_tol(ref[0], rhs, dx, dy))
+    assert float(got[2]) == float(got[0].abs().max())
+    torch.testing.assert_close(got[2].cpu(), ref[2], rtol=1e-5, atol=0)
+    _assert_cavity_ring(got[0])
+    assert (kmgp.jacobi_fused_k_restrict.cavity_launches,
+            kmgp.jacobi_fused_k_corr.cavity_launches) == (n7 + 1, n8 + 1)
+
+
+@pytest.mark.parametrize("shape", [(64, 96), (63, 97), (9, 1), (1, 9)])
+@pytest.mark.parametrize("d_mult", [1.0, 1.5, 16.5 / 32])
+def test_cc_sweeps_all_neumann(cuda, shape, d_mult):
+    """Kernel 9 with east_dirichlet=False (the cavity's coarse levels)
+    against its plain version, at the channel instance's bounds."""
+    g = torch.Generator().manual_seed(24)
+    p = 0.1 * torch.randn(shape, generator=g)
+    rhs = torch.randn(shape, generator=g)
+    dx, dy = 1 / max(shape), 1 / min(shape)
+    n = kmgp.cc_sweeps.cavity_launches
+    for emit_res in (True, False):
+        got = kmgp.cc_sweeps(p.to(cuda), rhs.to(cuda), dx, dy, 0.75, 3, d_mult * dx,
+                             emit_res, east_dirichlet=False)
+        ref = kmgp.cc_sweeps_plain(p, rhs, dx, dy, 0.75, 3, d_mult * dx, emit_res,
+                                   east_dirichlet=False)
+        torch.testing.assert_close(got[0].cpu(), ref[0], rtol=1e-5, atol=1e-5)
+        if emit_res:
+            torch.testing.assert_close(got[1].cpu(), ref[1], rtol=0,
+                                       atol=_res_tol(ref[0], rhs, dx, dy))
+        else:
+            assert got[1] is None
+    assert kmgp.cc_sweeps.cavity_launches == n + 2
+
+
+@pytest.mark.parametrize("shape", MG_SHAPES)
+@pytest.mark.parametrize("k", [0, 3, 10])
+def test_mgp_smooth_cavity(cuda, shape, k):
+    """Kernel 19's CAVITY instance on both routes (one block, one sweep a
+    launch) against its plain version."""
+    pp, rhs = _cavity_pp(25, shape)
+    dx, dy = 1 / shape[1], 1 / shape[0]
+    n = kmg.mgp_smooth.cavity_launches
+    got = kmg.mgp_smooth(pp.to(cuda), rhs.to(cuda), dx, dy, 0.75, k, cavity=True)
+    assert kmg.mgp_smooth.cavity_launches == n + (k > 0)
+    ref = kmg.mgp_smooth_plain(pp, rhs, dx, dy, 0.75, k, cavity=True)
+    ar = 0.75 / (2 / dx ** 2 + 2 / dy ** 2)
+    torch.testing.assert_close(got.cpu(), ref, rtol=0,
+                               atol=_sweep_tol(k, ref, ar * float(rhs.abs().max())))
+    _assert_cavity_ring(got)
+
+
+@pytest.mark.parametrize("shape", MG_SHAPES)
+def test_mg_prolong_add_cavity_ring(cuda, shape):
+    """Kernel 18 with the cavity's p' BCs of the sum: the plain version's
+    operations, 1 ulp of max|out| allowed."""
+    pp, _ = _cavity_pp(26, shape)
+    g = torch.Generator().manual_seed(27)
+    e = torch.randn(kmg.coarse_shape(*shape), generator=g)
+    n = kmg.mg_prolong_add.cavity_launches
+    got = kmg.mg_prolong_add(e.to(cuda), pp.to(cuda), True, cavity=True)
+    assert kmg.mg_prolong_add.cavity_launches == n + 1
+    ref = kmg.mg_prolong_add_plain(e, pp, True, cavity=True)
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=EPS * float(ref.abs().max()))
+    _assert_cavity_ring(got)
+
+
+CAVITY_MGP = ("jacobi_fused_k_res", "jacobi_fused_k_restrict", "jacobi_fused_k_corr",
+              "cc_sweeps")
+
+
+@pytest.mark.parametrize("nx,ny,opts", [
+    (64, 48, {"substep_impl": "pallas"}), (65, 47, {}), (64, 48, {"mgp_scheme": "legacy"}),
+    (64, 48, {"mgp_fixed_cycles": 2})], ids=["aligned", "odd", "legacy", "fixed-cycles"])
+def test_cavity_production_steps_match_cpu_path(cuda, nx, ny, opts):
+    """Three cavity MG_PRODUCTION steps on the card and on the CPU path:
+    u and v to 1e-5, p' with the mean difference removed to its
+    noise-floor spread (as the channel's production steps are held);
+    every launch of the production kernels a CAVITY instance."""
+    scene = tc.make_scene(_cavity_grid(ny, nx, cylinders=0), tc.SimulationParams(
+        dt=0.002, viscosity=1e-2, flow_case=CAVITY,
+        pressure_solver=tc.PressureSolver.MG_PRODUCTION),
+        tc.solver_options_for(RUST, ramp_up_steps=2, mgp_coarse_stop=8, **opts))
+    wrappers = [getattr(kmgp, n) for n in CAVITY_MGP] + [kmg.mgp_smooth, kmg.mg_prolong_add]
+    before = [(w.launches, w.cavity_launches) for w in wrappers]
+    run = tc.make_run(scene, 3)
+    a, _ = run(scene.init_state(cuda))
+    delta = [(w.launches - l0, w.cavity_launches - c0)
+             for w, (l0, c0) in zip(wrappers, before)]
+    assert all(n == c for n, c in delta) and sum(n for n, _ in delta) > 0, delta
+    b, _ = run(scene.init_state("cpu"))
+    for f in ("u", "v"):
+        assert_close(getattr(a, f), getattr(b, f), rtol=1e-5)
+    d = (a.p_prime.cpu() - b.p_prime).double()
+    assert float((d - d.mean()).abs().max()) <= 1e-3 * max(1.0, float(b.p_prime.abs().max()))
+    assert float(a.p_prime[0, 0]) == 0.0

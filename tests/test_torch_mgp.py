@@ -129,8 +129,8 @@ def test_corr_plain_matches_pallas(shape):
 @pytest.mark.parametrize("shape", [(64, 96), (63, 97)])  # odd row-pad
 @pytest.mark.parametrize("d_wall_mult", [1.0, 1.5, 16.5 / 32])
 def test_cc_sweeps_plain_matches_pallas(shape, d_wall_mult):
-    """The outlet is Dirichlet (CHANNEL; CAVITY's all-Neumann cc sweeps
-    come with MG_PRODUCTION under CAVITY, ROADMAP.md queue 1 item 6b)."""
+    """The outlet is Dirichlet (CHANNEL; tests/test_torch_cavity_mgp.py
+    holds CAVITY's all-Neumann cc sweeps)."""
     ny, nx = shape
     dx, dy = 1.0 / nx, 1.0 / ny
     d_wall = d_wall_mult * dx
