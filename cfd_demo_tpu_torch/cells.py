@@ -94,6 +94,7 @@ from .kernels.substep import correct_bc, correct_div, predict_div, predict_div_p
 from .shard import make_mesh, make_run_shmap, make_step_shmap, shard_state
 from .solver.piso import (_substep_jnp, _use_fused_substep, _warm_start,
                           make_run, make_scene, make_step, ramped_inlet)
+from . import trace
 
 
 def reference_scene():
@@ -265,18 +266,13 @@ def vertex_levels(ny: int, nx: int, coarsest: int) -> int:
     return n
 
 
-def vcycles_launched(scene=None) -> float:
-    """V-cycles an MG_PRODUCTION scene's kernels have run on the card.
-    Aligned: one corr launch a cycle on an even grid, two res launches
-    on another (a cycle on an interior of at most mgp_coarse_stop a side
-    is FDM alone and launches neither). Legacy (``scene`` with
-    mgp_scheme "legacy"): two mgp_smooth launches a level."""
-    if scene is not None and scene.opts.mgp_scheme == "legacy":
-        g = scene.grid
-        return mg.mgp_smooth.launches / (
-            2 * vertex_levels(g.ny, g.nx, scene.opts.mg_coarsest))
-    return (mgp.jacobi_fused_k_corr.launches
-            + mgp.jacobi_fused_k_res.launches / 2)
+def vcycles_launched() -> int:
+    """V-cycles the program has run (``trace.vcycles``): MG_PRODUCTION's,
+    either scheme, and MULTIGRID's, on any device. The masked loop's
+    cycles after its exit are counted: they run and are discarded. A
+    cycle on an interior of at most mgp_coarse_stop cells a side runs
+    FDM alone and launches no kernel; it counts as a cycle."""
+    return trace.vcycles
 
 
 PROFILED_STEPS = 10
@@ -419,7 +415,7 @@ def measure(name, make, warmup, timed, batch, dev, shards=None):
     if batch is None and not shards and not _use_fused_substep(scene):
         counts = solve_correct_rounds(*rounds_args(scene, state))[5].tolist()  # the rounds route
         out["rounds_per_step"], out["sweeps_per_step"] = counts
-    cycles0 = vcycles_launched(scene)
+    cycles0 = vcycles_launched()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, diags = run(state)
@@ -428,7 +424,7 @@ def measure(name, make, warmup, timed, batch, dev, shards=None):
     if scene.opts.substeps_adaptive:
         out["substeps_per_step"] = float(diags.substeps.double().mean())
     if scene.params.pressure_solver == PressureSolver.MG_PRODUCTION:
-        out["vcycles_per_step"] = (vcycles_launched(scene) - cycles0) / timed
+        out["vcycles_per_step"] = (vcycles_launched() - cycles0) / timed
     if not all(bool(torch.isfinite(u).all()) for u in (state.u if shards else [state.u])):
         raise RuntimeError(f"{name}: u is not finite")
     out["steps_per_s"] = timed / sec

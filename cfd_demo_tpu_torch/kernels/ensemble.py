@@ -67,6 +67,7 @@ import torch
 from ..core.config import InletProfile, PressureSolver, Semantics, VelocityScheme
 from ..core.unported import BATCHES, OTHER_SOLVERS, unported
 from ..ops.bc import check_channel
+from ..trace import traced
 from ._build import check, load, mask_ptrs, on_cpu, scene_scalars, stream_of
 from .cluster import check_route, pick_ctas, route_ctas
 from .jacobi import _multipliers
@@ -175,6 +176,7 @@ def _launch(u, v, p, pp0, dt_sub, nu, inlet, scene, sor: bool, form, ctas):
     return (u_out, v_out, p_out, pp, err, counts), c is not None
 
 
+@traced("cfd.kernel.substep_batch")
 def substep_batch(u, v, p, pp0, dt_sub, nu, inlet, scene, form: str | None = None,
                   ctas: int | None = None):
     """One substep of every scene: ``u`` (B, ny, nx+1); ``v``, ``p``,
@@ -207,6 +209,7 @@ substep_batch.launches = 0
 substep_batch.cluster_launches = 0
 
 
+@traced("cfd.kernel.substep_batch_sor")
 def substep_batch_sor(u, v, p, pp0, dt_sub, nu, inlet, scene, form: str | None = None,
                       ctas: int | None = None):
     """:func:`substep_batch` with the red/black SOR solve

@@ -61,6 +61,8 @@ import torch
 
 from ..core.unported import CAVITY, unported
 from ..ops.poisson import _apply_pprime_bcs, _apply_pprime_bcs_cavity, _jacobi_sweep
+from .. import trace
+from ..trace import traced
 from ._build import check, load, on_cpu, stream_of
 
 
@@ -82,6 +84,7 @@ def jacobi_fused_k_plain(pp, rhs, dx: float, dy: float, omega: float, k: int,
     return pp, err
 
 
+@traced("cfd.kernel.jacobi_fused_k")
 def jacobi_fused_k(pp, rhs, dx: float, dy: float, omega: float, k: int,
                    cavity: bool = False):
     """k fused damped-Jacobi sweeps with the CHANNEL p' BCs, or with
@@ -138,7 +141,7 @@ def jacobi_chain(pp0, rhs, dx: float, dy: float, omega: float, tol: float,
     for _ in range(n_full):
         pp, err = jacobi_fused_k(pp, rhs, dx, dy, omega, k, cavity)
         n_run += k
-        if early_exit and tol > 0.0 and not bool(err >= tol):
+        if early_exit and tol > 0.0 and not trace.read_host(err >= tol):
             break
     if rem:
         pp, err = jacobi_fused_k(pp, rhs, dx, dy, omega, rem, cavity)
@@ -272,6 +275,7 @@ def jacobi_fused_k_folded(pp, rhs, dx: float, dy: float, omega: float, k: int,
     return _folded_sweeps(pp, rhs, blk, dx, dy, omega, k, cavity)
 
 
+@traced("cfd.kernel.jacobi_fused_k_shard")
 def jacobi_fused_k_shard(pp_ext, rhs_ext, row_offset: int, gny: int, dx: float,
                          dy: float, omega: float, k: int, own_lo: int, own_hi: int,
                          cavity: bool = False, col_offset: int = 0, gnx=None,

@@ -46,6 +46,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.poisson import jacobi
+from ..trace import traced
 from ._build import check, load, on_cpu, stream_of
 from .cluster import check_route, pick_ctas, route_ctas
 from .jacobi import _multipliers
@@ -66,6 +67,7 @@ def jacobi_batch_ctas(batch: int, ny: int, nx: int, device):
     return pick_ctas("cfd_jacobi_batch_cluster_admit", batch, ny, nx, device)
 
 
+@traced("cfd.kernel.jacobi_batch")
 def jacobi_batch(pp0, rhs, dx: float, dy: float, omega: float, tol: float,
                  iters: int, done=None, form: str | None = None,
                  ctas: int | None = None):

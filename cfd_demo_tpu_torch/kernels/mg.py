@@ -58,6 +58,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.poisson import _mg_prolong, _mg_residual, _mg_restrict, _mg_smooth, _mgp_smooth
+from ..trace import traced
 from ._build import check, load, on_cpu, stream_of
 from .jacobi import _multipliers
 from .mgp import _check_fine, _residual_multipliers, pprime_bcs
@@ -107,6 +108,7 @@ def mgp_smooth_plain(p, rhs, dx, dy, omega, k, cavity=False):
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+@traced("cfd.kernel.mg_smooth")
 def mg_smooth(p, rhs, dx, dy, k):
     """k undamped interior sweeps; returns a new level."""
     _check_fine("mg_smooth", p, k)
@@ -127,6 +129,7 @@ def mg_smooth(p, rhs, dx, dy, k):
 mg_smooth.launches = 0
 
 
+@traced("cfd.kernel.mg_residual_restrict")
 def mg_residual_restrict(p, rhs, dx, dy):
     """The coarse residual ((ny+1)//2, (nx+1)//2) of a level."""
     _check_fine("mg_residual_restrict", p, 0)
@@ -146,6 +149,7 @@ def mg_residual_restrict(p, rhs, dx, dy):
 mg_residual_restrict.launches = 0
 
 
+@traced("cfd.kernel.mg_prolong_add")
 def mg_prolong_add(e, p, bc=False, cavity=False):
     """p + the prolongation of the next level's ``e``; with ``bc`` the
     p' BCs of that sum, the channel's or with ``cavity`` the cavity's."""
@@ -168,6 +172,7 @@ mg_prolong_add.launches = 0
 mg_prolong_add.cavity_launches = 0
 
 
+@traced("cfd.kernel.mgp_smooth")
 def mgp_smooth(p, rhs, dx, dy, omega, k, cavity=False):
     """k damped sweeps with the p' BCs, the channel's or with ``cavity``
     the cavity's (BC-consistent ``p``)."""

@@ -60,6 +60,7 @@ import torch
 from ..ops.poisson import (_apply_pprime_bcs, _apply_pprime_bcs_cavity, _cc_prolong_y,
                            _cc_residual, _cc_restrict, _cc_sweeps, _mg_residual,
                            _mgp_smooth)
+from ..trace import traced
 from ._build import check, load, on_cpu, stream_of
 from .jacobi import _multipliers
 
@@ -133,6 +134,7 @@ def cc_sweeps_plain(p, rhs, dx, dy, omega, k, d_wall, emit_res=False,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+@traced("cfd.kernel.jacobi_fused_k_res")
 def jacobi_fused_k_res(pp, rhs, dx, dy, omega, k, emit_res=True, cavity=False):
     """k fused sweeps + the residual; (p', r or None, max|r| as 0-d)."""
     _check_fine("jacobi_fused_k_res", pp, k)
@@ -159,6 +161,7 @@ jacobi_fused_k_res.launches = 0
 jacobi_fused_k_res.cavity_launches = 0
 
 
+@traced("cfd.kernel.jacobi_fused_k_restrict")
 def jacobi_fused_k_restrict(pp, rhs, dx, dy, omega, k, cavity=False):
     """k fused sweeps + the restricted residual; (p', r_c of
     ((ny-2)//2, (nx-2)//2), max|r| as 0-d). Even ny and nx."""
@@ -192,6 +195,7 @@ jacobi_fused_k_restrict.launches = 0
 jacobi_fused_k_restrict.cavity_launches = 0
 
 
+@traced("cfd.kernel.jacobi_fused_k_corr")
 def jacobi_fused_k_corr(pp, rhs, row, dx, dy, omega, k, cavity=False):
     """Correction (y pass of ``row``, ((ny-2)//2, nx-2)) + k fused
     sweeps; (p', max|r|, max|p'|) with 0-d maxima. Even ny and nx."""
@@ -243,6 +247,7 @@ def _cc_multipliers(dx, dy, omega, d_wall, east_dirichlet=True):
     return [float(x) for x in out]
 
 
+@traced("cfd.kernel.cc_sweeps")
 def cc_sweeps(p, rhs, dx, dy, omega, k, d_wall, emit_res=False, east_dirichlet=True):
     """k damped sweeps on a cell-centred coarse level, the outlet's 0
     ghost at its east edge or, without ``east_dirichlet``, a mirror;

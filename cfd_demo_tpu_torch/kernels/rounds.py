@@ -70,6 +70,8 @@ from ..ops.bc import apply_bcs
 from ..ops.corrector import correct
 from ..ops.divergence import divergence_rhs
 from ..ops.poisson import jacobi, pprime_bc_fn
+from .. import trace
+from ..trace import traced
 from ._build import check, device_scalars, load, mask_ptrs, on_cpu, stream_of
 from .cluster import check_route, pick_ctas, route_ctas
 from .jacobi import _multipliers
@@ -96,7 +98,8 @@ def solve_correct_rounds_plain(u_star, v_star, p, pp0, rhs, dt_sub, inlet,
     pp, err = solve(pp0, rhs)
     u, v, p = correct(u_star, v_star, p, pp, dt_sub, g.dx, g.dy)
     it = 0
-    while it < opts.outer_corrector_rounds and bool(err >= opts.outer_corrector_tol):
+    while (it < opts.outer_corrector_rounds
+           and trace.read_host(err >= opts.outer_corrector_tol)):
         pp, err = solve(pp, divergence_rhs(u, v, dt_sub, g.dx, g.dy))
         u, v, p = correct(u, v, p, pp, dt_sub, g.dx, g.dy)
         it += 1
@@ -117,6 +120,7 @@ def rounds_ctas(ny: int, nx: int, device, cavity: bool = False):
     return pick_ctas("cfd_rounds_cluster_admit", 1, ny, nx, device, int(cavity))
 
 
+@traced("cfd.kernel.solve_correct_rounds")
 def solve_correct_rounds(u_star, v_star, p, pp0, rhs, dt_sub, inlet, scene,
                          form: str | None = None, ctas: int | None = None):
     """Fused solve + corrector + outer rounds + BCs for one scene.

@@ -56,6 +56,8 @@ import numpy as np
 import torch
 
 from ..ops.poisson import _sor_sweep
+from .. import trace
+from ..trace import traced
 from ._build import check, load, on_cpu, stream_of
 from .jacobi import block_indices, block_masks, block_pprime_bcs, folded_neighbours, shard_block
 
@@ -85,6 +87,7 @@ def sor_fused_k_plain(pp, rhs, dx: float, dy: float, omega: float, k: int):
     return pp, err
 
 
+@traced("cfd.kernel.sor_fused_k")
 def sor_fused_k(pp, rhs, dx: float, dy: float, omega: float, k: int):
     """k fused red/black SOR iterations (CHANNEL p' BCs) on the full
     layout. Returns (p', last-iteration max error as a 0-d tensor)."""
@@ -121,7 +124,7 @@ def sor_chain(pp0, rhs, dx: float, dy: float, omega: float, tol: float,
     for _ in range(n_full):
         pp, err = sor_fused_k(pp, rhs, dx, dy, omega, k)
         n_run += k
-        if early_exit and tol > 0.0 and not bool(err >= tol):
+        if early_exit and tol > 0.0 and not trace.read_host(err >= tol):
             break
     if rem:
         pp, err = sor_fused_k(pp, rhs, dx, dy, omega, rem)
@@ -159,6 +162,7 @@ def sor_fused_k_shard_plain(pp_ext, rhs_ext, row_offset: int, gny: int, dx: floa
     return block_pprime_bcs(pp, blk), err
 
 
+@traced("cfd.kernel.sor_fused_k_shard")
 def sor_fused_k_shard(pp_ext, rhs_ext, row_offset: int, gny: int, dx: float, dy: float,
                       omega: float, k: int, own_lo: int, own_hi: int,
                       cavity: bool = False, col_offset: int = 0, gnx=None,
@@ -232,6 +236,7 @@ def sor_fused_k_rb2_plain(pr, pb, rr, rb, dx: float, dy: float, omega: float,
     return (*sor_compress(pp), err)
 
 
+@traced("cfd.kernel.sor_fused_k_rb2")
 def sor_fused_k_rb2(pr, pb, rr, rb, dx: float, dy: float, omega: float, k: int):
     """k fused red/black SOR iterations on the colour-split arrays
     (ny, nx/2) of a (ny, nx) field (``sor_compress``). Returns (pr', pb',
@@ -281,7 +286,7 @@ def sor_chain_rb2(pp0, rhs, dx: float, dy: float, omega: float, tol: float,
     for size in sizes:
         pr, pb, err = sor_fused_k_rb2(pr, pb, rr, rb, dx, dy, omega, size)
         n_run += size
-        if adaptive and not bool(err >= tol):
+        if adaptive and not trace.read_host(err >= tol):
             break
     if rem:
         pr, pb, err = sor_fused_k_rb2(pr, pb, rr, rb, dx, dy, omega, rem)

@@ -103,6 +103,7 @@ from ..ops.bc import apply_bcs, parabola
 from ..ops.corrector import correct
 from ..ops.divergence import divergence_rhs
 from ..ops.predictor import predict
+from ..trace import traced
 from ._build import check, device_scalars, load, mask_ptrs, on_cpu, stream_of
 
 _SCHEME = {VelocityScheme.FIRST: 0, VelocityScheme.SECOND: 1,
@@ -241,6 +242,7 @@ def predict_div_plain(u, v, dt_sub, nu, grid: Grid, scheme: VelocityScheme,
                                           grid.dy)
 
 
+@traced("cfd.kernel.predict_div")
 def predict_div(u, v, dt_sub, nu, grid: Grid, scheme: VelocityScheme,
                 semantics: Semantics, row_offset=None, form=None):
     """Fused predictor + divergence: returns (u_star, v_star, rhs) in the
@@ -314,6 +316,7 @@ def _strip_scratch(device, stream: int, ctas: int):
     return _STRIP_SCRATCH[key]
 
 
+@traced("cfd.kernel.correct_bc")
 def correct_bc(u_star, v_star, p, p_prime, u_entry, v_entry, dt_sub, inlet,
                grid: Grid, profile: InletProfile, flow_case: FlowCase,
                semantics: Semantics, row_offset=None, own_rows=None, form=None):
@@ -383,6 +386,7 @@ def correct_div_plain(u_star, v_star, p, p_prime, dt_sub, grid: Grid):
     return u, v, p, divergence_rhs(u, v, dt_sub, grid.dx, grid.dy)
 
 
+@traced("cfd.kernel.correct_div")
 def correct_div(u_star, v_star, p, p_prime, dt_sub, grid: Grid):
     """Fused corrector + next-round divergence: returns (u, v, p_new,
     rhs_next) in the storage shapes, rhs_next the divergence RHS of the

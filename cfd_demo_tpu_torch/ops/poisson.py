@@ -31,6 +31,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.config import FlowCase
 from .fdm import fdm_solve_interior
 
@@ -109,7 +110,7 @@ def _sweep_loop(sweep, pp0, tol, iters, early_exit, done=None):
         while True:
             pp, err = sweep(pp)
             it += 1
-            if not (it < iters and bool(err >= tol)):
+            if not (it < iters and trace.read_host(err >= tol)):
                 return pp, err, it
     lead = pp0.shape[:-2]
     pp = pp0
@@ -373,6 +374,7 @@ def multigrid(pp0, rhs, dx: float, dy: float, opts):
     pp = torch.zeros_like(pp0)
     for _ in range(opts.mg_cycles):
         pp = _mg_vcycle(pp, rhs, dx, dy, opts, kit)
+        trace.vcycles += 1
     err = torch.amax(torch.abs(_mg_residual(pp, rhs, dx, dy)))  # 0 on the ring
     return pp, err, torch.full((), opts.mg_cycles, dtype=torch.int32,
                                device=pp0.device)
@@ -628,9 +630,10 @@ def _exact_while(cycle, p0, tol, iters):
     p, it = p0, 0
     while True:
         p, err, extra = cycle(p)
+        trace.vcycles += 1
         it += 1
         tol_eff = tol if extra is None else torch.maximum(tol, extra)
-        if not (it < iters and bool(err >= tol_eff)):
+        if not (it < iters and trace.read_host(err >= tol_eff)):
             return p, err, it
 
 
@@ -644,6 +647,7 @@ def _masked_while(cycle, p0, tol, iters):
     n = torch.zeros((), dtype=torch.int32, device=p0.device)
     for _ in range(max(1, iters)):
         p2, err2, extra = cycle(p)
+        trace.vcycles += 1  # discarded after the exit, but run
         tol_eff = tol if extra is None else torch.maximum(tol, extra)
         p = torch.where(done, p, p2)
         err = torch.where(done, err, err2)
@@ -718,6 +722,7 @@ def multigrid_production(pp0, rhs, dx: float, dy: float, opts, tol_r,
         err = torch.zeros((), dtype=p0.dtype, device=p0.device)
         for _ in range(opts.mgp_fixed_cycles):
             p0, err, _ = _mgp_vcycle_aligned(p0, rhs, dx, dy, opts, smoothers, bc)
+            trace.vcycles += 1
         return p0, err, opts.mgp_fixed_cycles
     tol = torch.as_tensor(tol_r, dtype=torch.float32, device=pp0.device)
     if opts.mgp_rtol > 0.0:

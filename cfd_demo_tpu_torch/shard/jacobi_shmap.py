@@ -25,6 +25,7 @@ import torch
 
 from ..kernels.jacobi import jacobi_fused_k_shard
 from ..ops.stencil import shifted
+from .. import trace
 from .halo import exchange_rows, global_row_index, pmax
 from .mesh import RowMesh, join_rows, split_rows
 
@@ -113,7 +114,7 @@ def fused_shard_body(kernel, halo: int, pp_blocks, rhs_blocks, mesh: RowMesh,
     err = torch.full((), float("inf"), dtype=torch.float32, device=mesh.devices[0])
     for _ in range(iters // k):
         blocks, err = one_launch(blocks)
-        if early_exit and tol > 0.0 and not bool(err >= tol):
+        if early_exit and tol > 0.0 and not trace.read_host(err >= tol):
             break
     return blocks, err
 

@@ -50,6 +50,7 @@ from ..kernels.substep import correct_bc, predict_div
 from ..ops.bc import apply_bcs, check_channel
 from ..solver.piso import (Scene, StepDiagnostics, _solve_fdm, adapt_substeps,
                            dt_control, ramped_inlet, resolve_fuse_k)
+from .. import trace
 from .halo import exchange_rows, pmax
 from .jacobi_shmap import halo8, jacobi_shard_body
 from .mesh import RowMesh, join_rows, split_rows
@@ -195,7 +196,7 @@ def make_step_shmap(scene: Scene, mesh: RowMesh):
         it = 0
         # The Rust outer rounds (model.rs:696-724) on the shards' max
         # residual: one host read a round.
-        while it < rounds and bool(err >= opts.outer_corrector_tol):
+        while it < rounds and trace.read_host(err >= opts.outer_corrector_tol):
             pp, err = solve(pp, div_local(u, v, dt_sub))
             u, v, p = correct_local(u, v, p, pp, dt_sub)
             it += 1
@@ -226,7 +227,7 @@ def make_step_shmap(scene: Scene, mesh: RowMesh):
             substeps, n_sub, dt_sub = torch.ones_like(state.substeps), 1, state.dt
         else:
             substeps = state.substeps
-            n_sub = int(substeps)  # the step's one host read of its count
+            n_sub = trace.read_host(substeps)  # the step's one host read of its count
             dt_sub = state.dt / substeps.to(state.dt.dtype)
         executed = substeps
         p, pp = state.p, state.p_prime

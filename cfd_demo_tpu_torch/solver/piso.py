@@ -161,7 +161,18 @@ the outer rounds' error                         once per round, the fused route 
 ==============================================  =========================================
 
 The fixed schedules, MULTIGRID, the rounds kernel and the batch routes
-read nothing.
+read nothing. Every read goes through ``trace.read_host``, which counts
+it.
+
+Spans (``trace.span``, profiler ranges while a profiler records):
+``cfd.step`` over ``step_fn``; in each substep ``cfd.predict`` (the
+predictor and the divergence), ``cfd.solve`` (``_solve_pressure``, or on
+the rounds route the rounds kernel, which corrects too) and
+``cfd.correct`` (the corrector, the outer rounds, whose solves nest a
+``cfd.solve``, and the BCs); the batch kernel's substep is one
+``cfd.kernel.substep_batch`` span. What runs inside ``cfd.step`` and in
+no phase is the step's own control: the inlet ramp, the residual maxima,
+the substep count and the dt control.
 
 CAVITY flow (the lid-driven cavity, BASELINE config 2) takes the same
 routes with JACOBI, FDM, MULTIGRID and MG_PRODUCTION: the Jacobi chain,
@@ -210,6 +221,8 @@ from ..ops.poisson import (_mg_residual, check_mgp_scheme, jacobi, multigrid,
                            multigrid_production, pprime_bc_fn, sor,
                            sor_lexicographic)
 from ..ops.predictor import predict
+from .. import trace
+from ..trace import span, traced
 
 FUSED_MIN_CELLS = 2_000_000
 
@@ -366,6 +379,7 @@ def _solve_fdm(scene: Scene, rhs):
     return pp, err, torch.ones((), dtype=torch.int32, device=rhs.device)
 
 
+@traced("cfd.solve")
 def _solve_pressure(scene: Scene, pp0, rhs, dt_sub, done=None):
     """The JACOBI, SOR, FDM, MULTIGRID and MG_PRODUCTION branches of the
     JAX package's ``_solve_pressure``, and for a JACOBI or SOR batch its
@@ -423,7 +437,7 @@ def _outer_rounds(scene: Scene, u, v, p, pp, err, dt_sub):
     if opts.early_exit and err.dim() == 0:
         # One host read of err per round; a device-side loop is later work.
         it = iters = 0
-        while it < rounds and bool(err >= tol):
+        while it < rounds and trace.read_host(err >= tol):
             u, v, p, pp, err, n = round_body(u, v, p, pp)
             it, iters = it + 1, iters + n
         return u, v, p, pp, err, it, iters
@@ -465,21 +479,24 @@ def _substep_jnp(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet):
     g, opts = scene.grid, scene.opts
     mask_u, mask_v, mask_u_bc, mask_v_bc = masks_traced(g, opts.semantics,
                                                         u.device)
-    u_star, v_star = predict(u, v, dt_sub, nu, g.dx, g.dy, g.nx, g.ny,
-                             scene.params.velocity_scheme,
-                             opts.semantics == Semantics.JS, mask_u, mask_v)
-    rhs = divergence_rhs(u_star, v_star, dt_sub, g.dx, g.dy)
+    with span("cfd.predict"):
+        u_star, v_star = predict(u, v, dt_sub, nu, g.dx, g.dy, g.nx, g.ny,
+                                 scene.params.velocity_scheme,
+                                 opts.semantics == Semantics.JS, mask_u, mask_v)
+        rhs = divergence_rhs(u_star, v_star, dt_sub, g.dx, g.dy)
     pp0 = _warm_start(opts, p_prime)
     if (u.dim() == 2 and scene.params.pressure_solver == PressureSolver.JACOBI
             and opts.pressure_impl in ("auto", "pallas")
             and opts.substep_impl in ("auto", "pallas")):
-        return solve_correct_rounds(u_star, v_star, p, pp0, rhs, dt_sub,
-                                    inlet, scene)
+        with span("cfd.solve"):
+            return solve_correct_rounds(u_star, v_star, p, pp0, rhs, dt_sub,
+                                        inlet, scene)
     pp, err, n = _solve_pressure(scene, pp0, rhs, dt_sub)
-    u, v, p = correct(u_star, v_star, p, pp, dt_sub, g.dx, g.dy)
-    u, v, p, pp, err, it, iters = _outer_rounds(scene, u, v, p, pp, err, dt_sub)
-    u, v = apply_bcs(u, v, g, scene.params.inlet_profile, inlet, mask_u_bc,
-                     mask_v_bc, scene.params.flow_case)
+    with span("cfd.correct"):
+        u, v, p = correct(u_star, v_star, p, pp, dt_sub, g.dx, g.dy)
+        u, v, p, pp, err, it, iters = _outer_rounds(scene, u, v, p, pp, err, dt_sub)
+        u, v = apply_bcs(u, v, g, scene.params.inlet_profile, inlet, mask_u_bc,
+                         mask_v_bc, scene.params.flow_case)
     counts = torch.stack([torch.as_tensor(c, device=u.device).to(torch.int32)
                           for c in (it, n + iters)], dim=-1)
     return u, v, p, pp, err, counts
@@ -524,30 +541,33 @@ def piso_substep(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet,
                 None)
     sem, profile, flow = (opts.semantics, scene.params.inlet_profile,
                           scene.params.flow_case)
-    u_star, v_star, rhs = predict_div(u, v, dt_sub, nu, g,
-                                      scene.params.velocity_scheme, sem)
+    with span("cfd.predict"):
+        u_star, v_star, rhs = predict_div(u, v, dt_sub, nu, g,
+                                          scene.params.velocity_scheme, sem)
     pp, err, _ = _solve_pressure(scene, _warm_start(opts, p_prime), rhs, dt_sub)
     rounds = opts.outer_corrector_rounds
-    if rounds == 0 and entry is not None:
-        u, v, p, res_u, res_v, max_vel = correct_bc(
-            u_star, v_star, p, pp, entry[0], entry[1], dt_sub, inlet, g,
-            profile, flow, sem)
-        return u, v, p, pp, err, (res_u, res_v, max_vel)
-    _, _, mask_u_bc, mask_v_bc = masks_traced(g, sem, u.device)
-    if rounds > 0 and opts.early_exit and opts.rounds_impl == "pallas":
-        # JAX piso.py:725-756: each round is the solve plus one correct_div
-        # launch, whose divergence feeds the next round's solve; the exit
-        # reads err on the host once a round, as _outer_rounds does.
-        u, v, p, rhs = correct_div(u_star, v_star, p, pp, dt_sub, g)
-        it = 0
-        while it < rounds and bool(err >= opts.outer_corrector_tol):
-            pp, err, _ = _solve_pressure(scene, pp, rhs, dt_sub)
-            u, v, p, rhs = correct_div(u, v, p, pp, dt_sub, g)
-            it += 1
-    else:
-        u, v, p = correct(u_star, v_star, p, pp, dt_sub, g.dx, g.dy)
-        u, v, p, pp, err = _outer_rounds(scene, u, v, p, pp, err, dt_sub)[:5]
-    u, v = apply_bcs(u, v, g, profile, inlet, mask_u_bc, mask_v_bc, flow)
+    with span("cfd.correct"):
+        if rounds == 0 and entry is not None:
+            u, v, p, res_u, res_v, max_vel = correct_bc(
+                u_star, v_star, p, pp, entry[0], entry[1], dt_sub, inlet, g,
+                profile, flow, sem)
+            return u, v, p, pp, err, (res_u, res_v, max_vel)
+        _, _, mask_u_bc, mask_v_bc = masks_traced(g, sem, u.device)
+        if rounds > 0 and opts.early_exit and opts.rounds_impl == "pallas":
+            # JAX piso.py:725-756: each round is the solve plus one
+            # correct_div launch, whose divergence feeds the next round's
+            # solve; the exit reads err on the host once a round, as
+            # _outer_rounds does.
+            u, v, p, rhs = correct_div(u_star, v_star, p, pp, dt_sub, g)
+            it = 0
+            while it < rounds and trace.read_host(err >= opts.outer_corrector_tol):
+                pp, err, _ = _solve_pressure(scene, pp, rhs, dt_sub)
+                u, v, p, rhs = correct_div(u, v, p, pp, dt_sub, g)
+                it += 1
+        else:
+            u, v, p = correct(u_star, v_star, p, pp, dt_sub, g.dx, g.dy)
+            u, v, p, pp, err = _outer_rounds(scene, u, v, p, pp, err, dt_sub)[:5]
+        u, v = apply_bcs(u, v, g, profile, inlet, mask_u_bc, mask_v_bc, flow)
     return u, v, p, pp, err, None
 
 
@@ -602,6 +622,7 @@ def dt_control(grid: Grid, opts: SolverOptions, state: State, max_vel, res_p):
 # Full outer step
 # ---------------------------------------------------------------------------
 
+@traced("cfd.step")
 def step_fn(scene: Scene, state: State) -> Tuple[State, StepDiagnostics]:
     """One Model::update / updateSimulation: the substeps plus the step
     controls. On a batched state (fields (B, ny, *), scalars (B,)) every
@@ -634,7 +655,7 @@ def step_fn(scene: Scene, state: State) -> Tuple[State, StepDiagnostics]:
         substeps, n_sub, dt_sub = torch.ones_like(state.substeps), 1, state.dt
     else:
         substeps = state.substeps
-        n_sub = int(substeps)  # the step's one host read of its count
+        n_sub = trace.read_host(substeps)  # the step's one host read of its count
         dt_sub = state.dt / substeps.to(state.dt.dtype)
     executed = substeps
     fused_red = (not batched and _use_fused_substep(scene)

@@ -1,0 +1,55 @@
+"""The port's spans and counters.
+
+``span(name)`` is a ``torch.profiler.record_function`` range while a
+profiler records, and otherwise one flag read and a shared null context:
+the ranges land in the profiler's Chrome trace (category
+``user_annotation``) on the clock of the device's operations, and cost
+nothing else. ``traced(name)`` wraps a function in one. The step's spans
+are ``cfd.step``, its phases ``cfd.predict``, ``cfd.solve`` and
+``cfd.correct``, and each kernel wrapper's ``cfd.kernel.<function>``.
+
+``host_reads`` counts the program's reads of CUDA tensors back to the
+host (:func:`read_host`); ``vcycles`` the multigrid V-cycles run.
+"""
+from __future__ import annotations
+
+import contextlib
+import functools
+
+import torch
+import torch.autograd.profiler as _profiler
+
+_NULL = contextlib.nullcontext()
+host_reads = 0
+vcycles = 0
+
+
+def span(name: str):
+    """A profiler range named ``name`` while a profiler records, else
+    a null context."""
+    if not _profiler._is_profiler_enabled:
+        return _NULL
+    return torch.profiler.record_function(name)
+
+
+def traced(name: str):
+    """Decorator: each call of the function inside ``span(name)``. The
+    wrapper carries the function's name, module and attributes."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def read_host(t: torch.Tensor):
+    """``t.item()`` of a 0-d tensor, counted in ``host_reads`` when
+    ``t`` is on a CUDA device (a read that waits for the device)."""
+    global host_reads
+    if t.is_cuda:
+        host_reads += 1
+    return t.item()

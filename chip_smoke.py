@@ -1983,9 +1983,9 @@ def run_vertex(dev, launches, report):
     reset_counts()
     t0 = time.perf_counter()
     for _ in range(steps):
-        c0 = vcycles_launched(scene)
+        c0 = vcycles_launched()
         state, d = step(state)
-        cycles.append(vcycles_launched(scene) - c0)
+        cycles.append(vcycles_launched() - c0)
         states.append(state)
         diags.append(d)
     torch.cuda.synchronize()
@@ -2185,9 +2185,9 @@ def run_cavity_production(dev, launches, report):
         reset_counts()
         t0 = time.perf_counter()
         for _ in range(steps):
-            c0 = vcycles_launched(scene)
+            c0 = vcycles_launched()
             state, d = step(state)
-            cycles.append(vcycles_launched(scene) - c0)
+            cycles.append(vcycles_launched() - c0)
             res_p.append(d.res_p)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
