@@ -8,10 +8,12 @@ scene converges on its own (↔ cfd_demo_tpu/apps/ensemble.py).
     python -m cfd_demo_tpu_torch.apps.ensemble --nx 800 --ny 264 --batch 8
     python -m cfd_demo_tpu_torch.apps.ensemble --batch 16 --solver sor
 
-The first runs the whole-substep kernel, the second (a scene too large
-for it) the batched Jacobi kernel, the third the whole-substep kernel's
-red/black SOR form (a SOR scene too large for it takes the plain masked
-SOR). ``--device cpu`` runs the plain PyTorch versions instead.
+The first two run the whole-substep kernel, a thread-block cluster a
+scene (2 CTAs a scene at 256x96, 14 at 800x264 on an H100); a scene wider
+than 1024 columns takes the batched Jacobi kernel. The third runs the
+whole-substep kernel's red/black SOR form (a SOR scene beyond one
+block's shared memory takes the plain masked SOR). ``--device cpu`` runs
+the plain PyTorch versions instead.
 """
 from __future__ import annotations
 

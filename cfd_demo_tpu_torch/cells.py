@@ -16,8 +16,8 @@ Fourteen cells, each at full size, from the JAX package's own defaults:
   64`` (BASELINE config 5), 64 scenes of the app's 256x96 channel, a
   viscosity sweep (the whole-substep kernel's route);
 - **ensemble 8x800x264**: the same app with ``--nx 800 --ny 264 --batch
-  8``, eight scenes of the reference's grid (too large for that kernel:
-  the batched Jacobi kernel's route);
+  8``, eight scenes of the reference's grid (beyond one block: the
+  whole-substep kernel's cluster form, 14 CTAs a scene on an H100);
 - :func:`sor_scene`: ``bench.py --mode sor`` at 2048² (a fixed
   50-iteration red/black SOR, no outer rounds; the fused route with the
   colour-split SOR chain);
@@ -87,12 +87,12 @@ from .core.config import (Cylinder, FlowCase, Grid, InletProfile, PressureSolver
                           default_grid, default_js_grid, solver_options_for)
 from .apps.ensemble import ensemble_scene, ensemble_state
 from .kernels import mg, mgp
-from .kernels.ensemble import substep_batch, substep_batch_fits, substep_batch_sor
+from .kernels.ensemble import substep_batch, substep_batch_sor
 from .kernels.jacobi_batch import jacobi_batch
 from .kernels.rounds import solve_correct_rounds
 from .kernels.substep import correct_bc, correct_div, predict_div, predict_div_plain
 from .shard import make_mesh, make_run_shmap, make_step_shmap, shard_state
-from .solver.piso import (_substep_jnp, _use_fused_substep, _warm_start,
+from .solver.piso import (_substep_batched, _use_fused_substep, _warm_start,
                           make_run, make_scene, make_step, ramped_inlet)
 from . import trace
 
@@ -251,10 +251,7 @@ def ensemble_args(scene, state):
 def ensemble_counts(scene, state):
     """(outer rounds, solver iterations) each scene runs in the next step,
     by the route the step takes: an int32 (B, 2) tensor."""
-    args = ensemble_args(scene, state)
-    if substep_batch_fits(scene.grid):
-        return substep_batch(*args)[5]
-    return _substep_jnp(scene, *args[:7])[5]
+    return _substep_batched(scene, *ensemble_args(scene, state)[:7])[5]
 
 
 def vertex_levels(ny: int, nx: int, coarsest: int) -> int:
@@ -360,10 +357,12 @@ def device_breakdown(step, state, steps):
     for attempt in range(TRACE_ATTEMPTS):
         events = []
 
-        def keep(prof):  # device work: kernels and copies, not the step marker
+        def keep(prof):  # device work: kernels and copies, not the step
+            # marker nor the program's spans (trace.py), which the profiler
+            # also lays on the device's timeline
             events.extend(e for e in prof.events()
                           if e.device_type == torch.autograd.DeviceType.CUDA
-                          and not e.name.startswith("ProfilerStep"))
+                          and not e.name.startswith(("ProfilerStep", "cfd.")))
 
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],

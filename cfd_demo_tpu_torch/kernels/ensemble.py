@@ -35,23 +35,26 @@ bytes. Two forms, the same bits and counts:
   a scene filled B of them: 2 CTAs a scene for 64 scenes of 256x96, 6
   for 16 (PERF.md).
 - **The block form** (``ensemble_substep_kernel``), kept to compare with
-  and for scenes the pick gives no cluster (wider than 1024 columns,
-  or a card that admits no such cluster): one block of
-  1024 threads per scene, p' in its shared memory, a
-  ``__syncthreads()`` barrier and a block max a sweep.
+  and for scenes inside its gate that the pick gives no cluster (wider
+  than 1024 columns, or a card that admits no such cluster): one block
+  of 1024 threads per scene, p' in its shared memory, a
+  ``__syncthreads()`` barrier and a block max a sweep. Its gate is
+  :func:`substep_batch_fits`, the two p' buffers in one block's shared
+  memory (up to 29,039 cells).
 
-The TPU gate, a VMEM bound, is not carried over; the port's is
-:func:`substep_batch_fits`, the two p' buffers in one block's shared
-memory (the cluster form takes every such scene up to 1024 columns).
-Beyond it the ensemble takes the solver's plain batched
-substep with the batched solve kernel (kernels.jacobi_batch), as the JAX
-package takes its vmapped substep with ``jacobi_pallas_batch`` beyond
-its gate; a SOR batch there takes the plain masked ``sor``, as the JAX
-package vmaps ``sor``. The SOR form keeps the two-buffer gate. The JAX
-package sends a SOR batch to its kernel only at B <= 16
-(piso.py:624-632), a TPU reading that is not
-carried over: chip_smoke.py times the SOR form against the plain batched
-SOR at B = 16 and 64 (PERF.md).
+The TPU gate, a VMEM bound, is not carried over. The port's route test
+is :func:`substep_batch_takes`: a batch the block form holds, or a
+Jacobi batch the cluster form holds (kernels.cluster ``cluster_fits``:
+up to 1024 columns and a plan with ar * rhs on chip, such as the
+reference's own 800x264 grid at 14 CTAs a scene) on a card that admits
+such a cluster. Any other batch takes the solver's plain batched substep
+with the batched solve kernel (kernels.jacobi_batch), as the JAX package
+takes its vmapped substep with ``jacobi_pallas_batch`` beyond its gate;
+a SOR batch there takes the plain masked ``sor``, as the JAX package
+vmaps ``sor``. The SOR form keeps the two-buffer gate. The JAX package
+sends a SOR batch to its kernel only at B <= 16 (piso.py:624-632), a TPU
+reading that is not carried over: chip_smoke.py times the SOR form
+against the plain batched SOR at B = 16 and 64 (PERF.md).
 
 Both versions also return how many outer rounds and solver iterations
 each scene ran, so a check can hold the kernel's exits against the plain
@@ -69,7 +72,7 @@ from ..core.unported import BATCHES, OTHER_SOLVERS, unported
 from ..ops.bc import check_channel
 from ..trace import traced
 from ._build import check, load, mask_ptrs, on_cpu, scene_scalars, stream_of
-from .cluster import check_route, pick_ctas, route_ctas
+from .cluster import check_route, cluster_fits, pick_ctas, route_ctas
 from .jacobi import _multipliers
 from .sor import _coefficients
 
@@ -84,6 +87,26 @@ def substep_batch_fits(grid) -> bool:
     of a scene in one block's shared memory (up to 29,039 cells)."""
     return (grid.nx >= 3 and grid.ny >= 3
             and 2 * 4 * grid.ny * grid.nx + _SMEM_STATIC <= SMEM_OPTIN_BYTES)
+
+
+def substep_batch_takes(scene, batch: int, device) -> bool:
+    """The route test: whether :func:`substep_batch` takes a batch of
+    ``batch`` scenes of ``scene`` on ``device``. A Jacobi or red/black SOR
+    batch the block form holds (:func:`substep_batch_fits`), or a Jacobi
+    batch the cluster form holds (kernels.cluster ``cluster_fits``) on a
+    card that admits such a cluster (:func:`substep_batch_ctas`). On the
+    CPU the shape decides: the wrapper runs its plain version there."""
+    g, solver = scene.grid, scene.params.pressure_solver
+    if solver == PressureSolver.SOR:
+        return scene.opts.sor_ordering == "redblack" and substep_batch_fits(g)
+    if solver != PressureSolver.JACOBI:
+        return False
+    if substep_batch_fits(g):
+        return True
+    if not cluster_fits(g.ny, g.nx):
+        return False
+    return (torch.device(device).type != "cuda"
+            or substep_batch_ctas(batch, g.ny, g.nx, device) is not None)
 
 
 def check_batchable(scene):
@@ -129,14 +152,18 @@ def substep_batch_ctas(batch: int, ny: int, nx: int, device, sor: bool = False):
 def _launch(u, v, p, pp0, dt_sub, nu, inlet, scene, sor: bool, form, ctas):
     """Check the inputs and launch the kernel on CUDA tensors, in
     ``form`` (None: the cluster form where :func:`substep_batch_ctas`
-    picks a cluster, else the block form; "cluster" or "block"), ``ctas``
+    picks a cluster, else the block form, which beyond
+    :func:`substep_batch_fits` raises; "cluster" or "block"), ``ctas``
     CTAs a scene (None: that pick); None on CPU tensors. Returns the
     outputs and whether the cluster form ran."""
     g, opts = scene.grid, scene.opts
     check_batchable(scene)
-    if not substep_batch_fits(g):
+    block = substep_batch_fits(g)
+    if not block and (sor or form == "block" or not cluster_fits(g.ny, g.nx)):
         raise ValueError(f"substep_batch: a {g.nx}x{g.ny} scene does not fit one "
-                         f"block's shared memory (substep_batch_fits)")
+                         f"block's shared memory (substep_batch_fits); beyond it only "
+                         f"the Jacobi cluster form runs, where kernels.cluster."
+                         f"cluster_fits holds the scene")
     check_route("substep_batch", form, "cluster", "block", g.ny, g.nx, ctas)
     if u.dim() != 3:
         raise ValueError(f"substep_batch takes (B, ny, nx+1) u, got {tuple(u.shape)}")
@@ -165,8 +192,10 @@ def _launch(u, v, p, pp0, dt_sub, nu, inlet, scene, sor: bool, form, ctas):
             f32(g.dx * g.dx), f32(g.dy * g.dy), *coef, int(sor),
             opts.jacobi_iters, opts.jacobi_tol, opts.outer_corrector_rounds,
             opts.outer_corrector_tol)
-    c = route_ctas("substep_batch", form, "block", B, ny, nx, ctas,
-                   "cfd_substep_batch_cluster_admit", u.device, int(sor))
+    # beyond the block form's gate only the cluster form runs: a card that
+    # admits no such cluster raises
+    c = route_ctas("substep_batch", form if block else "cluster", "block", B, ny, nx,
+                   ctas, "cfd_substep_batch_cluster_admit", u.device, int(sor))
     with torch.cuda.device(u.device):
         if c is not None:
             check(lib.cfd_substep_batch_cluster(*args, c, stream_of(u)),
@@ -185,10 +214,12 @@ def substep_batch(u, v, p, pp0, dt_sub, nu, inlet, scene, form: str | None = Non
     (B, 2) int32: outer rounds and solver iterations each scene ran). A
     SOR scene goes to :func:`substep_batch_sor`, which counts its own
     launches. ``form`` None takes the cluster form where
-    :func:`substep_batch_ctas` picks a cluster and the block form elsewhere;
-    "cluster" and "block" take that form (to hold the two against each
-    other). ``ctas`` forces the cluster form's CTAs a scene (one of
-    kernels.cluster.CTAS that ``slab_plan`` splits the scene over).
+    :func:`substep_batch_ctas` picks a cluster and the block form elsewhere
+    within :func:`substep_batch_fits` (beyond it a card that admits no
+    such cluster raises); "cluster" and "block" take that form (to hold
+    the two against each other). ``ctas`` forces the cluster form's CTAs
+    a scene (one of kernels.cluster.CTAS that ``slab_plan`` splits the
+    scene over).
     ``.launches`` counts launches of either form, ``.cluster_launches``
     those of the cluster form."""
     solver = scene.params.pressure_solver

@@ -13,13 +13,15 @@ marked ``done`` on entry (the masked outer rounds' converged scenes)
 are never swept, so a launch in a round where every scene has converged
 only copies pp0, with no host read.
 
-The ensemble takes this route when a scene is too large for the
-whole-substep kernel (kernels.ensemble), as the reference's own
-800x264 grid is: a field is 845 KB there, more than one SM's shared
-memory, and a sweep needs every neighbour of the last. What bounds it
-on the H100 is the exchange a sweep (the barrier and the max), not
-bytes: a sweep is a few microseconds of work. Two forms, the same bits
-and counts:
+The ensemble takes this route for a Jacobi batch that the whole-substep
+kernel (kernels.ensemble ``substep_batch_takes``) does not take: one
+beyond one block's shared memory that no cluster holds either (wider
+than 1024 columns, or too tall for 16 CTAs), or a card that admits no
+such cluster. (The reference's own 800x264 grid, 845 KB a field, goes to
+that kernel's cluster form.) A sweep needs every neighbour of the last.
+What bounds it on the H100 is the exchange a sweep (the barrier and the
+max), not bytes: a sweep is a few microseconds of work. Two forms, the
+same bits and counts:
 
 - **The cluster form** (``jacobi_batch_cluster_kernel``): the scenes are
   independent, so each gets its own thread-block cluster of C CTAs

@@ -32,19 +32,21 @@ pressure_impl in ("auto", "pallas") (the        divergence, then the ``rounds`` 
 otherwise (SOR, FDM, MULTIGRID or               plain predictor, divergence,
 MG_PRODUCTION below 2M cells, or "jnp")         ``_solve_pressure``, corrector,
                                                 ``_outer_rounds``, BCs
-a batch (B, ny, *), JACOBI or red/black SOR,    ``substep_batch`` kernel (the SOR form:
-substep_impl and pressure_impl in ("auto",      ``substep_batch_sor``): the whole
-"pallas"), and the scene fits one block's       substep of every scene, one block per
-shared memory (``substep_batch_fits``: the      scene
-app's 256x96)
-another batch, JACOBI or SOR                    ``_substep_jnp``: plain predictor and
-                                                divergence, ``_solve_pressure`` (the
-                                                ``jacobi_batch`` kernel, or with
+a batch (B, ny, *), substep_impl and            ``substep_batch`` kernel (the SOR form:
+pressure_impl in ("auto", "pallas"), that       ``substep_batch_sor``): the whole
+``substep_batch_takes``: JACOBI or red/black    substep of every scene in one launch, a
+SOR in one block's shared memory                thread-block cluster a scene where the
+(``substep_batch_fits``: the app's 256x96),     card admits one
+or JACOBI that a cluster holds on a card that
+admits it (``cluster_fits``: up to 1024
+columns, the 800x264 ensemble)
+another batch, JACOBI or SOR (wider than 1024   ``_substep_jnp``: plain predictor and
+columns, a card that admits no such cluster,    divergence, ``_solve_pressure`` (the
+SOR beyond one block, or "jnp")                 ``jacobi_batch`` kernel, or with
                                                 pressure_impl "jnp" the plain masked
                                                 jacobi; SOR: the plain masked sor),
                                                 corrector, masked outer rounds whose
-                                                solves skip converged scenes, BCs (the
-                                                800x264 ensemble)
+                                                solves skip converged scenes, BCs
 a batch with another solver                     NotImplementedError (MULTIGRID and legacy
                                                 MG_PRODUCTION: queue 1 item 9; the
                                                 aligned MG_PRODUCTION and FDM: item 7)
@@ -207,7 +209,7 @@ from ..core.masks import masks_traced
 from ..core.state import State, init_state
 from ..core.unported import (BATCHES, BOX_FLOAT64, CAVITY, DIFFERENTIABLE,
                              OTHER_SOLVERS, unported)
-from ..kernels.ensemble import check_batchable, substep_batch, substep_batch_fits
+from ..kernels.ensemble import check_batchable, substep_batch, substep_batch_takes
 from ..kernels.jacobi import jacobi_chain
 from ..kernels.jacobi_batch import jacobi_batch, jacobi_batch_plain
 from ..kernels.rounds import solve_correct_rounds
@@ -518,9 +520,7 @@ def _substep_batched(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet):
         raise unported(f"a batched {solver.value} scene", OTHER_SOLVERS)
     if (opts.pressure_impl in ("auto", "pallas")
             and opts.substep_impl in ("auto", "pallas")
-            and not (solver == PressureSolver.SOR
-                     and opts.sor_ordering == "lexicographic")
-            and substep_batch_fits(scene.grid)):
+            and substep_batch_takes(scene, u.shape[0], u.device)):
         return substep_batch(u, v, p, p_prime, dt_sub, nu, inlet, scene)
     return _substep_jnp(scene, u, v, p, p_prime, dt_sub, nu, inlet)
 

@@ -27,6 +27,10 @@ Phases, one line each; any failure raises and exits non-zero:
    steps and the batched Jacobi kernel on the 8x800x264 ensemble's next
    rhs after 5, each with the same per-scene exits required, and the
    latter again with scenes flagged done, as the masked rounds call it;
+   the whole-substep kernel's cluster form on that 8x800x264 state
+   against the route it replaced there (the plain predictor, kernel 12
+   and the masked rounds), the same rounds and the sweeps one a solve
+   apart at most, both timed;
    each of these routes in its cluster form, one thread-block cluster a
    scene, held to its parent form (the block form, the cooperative form)
    bit for bit, both timed;
@@ -144,8 +148,8 @@ Phases, one line each; any failure raises and exits non-zero:
    instances on every cavity path and never on another (kernel 4's
    cluster form at 512^2, 128^2 and 64^2, its cooperative form at
    1024^2), and
-   kernels 20 and 12 in their cluster forms on the three ensemble runs
-   (printing the CTAs a scene each took).
+   kernel 20 in its cluster form on the three ensemble runs (printing the
+   CTAs a scene each took), the 8x800x264 run launching no other kernel.
 
 The line before the last is a JSON object with each kernel's numbers;
 the last is {"ok": true, "device": {...}}. It needs one card and no
@@ -201,7 +205,8 @@ from cfd_demo_tpu_torch.kernel_times import device_us
 from cfd_demo_tpu_torch.ops.poisson import (MgKit, _apply_pprime_bcs_cavity, _cc_prolong_x,
                                             _cc_vcycle, _mg_kit, _mg_vcycle, _mgp_vcycle,
                                             _smoothers, multigrid)
-from cfd_demo_tpu_torch.solver.piso import _use_fused_substep, ramped_inlet, resolve_fuse_k
+from cfd_demo_tpu_torch.solver.piso import (_substep_jnp, _use_fused_substep, ramped_inlet,
+                                            resolve_fuse_k)
 from cfd_demo_tpu_torch.validation import GHIA_STEPS, ghia_deviation, ghia_scene
 
 EPS32 = float(np.finfo(np.float32).eps)
@@ -249,6 +254,8 @@ KERNELS = {
                   "cfd_demo_tpu/kernels/jacobi_pallas.py:1786", PROD),
     "substep_batch": (substep_batch, "cfd_demo_tpu_torch/csrc/ensemble.cu",
                       "cfd_demo_tpu/kernels/ensemble_pallas.py:354", ENS64),
+    # no path launches kernel 12 since the 8x800x264 ensemble takes kernel
+    # 20 (its launches read 0); phase 3 checks it on that ensemble's rhs
     "jacobi_batch": (jacobi_batch, "cfd_demo_tpu_torch/csrc/jacobi_batch.cu",
                      "cfd_demo_tpu/kernels/jacobi_pallas.py:1599", ENS8),
     "sor_fused_k": (ksor.sor_fused_k, "cfd_demo_tpu_torch/csrc/sor.cu",
@@ -310,7 +317,7 @@ PATHS = {
     ODD: ("predict_div", "correct_bc", "jacobi_fused_k_res", "cc_sweeps"),
     REF_PROD: ("jacobi_fused_k_restrict", "jacobi_fused_k_corr", "cc_sweeps"),
     ENS64: ("substep_batch", BATCH_CLUSTER["substep_batch"]),
-    ENS8: ("jacobi_batch", BATCH_CLUSTER["jacobi_batch"]),
+    ENS8: ("substep_batch", BATCH_CLUSTER["substep_batch"]),
     SOR: ("predict_div", "sor_fused_k_rb2", "correct_bc"),
     SOR_ODD: ("predict_div", "sor_fused_k", "correct_bc"),
     REF_SOR: (),
@@ -358,7 +365,7 @@ PATHS = {
               *(CAVITY_OF[k] for k in ("mgp_smooth", "mg_prolong_add"))),
 }
 # Paths that must launch their kernels and no other.
-EXACT_PATHS = (SOR, SOR_ODD, REF_SOR, ENS_SOR, MG, MG_ODD, REF_MG, LEG, REF_LEG,
+EXACT_PATHS = (ENS8, SOR, SOR_ODD, REF_SOR, ENS_SOR, MG, MG_ODD, REF_MG, LEG, REF_LEG,
                JS_DEF, JS_QUICK, REF_CD, FAST_SH, SOR_SH, REF_SH, FDM_SH, *CAVITY_PATHS)
 # The card's peaks (NVIDIA's H100 SXM data sheet, at the 700 W limit):
 # device-memory bytes/s and f32 FLOP/s outside the tensor cores.
@@ -1195,6 +1202,40 @@ def check_ensemble_kernels(dev, results):
           f"bits; a launch with every scene done {ms_done:.4f} ms (cooperative "
           f"{ms_done_coop:.4f}), with only scene 7 active {ms_last:.4f} ms (cooperative "
           f"{ms_last_coop:.4f}; {int(n[-1])} sweeps)", flush=True)
+    # The step takes this batch to kernel 20's cluster form (one launch a
+    # substep): against the route it replaced on the same inputs (the plain
+    # predictor, kernel 12, the masked rounds), the same rounds per scene,
+    # the sweeps one a solve apart at most (ROADMAP.md section 3's knife
+    # edge), the fields at the 64x256x96 check's bounds; both timed.
+    args = ensemble_args(scene, state)
+    ctas = substep_batch_ctas(8, g.ny, g.nx, dev)
+    require(ctas is not None, "substep_batch: the card admits no cluster for 8x800x264")
+    got = substep_batch(*args)
+    old = _substep_jnp(scene, *args[:7])
+    n, n_old = got[5].cpu(), old[5].cpu()
+    require(n[:, 0].tolist() == n_old[:, 0].tolist()
+            and bool(((n[:, 1] - n_old[:, 1]).abs() <= n_old[:, 0] + 1).all()),
+            f"substep_batch 8x800x264: the kernel ran {n.tolist()} (rounds, sweeps per "
+            f"scene), kernel 12's route {n_old.tolist()}")
+    demean = lambda a, b: a - (a - b).mean(dim=(-2, -1), keepdim=True)
+    diffs = {"u": (max_abs(got[0], old[0]), 5e-5 + 1e-4 * float(old[0].abs().max())),
+             "v": (max_abs(got[1], old[1]), 5e-5 + 1e-4 * float(old[1].abs().max())),
+             "p-mean": (max_abs(demean(got[2], old[2]), old[2]), scaled(old[2], 1e-4)),
+             "p'-mean": (max_abs(demean(got[3], old[3]), old[3]), scaled(old[3], 1e-4))}
+    for f, (d, tol) in diffs.items():
+        require(d <= tol, f"substep_batch 8x800x264: {f} max|d| {d} > {tol} against "
+                f"kernel 12's route")
+    ms = time_ms(lambda: substep_batch(*args), 5, warmup=1)
+    ms_old = time_ms(lambda: _substep_jnp(scene, *args[:7]), 5, warmup=1)
+    results["substep_batch"]["8x800x264"] = {
+        "ctas": ctas, "ms": ms, "kernel12_route_ms": ms_old,
+        "rounds_per_scene": n[:, 0].tolist(), "sweeps_per_scene": n[:, 1].tolist(),
+        "max_abs_vs_kernel12_route": {f: d for f, (d, _) in diffs.items()}}
+    print(f"[3] substep_batch 8x800x264: the cluster form, {ctas} CTAs a scene, against "
+          f"kernel 12's route: rounds {n[:, 0].tolist()} on both sides, sweeps "
+          f"{n[:, 1].tolist()} (kernel 12's route {n_old[:, 1].tolist()}), "
+          + ", ".join(f"{f} max|d|={d:.3e}" for f, (d, _) in diffs.items())
+          + f"; {ms:.4f} ms a substep against {ms_old:.4f}", flush=True)
 
 
 def check_sor_kernels(dev, results, report):
@@ -2711,14 +2752,17 @@ def main() -> int:
                     f"{key.split('_')[-1]} form {launches[path][key]} times of {n}")
     print(f"[8] every path's predict_div and correct_bc launches took the tiled and "
           f"one-launch forms", flush=True)
-    # The ensembles' kernels take their cluster forms on all three paths.
-    for path, kernel in ((ENS64, "substep_batch"), (ENS8, "jacobi_batch"),
-                         (ENS_SOR, "substep_batch_sor")):
+    # The ensembles take kernel 20's cluster form on all three paths, the
+    # 8x800x264 one (beyond the block form's gate) and never kernel 12.
+    for path, kernel, (batch, ny, nx) in (
+            (ENS64, "substep_batch", (64, 96, 256)), (ENS8, "substep_batch", (8, 264, 800)),
+            (ENS_SOR, "substep_batch_sor", (16, 96, 256))):
         n, n_cluster = launches[path][kernel], launches[path][BATCH_CLUSTER[kernel]]
         require(n_cluster == n, f"the {path} run launched {kernel}'s cluster form "
                 f"{n_cluster} times of {n}")
+        ctas = substep_batch_ctas(batch, ny, nx, dev, kernel == "substep_batch_sor")
         print(f"[8] the {path} run took {kernel}'s cluster form, {n} launches, "
-              f"{results[kernel]['forms']['ctas']} CTAs a scene", flush=True)
+              f"{ctas} CTAs a scene", flush=True)
     report["launches"] = launches
 
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,

@@ -24,6 +24,8 @@ from cfd_demo_tpu_torch.kernels import sor as ksor
 from cfd_demo_tpu_torch.kernels import substep as ksub
 from cfd_demo_tpu_torch.ops import fdm
 from cfd_demo_tpu_torch.ops.poisson import _apply_pprime_bcs, _cc_prolong_x, sor
+from cfd_demo_tpu_torch.apps.ensemble import ensemble_scene, ensemble_state
+from cfd_demo_tpu_torch.solver import piso as tpiso
 
 pytestmark = pytest.mark.cuda
 
@@ -369,6 +371,80 @@ def test_substep_batch_ctas_refused(cuda):
     assert kens.substep_batch.cluster_launches == n_cluster
     ref = kens.substep_batch_plain(*(a.cpu() for a in args), scene)
     assert got[5].tolist() == ref[5].tolist()
+
+
+def _l2(x):
+    return float(x.double().pow(2).mean().sqrt())
+
+
+def _hold_substep(got, ref, scene, what):
+    """Kernel 20's substep ``got`` against a plain route's ``ref``, scene
+    by scene: the same outer rounds, the sweeps one a solve apart at most
+    (the knife edge of ROADMAP.md section 3), and u, v, p, p' at the golden
+    bound, L2 <= 1e-5 max(1, rms) (tests/test_golden.py; p and p' each
+    scene's mean removed), plus what the sweeps apart allow: each moves p'
+    by less than jacobi_tol in every cell, and u and v by dt 2 / h of
+    that."""
+    g, opts = scene.grid, scene.opts
+    n, n_ref = got[5].cpu(), ref[5].cpu()
+    assert n[:, 0].tolist() == n_ref[:, 0].tolist(), (what, n.tolist(), n_ref.tolist())
+    apart = (n[:, 1] - n_ref[:, 1]).abs()
+    assert bool((apart <= n_ref[:, 0] + 1).all()), (what, n.tolist(), n_ref.tolist())
+    for b in range(n.shape[0]):
+        slack_p = float(apart[b]) * opts.jacobi_tol
+        slack_uv = float(scene.params.dt) * 2 * slack_p / min(g.dx, g.dy)
+        for i, name in enumerate(("u", "v", "p", "pp")):
+            a, r = got[i][b].cpu(), ref[i][b].cpu()
+            d = a.double() - r.double()
+            if name in ("p", "pp"):
+                d = d - d.mean()
+            bound = 1e-5 * max(1.0, _l2(r)) + (slack_p if name in ("p", "pp") else slack_uv)
+            assert _l2(d) <= bound, (what, b, name, _l2(d), bound)
+
+
+@pytest.mark.parametrize("nx,ny,B", [(800, 264, 8), (400, 132, 3)])
+def test_substep_batch_cluster_beyond_the_block(cuda, nx, ny, B):
+    """The ensemble beyond the block form's gate (the 8x800x264 batch of
+    the app's viscosities after 5 steps, and 3x400x132): the batched route
+    takes kernel 20's cluster form in one launch, which holds to the
+    route it replaced (the plain predictor, kernel 12 and the masked
+    rounds) and to the plain version (substep_batch_plain), twice (the
+    second from the first's fields)."""
+    scene = ensemble_scene(nx, ny)
+    assert not kens.substep_batch_fits(scene.grid) and kcl.cluster_fits(ny, nx)
+    assert kens.substep_batch_takes(scene, B, cuda)
+    state, _ = tc.make_run(scene, 5)(ensemble_state(scene, B, cuda))
+    args = (state.u, state.v, state.p, state.p_prime, state.dt, state.nu,
+            tpiso.ramped_inlet(scene.opts, state))
+    for _ in range(2):
+        launches = (kens.substep_batch.cluster_launches, kjb.jacobi_batch.launches)
+        got = tpiso._substep_batched(scene, *args)
+        assert (kens.substep_batch.cluster_launches, kjb.jacobi_batch.launches) == (
+            launches[0] + 1, launches[1])
+        _same_bits(got, kens.substep_batch(*args, scene), "the route")
+        kernel12 = tpiso._substep_jnp(scene, *args)
+        assert kjb.jacobi_batch.launches > launches[1]
+        _hold_substep(got, kernel12, scene, "against kernel 12's route")
+        _hold_substep(got, kens.substep_batch_plain(*args, scene), scene,
+                      "against the plain version")
+        args = (*got[:4], *args[4:])
+
+
+def test_wide_batch_keeps_kernel12(cuda):
+    """A batch wider than 1024 columns, beyond the block form's gate, that
+    no cluster holds: its steps launch kernel 12 and never kernel 20, and
+    match the CPU path."""
+    scene = _ensemble_scene(1100, 30)
+    assert not kens.substep_batch_fits(scene.grid) and not kcl.cluster_fits(30, 1100)
+    nu = torch.tensor([1e-4, 1e-3])
+    before = (kens.substep_batch.launches, kjb.jacobi_batch.launches)
+    run = tc.make_run(scene, 3)
+    a, _ = run(tc.batch_state(scene.init_state(cuda), 2, nu=nu.to(cuda)))
+    assert kens.substep_batch.launches == before[0]
+    assert kjb.jacobi_batch.launches > before[1]
+    b, _ = run(tc.batch_state(scene.init_state("cpu"), 2, nu=nu))
+    for f in ("u", "v"):
+        assert_close(getattr(a, f), getattr(b, f), rtol=1e-5)
 
 
 def _jacobi_forms(pp, rhs, *solve, done=None):

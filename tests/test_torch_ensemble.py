@@ -305,13 +305,58 @@ def test_batched_route_table(monkeypatch, route):
             "pressure-jnp": {"pressure_impl": "jnp"}}[route]
     _, scene = scenes(24, 16, 2.0, 1.5, (0.6, 0.75, 0.25), **opts)
     if route == "too-large":
-        monkeypatch.setattr(tpiso, "substep_batch_fits", lambda grid: False)
+        monkeypatch.setattr(tpiso, "substep_batch_takes", lambda scene, batch, device: False)
     want = {"kernel20": {"substep_batch"}, "kernel20-forced": {"substep_batch"},
             "too-large": {"_substep_jnp", "jacobi_batch"},
             "substep-jnp": {"_substep_jnp", "jacobi_batch"},
             "pressure-jnp": {"_substep_jnp", "jacobi_batch_plain"}}[route]
     tc.make_step(scene)(tc.batch_state(scene.init_state("cpu"), 2))
     assert set(calls) == want
+
+
+# case -> (nx, ny, solver, whether kernel 20 takes the batch on a card
+# that admits its cluster, on one that admits none, whether the card is
+# asked)
+ROUTES = {"block": (256, 96, "JACOBI", True, True, False),
+          "cluster": (800, 264, "JACOBI", True, False, True),
+          "wide": (1100, 30, "JACOBI", False, False, False),
+          "sor-beyond-block": (800, 264, "SOR", False, False, False)}
+
+
+@pytest.mark.parametrize("case", list(ROUTES))
+def test_kernel20_route_test(monkeypatch, case):
+    """``substep_batch_takes``, piso's route test for a batch: kernel 20
+    takes a scene inside the block form's gate (the app's 256x96), and a
+    Jacobi scene beyond it that a cluster holds (800x264) where the card
+    admits that cluster; a scene wider than 1024 columns and a SOR scene
+    beyond the gate keep the plain batched substep (kernel 12, the masked
+    sor). The card's admission is stubbed, and asked only beyond the
+    block gate of a Jacobi scene a cluster holds. A step on the CPU takes
+    the route the shape gives."""
+    nx, ny, solver, admits, refuses, asks = ROUTES[case]
+    grid = tc.Grid(nx=nx, ny=ny, lx=30.0, ly=10.0, obstacles=(tc.Cylinder(7.5, 5.0, 0.75),))
+    scene = tc.make_scene(
+        grid, tc.SimulationParams(dt=0.004, pressure_solver=tc.PressureSolver[solver]),
+        tc.solver_options_for(tc.Semantics.RUST, early_exit=False, jacobi_iters=2,
+                              outer_corrector_rounds=1))
+    card = torch.device("cuda", 0)
+    for ctas, want in ((14, admits), (None, refuses)):
+        asked = []
+
+        def admission(batch, ny, nx, device, sor=False):
+            asked.append((batch, ny, nx, device))
+            return ctas
+
+        monkeypatch.setattr(kens, "substep_batch_ctas", admission)
+        assert kens.substep_batch_takes(scene, 8, card) is want
+        assert asked == ([(8, ny, nx, card)] if asks else [])
+        assert kens.substep_batch_takes(scene, 8, "cpu") is admits
+    calls, inside = [], []
+    for name in ("substep_batch", "_substep_jnp", "jacobi_batch", "sor"):
+        _spy(monkeypatch, name, calls, inside)
+    tc.make_step(scene)(tc.batch_state(scene.init_state("cpu"), 2))
+    rest = {"JACOBI": "jacobi_batch", "SOR": "sor"}[solver]
+    assert set(calls) == ({"substep_batch"} if admits else {"_substep_jnp", rest})
 
 
 def test_masked_rounds_hand_the_solve_their_converged_scenes(monkeypatch):
@@ -347,10 +392,21 @@ def test_the_gate():
     assert not kens.substep_batch_fits(tapp.ensemble_scene(800, 264).grid)
     assert kens.substep_batch_fits(tc.Grid(nx=241, ny=120, lx=1, ly=1))  # 28,920
     assert not kens.substep_batch_fits(tc.Grid(nx=242, ny=120, lx=1, ly=1))
+    # beyond it the block form raises, as does any form of a scene no
+    # cluster holds or of a SOR scene; the cluster form takes 800x264
     _, scene = scenes(800, 264, 30.0, 10.0, None)
     pp = torch.zeros(1, 264, 800)
     with pytest.raises(ValueError, match="shared memory"):
-        kens.substep_batch(torch.zeros(1, 264, 801), pp, pp, pp, 0.1, 0.1, 1.0, scene)
+        kens.substep_batch(torch.zeros(1, 264, 801), pp, pp, pp, 0.1, 0.1, 1.0, scene,
+                           form="block")
+    sor = dataclasses.replace(scene, params=dataclasses.replace(
+        scene.params, pressure_solver=tc.PressureSolver.SOR))
+    with pytest.raises(ValueError, match="shared memory"):
+        kens.substep_batch(torch.zeros(1, 264, 801), pp, pp, pp, 0.1, 0.1, 1.0, sor)
+    _, wide = scenes(1100, 30, 30.0, 10.0, None)
+    pp = torch.zeros(1, 30, 1100)
+    with pytest.raises(ValueError, match="shared memory"):
+        kens.substep_batch(torch.zeros(1, 30, 1101), pp, pp, pp, 0.1, 0.1, 1.0, wide)
 
 
 def test_other_solvers_raise_naming_their_item():

@@ -401,7 +401,8 @@ def test_sor_route_table(monkeypatch, route):
             # batched substep
             want = {"substep_batch", "_substep_jnp", "sor"}
         if route == "batch-too-large":
-            monkeypatch.setattr(tpiso, "substep_batch_fits", lambda grid: False)
+            monkeypatch.setattr(tpiso, "substep_batch_takes",
+                                lambda scene, batch, device: False)
     state = scene.init_state(device="cpu")
     if batch:
         state = tc.batch_state(state, 2)
