@@ -70,7 +70,7 @@ def main(argv=None) -> int:
         del state
         kept = timed.kept + traced.kept
         t = time.perf_counter()
-        program = checks.readings(kept, config, traffic, dev)
+        program = checks.readings(kept, cell, dev)
         row = {"seed": seed, "steps": n, "sampled": [k[0] for k in timed.kept],
                "cell_updates_per_s": scenes * g["nx"] * g["ny"] * n / wall,
                "step_ms_p95": statistics.quantiles(gaps, n=20)[18], "nonfinite": bad,
@@ -80,7 +80,7 @@ def main(argv=None) -> int:
                "reference_s": (time.perf_counter() - t) / 2}
         if i < args.control:
             row["control"] = checks.worst(checks.readings(
-                kept, config, traffic, dev, dtype=torch.bfloat16, against=True))
+                kept, cell, dev, dtype=torch.bfloat16, against=True))
         print(json.dumps(row), flush=True)
         rows.append(row)
         del timed, traced, kept

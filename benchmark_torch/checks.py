@@ -1,15 +1,16 @@
 """What decides ``correct``: the window's sampled steps against the plain
-reference.
+reference of the cell's configuration (manifest.py ``reference``).
 
 Each sampled step's input state (the program's, as the window handed it
 to the step) is stepped once by the reference in float64, on every
-scene of a batch, and the step's outputs are held to it: u and v as a
-share of the reference's largest speed, p as a share of its largest
-|p|, the next dt as a share of dt; a solve to a tolerance is held to
-its tolerance (reference.py), the rest of the step to the reference. The worst over the samples and
-scenes is compared with the cell's limits (the traffic file's
-``limits``), and the window's last state must be finite. The control
-(calibrate.py) is the same reference computed in bfloat16.
+scene of a batch, and the step's outputs are held to it by the
+reference's ``gaps``: for the channel reference (reference.py) u and v
+as a share of the reference's largest speed, p as a share of its
+largest |p|, the next dt as a share of dt; a solve to a tolerance is
+held to its tolerance, the rest of the step to the reference. The worst
+over the samples and scenes is compared with the cell's limits (the
+traffic file's ``limits``), and the window's last state must be finite.
+The control (calibrate.py) is the same reference computed in bfloat16.
 """
 from __future__ import annotations
 
@@ -17,30 +18,29 @@ import math
 
 import torch
 
-from . import reference, scene as gen
+from . import scene as gen
 
 KEYS = ("u", "v", "p", "dt")
 
 
-def readings(kept, config: dict, traffic: dict, device, dtype=torch.float64,
-             against=None):
-    """The gaps of each sampled step and scene: the program's outputs
-    against the reference in ``dtype``, or with ``against`` true the
-    reference in ``dtype`` (the control) against the float64 reference
-    on the same inputs."""
-    setup = gen.plain_setup(config, traffic)
-    ref = reference.Stepper(setup, device, torch.float64 if against else dtype)
-    alt = reference.Stepper(setup, device, dtype) if against else None
+def readings(kept, cell: dict, device, dtype=torch.float64, against=None):
+    """The gaps of each sampled step and scene of ``cell`` (manifest.py
+    ``cell``): the program's outputs against the reference in ``dtype``,
+    or with ``against`` true the reference in ``dtype`` (the control)
+    against the float64 reference on the same inputs."""
+    plain, config, traffic = cell["reference"], cell["config"], cell["traffic"]
+    setup = plain.plain_setup(config, traffic)
+    ref = plain.Stepper(setup, device, torch.float64 if against else dtype)
+    alt = plain.Stepper(setup, device, dtype) if against else None
     scenes = traffic["batch"]["scenes"] if traffic.get("batch") else None
-    given = ref.exact is not None  # a tolerance solve: the candidate's p' is taken
     out = []
     for _, before, after in kept:
         for b in range(scenes or 1):
             b = b if scenes else None
-            inputs = gen.scene_fields(before, b)
-            got = alt.step(inputs) if alt else gen.scene_fields(after, b)
-            want = ref.step(inputs, got["p_prime"] if given else None)
-            out.append(reference.gaps(got, want))
+            inputs = gen.scene_fields(before, plain.FIELDS, b)
+            got = alt.step(inputs) if alt else gen.scene_fields(after, plain.FIELDS, b)
+            want = ref.step(inputs, got["p_prime"] if ref.takes_candidate_pp else None)
+            out.append(plain.gaps(got, want))
     return out
 
 

@@ -1,15 +1,28 @@
-"""vcycles_per_step: MG_PRODUCTION V-cycles a step, from the launch
-counters of kernels/mgp.py over the traced window: the aligned cycle
-launches one ``jacobi_fused_k_corr`` a cycle on an even grid and two
-``jacobi_fused_k_res`` on an odd one (a cycle on an interior of at most
-mgp_coarse_stop a side is FDM alone and launches neither)."""
+"""vcycles_per_step: multigrid V-cycles a step, the program's own count
+(``cfd_demo_tpu_torch.trace.vcycles``: every cycle MG_PRODUCTION runs,
+in either form, a cycle that is FDM alone on a small interior among
+them, and every cycle of the vertex MULTIGRID), its change over the
+traced window a step. None where the program has no such counter, or where
+the window ran no cycle (a cell without multigrid)."""
 
-CORR = "mgp.jacobi_fused_k_corr.launches"
-RES = "mgp.jacobi_fused_k_res.launches"
+import importlib
+
+
+def install(ctx):
+    try:
+        trace = importlib.import_module("cfd_demo_tpu_torch.trace")
+    except ImportError:
+        return lambda: None
+    if not hasattr(trace, "vcycles"):
+        return lambda: None
+    start = trace.vcycles
+
+    def undo():
+        ctx.store["vcycles"] = trace.vcycles - start
+
+    return undo
 
 
 def read(ctx):
-    if not ctx.steps:
-        return None
-    cycles = ctx.counters.get(CORR, 0) + ctx.counters.get(RES, 0) / 2
-    return cycles / ctx.steps if cycles else None
+    n = ctx.store.get("vcycles")
+    return n / ctx.steps if n and ctx.steps else None

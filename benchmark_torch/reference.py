@@ -31,6 +31,14 @@ reference's, from that p'. Where the reference itself has to solve (the
 control), it solves the p' equation exactly, in the eigenbases of its
 two one-dimensional operators (the operator is separable: obstacles
 enter through the velocity masks only).
+
+This is the reference of every configuration that has none of its own
+beside its file (manifest.py ``reference``): it judges Rust-semantics
+channel flow with FIRST faces and a uniform inlet, and
+:func:`plain_setup` refuses any other flow. A reference of another flow
+with the same step can take :func:`plain_setup` with its own ``flow``
+and subclass :class:`Stepper` with its own BCs (``pprime_bcs``,
+``velocity_bcs``).
 """
 from __future__ import annotations
 
@@ -39,6 +47,46 @@ import math
 import torch
 
 F32_EPS = 2.0 ** -23  # float32's machine epsilon, as the noise floor counts it
+
+# What the reference reads of a program State (scene.py ``scene_fields``).
+FIELDS = ("u", "v", "p", "p_prime", "dt", "nu", "target_inlet", "step")
+
+# The reference's names for the solver constants the traffic file states.
+_SOLVER = {"jacobi_omega": "jacobi_omega", "jacobi_tol": "jacobi_tol",
+           "jacobi_iters": "jacobi_iters", "outer_rounds": "outer_corrector_rounds",
+           "outer_tol": "outer_corrector_tol", "ramp_up_steps": "ramp_up_steps",
+           "cfl": "cfl", "dt_growth_cap": "dt_growth_cap"}
+
+# The flow this reference steps, as a configuration (with its traffic's
+# parameter overrides) states it.
+_FLOW = {"semantics": "rust", "flow_case": "channel", "velocity_scheme": "first",
+         "inlet_profile": "uniform"}
+
+
+def plain_setup(config: dict, traffic: dict, flow: dict = _FLOW) -> dict:
+    """What :class:`Stepper` needs of a cell's files: the grid and the
+    solver, named in its own terms. Raises for a flow other than
+    ``flow`` or a pressure solver this reference does not step."""
+    stated = {**config["params"], **traffic.get("params", {}),
+              "semantics": config["semantics"]}
+    other = {k: stated.get(k) for k in flow if stated.get(k) != flow[k]}
+    if other:
+        raise ValueError(f"the reference steps {flow}; configuration "
+                         f"{config.get('name')!r} states {other}: put a reference of "
+                         f"its own beside its file (manifest.py reference)")
+    opts = traffic["solver"]["options"]
+    solver = {k: opts[v] for k, v in _SOLVER.items()}
+    if traffic["solver"]["pressure_solver"] == "jacobi":
+        solver["pressure"] = "jacobi"
+    elif traffic["solver"]["pressure_solver"] == "mg-production":
+        # a projection to a stated tolerance: the step checks its p' by
+        # the tolerance, and the rest of the step exactly
+        solver.update(pressure="tolerance", projection_div_tol=opts["projection_div_tol"],
+                      mgp_floor=opts["mgp_floor"])
+    else:
+        raise ValueError(f"the reference has no plain "
+                         f"{traffic['solver']['pressure_solver']} solve")
+    return {"grid": config["grid"], "solver": solver}
 
 
 def _shift(a, dj: int, di: int, shape=None):
@@ -128,9 +176,9 @@ def pprime_bcs(pp):
     return pp
 
 
-def jacobi(pp, rhs, dx, dy, omega, tol, iters):
-    """Damped Jacobi, the p' BCs after every sweep. Returns (p', the last
-    sweep's largest interior change, sweeps run)."""
+def jacobi(pp, rhs, dx, dy, omega, tol, iters, bcs=pprime_bcs):
+    """Damped Jacobi, the p' BCs ``bcs`` after every sweep. Returns (p',
+    the last sweep's largest interior change, sweeps run)."""
     dx2, dy2 = dx * dx, dy * dy
     denom = 2.0 / dx2 + 2.0 / dy2
     n = 0
@@ -142,7 +190,7 @@ def jacobi(pp, rhs, dx, dy, omega, tol, iters):
         err = torch.amax(torch.abs(new - c))
         pp = pp.clone()
         pp[1:-1, 1:-1] = new
-        pp = pprime_bcs(pp)
+        pp = bcs(pp)
         n += 1
         if n >= max(iters, 1) or (tol > 0 and not bool(err >= tol)):
             return pp, err, n
@@ -200,8 +248,12 @@ def channel_bcs(u, v, inlet, mask_u_bc, mask_v_bc):
 
 class Stepper:
     """One scene's PISO step in ``dtype`` (float64: the reference;
-    bfloat16: the control). ``setup`` is the configuration and traffic
-    as run.py reads them (scene.py ``plain_setup``)."""
+    bfloat16: the control). ``setup`` is :func:`plain_setup`'s.
+    ``takes_candidate_pp``: a solve to a tolerance, whose step takes the
+    candidate's p' (``step``'s ``pp_given``). The Jacobi solve's p' BCs
+    are ``pprime_bcs``, the step's last BCs ``velocity_bcs``."""
+
+    pprime_bcs = staticmethod(pprime_bcs)
 
     def __init__(self, setup: dict, device, dtype=torch.float64):
         g, s = setup["grid"], setup["solver"]
@@ -213,14 +265,19 @@ class Stepper:
                                      for c in g["cylinders"]], device)
         self.exact = (ExactSolver(self.nx, self.ny, self.dx, self.dy, device)
                       if s["pressure"] == "tolerance" else None)
+        self.takes_candidate_pp = self.exact is not None
 
     def _solve(self, pp, rhs):
         s = self.solver
         if self.exact is not None:
             return self.exact.solve(rhs), None
         pp, err, _ = jacobi(pp, rhs, self.dx, self.dy, s["jacobi_omega"], s["jacobi_tol"],
-                            s["jacobi_iters"])
+                            s["jacobi_iters"], self.pprime_bcs)
         return pp, err
+
+    def velocity_bcs(self, u, v, inlet):
+        """The channel's BCs at the ramped inlet speed ``inlet``."""
+        return channel_bcs(u, v, inlet, *self.masks[2:])
 
     def residual_share(self, pp, rhs, dt):
         """max|rhs - A p'| over the interior cells, as a share of the
@@ -247,7 +304,7 @@ class Stepper:
                           for k in ("dt", "nu", "target_inlet"))
         ramp = min(float(fields["step"]) / s["ramp_up_steps"], 1.0)
         inlet = torch.as_tensor(ramp, device=dev).to(t) * target
-        mask_u, mask_v, mask_u_bc, mask_v_bc = self.masks
+        mask_u, mask_v = self.masks[:2]
         dx, dy = self.dx, self.dy
         u_star, v_star = predict(u, v, dt, nu, dx, dy, mask_u, mask_v)
         rhs = divergence(u_star, v_star, dt, dx, dy)
@@ -266,7 +323,7 @@ class Stepper:
             pp, err = self._solve(pp, rhs)
             un, vn, pn = correct(un, vn, pn, pp, dt, dx, dy)
             rounds += 1
-        un, vn = channel_bcs(un, vn, inlet, mask_u_bc, mask_v_bc)
+        un, vn = self.velocity_bcs(un, vn, inlet)
         max_vel = torch.maximum(un.abs().max(), vn.abs().max())
         cfl_h = torch.as_tensor(s["cfl"] * min(dx, dy), device=dev).to(t)
         dt_cfl = torch.where(max_vel == 0, dt, torch.minimum(cfl_h / torch.where(

@@ -1,15 +1,15 @@
 """The one generator: a cell's configuration and traffic files made into
-the program's scene, its seeded initial state, and the plain
-reference's settings.
+the program's scene and its seeded initial state.
 
 A configuration file (``configs/<name>.json``) states the deployment:
-the grid and its cylinders, the physical parameters, the semantics and
-the precision, and what the seed draws. A traffic file
-(``workloads/<cell>.json``) states how the cell drives it: the pressure
-solver and every solver constant, parameter overrides, the batch, the
-warm-up, how many steps the traced run traces and the window's check
-samples, and the limits of the check. Nothing here is particular to a
-cell.
+the grid and its cylinders, the physical parameters and flow case, the
+semantics and the precision, and what the seed draws; the plain
+reference that judges it is found beside it (manifest.py
+``reference``). A traffic file (``workloads/<cell>.json``) states how
+the cell drives it: the pressure solver and every solver constant,
+parameter overrides, the batch, the warm-up, how many steps the traced
+run traces and the window's check samples, and the limits of the
+check. Nothing here is particular to a cell.
 """
 from __future__ import annotations
 
@@ -18,32 +18,9 @@ import dataclasses
 import numpy as np
 import torch
 
-# The reference's names for the solver constants the traffic file states.
-_REF_SOLVER = {"jacobi_omega": "jacobi_omega", "jacobi_tol": "jacobi_tol",
-               "jacobi_iters": "jacobi_iters", "outer_rounds": "outer_corrector_rounds",
-               "outer_tol": "outer_corrector_tol", "ramp_up_steps": "ramp_up_steps",
-               "cfl": "cfl", "dt_growth_cap": "dt_growth_cap"}
-
 
 def merged_params(config: dict, traffic: dict) -> dict:
     return {**config["params"], **traffic.get("params", {})}
-
-
-def plain_setup(config: dict, traffic: dict) -> dict:
-    """What the plain reference needs: the grid and the solver, named in
-    its own terms (reference.Stepper)."""
-    opts = traffic["solver"]["options"]
-    solver = {k: opts[v] for k, v in _REF_SOLVER.items()}
-    if traffic["solver"]["pressure_solver"] == "jacobi":
-        solver["pressure"] = "jacobi"
-    elif traffic["solver"]["pressure_solver"] == "mg-production":
-        # a projection to a stated tolerance: reference.py checks its p'
-        # by the tolerance, and the rest of the step exactly
-        solver.update(pressure="tolerance", projection_div_tol=opts["projection_div_tol"],
-                      mgp_floor=opts["mgp_floor"])
-    else:
-        raise ValueError(f"no plain reference for {traffic['solver']['pressure_solver']}")
-    return {"grid": config["grid"], "solver": solver}
 
 
 def program_scene(config: dict, traffic: dict):
@@ -51,8 +28,10 @@ def program_scene(config: dict, traffic: dict):
     cell's scene comes from the ensemble app, and must equal it."""
     import cfd_demo_tpu_torch as cfd
 
-    if config["semantics"] != "rust" or config["precision"] != "float32":
-        raise ValueError("the generator builds Rust-semantics float32 scenes")
+    if config["precision"] != "float32":
+        raise ValueError(f"the program's kernels are float32; configuration "
+                         f"{config.get('name')!r} states {config['precision']}")
+    semantics = cfd.Semantics(config["semantics"])
     g = config["grid"]
     grid = cfd.Grid(nx=g["nx"], ny=g["ny"], lx=g["lx"], ly=g["ly"],
                     obstacles=tuple(cfd.Cylinder(c["center_x"], c["center_y"], c["radius"])
@@ -65,7 +44,7 @@ def program_scene(config: dict, traffic: dict):
         inlet_profile=cfd.InletProfile(p["inlet_profile"]),
         pressure_solver=cfd.PressureSolver(traffic["solver"]["pressure_solver"]),
         flow_case=cfd.FlowCase(p["flow_case"]))
-    opts = cfd.solver_options_for(cfd.Semantics.RUST, **traffic["solver"]["options"])
+    opts = cfd.solver_options_for(semantics, **traffic["solver"]["options"])
     scene = cfd.make_scene(grid, params, opts)
     if traffic.get("batch"):
         from cfd_demo_tpu_torch.apps.ensemble import ensemble_scene
@@ -120,11 +99,11 @@ def program_state(scene, config: dict, traffic: dict, seed: int, device):
     return dataclasses.replace(state, u=state.u + du[0], v=state.v + dv[0])
 
 
-def scene_fields(state, b=None) -> dict:
-    """What the reference reads of one scene of a program State (scene
-    ``b`` of a batch)."""
+def scene_fields(state, fields, b=None) -> dict:
+    """The State ``fields`` a reference reads (its ``FIELDS``), of one
+    scene of a program State (scene ``b`` of a batch)."""
     pick = (lambda x: x) if b is None else (lambda x: x[b])
-    out = {k: pick(getattr(state, k)) for k in
-           ("u", "v", "p", "p_prime", "dt", "nu", "target_inlet", "step")}
-    out["step"] = int(out["step"])
+    out = {k: pick(getattr(state, k)) for k in fields}
+    if "step" in out:
+        out["step"] = int(out["step"])
     return out

@@ -24,8 +24,7 @@ def test_bfloat16_control_misses_a_limit(name):
         state, _ = step(state)
     sampler = window.Sampler(2, SEED)
     window.run(step, state, lambda: None, steps=3, sampler=sampler)
-    control = checks.readings(sampler.kept, config, traffic, "cpu", torch.bfloat16,
-                              against=True)
+    control = checks.readings(sampler.kept, cell, "cpu", torch.bfloat16, against=True)
     correct, failed, _ = checks.decide(control, 0, traffic["limits"])
     assert not correct and failed >= 1
 

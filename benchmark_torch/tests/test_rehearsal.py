@@ -45,6 +45,8 @@ def test_manifest_names_units_and_files():
         assert cell["per_layer"]
     for c in bench["configs"]:
         assert c["file"].startswith("benchmark_torch/configs/") and len(c["source"]) <= 200
+        plain = manifest.reference(c["file"])  # beside its file, or reference.py
+        assert all(hasattr(plain, k) for k in ("plain_setup", "Stepper", "gaps", "FIELDS"))
 
 
 class _Ctx(Context):
@@ -82,16 +84,67 @@ def test_rounds_roofline_hand_count():
         2.27e-6, rel=1e-2)
 
 
-def test_counter_readers():
+def test_counter_readers(monkeypatch):
+    from cfd_demo_tpu_torch import trace as program_trace
+
     sweeps = manifest.reader("pressure_sweeps_per_step")
     batch = [torch.tensor([[3, 100], [5, 160]], dtype=torch.int32)] * 2
     assert sweeps.read(_Ctx("channel_800x264.batch8", 2, 0, {"substep_counts": batch})) == 160
     cycles = manifest.reader("vcycles_per_step")
     ctx = _Ctx("channel_2048.jacobi_fast", 10, 0)
-    ctx.counters = {"mgp.jacobi_fused_k_corr.launches": 41}
+    undo = cycles.install(ctx)
+    monkeypatch.setattr(program_trace, "vcycles", program_trace.vcycles + 41)
+    undo()
     assert cycles.read(ctx) == pytest.approx(4.1)
-    ctx.counters = {}
+    ctx.store = {}
     assert cycles.read(ctx) is None
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel"])
+def test_sweeps_on_the_kernel20_route(route, monkeypatch):
+    """batch8's route at a tiny batch: ``piso.substep_batch``, kernel
+    20's wrapper. On the CPU it runs its plain version, which calls
+    ``piso._substep_jnp``: the reader counts that substep once
+    ("plain"). On the card the kernel calls no ``_substep_jnp``
+    ("kernel": the plain version stubbed by the unwrapped substep)."""
+    import dataclasses
+
+    from cfd_demo_tpu_torch import make_step
+    from cfd_demo_tpu_torch.kernels import ensemble
+    from cfd_demo_tpu_torch.solver import piso
+
+    from benchmark_torch import scene as gen, window
+
+    cell = tiny("channel_800x264.batch8")
+    config, traffic = cell["config"], cell["traffic"]
+    scene = gen.program_scene(config, traffic)
+    state = gen.program_state(scene, config, traffic, SEED, torch.device("cpu"))
+    step = make_step(scene)
+    plain, unwrapped, returned = ensemble.substep_batch_plain, piso._substep_jnp, []
+
+    def stand_in(u, v, p, pp0, dt_sub, nu, inlet, scene):
+        if route == "plain":
+            out = plain(u, v, p, pp0, dt_sub, nu, inlet, scene)
+        else:
+            jnp = dataclasses.replace(scene, opts=dataclasses.replace(
+                scene.opts, pressure_impl="jnp"))
+            out = unwrapped(jnp, u, v, p, pp0, dt_sub, nu, inlet)
+        returned.append(out[-1])
+        return out
+
+    monkeypatch.setattr(ensemble, "substep_batch_plain", stand_in)
+    reader = manifest.reader("pressure_sweeps_per_step")
+    ctx = _Ctx("channel_800x264.batch8", 3, 0)
+    undo = reader.install(ctx)
+    try:
+        window.run(step, state, lambda: None, steps=3)
+    finally:
+        undo()
+    assert piso._substep_jnp is unwrapped and piso.substep_batch is ensemble.substep_batch
+    assert len(returned) == len(ctx.store["substep_counts"]) == 3
+    assert all(c.shape == (8, 2) for c in returned)
+    want = sum(float(c[:, 1].max()) for c in returned) / 3
+    assert want > 0 and reader.read(ctx) == pytest.approx(want)
 
 
 @pytest.mark.parametrize("name", CELLS)

@@ -100,6 +100,38 @@ def test_host_reads_per_step(program, monkeypatch):
     assert reader.read(ctx) == (3.0 if program == "with_counter" else None)
 
 
+@pytest.mark.parametrize("cell,program", [("channel_2048.mg_production", "with_counter"),
+                                          ("channel_2048.jacobi_fast", "with_counter"),
+                                          ("channel_2048.mg_production", "without")])
+def test_vcycles_per_step(cell, program, monkeypatch):
+    """The program's V-cycle count over a window of the tiny cell: the
+    production cell's cycles a step; None on a cell that runs no
+    multigrid, and for a program without the counter."""
+    from cfd_demo_tpu_torch import make_step, trace as program_trace
+
+    c = tiny(cell)
+    config, traffic = c["config"], c["traffic"]
+    scene = gen.program_scene(config, traffic)
+    state = gen.program_state(scene, config, traffic, SEED, torch.device("cpu"))
+    step = make_step(scene)
+    state = window.warm_up(step, state, traffic, lambda: None)
+    reader = manifest.reader("vcycles_per_step")
+    ctx = Context(c)
+    ctx.steps = 3
+    if program == "without":
+        monkeypatch.setitem(sys.modules, "cfd_demo_tpu_torch.trace", None)
+    start = program_trace.vcycles
+    undo = reader.install(ctx)
+    window.run(step, state, lambda: None, steps=3)
+    undo()
+    ran = program_trace.vcycles - start
+    if program == "without" or cell.endswith("jacobi_fast"):
+        assert reader.read(ctx) is None
+        assert ran == 0 or program == "without"
+    else:
+        assert ran >= 3 and reader.read(ctx) == pytest.approx(ran / 3)
+
+
 @pytest.mark.parametrize("name", CELLS)
 def test_readers_on_a_cpu_trace_of_the_program(name, tmp_path):
     """The program's own spans under the CPU profiler, parsed as the

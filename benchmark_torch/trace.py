@@ -47,8 +47,8 @@ class Event:
 
 class Context:
     """What a reader reads: the traced steps, the window, its device
-    operations, the device time launched inside a marked range, the
-    program's counters' change over the window, and the cell's files."""
+    operations, the device time launched inside a marked range, what the
+    readers' installs kept (``store``), and the cell's files."""
 
     def __init__(self, cell):
         self.config, self.traffic = cell["config"], cell["traffic"]
@@ -56,7 +56,6 @@ class Context:
         self.steps = 0
         self.window_s = self.busy_s = 0.0
         self.device_events, self.host_events = [], []
-        self.counters = {}
         self.span = (0.0, 0.0)
         self._launch_at = {}
 
@@ -83,7 +82,8 @@ class Context:
 def counters() -> dict:
     """Every launch counter of the program's kernel wrappers:
     ``<module>.<function>.<attribute>`` for each int attribute whose
-    name ends in ``launches``."""
+    name ends in ``launches``. No reader reads them (the V-cycles are
+    the program's ``trace.vcycles``); the port's tests list them here."""
     import cfd_demo_tpu_torch.kernels as pkg
 
     out = {}
@@ -148,7 +148,6 @@ def capture(step, state, sync, ctx: Context, steps: int, warm_steps: int, sample
                 state, *_ = window.run(step, state, sync, steps=warm_steps)
                 prof.step()
                 undo = [install(ctx) for install in installs]
-                before = counters()
                 try:
                     with torch.profiler.record_function(WINDOW):
                         state, n, wall, _ = window.run(step, state, sync, steps=steps,
@@ -156,7 +155,6 @@ def capture(step, state, sync, ctx: Context, steps: int, warm_steps: int, sample
                 finally:
                     for u in reversed(undo):
                         u()
-                after = counters()
                 prof.step()
             dev, host = _parse(path)
         finally:
@@ -183,7 +181,6 @@ def capture(step, state, sync, ctx: Context, steps: int, warm_steps: int, sample
     ctx.device_events = dev
     ctx.host_events = [e for e in host if e.end > w0 and e.start < w1]
     ctx.busy_s = _union_us([(e.start, e.end) for e in dev]) * 1e-6
-    ctx.counters = {k: after[k] - before.get(k, 0) for k in after}
     ctx._launch_at = {e.corr: e.start for e in ctx.host_events
                       if e.cat in ("cuda_runtime", "cuda_driver") and e.corr is not None}
     return state
