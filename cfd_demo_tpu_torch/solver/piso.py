@@ -174,7 +174,10 @@ the rounds route the rounds kernel, which corrects too) and
 ``cfd.solve``, and the BCs); the batch kernel's substep is one
 ``cfd.kernel.substep_batch`` span. What runs inside ``cfd.step`` and in
 no phase is the step's own control: the inlet ramp, the residual maxima,
-the substep count and the dt control.
+the substep count and the dt control. While a profiler records,
+``trace.rounds`` keeps the (outer rounds, sweeps) counts each
+single-scene ``_substep_jnp`` returns: the rounds kernel's own, or the
+plain projection's (the fused route's rounds are not kept).
 
 CAVITY flow (the lid-driven cavity, BASELINE config 2) takes the same
 routes with JACOBI, FDM, MULTIGRID and MG_PRODUCTION: the Jacobi chain,
@@ -477,7 +480,8 @@ def _substep_jnp(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet):
     "jnp", or a batch) the plain projection: ``_solve_pressure``,
     corrector, ``_outer_rounds``, BCs. Returns (u, v, p, pp, err,
     counts): int32 counts (..., 2) of the outer rounds and solver
-    iterations run, (B, 2) on a batch."""
+    iterations run, (B, 2) on a batch; a single scene's are kept in
+    ``trace.rounds`` while a profiler records."""
     g, opts = scene.grid, scene.opts
     mask_u, mask_v, mask_u_bc, mask_v_bc = masks_traced(g, opts.semantics,
                                                         u.device)
@@ -491,8 +495,10 @@ def _substep_jnp(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet):
             and opts.pressure_impl in ("auto", "pallas")
             and opts.substep_impl in ("auto", "pallas")):
         with span("cfd.solve"):
-            return solve_correct_rounds(u_star, v_star, p, pp0, rhs, dt_sub,
-                                        inlet, scene)
+            out = solve_correct_rounds(u_star, v_star, p, pp0, rhs, dt_sub,
+                                       inlet, scene)
+        trace.keep_rounds(out[-1])
+        return out
     pp, err, n = _solve_pressure(scene, pp0, rhs, dt_sub)
     with span("cfd.correct"):
         u, v, p = correct(u_star, v_star, p, pp, dt_sub, g.dx, g.dy)
@@ -501,6 +507,8 @@ def _substep_jnp(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet):
                          mask_v_bc, scene.params.flow_case)
     counts = torch.stack([torch.as_tensor(c, device=u.device).to(torch.int32)
                           for c in (it, n + iters)], dim=-1)
+    if u.dim() == 2:
+        trace.keep_rounds(counts)
     return u, v, p, pp, err, counts
 
 

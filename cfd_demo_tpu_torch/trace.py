@@ -9,7 +9,11 @@ are ``cfd.step``, its phases ``cfd.predict``, ``cfd.solve`` and
 ``cfd.correct``, and each kernel wrapper's ``cfd.kernel.<function>``.
 
 ``host_reads`` counts the program's reads of CUDA tensors back to the
-host (:func:`read_host`); ``vcycles`` the multigrid V-cycles run.
+host (:func:`read_host`); ``vcycles`` the multigrid V-cycles run;
+``rounds`` keeps, while a profiler records, the (outer rounds, sweeps)
+count tensor each single-scene ``piso._substep_jnp`` returns
+(:func:`keep_rounds`); a reader takes its window's out of the list and
+sums them after the window (:func:`rounds_total`).
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch.autograd.profiler as _profiler
 _NULL = contextlib.nullcontext()
 host_reads = 0
 vcycles = 0
+rounds: list = []
 
 
 def span(name: str):
@@ -53,3 +58,20 @@ def read_host(t: torch.Tensor):
     if t.is_cuda:
         host_reads += 1
     return t.item()
+
+
+def keep_rounds(counts: torch.Tensor):
+    """Keep ``counts`` (an int32 (2,) tensor: outer rounds, sweeps) in
+    ``rounds`` while a profiler records: a reference, no device
+    operation and no read."""
+    if _profiler._is_profiler_enabled:
+        rounds.append(counts)
+
+
+def rounds_total(kept) -> tuple:
+    """(outer rounds, sweeps) summed over the count tensors ``kept`` (a
+    slice of ``rounds``): one read of the device, made by the caller
+    after its window; (0, 0) for none."""
+    if not kept:
+        return 0, 0
+    return tuple(torch.stack(list(kept)).to(torch.int64).sum(dim=0).tolist())
