@@ -315,8 +315,10 @@ TRACED = {"predict_div_kernel<": lambda: predict_div.launches - predict_div.tile
           "correct_bc_fused_kernel<": lambda: correct_bc.fused_launches,
           "correct_div_kernel(": _counts(correct_div),
           "rounds_kernel<": lambda: (solve_correct_rounds.launches
-                                     - solve_correct_rounds.cluster_launches),
+                                     - solve_correct_rounds.cluster_launches
+                                     - solve_correct_rounds.slab_launches),
           "rounds_cluster_kernel<": lambda: solve_correct_rounds.cluster_launches,
+          "rounds_slab_kernel<": lambda: solve_correct_rounds.slab_launches,
           "ensemble_substep_kernel(": lambda: (
               _counts(substep_batch, substep_batch_sor)()
               - substep_batch.cluster_launches - substep_batch_sor.cluster_launches),

@@ -1,21 +1,17 @@
 // The whole pressure projection of one scene in one launch: exact
 // do-while Jacobi, corrector, up to `rounds` outer corrector rounds with an
 // exact exit, then the velocity BCs (CHANNEL, UNIFORM or parabolic inlet,
-// either semantics' BC masks; or CAVITY, a template flag of both forms:
+// either semantics' BC masks; or CAVITY, a template flag of every form:
 // the all-Neumann p' folds and BCs with the (0, 0) gauge, the lid and the
 // walls). JS's zero warm start arrives as pp0.
 // Replaces cfd_demo_tpu/kernels/rounds_pallas.py solve_correct_rounds_pallas
 // (_kernel_rounds) with its in-kernel solver ensemble_pallas.make_jacobi_solve.
 // See kernels/rounds.py for the design note.
 //
-// Two forms of the same function, the same bits and counts. A sweep of
+// Three forms of the same function, the same bits and counts, chosen
+// before the launch by shape (kernels/rounds.py rounds_form). A sweep of
 // the rounds is a few microseconds of work, and each needs a barrier and
 // a global max before the next (the exact exit).
-//
-// The cooperative form (rounds_kernel): a persistent cooperative kernel,
-// one resident block per SM, and a grid-wide barrier (cooperative_groups
-// grid.sync) wherever the next phase reads what other blocks wrote; p' is
-// swept from L2. 3.7 us a sweep at 800x264 (PERF.md).
 //
 // The cluster form (rounds_cluster_kernel, on cluster.cuh's machinery,
 // which the batched kernels share): one thread-block cluster of C CTAs of
@@ -33,8 +29,26 @@
 // tests a cell and a three-barrier block max took 4.39 ms at 800x264,
 // versions with a cluster.sync() a sweep 5.5-7.3 ms.
 //
-// In both, data written inside the kernel to device memory is read with
-// __ldcg (L2, bypassing the non-coherent L1).
+// The slab form (rounds_slab_kernel) takes the grids no cluster holds
+// (1024^2, 1024x512) up to 1024 columns: the cluster form's slabs, strips
+// and folds spread over the whole card, one block of 1024 threads an SM
+// in a cooperative launch (grid_slab_plan: 128 blocks of 8 rows at 1024^2
+// on 132 SMs). p' stays in shared memory; a sweep's edge rows go through
+// device memory (L2) to the neighbouring slabs and its max through the
+// rotating slot, across one grid-wide barrier (grid.sync). The p' BCs run
+// on each slab's halo rows too, so a solve needs no further exchange.
+// What bounds it: the grid barrier and the max's slot, a fixed cost a
+// sweep, then the strip's rows (PERF.md).
+//
+// The cooperative form (rounds_kernel) takes the rest (more than 1024
+// columns): a persistent cooperative kernel, one resident block per SM,
+// and a grid-wide barrier (cooperative_groups grid.sync) wherever the
+// next phase reads what other blocks wrote; p' is swept from L2, six
+// loads a cell a sweep, so at 1024^2 it is bound by L2's bandwidth (7.8
+// us a sweep; 3.7 at 800x264, PERF.md).
+//
+// In all three, data written inside the kernel to device memory is read
+// with __ldcg (L2, bypassing the non-coherent L1).
 #include "cluster.cuh"
 
 namespace {
@@ -324,6 +338,339 @@ ClusterFn rounds_cluster_fn(const SlabPlan& pl, int cavity) {
     return cavity ? rounds_cluster_instance<true>(pl) : rounds_cluster_instance<false>(pl);
 }
 
+
+// ---------------------------------------------------------------------------
+// The slab form: the cluster form's slabs over the whole card
+// ---------------------------------------------------------------------------
+
+// How the slab form splits an (ny, nx) grid over at most `sms` blocks of
+// kCThreads threads, one an SM: rows = ceil(ny / sms); rt the first of
+// kSlabStrips whose row groups (1024 threads of 4 columns) cover them;
+// slabs of rp rows, that rounded up to whole strips, ceil(ny / rp) blocks
+// (the last may be short); p' twice with two halo rows in shared memory,
+// ar * rhs beside it where it fits (rhs_smem); rt = 0 where the grid is
+// beyond the form. kernels/cluster.py grid_slab_plan mirrors it.
+struct GridSlabPlan {
+    int rt, rp, blocks;
+    bool rhs_smem;
+    size_t smem;
+};
+
+inline GridSlabPlan grid_slab_plan(int ny, int nx, int sms) {
+    const GridSlabPlan none{0, 0, 0, false, 0};
+    if (nx > kMaxCols || ny < 3 || nx < 3 || sms < 1) return none;
+    const int n4 = (nx + 3) / 4, groups = kCThreads / n4, P = 4 * n4;
+    const int rows = (ny + sms - 1) / sms, need = (rows + groups - 1) / groups;
+    for (int rt : kSlabStrips) {
+        if (rt < need) continue;
+        const int rp = rt * ((rows + rt - 1) / rt);
+        const size_t base = 2 * (size_t)(rp + 2) * P * sizeof(float);
+        if (base > (size_t)kSmemMax) return none;
+        const size_t with_rhs = base + (size_t)rp * P * sizeof(float);
+        const bool s = with_rhs <= (size_t)kSmemMax;
+        return GridSlabPlan{rt, rp, (ny + rp - 1) / rp, s, s ? with_rhs : base};
+    }
+    return none;
+}
+
+// Block b's edge row of a sweep in the halo buffer, [2 parities][blocks]
+// [bottom, top] rows of P floats: sweep s writes parity s & 1 before its
+// grid barrier and reads it after, and s + 1 writes the other, so a
+// parity is written again only after the barrier that ends its readers.
+__device__ __forceinline__ float4* halo_at(float* halo, int par, int blocks, int b, int top,
+                                           int P, int gi0) {
+    return reinterpret_cast<float4*>(halo + ((size_t)(par * blocks + b) * 2 + top) * P + gi0);
+}
+
+// The max of a sweep over the grid, by the bits of floats >= 0 (or +NaN)
+// in A.slots as grid_max rotates them: slot s % 3 collects the blocks'
+// maxima, slot (s + 1) % 3 is cleared for the next sweep.
+__device__ __forceinline__ unsigned* slot_bits(const RoundsArgs& A, int s) {
+    return reinterpret_cast<unsigned*>(A.slots) + s % 3;
+}
+
+// cluster_solve (Jacobi, the exact exit) on block S.rank's slab of S.C
+// blocks, the same strip, folds, invariants and arithmetic; what differs
+// is how a sweep ends. Its edge rows go to the halo buffer in device
+// memory and the block's max (a warp reduction and one shared atomic,
+// one __syncthreads) into the rotating slot, then one grid-wide barrier;
+// after it every thread reads the sweep's max, and the threads at the
+// slab's edges the neighbours' edge rows (__ldcg) into the next buffer's
+// halo rows. The halo rows of cur hold the rows beside the slab when the
+// solve starts. The p' BCs then run on the slab's rows and its two halo
+// rows, from interior values only, so the halo rows hold what the
+// neighbours' BCs give their edge rows and no exchange follows.
+template <int RT, bool RHS_SMEM, bool CAVITY>
+__device__ float slab_solve(const RoundsArgs& A, Slab& S, cg::grid_group& grid, unsigned* cmax,
+                            float* halo, const float* arr, float*& cur, float*& other) {
+    const int ny = A.ny, nx = A.nx, P = S.P, n4 = P / 4, nrow = S.nrow;
+    const int t = threadIdx.x, lane = t & 31, g = t % n4, lr0 = RT * (t / n4);
+    const int gi0 = 4 * g;
+    const bool act = t < n4 * (kCThreads / n4) && lr0 < nrow;
+    const bool w_shfl = lane > 0 && g > 0, e_shfl = lane < 31 && g < n4 - 1;
+    const bool shared_cols = lane == 0 || lane == 31;  // read by the next warp
+    bool cin[4], zero[4], mir[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        cin[q] = gi0 + q >= 1 && gi0 + q <= nx - 2;
+        mir[q] = CAVITY && q > 0 && gi0 + q == nx - 1;
+        zero[q] = CAVITY ? gi0 + q >= nx || (q == 0 && gi0 == nx - 1) : gi0 + q >= nx - 1;
+    }
+    const bool e_self = CAVITY && gi0 + 3 == nx - 2;
+    unsigned tested = 0;
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+        const int lr = lr0 + r, j = S.r0 + lr;
+        if (lr >= nrow || j <= 1 || j >= ny - 2) tested |= 1u << r;
+    }
+    // the threads holding the slab's bottom and top rows
+    const bool dn_edge = act && lr0 == 0 && S.r0 > 0;
+    const bool up_edge = act && lr0 + RT == nrow && S.r0 + nrow < ny;
+
+    float4 val[RT];
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (act && lr0 + r < nrow) {
+            float4* at = reinterpret_cast<float4*>(row_of(S, cur, lr0 + r) + gi0);
+            v = *at;
+            if (g == 0) v.x = v.y;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                if (CAVITY ? zero[q] : gi0 + q == nx - 1) at4(v, q) = 0.0f;
+                if (mir[q]) at4(v, q) = at4(v, q - 1);
+            }
+            *at = v;
+        }
+        val[r] = v;
+    }
+    __syncthreads();
+
+    const unsigned lanes = __ballot_sync(0xffffffffu, act);
+    float err;
+    int it = 0;
+    do {
+        const int s = S.sweep, par = s & 1, s3 = s % 3;
+        if (t == 0) cmax[(s + 1) % 3] = 0u;
+        uint32_t mbits = 0;
+        if (act) {
+            float4 Sv = *reinterpret_cast<const float4*>(row_of(S, cur, lr0 - 1) + gi0);
+#pragma unroll
+            for (int r = 0; r < RT; ++r) {
+                const int lr = lr0 + r, j = S.r0 + lr;
+                float4 C = val[r];
+                const float4 Nr = (r + 1 < RT)
+                    ? val[r + 1 < RT ? r + 1 : r]
+                    : *reinterpret_cast<const float4*>(row_of(S, cur, lr + 1) + gi0);
+                float Wl = __shfl_up_sync(lanes, C.w, 1);
+                float Er = __shfl_down_sync(lanes, C.x, 1);
+                const float* crow = row_of(S, cur, lr);
+                if (!w_shfl) Wl = (g > 0) ? crow[gi0 - 1] : C.x;
+                if (!e_shfl) Er = (g < n4 - 1) ? crow[gi0 + 4] : C.w;
+                if (CAVITY && e_self) Er = C.w;
+                float4 R;
+                if (RHS_SMEM) {
+                    R = *reinterpret_cast<const float4*>(arr + (size_t)lr * P + gi0);
+                } else {
+                    const float* row = arr + (size_t)min(j, ny - 1) * nx;
+#pragma unroll
+                    for (int q = 0; q < 4; ++q)
+                        at4(R, q) = (gi0 + q < nx) ? A.ar * __ldcg(row + gi0 + q) : 0.0f;
+                }
+                float4 out;
+                if (!(tested & (1u << r))) {
+                    out.x = A.ax * (Wl + C.y) + A.ay * (Nr.x + Sv.x) + A.ac * C.x - R.x;
+                    out.y = A.ax * (C.x + C.z) + A.ay * (Nr.y + Sv.y) + A.ac * C.y - R.y;
+                    out.z = A.ax * (C.y + C.w) + A.ay * (Nr.z + Sv.z) + A.ac * C.z - R.z;
+                    out.w = A.ax * (C.z + Er) + A.ay * (Nr.w + Sv.w) + A.ac * C.w - R.w;
+#pragma unroll
+                    for (int q = 0; q < 4; ++q)
+                        if (zero[q]) at4(out, q) = 0.0f;
+                } else {
+                    const bool fn = j == ny - 2, fs = j == 1;
+                    const float4 N = make_float4(fn ? C.x : Nr.x, fn ? C.y : Nr.y,
+                                                 fn ? C.z : Nr.z, fn ? C.w : Nr.w);
+                    const float4 So = make_float4(fs ? C.x : Sv.x, fs ? C.y : Sv.y,
+                                                  fs ? C.z : Sv.z, fs ? C.w : Sv.w);
+                    float4 nv;
+                    nv.x = A.ax * (Wl + C.y) + A.ay * (N.x + So.x) + A.ac * C.x - R.x;
+                    nv.y = A.ax * (C.x + C.z) + A.ay * (N.y + So.y) + A.ac * C.y - R.y;
+                    nv.z = A.ax * (C.y + C.w) + A.ay * (N.z + So.z) + A.ac * C.z - R.z;
+                    nv.w = A.ax * (C.z + Er) + A.ay * (N.w + So.w) + A.ac * C.w - R.w;
+                    const bool row_in = lr < nrow && j >= 1 && j <= ny - 2;
+#pragma unroll
+                    for (int q = 0; q < 4; ++q)
+                        at4(out, q) = (row_in && cin[q]) ? at4(nv, q) : at4(C, q);
+                }
+                if (g == 0) out.x = out.y;
+                if constexpr (CAVITY) {
+#pragma unroll
+                    for (int q = 1; q < 4; ++q)
+                        if (mir[q]) at4(out, q) = at4(out, q - 1);
+                }
+                mbits = max(mbits, __float_as_uint(out.x - C.x) & 0x7fffffffu);
+                mbits = max(mbits, __float_as_uint(out.y - C.y) & 0x7fffffffu);
+                mbits = max(mbits, __float_as_uint(out.z - C.z) & 0x7fffffffu);
+                mbits = max(mbits, __float_as_uint(out.w - C.w) & 0x7fffffffu);
+                Sv = C;
+                val[r] = out;
+                if (r == 0 || r == RT - 1 || shared_cols)
+                    *reinterpret_cast<float4*>(row_of(S, other, lr) + gi0) = out;
+            }
+            if (dn_edge) __stcg(halo_at(halo, par, S.C, S.rank, 0, P, gi0), val[0]);
+            if (up_edge) __stcg(halo_at(halo, par, S.C, S.rank, 1, P, gi0), val[RT - 1]);
+        }
+        mbits = __reduce_max_sync(0xffffffffu, mbits);
+        if (lane == 0) atomicMax(cmax + s3, mbits);
+        __syncthreads();
+        if (t == 0) {
+            atomicMax(slot_bits(A, s), cmax[s3]);
+            if (S.rank == 0) *slot_bits(A, s + 1) = 0u;
+        }
+        grid.sync();  // also publishes the edge rows
+        err = __uint_as_float(__ldcg(slot_bits(A, s)));
+        if (dn_edge)
+            *reinterpret_cast<float4*>(row_of(S, other, -1) + gi0) =
+                __ldcg(halo_at(halo, par, S.C, S.rank - 1, 1, P, gi0));
+        if (up_edge)
+            *reinterpret_cast<float4*>(row_of(S, other, nrow) + gi0) =
+                __ldcg(halo_at(halo, par, S.C, S.rank + 1, 0, P, gi0));
+        ++S.sweep;
+        float* tmp = cur; cur = other; other = tmp;
+        ++it;
+    } while (it < A.iters && err >= A.tol);
+    // the strip whole into the last sweep's buffer
+    if (act) {
+#pragma unroll
+        for (int r = 0; r < RT; ++r)
+            if (r != 0 && r != RT - 1 && !shared_cols && lr0 + r < nrow)
+                *reinterpret_cast<float4*>(row_of(S, cur, lr0 + r) + gi0) = val[r];
+    }
+    __syncthreads();
+    // p' BCs on rows -1 .. nrow of the slab that lie in the grid, rows then
+    // columns, from interior values only (CAVITY: the right column from
+    // column nx-2, then the gauge cell (0, 0) 0); every row read is one
+    // of them.
+    const int lo = S.r0 > 0 ? -1 : 0, hi = nrow + (S.r0 + nrow < ny ? 1 : 0);
+    for (int q = t; q < (hi - lo) * nx; q += kCThreads) {
+        const int r = lo + q / nx, i = q % nx, j = S.r0 + r;
+        if (j >= 1 && j <= ny - 2 && i >= 1 && i <= nx - 2) continue;
+        float v = 0.0f;
+        if (CAVITY || i != nx - 1) {
+            const int ii = (i == 0) ? 1 : (CAVITY && i == nx - 1) ? nx - 2 : i;
+            const int jj = (j == 0) ? 1 : (j == ny - 1) ? ny - 2 : j;
+            v = row_of(S, cur, jj - S.r0)[ii];
+        }
+        if (CAVITY && i == 0 && j == 0) v = 0.0f;
+        row_of(S, cur, r)[i] = v;
+    }
+    __syncthreads();
+    return err;
+}
+
+// ops/corrector.py in place on (u, v, p), the slab's rows; the row below
+// the slab is its halo row. Ends with a grid barrier: the next divergence
+// reads v of the row above from the next slab.
+__device__ void slab_correct(const RoundsArgs& A, const Slab& S, cg::grid_group& grid,
+                             const float* pp, float dt) {
+    const int nx = A.nx;
+    for (int q = threadIdx.x; q < S.nrow * nx; q += kCThreads) {
+        const int r = q / nx, i = q - r * nx, j = S.r0 + r;
+        const float* row = row_of(S, pp, r);
+        const float ppk = row[i];
+        if (i >= 1) {
+            const size_t ku = (size_t)j * (nx + 1) + i;
+            A.u[ku] = __ldcg(A.u + ku) - dt * (ppk - row[i - 1]) / A.dx;
+        }
+        const size_t k = (size_t)j * nx + i;
+        if (j >= 1) A.v[k] = __ldcg(A.v + k) - dt * (ppk - row_of(S, pp, r - 1)[i]) / A.dy;
+        A.p[k] = __ldcg(A.p + k) + ppk;
+    }
+    grid.sync();
+}
+
+// RT, RHS_SMEM, CAVITY as the cluster form's. A cooperative launch of
+// grid_slab_plan's blocks, one an SM, all resident; block b owns the RP
+// rows from b RP. Its Slab holds rank b of C = the blocks, so
+// cluster.cuh's divergence and BCs, which read only the slab's rows,
+// run on it; its cluster handle is never used. `halo`: 4 * blocks * P
+// floats (halo_at).
+template <int RT, bool RHS_SMEM, bool CAVITY>
+__global__ void __launch_bounds__(kCThreads, 1) rounds_slab_kernel(RoundsArgs A, int RP,
+                                                                   float* halo) {
+    extern __shared__ __align__(16) float smem[];
+    __shared__ unsigned cmax[3];  // the block's max a sweep, in rotation
+    cg::grid_group grid = cg::this_grid();
+    const int ny = A.ny, nx = A.nx, tid = threadIdx.x, P = (nx + 3) & ~3;
+    const size_t buf = (size_t)(RP + 2) * P;
+    float* cur = smem;
+    float* other = smem + buf;
+    float* rb = smem + 2 * buf;  // ar * rhs, (RP, P) (RHS_SMEM)
+    Slab S{cg::this_cluster(), (int)blockIdx.x, (int)gridDim.x, RP, (int)blockIdx.x * RP, 0,
+           P, nullptr, nullptr, 0};
+    S.nrow = max(0, min(RP, ny - S.r0));
+    const int ncell = S.nrow * nx;
+    const float dt = A.scal[0], inlet = A.scal[1];
+    const size_t o = (size_t)S.r0 * nx, ou = (size_t)S.r0 * (nx + 1);
+    for (int q = tid; q < S.nrow * (nx + 1); q += kCThreads) A.u[ou + q] = A.us[ou + q];
+    for (int q = tid; q < S.nrow * P; q += kCThreads) {
+        const int r = q / P, i = q - r * P;
+        float pp = 0.0f, rr = 0.0f;  // the padding columns hold 0
+        if (i < nx) {
+            const size_t k = o + (size_t)r * nx + i;
+            A.v[k] = A.vs[k];
+            A.p[k] = A.p_in[k];
+            pp = A.pp0[k];
+            rr = A.ar * A.rhs0[k];
+        }
+        row_of(S, cur, r)[i] = pp;
+        row_of(S, other, r)[i] = pp;
+        if (RHS_SMEM) rb[q] = rr;
+    }
+    // the rows beside the slab, the first solve's halo rows
+    for (int q = tid; q < 2 * P; q += kCThreads) {
+        const int r = q < P ? -1 : S.nrow, i = q % P, j = S.r0 + r;
+        row_of(S, cur, r)[i] = (j >= 0 && j < ny && i < nx) ? A.pp0[(size_t)j * nx + i] : 0.0f;
+    }
+    if (tid < 3) cmax[tid] = 0u;
+    if (blockIdx.x == 0 && tid < 3) A.slots[tid] = 0.0f;
+    grid.sync();  // the slots cleared before any block's first max
+    float err = slab_solve<RT, RHS_SMEM, CAVITY>(A, S, grid, cmax, halo,
+                                                 RHS_SMEM ? rb : A.rhs0, cur, other);
+    slab_correct(A, S, grid, cur, dt);
+    int rounds_run = 0;
+    for (; rounds_run < A.rounds && err >= A.outer_tol; ++rounds_run) {
+        cluster_divergence<RHS_SMEM>(A, S, 0, rb, dt);
+        __syncthreads();  // the rhs, before another thread's sweep reads it
+        err = slab_solve<RT, RHS_SMEM, CAVITY>(A, S, grid, cmax, halo,
+                                               RHS_SMEM ? rb : A.rhs_w, cur, other);
+        slab_correct(A, S, grid, cur, dt);
+    }
+    for (int q = tid; q < ncell; q += kCThreads) {
+        const int r = q / nx, i = q - r * nx;
+        A.pp[o + q] = row_of(S, cur, r)[i];
+    }
+    cluster_bcs<CAVITY>(A, S, 0, other, A.in, inlet);
+    if (blockIdx.x == 0 && tid == 0) {
+        A.err_out[0] = err;
+        A.counts[0] = rounds_run;
+        A.counts[1] = S.sweep;
+    }
+}
+
+using SlabFn = void (*)(RoundsArgs, int, float*);
+
+template <bool CAVITY>
+SlabFn rounds_slab_instance(const GridSlabPlan& pl) {
+#define CFD_RT(R)                                                      \
+    case R:                                                            \
+        return pl.rhs_smem ? rounds_slab_kernel<R, true, CAVITY>       \
+                           : rounds_slab_kernel<R, false, CAVITY>;
+    switch (pl.rt) { CFD_RT(1) CFD_RT(2) CFD_RT(3) CFD_RT(4) CFD_RT(6) }
+#undef CFD_RT
+    return nullptr;
+}
+
 }  // namespace
 
 // One block per SM, all resident as the grid-wide barrier requires.
@@ -392,6 +739,41 @@ extern "C" int cfd_rounds_cluster(const float* us, const float* vs, const float*
     cudaLaunchConfig_t cfg = cluster_config(1, C, pl.smem, &attr);
     cfg.stream = (cudaStream_t)stream;
     e = cudaLaunchKernelEx(&cfg, fn, A, pl.rp);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+}
+
+// The slab form (the same arguments, then the card's SM count and the
+// halo buffer of halo_n floats): grid_slab_plan's blocks in one
+// cooperative launch (kernels/rounds.py routes here where no cluster
+// holds the grid and the plan fits). Fails (never falls back) if the
+// plan does not take the grid, the halo buffer is short or the card
+// refuses the launch.
+extern "C" int cfd_rounds_slab(const float* us, const float* vs, const float* p_in,
+                               const float* pp0, const float* rhs0, const float* scal,
+                               float* u, float* v, float* p, float* pp, float* pp_tmp,
+                               float* rhs_w, float* slots, float* err_out, int* counts,
+                               const uint8_t* mask_u_bc, const uint8_t* mask_v_bc,
+                               int ny, int nx, float dx, float dy, float ax, float ay,
+                               float ar, float ac, int iters, float tol, int rounds,
+                               float outer_tol, int parabolic, float center, float radius,
+                               int cavity, int sms, float* halo, long long halo_n,
+                               void* stream) {
+    RoundsArgs A{us, vs, p_in, pp0, rhs0, scal, u, v, p, pp, pp_tmp, rhs_w, slots,
+                 err_out, counts, ny, nx, dx, dy, ax, ay, ar, ac, iters, tol, rounds,
+                 outer_tol, mask_u_bc, mask_v_bc,
+                 Inlet{parabolic, cavity ? dx : dy, center, radius}};
+    const GridSlabPlan pl = grid_slab_plan(ny, nx, sms);
+    if (pl.rt == 0 || halo_n < 4LL * pl.blocks * ((nx + 3) & ~3))
+        return (int)cudaErrorInvalidValue;
+    const SlabFn fn = cavity ? rounds_slab_instance<true>(pl) : rounds_slab_instance<false>(pl);
+    cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kSmemMax);
+    if (e != cudaSuccess) return (int)e;
+    int rp = pl.rp;
+    void* args[] = {&A, &rp, &halo};
+    e = cudaLaunchCooperativeKernel((const void*)fn, dim3(pl.blocks), dim3(kCThreads), args,
+                                    pl.smem, (cudaStream_t)stream);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }

@@ -26,10 +26,14 @@ trees in one call on the card: A, B, B, A.
 
     python3 -m cfd_demo_tpu_torch.kernel_times --rounds-forms [--out FILE.json]
 
-times the rounds kernel's cluster and cooperative forms on the same
-inputs (the default scene's 30 x 10 channel at ROUNDS_SHAPES after 55
-steps), the measurement behind the cluster rule, and the cluster form
-at each C kernels/cluster.py may pick and at 16 CTAs,
+times the rounds kernel's cluster, slab and cooperative forms on the
+same inputs (the default scene's 30 x 10 channel at ROUNDS_SHAPES after
+55 steps), the measurement behind the cluster rule, and the cluster form
+at each C kernels/cluster.py may pick and at 16 CTAs; then the slab and
+cooperative forms in turns, A, B, B, A, on the grids no cluster holds
+(the 1024^2 cavity after 20 steps with the cavity app's
+constants, and chip_smoke.py's 1024x512 channel, every solve at its 40
+sweeps), each pair held to the same bits,
 
     python3 -m cfd_demo_tpu_torch.kernel_times --ensemble-forms [--out FILE.json]
 
@@ -381,22 +385,22 @@ ROUNDS_SHAPES = [(132, 400), (165, 500), (198, 600), (231, 700), (264, 800)]
 
 
 def rounds_form_times(dev) -> list:
-    """Both forms of the rounds kernel on the same inputs at each of
-    ROUNDS_SHAPES (the cluster form where the card takes it): ms a launch
-    and the sweeps it ran, median of 5 means of 5 launches each; where
-    the tree has kernels.cluster's plan, also the cluster form at each C
-    it may pick and at 16 CTAs (two idle at 800x264), each held to the
-    cooperative form's bits."""
+    """The forms of the rounds kernel on the same inputs at each of
+    ROUNDS_SHAPES (each form that takes the grid): ms a launch and the
+    sweeps it ran, median of 5 means of 5 launches each; where the tree
+    has kernels.cluster's plan, also the cluster form at each C it may
+    pick and at 16 CTAs (two idle at 800x264), each held to the
+    cooperative form's bits; then :func:`slab_form_times`."""
     out, g = [], tc.default_grid()
     for ny, nx in ROUNDS_SHAPES:
         scene = tc.make_scene(tc.Grid(nx=nx, ny=ny, lx=g.lx, ly=g.ly, obstacles=g.obstacles))
         state, _ = tc.make_run(scene, 55)(scene.init_state(dev))
         args = rounds_args(scene, state)
         row = {"shape": [ny, nx]}
-        for form in ("cluster", "cooperative"):
+        for form in ("cluster", "slab", "cooperative"):
             try:
                 counts = solve_correct_rounds(*args, form=form)[5].tolist()
-            except ValueError:  # the cluster form does not take the grid
+            except ValueError:  # the form does not take the grid, or the tree lacks it
                 continue
             row[form] = {"ms": median_ms(lambda: solve_correct_rounds(*args, form=form), 5),
                          "counts": counts}
@@ -416,6 +420,55 @@ def rounds_form_times(dev) -> list:
                 if not all(bool(torch.equal(x, y)) for x, y in zip(call(), coop)):
                     raise RuntimeError(f"rounds {ny}x{nx} at {c} CTAs changed the bits")
                 row["by_ctas"][str(c)] = median_ms(call, 5)
+        print(json.dumps(row), flush=True)
+        out.append(row)
+    return out + slab_form_times(dev)
+
+
+def _slab_states(dev):
+    """(label, rounds_args) of the grids no cluster holds: the 1024^2 cavity (the cavity
+    app's constants) after 20 steps, as chip_smoke.py's phase 3 holds
+    kernel 4 there; and chip_smoke.py's 1024x512 channel on seeded
+    fields, jacobi_iters 40 and 3 outer rounds, an rhs that runs every
+    sweep."""
+    from cfd_demo_tpu_torch.cells import cavity_scene
+    scene = cavity_scene(1024)
+    state, _ = tc.make_run(scene, 20)(scene.init_state(dev))
+    yield "1024^2 cavity", rounds_args(scene, state)
+    grid = tc.Grid(nx=1024, ny=512, lx=8.0, ly=4.0, obstacles=(tc.Cylinder(2.0, 2.0, 0.3),))
+    scene = tc.make_scene(grid, tc.SimulationParams(dt=0.002, viscosity=1e-4),
+                          tc.solver_options_for(tc.Semantics.RUST, jacobi_iters=40,
+                                                outer_corrector_rounds=3))
+    gen = torch.Generator().manual_seed(21)
+    mk = lambda *shape, scale=0.1: (scale * torch.randn(*shape, generator=gen)).to(dev)
+    u, v, p = mk(grid.ny, grid.nx + 1), mk(grid.ny, grid.nx), mk(grid.ny, grid.nx)
+    yield "1024x512", (u, v, p, torch.zeros_like(p), mk(grid.ny, grid.nx, scale=100.0),
+                       0.002, 1.0, scene)
+
+
+def slab_form_times(dev) -> list:
+    """The slab and cooperative forms of the rounds kernel on each state
+    of :func:`_slab_states`, the same bits and counts required, timed in
+    turns (slab, cooperative, cooperative, slab), each a median of 5 means
+    of 5 launches: ms a launch, µs a sweep, and the slab form's plan."""
+    from cfd_demo_tpu_torch.kernels.rounds import rounds_slab_plan
+    out = []
+    for label, args in _slab_states(dev):
+        g = args[-1].grid
+        calls = {form: (lambda form=form: solve_correct_rounds(*args, form=form))
+                 for form in ("slab", "cooperative")}
+        a, b = calls["slab"](), calls["cooperative"]()
+        if a[5].tolist() != b[5].tolist() or not all(
+                bool(torch.equal(x, y)) for x, y in zip(a, b)):
+            raise RuntimeError(f"rounds {label}: the slab and cooperative forms differ")
+        times = {"slab": [], "cooperative": []}
+        for form in ("slab", "cooperative", "cooperative", "slab"):
+            times[form].append(median_ms(calls[form], 5))
+        sweeps = a[5].tolist()[1]
+        row = {"state": label, "shape": [g.ny, g.nx], "counts": a[5].tolist(),
+               "plan": rounds_slab_plan(g.ny, g.nx, dev),
+               **{form: {"ms": t, "us_a_sweep": [1e3 * x / sweeps for x in t]}
+                  for form, t in times.items()}}
         print(json.dumps(row), flush=True)
         out.append(row)
     return out
@@ -913,7 +966,8 @@ def main() -> int:
     ap.add_argument("--tiles", action="store_true",
                     help="time jacobi_fused_k built with each tile of TILES instead")
     ap.add_argument("--rounds-forms", action="store_true",
-                    help="time the rounds kernel's two forms at ROUNDS_SHAPES instead")
+                    help="time the rounds kernel's forms at ROUNDS_SHAPES and on the grids "
+                         "no cluster holds instead")
     ap.add_argument("--ensemble-forms", action="store_true",
                     help="time kernels 12 and 20 in each form and C instead")
     ap.add_argument("--distinct-scenes", action="store_true",

@@ -30,6 +30,11 @@ where it finds none (a scene no cluster holds, or a card that admits no
 such cluster). A forced ``ctas`` may take any C that slab_plan splits
 the scene over. A launch or an admission query the card refuses raises,
 and never falls back to another form.
+
+The rounds kernel's slab form, for a grid no cluster holds, lays the
+same slabs over the whole card, one block an SM: :func:`grid_slab_plan`
+mirrors csrc/rounds.cu's, on the card's SM count (:func:`sm_count`,
+read once per device).
 """
 from __future__ import annotations
 
@@ -70,6 +75,43 @@ def slab_plan(ny: int, nx: int, ctas: int):
     if base > SMEM_BYTES:
         return None
     return rt, rp, base + rp * width * 4 <= SMEM_BYTES
+
+
+@functools.cache
+def grid_slab_plan(ny: int, nx: int, sms: int):
+    """(rows a thread, rows a block, blocks, ar * rhs in shared memory)
+    of the rounds kernel's slab form (csrc/rounds.cu ``grid_slab_plan``)
+    on a card of ``sms`` SMs, one block of 1024 threads an SM: the first
+    of SLAB_STRIPS whose row groups cover ceil(ny / sms) rows, slabs of
+    that rounded up to whole strips, as many blocks as the slabs, p'
+    twice with two halo rows in the shared memory and ar * rhs beside it
+    where that fits; None where the grid is beyond the form (nx > 1024,
+    or strips of 6 rows short of a block's rows)."""
+    if nx > MAX_COLS or ny < 3 or nx < 3 or sms < 1:
+        return None
+    n4 = -(-nx // 4)
+    groups, width = THREADS // n4, 4 * n4
+    rows = -(-ny // sms)
+    need = -(-rows // groups)
+    rt = next((r for r in SLAB_STRIPS if r >= need), None)
+    if rt is None:
+        return None
+    rp = rt * -(-rows // rt)
+    base = 2 * (rp + 2) * width * 4
+    if base > SMEM_BYTES:
+        return None
+    return rt, rp, -(-ny // rp), base + rp * width * 4 <= SMEM_BYTES
+
+
+def sm_count(device) -> int:
+    """The SMs of ``device``'s card, read once per device."""
+    device = torch.device(device)
+    return _sms(torch.cuda.current_device() if device.index is None else device.index)
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.cache

@@ -14,11 +14,11 @@ Phases, one line each; any failure raises and exits non-zero:
    whole field's jacobi_fused_k_shard_plain at k = 16 and at a k its
    sweeps a launch do not divide); 800x264 for the rounds kernel, on the
    state phase 4 ends at, where every step runs all its outer rounds, with
-   the same count of rounds and sweeps required, and its cluster and
-   cooperative forms against each other there and on the 400x132 JS state
-   (the same counts and bits), and the cooperative form, which the rule
+   the same count of rounds and sweeps required, and its cluster, slab
+   and cooperative forms against each other there and on the 400x132 JS
+   state (the same counts and bits), and the slab form, which the rule
    gives a 1024x512 grid, against the plain version there (the same
-   counts); on the 2048^2 production
+   counts) and the cooperative form (the same bits); on the 2048^2 production
    state after a few steps, the restrict and corr kernels at 2048^2 and
    the cc kernel on the 1023^2 level (with and without the residual);
    the res kernel on the 2047^2 production state; the FDM bottom
@@ -68,9 +68,9 @@ Phases, one line each; any failure raises and exits non-zero:
    parabolic lids) on the 2048^2 cavity fast state after 3 steps, kernel
    2 also bit for bit against the whole field's folded twin, each beside
    its channel instance's time on the same inputs; the rounds kernel's
-   cluster form on the 512^2 cavity after 20 steps (against its
-   cooperative form too) and its cooperative form on the 1024^2 cavity
-   after 20, the same rounds and sweeps as the plain version required;
+   cluster form on the 512^2 cavity after 20 steps and its slab form on
+   the 1024^2 cavity after 20, the same rounds and sweeps as the plain
+   version required, each against the other forms that take the grid;
    kernel 3's CAVITY instance's device time a launch (torch.profiler);
    the CAVITY instances of kernels 6-9, 18 and 19 (MG_PRODUCTION under
    the cavity, each a line of its own in the JSON line, beside its
@@ -146,8 +146,7 @@ Phases, one line each; any failure raises and exits non-zero:
    launches them, the rounds kernel in its cluster form on the 800x264
    and 400x132 JS runs, kernels 2-4, 6-9, 18 and 19 in their CAVITY
    instances on every cavity path and never on another (kernel 4's
-   cluster form at 512^2, 128^2 and 64^2, its cooperative form at
-   1024^2), and
+   cluster form at 512^2, 128^2 and 64^2, its slab form at 1024^2), and
    kernel 20 in its cluster form on the three ensemble runs (printing the
    CTAs a scene each took), the 8x800x264 run launching no other kernel.
 
@@ -195,7 +194,8 @@ from cfd_demo_tpu_torch.kernels.jacobi import (jacobi_fused_k, jacobi_fused_k_fo
                                                jacobi_fused_k_shard_plain, jacobi_tile)
 from cfd_demo_tpu_torch.kernels.jacobi_batch import (jacobi_batch, jacobi_batch_ctas,
                                                      jacobi_batch_plain)
-from cfd_demo_tpu_torch.kernels.rounds import (rounds_ctas, solve_correct_rounds,
+from cfd_demo_tpu_torch.kernels.rounds import (rounds_ctas, rounds_slab_plan,
+                                               solve_correct_rounds,
                                                solve_correct_rounds_plain)
 from cfd_demo_tpu_torch.kernels.substep import (correct_bc, correct_bc_plain,
                                                 correct_div, correct_div_plain,
@@ -281,8 +281,9 @@ KERNELS = {
                           "cfd_demo_tpu/kernels/sor_pallas.py:609", SOR_SH),
 }
 VERTEX = ("mg_residual_restrict", "mg_prolong_add")
-# The rounds kernel's launches in its cluster form (of its "launches").
-CLUSTER = "rounds_cluster"
+# The rounds kernel's launches in its cluster and slab forms (of its
+# "launches").
+CLUSTER, SLAB = "rounds_cluster", "rounds_slab"
 # Kernels 1 and 3's launches in their main-path forms (of their "launches").
 TILED, FUSED = "predict_div_tiled", "correct_bc_fused"
 # The launches of kernels 2-4, 6-9, 18 and 19's CAVITY instances (of their
@@ -302,7 +303,7 @@ CAVITY_LINES = {
     "mg_prolong_add cavity": ("mg_prolong_add", CAV_LEG),
     "mgp_smooth cavity": ("mgp_smooth", CAV_LEG),
 }
-FORM_OF = {TILED: "predict_div", FUSED: "correct_bc",
+FORM_OF = {TILED: "predict_div", FUSED: "correct_bc", SLAB: "rounds",
            **{form: kernel for kernel, form in CAVITY_OF.items()}}
 # The batched kernels' launches in their cluster form (of their "launches").
 BATCH_CLUSTER = {"substep_batch": "substep_batch_cluster",
@@ -335,11 +336,11 @@ PATHS = {
     REF_SH: ("predict_div", "jacobi_fused_k_shard"),
     FDM_SH: ("predict_div", "correct_bc"),
     # the cavity (BASELINE config 2): kernel 4 below 2M cells (the cluster
-    # form at 512^2, 128^2 and 64^2, the cooperative at 1024^2), kernels 1
+    # form at 512^2, 128^2 and 64^2, the slab form at 1024^2), kernels 1
     # and 2 on the fused route with outer rounds at 2048^2, and 1-3 on the
     # fast shape, each of 2-4 in its CAVITY instance
     CAV512: ("rounds", CLUSTER, CAVITY_OF["rounds"]),
-    CAV1024: ("rounds", CAVITY_OF["rounds"]),
+    CAV1024: ("rounds", SLAB, CAVITY_OF["rounds"]),
     CAV2048: ("predict_div", "jacobi_fused_k", CAVITY_OF["jacobi_fused_k"]),
     CAV_FAST: ("predict_div", "jacobi_fused_k", "correct_bc",
                CAVITY_OF["jacobi_fused_k"], CAVITY_OF["correct_bc"]),
@@ -616,12 +617,13 @@ def check_kernels(dev, results):
 
 
 def check_rounds_refused(dev, results):
-    """The rounds kernel's cooperative form where kernels.cluster's plan
-    gives the grid no cluster (1024 x 512 cells: past 16 CTAs' strips),
-    on seeded random fields (an rhs large enough that every solve runs its
+    """The rounds kernel's slab form where kernels.cluster's plan gives
+    the grid no cluster (1024 x 512 cells: past 16 CTAs' strips), on
+    seeded random fields (an rhs large enough that every solve runs its
     40 sweeps and all 3 outer rounds run), against the plain version: the
     same counts, u and v at the 800x264 check's bound, p and p' with the
-    mean difference removed."""
+    mean difference removed; and against the cooperative form, the same
+    bits and counts, both timed."""
     grid = tc.Grid(nx=1024, ny=512, lx=8.0, ly=4.0, obstacles=(tc.Cylinder(2.0, 2.0, 0.3),))
     require(rounds_ctas(grid.ny, grid.nx, dev) is None,
             "rounds: the plan takes the cluster form at 1024x512")
@@ -633,12 +635,14 @@ def check_rounds_refused(dev, results):
     u, v, p = mk(grid.ny, grid.nx + 1), mk(grid.ny, grid.nx), mk(grid.ny, grid.nx)
     args = (u, v, p, torch.zeros_like(p), mk(grid.ny, grid.nx, scale=100.0), 0.002, 1.0,
             scene)
-    n_cluster = solve_correct_rounds.cluster_launches
+    n_cluster, n_slab = solve_correct_rounds.cluster_launches, solve_correct_rounds.slab_launches
     got, ref = solve_correct_rounds(*args), solve_correct_rounds_plain(*args)
     require(solve_correct_rounds.cluster_launches == n_cluster,
             "rounds 1024x512: the cluster form was launched")
+    require(solve_correct_rounds.slab_launches == n_slab + 1,
+            "rounds 1024x512: the slab form was not launched")
     counts, ref_counts = got[5].tolist(), ref[5].tolist()
-    require(counts == ref_counts == [3, 160], f"rounds 1024x512: the cooperative form "
+    require(counts == ref_counts == [3, 160], f"rounds 1024x512: the slab form "
             f"ran {counts}, the plain version {ref_counts}, expected [3, 160]")
     demean = lambda a, b: a - (a - b).mean()
     errs = {"u": (max_abs(got[0], ref[0]), 5e-5 + 1e-4 * float(ref[0].abs().max())),
@@ -647,41 +651,52 @@ def check_rounds_refused(dev, results):
             "p'-mean": (max_abs(demean(got[3], ref[3]), ref[3]), scaled(ref[3], 1e-4))}
     for name, (d, tol) in errs.items():
         require(d <= tol, f"rounds 1024x512 {name}: max|diff| {d} > {tol}")
-    entry = {"rule": "cooperative", "counts": counts,
+    coop = solve_correct_rounds(*args, form="cooperative")
+    require(coop[5].tolist() == counts, f"rounds 1024x512: the cooperative form ran "
+            f"{coop[5].tolist()}, the slab form {counts}")
+    d = max(max_abs(a, b) for a, b in zip(coop[:5], got[:5]))
+    require(d == 0.0, f"rounds 1024x512: the slab and cooperative forms differ by {d}")
+    entry = {"rule": "slab", "counts": counts,
              "max_abs_err": max(d for d, _ in errs.values()),
              "ms": time_ms(lambda: solve_correct_rounds(*args), 5, warmup=1),
+             "cooperative_ms": time_ms(lambda: solve_correct_rounds(*args, form="cooperative"),
+                                       5, warmup=1),
              "plain_ms": time_ms(lambda: solve_correct_rounds_plain(*args), 3, warmup=1)}
     results["rounds"].setdefault("forms", {})["1024x512"] = entry
-    print(f"[3] rounds 1024x512 (the rule refuses the cluster form): the cooperative "
-          f"form ran {counts} as the plain version, max|diff| {entry['max_abs_err']:.3e}; "
-          f"{entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms", flush=True)
+    print(f"[3] rounds 1024x512 (the rule refuses the cluster form): the slab form ran "
+          f"{counts} as the plain version, max|diff| {entry['max_abs_err']:.3e}, the "
+          f"cooperative form's bits; {entry['ms']:.4f} ms, cooperative "
+          f"{entry['cooperative_ms']:.4f}, plain {entry['plain_ms']:.4f} ms", flush=True)
 
 
 def check_rounds_forms(args, got, label, results):
-    """The rounds kernel's other form on the same inputs as ``got`` (the
-    form kernels.cluster's plan names for the shape): the same counts and
-    the same bits in u, v, p, p' and err; both forms timed."""
+    """The rounds kernel's other forms on the same inputs as ``got`` (the
+    form the route takes for the shape): each form that takes the grid
+    (the cluster form where kernels.cluster's plan gives it a cluster,
+    the slab form where its plan fits the card, the cooperative form)
+    with the same counts and the same bits in u, v, p, p' and err; each
+    timed."""
     g = args[-1].grid
-    ctas = rounds_ctas(g.ny, g.nx, args[0].device,
-                       args[-1].params.flow_case == tc.FlowCase.CAVITY)
-    fits = ctas is not None
-    other = "cooperative" if fits else "cluster"
-    alt = solve_correct_rounds(*args, form=other)
-    require(alt[5].tolist() == got[5].tolist(),
-            f"rounds {label}: the {other} form ran {alt[5].tolist()}, the other "
-            f"{got[5].tolist()}")
-    d = max(max_abs(a, b) for a, b in zip(alt[:5], got[:5]))
-    require(d == 0.0, f"rounds {label}: the two forms differ by {d}")
+    dev = args[0].device
+    ctas = rounds_ctas(g.ny, g.nx, dev, args[-1].params.flow_case == tc.FlowCase.CAVITY)
+    slab = rounds_slab_plan(g.ny, g.nx, dev) is not None
+    rule = "cluster" if ctas is not None else "slab" if slab else "cooperative"
+    forms = [f for f, ok in (("cluster", ctas is not None), ("slab", slab),
+                             ("cooperative", True)) if ok]
+    for form in forms:
+        alt = solve_correct_rounds(*args, form=form)
+        require(alt[5].tolist() == got[5].tolist(),
+                f"rounds {label}: the {form} form ran {alt[5].tolist()}, the {rule} form "
+                f"{got[5].tolist()}")
+        d = max(max_abs(a, b) for a, b in zip(alt[:5], got[:5]))
+        require(d == 0.0, f"rounds {label}: the {form} and {rule} forms differ by {d}")
     times = {form: time_ms(lambda: solve_correct_rounds(*args, form=form), 5, warmup=1)
-             for form in ("cluster", "cooperative")}
+             for form in forms}
     entry = results["rounds"].setdefault("forms", {})
-    entry[label] = {"rule": "cluster" if fits else "cooperative",
-                    "ctas": ctas, **{f + "_ms": t
-                                                                 for f, t in times.items()}}
-    print(f"[3] rounds {label}: the cluster form ({entry[label]['ctas']} CTAs) and the "
-          f"cooperative form give the same bits and counts; cluster "
-          f"{times['cluster']:.4f} ms, cooperative {times['cooperative']:.4f} ms; the "
-          f"rule takes the {entry[label]['rule']} form", flush=True)
+    entry[label] = {"rule": rule, "ctas": ctas, **{f + "_ms": t for f, t in times.items()}}
+    print(f"[3] rounds {label}: the {', '.join(forms)} forms give the same bits and "
+          f"counts; " + ", ".join(f"{f} {t:.4f} ms" for f, t in times.items())
+          + f"; the rule takes the {rule} form", flush=True)
 
 
 def record(results, name, label, pairs, call, plain, bnd, n=20, n_plain=5):
@@ -805,10 +820,10 @@ def check_cavity_kernels(dev, results):
     BCs, and bit for bit against the whole field's folded twin at k = 16
     and at a k its sweeps a launch do not divide; kernel 3 with the
     UNIFORM and the parabolic lid. Kernel 4's cluster form on the 512^2
-    cavity (BASELINE config 2) after 20 steps, its cooperative form on
-    the 1024^2 one after 20, each fed what the rounds route feeds it, the
-    same rounds and sweeps as the plain version required, and the two
-    forms against each other where both apply."""
+    cavity (BASELINE config 2) after 20 steps, its slab form on the
+    1024^2 one after 20, each fed what the rounds route feeds it, the
+    same rounds and sweeps as the plain version required, and the forms
+    against each other where more than one applies."""
     scene = cavity_fast_scene()
     g, opts = scene.grid, scene.opts
     state, _ = tc.make_run(scene, 3)(scene.init_state(dev))
@@ -853,16 +868,19 @@ def check_cavity_kernels(dev, results):
         print(f"[3] correct_bc cavity {prof.value}: device {entry['device_us']:.2f} us a "
               f"launch, the channel instance {entry['channel_device_us']:.2f}", flush=True)
 
-    for n, steps, form in ((512, 20, "cluster"), (1024, 20, "cooperative")):
+    for n, steps, form in ((512, 20, "cluster"), (1024, 20, "slab")):
         scene = cavity_scene(n)
         state, _ = tc.make_run(scene, steps)(scene.init_state(dev))
         args = rounds_args(scene, state)
         fits = rounds_ctas(n, n, dev, True) is not None
         require(fits == (form == "cluster"), f"rounds cavity {n}^2: the plan takes the "
-                f"{'cluster' if fits else 'cooperative'} form, expected the {form} form")
-        n_cluster = solve_correct_rounds.cluster_launches
+                f"{'cluster' if fits else 'slab'} form, expected the {form} form")
+        n_cluster, n_slab = (solve_correct_rounds.cluster_launches,
+                             solve_correct_rounds.slab_launches)
         got, ref = solve_correct_rounds(*args), solve_correct_rounds_plain(*args)
-        require(solve_correct_rounds.cluster_launches - n_cluster == (form == "cluster"),
+        require((solve_correct_rounds.cluster_launches - n_cluster,
+                 solve_correct_rounds.slab_launches - n_slab)
+                == (int(form == "cluster"), int(form == "slab")),
                 f"rounds cavity {n}^2: the {form} form was not the one launched")
         counts, ref_counts = got[5].tolist(), ref[5].tolist()
         require(counts == ref_counts, f"rounds cavity {n}^2: the kernel ran {counts} "
@@ -881,8 +899,7 @@ def check_cavity_kernels(dev, results):
                       "us_a_sweep": 1e3 * entry["ms"] / counts[1]})
         print(f"[3] rounds cavity {n}^2: {counts[0]} outer rounds, {counts[1]} sweeps on "
               f"both sides ({form} form, {entry['us_a_sweep']:.3f} us a sweep)", flush=True)
-        if fits:
-            check_rounds_forms(args, got, f"cavity {n}^2", results)
+        check_rounds_forms(args, got, f"cavity {n}^2", results)
 
 
 def check_cavity_mgp_kernels(dev, results):
@@ -2479,6 +2496,7 @@ def reset_counts():
         wrapper.launches = 0
     for wrapper in (solve_correct_rounds, substep_batch, jacobi_batch, substep_batch_sor):
         wrapper.cluster_launches = 0
+    solve_correct_rounds.slab_launches = 0
     predict_div.tiled_launches = 0
     correct_bc.fused_launches = 0
     for kernel in CAVITY_OF:
@@ -2488,6 +2506,7 @@ def reset_counts():
 def read_counts():
     counts = {name: w.launches for name, (w, _, _, _) in KERNELS.items()}
     counts[CLUSTER] = solve_correct_rounds.cluster_launches
+    counts[SLAB] = solve_correct_rounds.slab_launches
     for name, key in BATCH_CLUSTER.items():
         counts[key] = KERNELS[name][0].cluster_launches
     counts[TILED] = predict_div.tiled_launches
@@ -2725,7 +2744,7 @@ def main() -> int:
                 f"expected {want}")
     # The cavity paths launch kernels 2-4, 6-9, 18 and 19 in their CAVITY
     # instances alone, the channel paths never; kernel 4 takes its cluster
-    # form at 512^2, 128^2 and 64^2, its cooperative form at 1024^2.
+    # form at 512^2, 128^2 and 64^2, its slab form at 1024^2.
     for path in PATHS:
         for kernel, key in CAVITY_OF.items():
             n, want = launches[path][key], launches[path][kernel]
@@ -2739,9 +2758,12 @@ def main() -> int:
         want = launches[path]["rounds"] if cluster else 0
         require(launches[path][CLUSTER] == want, f"the {path} run launched the rounds "
                 f"kernel's cluster form {launches[path][CLUSTER]} times, expected {want}")
+        want = launches[path]["rounds"] - want
+        require(launches[path][SLAB] == want, f"the {path} run launched the rounds "
+                f"kernel's slab form {launches[path][SLAB]} times, expected {want}")
     print(f"[8] the cavity paths launched kernels 2-4, 6-9, 18 and 19 in their CAVITY "
           f"instances only, kernel 4 in its cluster form at 512^2, 128^2 and 64^2 and its "
-          f"cooperative form at 1024^2; no channel path launched a CAVITY instance",
+          f"slab form at 1024^2; no channel path launched a CAVITY instance",
           flush=True)
     # Kernels 1 and 3 take their tiled and one-launch forms on every path
     # that launches them.

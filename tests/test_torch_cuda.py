@@ -1043,9 +1043,12 @@ def test_jacobi_chain_tiled_bit_for_bit(cuda, shape):
 
 
 def _rounds_state(which, cuda):
-    from cfd_demo_tpu_torch.cells import reference_scene, rounds_args
+    from cfd_demo_tpu_torch.cells import cavity_scene, reference_scene, rounds_args
     if which == "800x264":
         scene, steps = reference_scene(), 55
+        init = scene.init_state(cuda)
+    elif which == "1024^2 cavity":  # the cavity app's constants, as chip_smoke.py's phase 3
+        scene, steps = cavity_scene(1024), 20
         init = scene.init_state(cuda)
     else:  # the JS twin's grid, QUICK faces, the PARABOLIC inlet
         scene = tc.make_scene(tc.default_js_grid(), tc.SimulationParams(
@@ -1081,8 +1084,9 @@ def test_rounds_cluster_equals_cooperative(cuda, which):
 
 
 def test_rounds_cooperative_where_the_rule_refuses(cuda):
-    """A grid past the cluster form's capacity takes the cooperative
-    form, held against the plain version with the same counts."""
+    """A grid past the cluster form's capacity: the cooperative form held
+    against the plain version with the same counts, and the route's slab
+    form against the cooperative form bit for bit."""
     grid = tc.Grid(nx=1024, ny=512, lx=8.0, ly=4.0,
                    obstacles=(tc.Cylinder(2.0, 2.0, 0.3),))
     assert krounds.rounds_ctas(grid.ny, grid.nx, cuda) is None
@@ -1092,8 +1096,14 @@ def test_rounds_cooperative_where_the_rule_refuses(cuda):
     u, v, p, rhs = fields(21, grid, cuda, scale=0.1)
     args = (u, v, p, torch.zeros_like(p), 1000 * rhs)  # every solve runs its 40 sweeps
     n_cluster = krounds.solve_correct_rounds.cluster_launches
-    got = krounds.solve_correct_rounds(*args, 0.002, 1.0, scene)
+    n_slab = krounds.solve_correct_rounds.slab_launches
+    got = krounds.solve_correct_rounds(*args, 0.002, 1.0, scene, form="cooperative")
+    slab = krounds.solve_correct_rounds(*args, 0.002, 1.0, scene)
     assert krounds.solve_correct_rounds.cluster_launches == n_cluster
+    assert krounds.solve_correct_rounds.slab_launches == n_slab + 1
+    assert slab[5].tolist() == got[5].tolist()
+    for name, x, y in zip(("u", "v", "p", "pp", "err"), slab, got):
+        assert torch.equal(x, y), (name, float((x - y).abs().max()))
     ref = krounds.solve_correct_rounds_plain(*(a.cpu() for a in args), 0.002, 1.0, scene)
     for name, a, b in zip(("u", "v"), got, ref):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=5e-5, msg=name)
@@ -1107,6 +1117,82 @@ def test_rounds_cooperative_where_the_rule_refuses(cuda):
     assert got[5].tolist() == ref[5].tolist() == [3, 160]
     with pytest.raises(ValueError, match="cluster form"):
         krounds.solve_correct_rounds(*args, 0.002, 1.0, scene, form="cluster")
+
+
+@pytest.mark.parametrize("which", ["1024^2 cavity", "800x264", "400x132 js parabolic"])
+def test_rounds_slab_equals_cooperative(cuda, which):
+    """Kernel 4's slab form and its cooperative form on the same inputs:
+    the same counts, the same bits in u, v, p, p' and err. The call
+    without a form takes the slab form at 1024^2, where no cluster holds
+    the grid, and the cluster form at 800x264 and 400x132."""
+    args = _rounds_state(which, cuda)
+    g = args[-1].grid
+    b = krounds.solve_correct_rounds(*args, form="cooperative")
+    a = krounds.solve_correct_rounds(*args, form="slab")
+    assert a[5].tolist() == b[5].tolist()
+    for name, x, y in zip(("u", "v", "p", "pp", "err"), a, b):
+        assert torch.equal(x, y), (name, float((x - y).abs().max()))
+    launches = lambda: (krounds.solve_correct_rounds.cluster_launches,
+                        krounds.solve_correct_rounds.slab_launches)
+    before = launches()
+    c = krounds.solve_correct_rounds(*args)
+    slab = which == "1024^2 cavity"
+    assert launches() == (before[0] + (not slab), before[1] + slab)
+    assert torch.equal(c[3], b[3])
+    assert (krounds.rounds_ctas(g.ny, g.nx, cuda, slab) is None) is slab
+    assert krounds.rounds_slab_plan(g.ny, g.nx, cuda) is not None
+
+
+@pytest.mark.parametrize("cavity", [False, True], ids=["channel", "cavity"])
+@pytest.mark.parametrize("ny,nx", [
+    (1001, 1024),   # 2-row strips on 132 SMs, a last slab of one row
+    (1320, 1024),   # 3-row strips
+    (2000, 1024),   # 4-row strips
+    (3000, 1024),   # 6-row strips, rhs from L2
+    (130, 1023),    # one row a block, nx - 1 a multiple of 4
+    (300, 517),
+])
+def test_rounds_slab_plans(cuda, cavity, ny, nx):
+    """The slab form at strips of every height, with and without ar * rhs
+    on chip, and a short last slab: bit for bit the cooperative form,
+    the same counts, every solve at its 40 sweeps and all 3 outer rounds
+    (both tolerances 0)."""
+    plan = krounds.rounds_slab_plan(ny, nx, cuda)
+    assert plan is not None
+    opts = dict(jacobi_iters=40, outer_corrector_rounds=3, jacobi_tol=0.0,
+                outer_corrector_tol=0.0)
+    if cavity:
+        scene = _cavity_rounds_scene(ny, nx, 2, **opts)
+    else:
+        grid = tc.Grid(nx=nx, ny=ny, lx=3.0 * nx / ny, ly=3.0,
+                       obstacles=(tc.Cylinder(1.0, 1.5, 0.3),))
+        scene = tc.make_scene(grid, tc.SimulationParams(dt=0.002, viscosity=1e-4),
+                              tc.solver_options_for(RUST, **opts))
+    u, v, p, rhs = fields(ny + nx, scene.grid, cuda, scale=0.1)
+    pp0 = 0.01 * _cavity_pp(5, (ny, nx))[0].to(cuda) if cavity else torch.zeros_like(p)
+    args = (u, v, p, pp0, 1000 * rhs, 0.002, 1.0, scene)
+    b = krounds.solve_correct_rounds(*args, form="cooperative")
+    a = krounds.solve_correct_rounds(*args, form="slab")
+    assert a[5].tolist() == b[5].tolist() == [3, 160], plan
+    for name, x, y in zip(("u", "v", "p", "pp", "err"), a, b):
+        assert torch.equal(x, y), (plan, name, float((x - y).abs().max()))
+
+
+def test_rounds_slab_refused(cuda):
+    """The slab form asked for where its plan does not take the grid (more
+    than 1024 columns), or with a cluster's CTAs, raises before a launch."""
+    scene = _cavity_rounds_scene(24, 1100)
+    u, v, p, rhs = fields(3, scene.grid, cuda, scale=0.1)
+    n = krounds.solve_correct_rounds.launches
+    with pytest.raises(ValueError, match="slab form cannot take"):
+        krounds.solve_correct_rounds(u, v, p, torch.zeros_like(p), rhs, 0.002, 1.0, scene,
+                                     form="slab")
+    scene = _cavity_rounds_scene(24, 40)
+    u, v, p, rhs = fields(3, scene.grid, cuda, scale=0.1)
+    with pytest.raises(ValueError, match="slab form cannot take"):
+        krounds.solve_correct_rounds(u, v, p, torch.zeros_like(p), rhs, 0.002, 1.0, scene,
+                                     form="slab", ctas=1)
+    assert krounds.solve_correct_rounds.launches == n
 
 
 # ---------------------------------------------------------------------------
@@ -1327,11 +1413,11 @@ def _cavity_rounds_scene(ny, nx, cylinders=1, **opts):
 @pytest.mark.parametrize("shape,cylinders", [((24, 40), 1), ((24, 41), 2), ((24, 42), 1),
                                              ((24, 43), 3), ((37, 53), 2)])
 def test_rounds_cavity(cuda, shape, cylinders, schedule):
-    """Kernel 4's CAVITY instance in both forms against the plain version:
+    """Kernel 4's CAVITY instance in its forms against the plain version:
     the same outer rounds and sweeps, u and v at the channel form's bound,
     p and p' with the mean difference removed (the all-Neumann solve's
-    gauge); the cluster form at every C it can split the grid over and
-    the cooperative form bit for bit the same."""
+    gauge); the cluster form at every C it can split the grid over, the
+    slab form and the cooperative form bit for bit the same."""
     ny, nx = shape
     kw = {} if schedule == "exits" else {"jacobi_iters": 40, "outer_corrector_rounds": 3}
     scene = _cavity_rounds_scene(ny, nx, cylinders, **kw)
@@ -1351,12 +1437,13 @@ def test_rounds_cavity(cuda, shape, cylinders, schedule):
         assert float((d - d.mean()).abs().max()) <= 1e-4 * max(1.0, float(y.abs().max())), name
     assert float(b[3][0, 0]) == 0.0 and torch.equal(b[3][:, -1], b[3][:, -2])
     sizes = _cluster_sizes(ny, nx)
-    for ctas in sizes:
-        a = krounds.solve_correct_rounds(*args, 0.002, 1.0, scene, form="cluster", ctas=ctas)
+    for ctas in [*sizes, "slab"]:
+        kw = {"form": "slab"} if ctas == "slab" else {"form": "cluster", "ctas": ctas}
+        a = krounds.solve_correct_rounds(*args, 0.002, 1.0, scene, **kw)
         assert a[5].tolist() == b[5].tolist(), ctas
         for name, x, y in zip(("u", "v", "p", "pp", "err"), a, b):
             assert torch.equal(x, y), (ctas, name, float((x - y).abs().max()))
-    assert krounds.solve_correct_rounds.cavity_launches == n + 1 + len(sizes)
+    assert krounds.solve_correct_rounds.cavity_launches == n + 2 + len(sizes)
 
 
 @pytest.mark.parametrize("route", ["rounds", "fused", "fdm", "multigrid"])
