@@ -309,10 +309,8 @@ def _counts(*wrappers):
     return lambda: sum(w.launches for w in wrappers)
 
 
-TRACED = {"predict_div_kernel<": lambda: predict_div.launches - predict_div.tiled_launches,
-          "predict_div_tiled_kernel<": lambda: predict_div.tiled_launches,
-          "correct_bc_kernel(": lambda: correct_bc.launches - correct_bc.fused_launches,
-          "correct_bc_fused_kernel<": lambda: correct_bc.fused_launches,
+TRACED = {"predict_div_tiled_kernel<": _counts(predict_div),
+          "correct_bc_fused_kernel<": _counts(correct_bc),
           "correct_div_kernel(": _counts(correct_div),
           "rounds_kernel<": lambda: (solve_correct_rounds.launches
                                      - solve_correct_rounds.cluster_launches

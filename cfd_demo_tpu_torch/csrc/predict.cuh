@@ -173,8 +173,7 @@ __device__ float vstar_at(const PredArgs& A, const L& ld_, float dt, float nu, i
     return vC + dt * (-conv + nu * lap);
 }
 
-// The faces read from device memory (predict_div.cu's pointwise kernel,
-// ensemble.cu).
+// The faces read from device memory (ensemble.cu).
 template <int S, bool AVG>
 __device__ __forceinline__ float ustar_at(const PredArgs& A, float dt, float nu, int j, int i) {
     return ustar_at<S, AVG>(A, GlobalLd{A}, dt, nu, j, i);

@@ -5,9 +5,6 @@
 // (Rust's unaveraged or JS's averaged convecting v), on the whole field or
 // on a row block of a sharded one at a global row offset. See
 // kernels/substep.py for the design note.
-//
-// Two forms, the same bits: the tiled kernel (the main path) and the
-// pointwise kernel it replaced, kept to hold it against.
 #include "predict.cuh"
 
 namespace {
@@ -70,7 +67,7 @@ struct TileLd {
 // shared memory (every load of a thread issued before the first store);
 // compute the tile's kTY x (kTX + 1) u* faces and (kTY + 1) x kTX v*
 // faces once each, into shared memory, writing the owned ones out; then
-// rhs from shared memory in the pointwise kernel's order of operations.
+// rhs from shared memory in ops/divergence.py's order of operations.
 // An interior tile (GENERIC) loads with no bounds tests and its faces
 // take no row or column test: the plan gives it only where none could
 // fire.
@@ -189,37 +186,11 @@ __global__ void __launch_bounds__(kPThreads) predict_div_tiled_kernel(PredArgs A
         tile_body<S, AVG, false>(A, su, sv, smu, smv, sus, svs);
 }
 
-// The pointwise form: one thread per (j, i) of the (ny, nx+1) index
-// space. rhs(j, i) needs u*(j, i+1) and v*(j+1, i): the thread recomputes
-// both, so every face is computed twice.
-template <int S, bool AVG>
-__global__ void predict_div_kernel(PredArgs A) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    const int j = blockIdx.y * blockDim.y + threadIdx.y;
-    if (j >= A.ny || i > A.nx) return;
-    const float dt = A.scal[0], nu = A.scal[1];
-    const float us = ustar_at<S, AVG>(A, dt, nu, j, i);
-    A.u_star[(size_t)j * (A.nx + 1) + i] = us;
-    if (i == A.nx) return;
-    const float vs = vstar_at<S>(A, dt, nu, j, i);
-    const size_t k = (size_t)j * A.nx + i;
-    A.v_star[k] = vs;
-    const float du = (ustar_at<S, AVG>(A, dt, nu, j, i + 1) - us) / A.dx;
-    const float dv = (vstar_at<S>(A, dt, nu, j + 1, i) - vs) / A.dy;
-    A.rhs[k] = (du + dv) / dt;
-}
-
 template <int S, bool AVG>
 void launch(const PredArgs& A, const int* fast, cudaStream_t st) {
-    if (fast == nullptr) {
-        dim3 block(32, 8);
-        dim3 grid((A.nx + 1 + block.x - 1) / block.x, (A.ny + block.y - 1) / block.y);
-        predict_div_kernel<S, AVG><<<grid, block, 0, st>>>(A);
-    } else {
-        dim3 grid((A.nx + kTX - 1) / kTX, (A.ny + kTY - 1) / kTY);
-        predict_div_tiled_kernel<S, AVG>
-            <<<grid, kPThreads, 0, st>>>(A, fast[0], fast[1], fast[2], fast[3]);
-    }
+    dim3 grid((A.nx + kTX - 1) / kTX, (A.ny + kTY - 1) / kTY);
+    predict_div_tiled_kernel<S, AVG>
+        <<<grid, kPThreads, 0, st>>>(A, fast[0], fast[1], fast[2], fast[3]);
 }
 
 int dispatch(const PredArgs& A, int scheme, int avg, const int* fast, cudaStream_t st) {
@@ -240,18 +211,7 @@ int dispatch(const PredArgs& A, int scheme, int avg, const int* fast, cudaStream
 // scheme: 0 FIRST, 1 SECOND, 2 QUICK; avg: 1 for JS's averaged convecting v.
 // The arrays hold ny rows, global rows [row_off, row_off + ny) of a
 // gny-row grid (row_off = 0, gny = ny: the whole field); the masks hold
-// the whole grid. The pointwise form.
-extern "C" int cfd_predict_div(const float* u, const float* v, const float* scal,
-                               float* u_star, float* v_star, float* rhs,
-                               const uint8_t* mask_u, const uint8_t* mask_v,
-                               int ny, int nx, int row_off, int gny, float dx, float dy,
-                               float dx2, float dy2, int scheme, int avg, void* stream) {
-    PredArgs A{u, v, scal, u_star, v_star, rhs, mask_u, mask_v, ny, nx, row_off, gny,
-               dx, dy, dx2, dy2};
-    return dispatch(A, scheme, avg, nullptr, (cudaStream_t)stream);
-}
-
-// The tiled form, the same arguments and the plan's (kernels/substep.py
+// the whole grid. The plan's arguments (kernels/substep.py
 // predict_tile_plan): its tile (rows, cols), which must be this file's,
 // and its interior tiles [fy0, fy1) x [fx0, fx1).
 extern "C" int cfd_predict_div_tiled(const float* u, const float* v, const float* scal,

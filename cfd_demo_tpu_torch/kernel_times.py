@@ -72,15 +72,14 @@ has CAVITY instances of kernels 6-9, 18 and 19 they are timed too,
 
     python3 -m cfd_demo_tpu_torch.kernel_times --substep-forms [--out FILE.json]
 
-times kernels 1 and 3 in both forms (tiled and pointwise predict_div,
-one-launch and pointwise correct_bc) on chip_smoke.py's 2048² states,
-every instance the main paths run, in turns and with repeats (kernel 3
-varies between launch sets), by CUDA events and by torch.profiler's
-device time, each pair held to the same bits; predict_div also on
-seeded random fields (no exact zeros, so every division runs); and
-predict_div.cu and correct_bc.cu rebuilt for each candidate tile and
-strip length (PREDICT_TILES, STRIP_ROWS), each held to the built
-library's bits,
+times kernels 1 and 3 on chip_smoke.py's 2048² states, every instance
+the main paths run, with repeats (kernel 3 varies between launch sets),
+by CUDA events and by torch.profiler's device time, beside the plain
+version, each held to the plain version's bits as the CPU computes
+them; predict_div also on seeded random fields (no exact zeros, so
+every division runs); and predict_div.cu and correct_bc.cu rebuilt for
+each candidate tile and strip length (PREDICT_TILES, STRIP_ROWS), each
+held to the built library's bits,
 
     python3 -m cfd_demo_tpu_torch.kernel_times --step-rates [--out FILE.json]
 
@@ -328,8 +327,6 @@ def ensemble_form_times(dev) -> list:
     means of 5; kernel 12: of 20) and µs an exchange (a Jacobi sweep, or
     an SOR iteration's two halves) of the scene that runs the most."""
     from cfd_demo_tpu_torch.kernels import cluster as kcl
-    from cfd_demo_tpu_torch.kernels.ensemble import substep_batch_ctas
-    from cfd_demo_tpu_torch.kernels.jacobi_batch import jacobi_batch_ctas
 
     def same(a, b):
         return all(bool(torch.equal(x, y)) for x, y in zip(a, b))
@@ -341,7 +338,7 @@ def ensemble_form_times(dev) -> list:
         parent = substep_batch(*args, form="block")
         iters = int(parent[5][:, 1].max())
         row = {"kernel": name, "shape": [batch, g.ny, g.nx],
-               "pick": substep_batch_ctas(batch, g.ny, g.nx, dev, sor),
+               "pick": kcl.plan("substep_batch", batch, g.ny, g.nx, dev, sor=sor).ctas,
                "admitted": kcl.admitted_clusters("cfd_substep_batch_cluster_admit", dev,
                                                  g.ny, g.nx, int(sor)),
                "iterations": iters, "forms": {}}
@@ -361,7 +358,7 @@ def ensemble_form_times(dev) -> list:
     parent = jacobi_batch(*jargs, form="cooperative")
     sweeps = int(parent[2].max())
     row = {"kernel": "jacobi_batch", "shape": list(jargs[0].shape),
-           "pick": jacobi_batch_ctas(8, ny, nx, dev),
+           "pick": kcl.plan("jacobi_batch", 8, ny, nx, dev).ctas,
            "admitted": kcl.admitted_clusters("cfd_jacobi_batch_cluster_admit", dev, ny, nx),
            "iterations": sweeps, "forms": {}}
     calls = {"cooperative": lambda: jacobi_batch(*jargs, form="cooperative")}
@@ -406,11 +403,10 @@ def rounds_form_times(dev) -> list:
                          "counts": counts}
         try:
             from cfd_demo_tpu_torch.kernels import cluster as kcl
-            from cfd_demo_tpu_torch.kernels.rounds import rounds_ctas
         except ImportError:  # a tree before the shared plan
             kcl = None
         if kcl is not None and "cluster" in row:
-            row["pick"] = rounds_ctas(ny, nx, dev)
+            row["pick"] = kcl.plan("rounds", 1, ny, nx, dev).ctas
             coop = solve_correct_rounds(*args, form="cooperative")
             row["by_ctas"] = {}
             for c in sorted({*kcl.candidates(ny, nx), 16}):
@@ -451,7 +447,7 @@ def slab_form_times(dev) -> list:
     of :func:`_slab_states`, the same bits and counts required, timed in
     turns (slab, cooperative, cooperative, slab), each a median of 5 means
     of 5 launches: ms a launch, µs a sweep, and the slab form's plan."""
-    from cfd_demo_tpu_torch.kernels.rounds import rounds_slab_plan
+    from cfd_demo_tpu_torch.kernels.cluster import plan
     out = []
     for label, args in _slab_states(dev):
         g = args[-1].grid
@@ -466,7 +462,7 @@ def slab_form_times(dev) -> list:
             times[form].append(median_ms(calls[form], 5))
         sweeps = a[5].tolist()[1]
         row = {"state": label, "shape": [g.ny, g.nx], "counts": a[5].tolist(),
-               "plan": rounds_slab_plan(g.ny, g.nx, dev),
+               "plan": plan("rounds", 1, g.ny, g.nx, dev).slab,
                **{form: {"ms": t, "us_a_sweep": [1e3 * x / sweeps for x in t]}
                   for form, t in times.items()}}
         print(json.dumps(row), flush=True)
@@ -672,9 +668,8 @@ def _pair_times(calls: dict, n: int = SUBSTEP_REPEATS) -> dict:
     """Each of ``calls`` (name -> fn) timed in turns, n rounds of a mean of
     CALLS launches by CUDA events: {name: {"ms": median, "ms_range":
     [min, max], "device_us": the device time a call spends in kernels 1
-    and 3 (both launches of correct_bc's pointwise form), torch.profiler;
-    "host_us": the host's time a call}}. Where a call's host time exceeds
-    its device time, the events time the host."""
+    and 3, torch.profiler; "host_us": the host's time a call}}. Where a
+    call's host time exceeds its device time, the events time the host."""
     for fn in calls.values():
         fn()
     torch.cuda.synchronize()
@@ -683,54 +678,22 @@ def _pair_times(calls: dict, n: int = SUBSTEP_REPEATS) -> dict:
         for name, fn in calls.items():
             rounds[name].append(_mean_ms(fn, CALLS))
     return {name: {"ms": statistics.median(t), "ms_range": [min(t), max(t)],
-                   "device_us": _device_sum_us(calls[name], 20,
-                                               ("predict_div", "correct_bc", "reduce3")),
+                   "device_us": _device_sum_us(calls[name], 20, ("predict_div", "correct_bc")),
                    "host_us": _host_us(calls[name])}
             for name, t in rounds.items()}
 
 
-def row_offset_forms(out: dict, scene, state) -> None:
-    """Kernels 1 and 3's forms at a row offset, as chip_smoke.py's phase 3
-    and the sharded step give them: shard 2 of 4 of the 2048² fast state
-    with an 8-row halo (528 rows from global row 1016, 512 owned)."""
-    g, opts = scene.grid, scene.opts
-    sch, sem = scene.params.velocity_scheme, opts.semantics
-    off, rows, halo = 1016, 528, 8
-    blk = lambda x: x[off:off + rows].contiguous()
-    u, v, dt, nu = blk(state.u), blk(state.v), state.dt, state.nu
-    calls = {form: (lambda form=form: predict_div(u, v, dt, nu, g, sch, sem,
-                                                  row_offset=off, form=form))
-             for form in ("tiled", "pointwise")}
-    if not all(bool(torch.equal(a, b)) for a, b in zip(calls["tiled"](), calls["pointwise"]())):
-        raise RuntimeError("predict_div row_offset: the forms differ")
-    out["predict_div"]["row_offset"] = _pair_times(calls)
-    print(json.dumps({"predict_div": "row_offset", **out["predict_div"]["row_offset"]}),
-          flush=True)
-    us, vs, _ = calls["tiled"]()
-    args = (us, vs, blk(state.p), blk(state.p_prime), u, v, dt, ramped_inlet(opts, state), g,
-            scene.params.inlet_profile, scene.params.flow_case, sem)
-    kw = dict(row_offset=off, own_rows=(halo, rows - halo))
-    calls = {form: (lambda form=form: correct_bc(*args, **kw, form=form))
-             for form in ("fused", "pointwise")}
-    if not all(bool(torch.equal(a, b)) for a, b in zip(calls["fused"](), calls["pointwise"]())):
-        raise RuntimeError("correct_bc row_offset: the forms differ")
-    out["correct_bc"]["row_offset"] = _pair_times(calls)
-    print(json.dumps({"correct_bc": "row_offset", **out["correct_bc"]["row_offset"]}),
-          flush=True)
-
-
 def substep_form_times(dev) -> dict:
-    """Kernels 1 and 3 in both forms on chip_smoke.py's states: predict_div
-    (tiled, pointwise) with Rust FIRST on the 2048² fast state after 3
-    steps and SECOND/QUICK x Rust/JS on the 2048² JS QUICK state after 3
-    steps, and with Rust FIRST on seeded random fields (no zeros);
-    correct_bc (fused, pointwise) with UNIFORM on the fast state and
-    PARABOLIC, PARABOLIC_UPPER on the JS QUICK state; both at a row offset
-    (:func:`row_offset_forms`). Each pair must give
-    the same bits and is timed in turns (SUBSTEP_REPEATS rounds). Then
-    every tile of PREDICT_TILES and strip length of STRIP_ROWS, rebuilt,
-    on the fast state (Rust FIRST, UNIFORM), each held to the built
-    library's bits."""
+    """Kernels 1 and 3 on chip_smoke.py's states, each held to its plain
+    version's bits as the CPU computes them and timed beside the plain
+    version on the card (SUBSTEP_REPEATS rounds; the plain version's
+    median of 5 means of 5): predict_div with Rust FIRST on the 2048²
+    fast state after 3 steps and SECOND/QUICK x Rust/JS on the 2048² JS
+    QUICK state after 3 steps, and with Rust FIRST on seeded random
+    fields (no zeros); correct_bc with UNIFORM on the fast state and
+    PARABOLIC, PARABOLIC_UPPER on the JS QUICK state. Then every tile of
+    PREDICT_TILES and strip length of STRIP_ROWS, rebuilt, on the fast
+    state (Rust FIRST, UNIFORM), each held to the built library's bits."""
     import concurrent.futures as cf
     import ctypes
     from cfd_demo_tpu_torch.cells import js_quick_scene
@@ -739,6 +702,17 @@ def substep_form_times(dev) -> dict:
 
     def same(a, b):
         return all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+
+    def held(name, call, plain, *args):
+        """Time ``call`` beside ``plain`` once it gives the bits of
+        ``plain`` on CPU copies of ``args``."""
+        on_cpu = [x.cpu() if isinstance(x, torch.Tensor) else x for x in args]
+        if not same([x.cpu() for x in call()], plain(*on_cpu)):
+            raise RuntimeError(f"{name}: the kernel differs from the plain version")
+        row = {**_pair_times({"kernel": call})["kernel"],
+               "plain_ms": median_ms(lambda: plain(*args), 5)}
+        print(json.dumps({name: row}), flush=True)
+        return row
 
     out = {"predict_div": {}, "correct_bc": {}}
     states = {}
@@ -758,29 +732,19 @@ def substep_form_times(dev) -> dict:
             insts.append((scene.params.velocity_scheme, opts.semantics, " random"))
         for sch, sem, tag in insts:
             a, b = (rnd if tag else (u, v))
-            calls = {form: (lambda form=form, a=a, b=b: predict_div(
-                         a, b, dt, nu, g, sch, sem, form=form))
-                     for form in ("tiled", "pointwise")}
-            if not same(calls["tiled"](), calls["pointwise"]()):
-                raise RuntimeError(f"predict_div {sem.value} {sch.value}{tag}: the forms differ")
-            row = _pair_times(calls)
-            out["predict_div"][f"{sem.value} {sch.value}{tag}"] = row
-            print(json.dumps({"predict_div": f"{sem.value} {sch.value}{tag}", **row}), flush=True)
+            args = (a, b, dt, nu, g, sch, sem)
+            out["predict_div"][f"{sem.value} {sch.value}{tag}"] = held(
+                f"predict_div {sem.value} {sch.value}{tag}",
+                lambda args=args: predict_div(*args), ksub.predict_div_plain, *args)
         us, vs, _ = predict_div(u, v, dt, nu, g, scene.params.velocity_scheme, opts.semantics)
         profiles = ((scene.params.inlet_profile,) if mk is fast_scene
                     else (tc.InletProfile.PARABOLIC, tc.InletProfile.PARABOLIC_UPPER))
         for prof in profiles:
             args = (us, vs, state.p, state.p_prime, u, v, dt, ramped_inlet(opts, state), g,
                     prof, scene.params.flow_case, opts.semantics)
-            calls = {form: (lambda form=form: correct_bc(*args, form=form))
-                     for form in ("fused", "pointwise")}
-            if not same(calls["fused"](), calls["pointwise"]()):
-                raise RuntimeError(f"correct_bc {prof.value}: the forms differ")
-            row = _pair_times(calls)
-            out["correct_bc"][prof.value] = row
-            print(json.dumps({"correct_bc": prof.value, **row}), flush=True)
-        if mk is fast_scene:  # the row-offset forms on a sharded step's block
-            row_offset_forms(out, scene, state)
+            out["correct_bc"][prof.value] = held(
+                f"correct_bc {prof.value}", lambda args=args: correct_bc(*args),
+                ksub.correct_bc_plain, *args)
 
     # the candidate shapes, each rebuilt from csrc/
     def build(tag, src, defines):
@@ -902,9 +866,7 @@ def step_rates(dev) -> dict:
 # Kernels 1 and 3 in the built library: (name in the SASS, cells or
 # faces a thread covers, bodies: the tiled kernel holds an interior and
 # a boundary copy of its tile's code).
-SUBSTEP_KERNELS = {"predict_div_kernel": ("pointwise", 1, 1),
-                   "predict_div_tiled_kernel": ("tiled", None, 2),
-                   "correct_bc_kernel": ("pointwise", 1, 1),
+SUBSTEP_KERNELS = {"predict_div_tiled_kernel": ("tiled", None, 2),
                    "correct_bc_fused_kernel": ("fused", None, 1)}
 
 
@@ -928,8 +890,8 @@ def substep_sass_rows() -> list:
     out = []
     for block in sass.split("Function : ")[1:]:
         name = block.split("\n", 1)[0].strip()
-        kernel = re.search(r"(predict_div_kernel|predict_div_tiled_kernel|correct_bc_kernel|"
-                           r"correct_bc_fused_kernel)(I\w*?E)?(?:EvNS|ENS)", name)
+        kernel = re.search(r"(predict_div_tiled_kernel|correct_bc_fused_kernel)(I\w*?E)?"
+                           r"(?:EvNS|ENS)", name)
         if kernel is None:
             continue
         form, per_thread, bodies = SUBSTEP_KERNELS[kernel.group(1)]
@@ -980,8 +942,8 @@ def main() -> int:
     ap.add_argument("--step-rates", action="store_true",
                     help="the 2048^2 fast and JS quick rates and host cost a step instead")
     ap.add_argument("--substep-forms", action="store_true",
-                    help="time kernels 1 and 3 in both forms, and their candidate tiles, "
-                         "instead")
+                    help="time kernels 1 and 3 beside their plain versions, and their "
+                         "candidate tiles, instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_times: needs a CUDA device")

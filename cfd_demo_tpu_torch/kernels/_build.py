@@ -48,14 +48,11 @@ F = ctypes.c_float
 _ROUNDS = [P] * 17 + [I, I, F, F, F, F, F, F, I, F, I, F, I, F, F, I, P]
 # (name, argtypes) of every C entry point; all return int.
 _SIGNATURES = {
-    "cfd_predict_div": [P] * 8 + [I] * 4 + [F] * 4 + [I, I, P],
     "cfd_predict_div_tiled": [P] * 8 + [I] * 4 + [F] * 4 + [I] * 8 + [P],
     "cfd_jacobi_partials": [I, I],
     "cfd_jacobi_fused_k": [P] * 5 + [I] * 3 + [F] * 4 + [I, P],
     "cfd_jacobi_tile": [P],
     "cfd_jacobi_fused_k_shard": [P] * 6 + [I] * 11 + [F] * 4 + [P],
-    "cfd_correct_bc_partials": [I, I],
-    "cfd_correct_bc": [P] * 14 + [I] * 6 + [F, F, I, F, F, P],
     "cfd_correct_bc_fused_partials": [I, I],
     "cfd_correct_bc_fused": [P] * 15 + [I] * 6 + [F, F, I, F, F, I, P],
     "cfd_correct_div": [P] * 9 + [I, I, F, F, P],

@@ -24,20 +24,24 @@ two waves, and still the fastest), one 800x264 scene (the rounds kernel)
 14 as well, 16 scenes of 256x96 take 6 and 64 take 2, each batch in one
 wave.
 
-The route is chosen before the launch: the cluster form where
-:func:`pick_ctas` finds a C the card admits, the kernel's other form
-where it finds none (a scene no cluster holds, or a card that admits no
-such cluster). A forced ``ctas`` may take any C that slab_plan splits
-the scene over. A launch or an admission query the card refuses raises,
-and never falls back to another form.
-
 The rounds kernel's slab form, for a grid no cluster holds, lays the
 same slabs over the whole card, one block an SM: :func:`grid_slab_plan`
 mirrors csrc/rounds.cu's, on the card's SM count (:func:`sm_count`,
 read once per device).
+
+:func:`plan` decides the form of each launch of the three kernels, and
+is the only code that does: it asks the card for its admission and its
+SM count, applies the gates (:func:`cluster_fits`, :func:`grid_slab_plan`
+and kernel 20's :func:`block_fits`), and checks a caller's ``form`` or
+``ctas`` override. The wrappers make one call to it before a launch and
+branch on the form it returns; kernel 20's route test
+(kernels.ensemble ``substep_batch_takes``) asks whether it returns one.
+The choice is made before the launch: a launch or an admission query the
+card refuses raises, and never falls back to another form.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -51,6 +55,10 @@ CTAS = tuple(range(1, MAX_CLUSTER + 1))
 # round trip) against ~0.54 µs a row of 4 cells, kernel 4's cluster form
 # on an NVIDIA H100 80GB HBM3, 700 W (PERF.md).
 EXCHANGE_ROWS = 2.6
+# Kernel 20's block form: shared memory one block may opt in to on the
+# H100 (227 KB), and the kernel's 33-float reduction scratch.
+SMEM_OPTIN_BYTES = 232_448
+BLOCK_SMEM_STATIC = 33 * 4
 
 
 @functools.cache
@@ -176,48 +184,112 @@ def _admitted(entry, index, ny, nx, extra) -> dict:
     return out
 
 
-@functools.cache
 def pick_ctas(entry: str, batch: int, ny: int, nx: int, device, *extra):
-    """:func:`cluster_ctas` on the card's own admission, kept per entry,
-    device, batch and shape (a launch's host cost otherwise): the CTAs a
-    scene the cluster form takes, or
-    None where it takes no cluster (the kernel's other form then runs).
-    Asks the card nothing for a scene no cluster holds."""
+    """:func:`cluster_ctas` on the card's own admission: the CTAs a scene
+    the cluster form takes, or None where it takes no cluster (the
+    kernel's other form then runs). Asks the card nothing for a scene no
+    cluster holds."""
     if not cluster_fits(ny, nx):
         return None
     return cluster_ctas(batch, ny, nx, admitted_clusters(entry, device, ny, nx, *extra))
 
 
-def check_route(what: str, form, cluster_form: str, other_form: str, ny: int, nx: int,
-                ctas) -> None:
-    """A wrapper's checks of ``form`` and ``ctas`` before any launch, on
-    the shape alone: ValueError for a form that is neither None,
-    ``cluster_form`` nor ``other_form``, for ``cluster_form`` where no
-    cluster holds the scene (:func:`cluster_fits`), and for a ``ctas``
-    that slab_plan cannot split the scene over or given with
-    ``other_form``."""
-    if form not in (None, cluster_form, other_form):
-        raise ValueError(f"form must be None, {cluster_form!r} or {other_form!r}, "
+def block_fits(ny: int, nx: int) -> bool:
+    """Whether kernel 20's block form takes an (ny, nx) scene: both p'
+    buffers in one block's shared memory (up to 29,039 cells)."""
+    return nx >= 3 and ny >= 3 and 2 * 4 * ny * nx + BLOCK_SMEM_STATIC <= SMEM_OPTIN_BYTES
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """A launch's form: ``form`` ("cluster", "slab", "cooperative" or
+    "block"), ``ctas`` the cluster form's CTAs a scene, ``sms`` and
+    ``slab`` the SMs the slab form spreads over and its
+    :func:`grid_slab_plan`."""
+    form: str
+    ctas: int | None = None
+    sms: int | None = None
+    slab: tuple | None = None
+
+
+# kernel: (its wrapper, its admission's C entry point, its forms besides
+# the cluster form, the last the one that takes what the others do not)
+KERNELS = {
+    "rounds": ("solve_correct_rounds", "cfd_rounds_cluster_admit", ("slab", "cooperative")),
+    "jacobi_batch": ("jacobi_batch", "cfd_jacobi_batch_cluster_admit", ("cooperative",)),
+    "substep_batch": ("substep_batch", "cfd_substep_batch_cluster_admit", ("block",)),
+}
+
+
+@functools.cache
+def plan(kernel: str, batch: int, ny: int, nx: int, device, *, cavity: bool = False,
+         sor: bool = False, form: str | None = None, ctas: int | None = None):
+    """The form a launch of ``kernel`` ("rounds": kernel 4; "jacobi_batch":
+    kernel 12; "substep_batch": kernel 20, ``sor`` its SOR solve) takes for
+    ``batch`` (ny, nx) scenes on ``device``, ``cavity`` kernel 4's CAVITY
+    instance: a :class:`Plan`, or None where no form of the kernel takes
+    the scenes (kernel 20 beyond its block form's gate, :func:`block_fits`,
+    for a SOR solve, a scene no cluster holds, or a card that admits no
+    such cluster).
+
+    The cluster form where :func:`pick_ctas` finds a C the card admits;
+    else kernel 4's slab form where :func:`grid_slab_plan` takes the grid
+    on the card's SMs; else the cooperative form (kernels 4 and 12) or
+    the block form (kernel 20 within its gate). On a device that is not a
+    card the shapes alone decide, as on a card with room for every
+    cluster the shapes allow and an SM a row.
+
+    ``form`` and ``ctas`` override the choice, to hold the forms against
+    each other: ``form`` one of the kernel's forms; ``ctas`` the cluster
+    form at that C, one that :func:`slab_plan` splits the scene over.
+    An override the scenes or the card rule out raises ValueError, before
+    any launch; a choice is never a fallback from a failed launch. Kept
+    per argument (a launch's host cost otherwise)."""
+    what, entry, others = KERNELS[kernel]
+    if form not in (None, "cluster", *others):
+        raise ValueError(f"{what}: form must be None or one of {('cluster', *others)}, "
                          f"got {form!r}")
-    if form == cluster_form and ctas is None and not cluster_fits(ny, nx):
+    beyond = kernel == "substep_batch" and not block_fits(ny, nx)  # the block form's gate
+    if beyond and (sor or form == "block" or not cluster_fits(ny, nx)):
+        if form is None and ctas is None:
+            return None
+        raise ValueError(f"{what}: a {nx}x{ny} scene does not fit one block's shared memory "
+                         f"(block_fits); beyond it only the Jacobi cluster form runs, where "
+                         f"kernels.cluster.cluster_fits holds the scene")
+    if form == "slab" and (ctas is not None or grid_slab_plan(ny, nx, ny) is None):
+        raise ValueError(f"{what}: the slab form cannot take a {ny}x{nx} grid"
+                         f"{' with ctas' if ctas is not None else ''} "
+                         f"(kernels.cluster.grid_slab_plan)")
+    if form == "cluster" and ctas is None and not cluster_fits(ny, nx):
         raise ValueError(f"{what}: the cluster form cannot take a {ny}x{nx} scene, no "
                          f"cluster holds it (kernels.cluster.cluster_fits)")
-    if ctas is not None and (form == other_form or slab_plan(ny, nx, ctas) is None):
-        raise ValueError(f"{what}: the cluster form cannot split a {ny}x{nx} scene "
-                         f"over {ctas} CTAs (slab_plan)")
-
-
-def route_ctas(what: str, form, other_form: str, batch: int, ny: int, nx: int, ctas,
-               entry: str, device, *extra):
-    """The CTAs a scene a wrapper launches its cluster form with, or None
-    for its other form, after :func:`check_route`: None for
-    ``other_form``; else ``ctas`` if given, else :func:`pick_ctas`. The
-    cluster form asked for by name raises where the pick finds none."""
-    if form == other_form:
-        return None
-    c = ctas or pick_ctas(entry, batch, ny, nx, device, *extra)
-    if c is None and form is not None:
+    if ctas is not None:
+        if form in others or slab_plan(ny, nx, ctas) is None:
+            raise ValueError(f"{what}: the cluster form cannot split a {ny}x{nx} scene "
+                             f"over {ctas} CTAs (slab_plan)")
+        return Plan("cluster", ctas)
+    if form in ("cooperative", "block"):
+        return Plan(form)
+    card = torch.device(device).type == "cuda"
+    extra = {"rounds": (int(cavity),), "substep_batch": (int(sor),)}.get(kernel, ())
+    c = None
+    if form != "slab" and cluster_fits(ny, nx):
+        c = (pick_ctas(entry, batch, ny, nx, device, *extra) if card
+             else cluster_ctas(batch, ny, nx, dict.fromkeys(candidates(ny, nx), batch)))
+    if c is not None:
+        return Plan("cluster", c)
+    if form == "cluster" or beyond:
+        if form is None:
+            return None
         raise ValueError(f"{what}: the card admits no cluster for a {ny}x{nx} scene "
                          f"(clusters at once by CTAs: "
                          f"{admitted_clusters(entry, device, ny, nx, *extra)})")
-    return c
+    if kernel == "rounds":
+        sms = sm_count(device) if card else ny
+        slab = grid_slab_plan(ny, nx, sms)
+        if slab is not None:
+            return Plan("slab", sms=sms, slab=slab)
+        if form == "slab":
+            raise ValueError(f"{what}: the slab form cannot take a {ny}x{nx} grid on {sms} "
+                             f"SMs (kernels.cluster.grid_slab_plan)")
+    return Plan(others[-1])

@@ -18,43 +18,32 @@ run of that scene (tests/test_sharding.py:167-173).
 An ensemble scene is small (24,576 cells at the app's 256x96) and a
 substep is a thousand or so sweeps, each needing the whole field of the
 last: what bounds it is the exchange a sweep (a barrier and a max), not
-bytes. Two forms, the same bits and counts:
-
-- **The cluster form** (``ensemble_cluster_kernel``): one thread-block
-  cluster of C CTAs of 1024 threads per scene, on csrc/cluster.cuh's
-  machinery (the rounds kernel's): each CTA runs the predictor on its
-  slab of rows, the divergence, the solve with p' in the cluster's
-  shared memory (ar * rhs beside it where it fits, a thread's 4-column
-  strip of rows in registers, each sweep's max and edge rows pushed by
-  ``st.async`` onto the receivers' mbarriers), the corrector, the outer
-  rounds and the BCs; u, v, p and the divergence stay in L2. SOR runs a
-  red and a black half in place, each ending in that exchange; its err
-  is the max over both halves. C comes from kernels.cluster
-  ``cluster_ctas`` on the card's own admission (the fewest waves of the
-  shortest strips), so a batch fills the card's 132 SMs where one block
-  a scene filled B of them: 2 CTAs a scene for 64 scenes of 256x96, 6
-  for 16 (PERF.md).
-- **The block form** (``ensemble_substep_kernel``), kept to compare with
-  and for scenes inside its gate that the pick gives no cluster (wider
-  than 1024 columns, or a card that admits no such cluster): one block
-  of 1024 threads per scene, p' in its shared memory, a
-  ``__syncthreads()`` barrier and a block max a sweep. Its gate is
-  :func:`substep_batch_fits`, the two p' buffers in one block's shared
-  memory (up to 29,039 cells).
+bytes. Two forms, the same bits and counts; kernels.cluster ``plan``
+chooses one before each launch. The cluster form
+(``ensemble_cluster_kernel``) runs one thread-block cluster of C CTAs a
+scene on csrc/cluster.cuh's machinery (the rounds kernel's): each CTA
+runs the predictor on its slab of rows, the solve with p' in the
+cluster's shared memory (each sweep's max and edge rows pushed by
+``st.async`` onto the receivers' mbarriers; SOR a red and a black half
+in place, each ending in that exchange), the corrector, the outer rounds
+and the BCs, with u, v, p and the divergence in L2; C is the fewest
+waves of the shortest strips on the card's own admission (2 CTAs a scene
+for 64 scenes of 256x96, 6 for 16, 14 for 8 of 800x264). The block form
+(``ensemble_substep_kernel``) runs one block of 1024 threads a scene, p'
+in its shared memory, a ``__syncthreads()`` barrier and a block max a
+sweep, for the scenes within its gate (:func:`substep_batch_fits`, both
+p' buffers in one block: up to 29,039 cells) that no cluster takes.
 
 The TPU gate, a VMEM bound, is not carried over. The port's route test
-is :func:`substep_batch_takes`: a batch the block form holds, or a
-Jacobi batch the cluster form holds (kernels.cluster ``cluster_fits``:
-up to 1024 columns and a plan with ar * rhs on chip, such as the
-reference's own 800x264 grid at 14 CTAs a scene) on a card that admits
-such a cluster. Any other batch takes the solver's plain batched substep
-with the batched solve kernel (kernels.jacobi_batch), as the JAX package
-takes its vmapped substep with ``jacobi_pallas_batch`` beyond its gate;
-a SOR batch there takes the plain masked ``sor``, as the JAX package
-vmaps ``sor``. The SOR form keeps the two-buffer gate. The JAX package
-sends a SOR batch to its kernel only at B <= 16 (piso.py:624-632), a TPU
-reading that is not carried over: chip_smoke.py times the SOR form
-against the plain batched SOR at B = 16 and 64 (PERF.md).
+is :func:`substep_batch_takes`: whether ``plan`` gives the batch a form.
+Any other batch takes the solver's plain batched substep with the
+batched solve kernel (kernels.jacobi_batch), as the JAX package takes
+its vmapped substep with ``jacobi_pallas_batch`` beyond its gate; a SOR
+batch there (beyond the block form's gate) takes the plain masked
+``sor``, as the JAX package vmaps ``sor``. The JAX package sends a SOR
+batch to its kernel only at B <= 16 (piso.py:624-632), a TPU reading
+that is not carried over: chip_smoke.py times the SOR form against the
+plain batched SOR at B = 16 and 64 (PERF.md).
 
 Both versions also return how many outer rounds and solver iterations
 each scene ran, so a check can hold the kernel's exits against the plain
@@ -72,41 +61,29 @@ from ..core.unported import BATCHES, OTHER_SOLVERS, unported
 from ..ops.bc import check_channel
 from ..trace import traced
 from ._build import check, load, mask_ptrs, on_cpu, scene_scalars, stream_of
-from .cluster import check_route, cluster_fits, pick_ctas, route_ctas
+from .cluster import block_fits, plan
 from .jacobi import _multipliers
 from .sor import _coefficients
 
-# Shared memory one block may opt in to on the H100 (227 KB), less the
-# kernel's 33-float reduction scratch.
-SMEM_OPTIN_BYTES = 232_448
-_SMEM_STATIC = 33 * 4
-
 
 def substep_batch_fits(grid) -> bool:
-    """Whether the whole-substep kernel takes ``grid``: both p' buffers
-    of a scene in one block's shared memory (up to 29,039 cells)."""
-    return (grid.nx >= 3 and grid.ny >= 3
-            and 2 * 4 * grid.ny * grid.nx + _SMEM_STATIC <= SMEM_OPTIN_BYTES)
+    """Whether the block form takes ``grid``: both p' buffers of a scene
+    in one block's shared memory (kernels.cluster ``block_fits``)."""
+    return block_fits(grid.ny, grid.nx)
 
 
 def substep_batch_takes(scene, batch: int, device) -> bool:
     """The route test: whether :func:`substep_batch` takes a batch of
-    ``batch`` scenes of ``scene`` on ``device``. A Jacobi or red/black SOR
-    batch the block form holds (:func:`substep_batch_fits`), or a Jacobi
-    batch the cluster form holds (kernels.cluster ``cluster_fits``) on a
-    card that admits such a cluster (:func:`substep_batch_ctas`). On the
-    CPU the shape decides: the wrapper runs its plain version there."""
+    ``batch`` scenes of ``scene`` on ``device``: a Jacobi or red/black SOR
+    batch to which kernels.cluster ``plan`` gives a form. On the CPU the
+    shape decides: the wrapper runs its plain version there."""
     g, solver = scene.grid, scene.params.pressure_solver
-    if solver == PressureSolver.SOR:
-        return scene.opts.sor_ordering == "redblack" and substep_batch_fits(g)
-    if solver != PressureSolver.JACOBI:
+    if solver not in (PressureSolver.JACOBI, PressureSolver.SOR):
         return False
-    if substep_batch_fits(g):
-        return True
-    if not cluster_fits(g.ny, g.nx):
+    sor = solver == PressureSolver.SOR
+    if sor and scene.opts.sor_ordering != "redblack":
         return False
-    return (torch.device(device).type != "cuda"
-            or substep_batch_ctas(batch, g.ny, g.nx, device) is not None)
+    return plan("substep_batch", batch, g.ny, g.nx, device, sor=sor) is not None
 
 
 def check_batchable(scene):
@@ -140,34 +117,21 @@ def substep_batch_plain(u, v, p, pp0, dt_sub, nu, inlet, scene):
     return _substep_jnp(plain, u, v, p, pp0, dt_sub, nu, inlet)
 
 
-def substep_batch_ctas(batch: int, ny: int, nx: int, device, sor: bool = False):
-    """The CTAs a scene of the cluster form (``sor``: its SOR solve) for
-    a batch of ``batch`` (ny, nx) scenes on ``device`` (kernels.cluster
-    pick_ctas on the card's admission), or None where it takes no
-    cluster: the block form runs. Needs the card for a scene a cluster
-    holds."""
-    return pick_ctas("cfd_substep_batch_cluster_admit", batch, ny, nx, device, int(sor))
-
-
 def _launch(u, v, p, pp0, dt_sub, nu, inlet, scene, sor: bool, form, ctas):
-    """Check the inputs and launch the kernel on CUDA tensors, in
-    ``form`` (None: the cluster form where :func:`substep_batch_ctas`
-    picks a cluster, else the block form, which beyond
-    :func:`substep_batch_fits` raises; "cluster" or "block"), ``ctas``
-    CTAs a scene (None: that pick); None on CPU tensors. Returns the
-    outputs and whether the cluster form ran."""
+    """Check the inputs and launch the kernel on CUDA tensors in the form
+    kernels.cluster ``plan`` gives (``form`` and ``ctas`` its override);
+    None on CPU tensors. Returns the outputs and whether the cluster form
+    ran."""
     g, opts = scene.grid, scene.opts
     check_batchable(scene)
-    block = substep_batch_fits(g)
-    if not block and (sor or form == "block" or not cluster_fits(g.ny, g.nx)):
-        raise ValueError(f"substep_batch: a {g.nx}x{g.ny} scene does not fit one "
-                         f"block's shared memory (substep_batch_fits); beyond it only "
-                         f"the Jacobi cluster form runs, where kernels.cluster."
-                         f"cluster_fits holds the scene")
-    check_route("substep_batch", form, "cluster", "block", g.ny, g.nx, ctas)
     if u.dim() != 3:
         raise ValueError(f"substep_batch takes (B, ny, nx+1) u, got {tuple(u.shape)}")
     B, ny, nx = u.shape[0], g.ny, g.nx
+    route = plan("substep_batch", B, ny, nx, u.device, sor=sor, form=form, ctas=ctas)
+    if route is None:
+        raise ValueError(f"substep_batch: a {nx}x{ny} scene does not fit one block's shared "
+                         f"memory (substep_batch_fits); beyond it only the Jacobi cluster "
+                         f"form runs, where a cluster holds the scene and the card admits it")
     shapes = {"u": (u, (B, ny, nx + 1)), "v": (v, (B, ny, nx)),
               "p": (p, (B, ny, nx)), "pp0": (pp0, (B, ny, nx))}
     if on_cpu("substep_batch", shapes):
@@ -192,17 +156,14 @@ def _launch(u, v, p, pp0, dt_sub, nu, inlet, scene, sor: bool, form, ctas):
             f32(g.dx * g.dx), f32(g.dy * g.dy), *coef, int(sor),
             opts.jacobi_iters, opts.jacobi_tol, opts.outer_corrector_rounds,
             opts.outer_corrector_tol)
-    # beyond the block form's gate only the cluster form runs: a card that
-    # admits no such cluster raises
-    c = route_ctas("substep_batch", form if block else "cluster", "block", B, ny, nx,
-                   ctas, "cfd_substep_batch_cluster_admit", u.device, int(sor))
+    cluster = route.form == "cluster"
     with torch.cuda.device(u.device):
-        if c is not None:
-            check(lib.cfd_substep_batch_cluster(*args, c, stream_of(u)),
-                  f"substep_batch (cluster form, {c} CTAs a scene)")
+        if cluster:
+            check(lib.cfd_substep_batch_cluster(*args, route.ctas, stream_of(u)),
+                  f"substep_batch (cluster form, {route.ctas} CTAs a scene)")
         else:
             check(lib.cfd_substep_batch(*args, stream_of(u)), "substep_batch")
-    return (u_out, v_out, p_out, pp, err, counts), c is not None
+    return (u_out, v_out, p_out, pp, err, counts), cluster
 
 
 @traced("cfd.kernel.substep_batch")
@@ -213,13 +174,9 @@ def substep_batch(u, v, p, pp0, dt_sub, nu, inlet, scene, form: str | None = Non
     (B,) tensors or scalars. Returns (u, v, p, p', err (B,), counts
     (B, 2) int32: outer rounds and solver iterations each scene ran). A
     SOR scene goes to :func:`substep_batch_sor`, which counts its own
-    launches. ``form`` None takes the cluster form where
-    :func:`substep_batch_ctas` picks a cluster and the block form elsewhere
-    within :func:`substep_batch_fits` (beyond it a card that admits no
-    such cluster raises); "cluster" and "block" take that form (to hold
-    the two against each other). ``ctas`` forces the cluster form's CTAs
-    a scene (one of kernels.cluster.CTAS that ``slab_plan`` splits the
-    scene over).
+    launches. ``form`` ("cluster" or "block") and ``ctas`` override
+    kernels.cluster ``plan``'s choice of form, to hold the two against
+    each other; where ``plan`` gives the batch no form, the call raises.
     ``.launches`` counts launches of either form, ``.cluster_launches``
     those of the cluster form."""
     solver = scene.params.pressure_solver

@@ -21,23 +21,17 @@ such cluster. (The reference's own 800x264 grid, 845 KB a field, goes to
 that kernel's cluster form.) A sweep needs every neighbour of the last.
 What bounds it on the H100 is the exchange a sweep (the barrier and the
 max), not bytes: a sweep is a few microseconds of work. Two forms, the
-same bits and counts:
-
-- **The cluster form** (``jacobi_batch_cluster_kernel``): the scenes are
-  independent, so each gets its own thread-block cluster of C CTAs
-  (kernels.cluster picks C from the card's admission: 14 at 8x800x264
-  on an H100, which holds 7 such clusters at once, so two waves) and no
-  grid-wide barrier is needed. The scene's p' sits in the cluster's shared
-  memory, ar * rhs beside it where it fits, a thread's 4-column strip
-  in registers, each sweep's max and edge rows pushed with ``st.async``
-  onto the receivers' mbarriers (csrc/cluster.cuh, the rounds kernel's
-  machinery). A scene flagged done only copies its pp0: a launch with
-  every scene done is a copy.
-- **The cooperative form** (``jacobi_batch_kernel``) takes the scenes
-  for which kernels.cluster picks no cluster (one too wide or tall for
-  16 CTAs, or a card that admits no such cluster): one block of
-  1024 threads per SM, a grid-wide barrier per sweep, and per scene a
-  rotating three-slot ``atomicMax`` for the sweep's max.
+same bits and counts; kernels.cluster ``plan`` chooses one before each
+launch. The cluster form (``jacobi_batch_cluster_kernel``) gives each
+scene its own thread-block cluster of C CTAs, with no grid-wide barrier:
+p' in the cluster's shared memory, ar * rhs beside it where it fits, a
+thread's 4-column strip in registers, each sweep's max and edge rows
+pushed with ``st.async`` onto the receivers' mbarriers (csrc/cluster.cuh,
+the rounds kernel's machinery; 14 CTAs at 8x800x264 on an H100, two
+waves); a scene flagged done only copies its pp0. The cooperative form
+(``jacobi_batch_kernel``) takes the scenes no cluster takes: one block
+of 1024 threads per SM, a grid-wide barrier per sweep, and per scene a
+rotating three-slot ``atomicMax`` for the sweep's max.
 
 In both, every exit is decided on the device and nothing is read back.
 ``jacobi_batch.launches`` counts launches of either form,
@@ -50,7 +44,7 @@ import torch
 from ..ops.poisson import jacobi
 from ..trace import traced
 from ._build import check, load, on_cpu, stream_of
-from .cluster import check_route, pick_ctas, route_ctas
+from .cluster import plan
 from .jacobi import _multipliers
 
 
@@ -61,14 +55,6 @@ def jacobi_batch_plain(pp0, rhs, dx: float, dy: float, omega: float,
                   done=done)
 
 
-def jacobi_batch_ctas(batch: int, ny: int, nx: int, device):
-    """The CTAs a scene of the cluster form for a batch of ``batch``
-    (ny, nx) scenes on ``device`` (kernels.cluster pick_ctas on the card's
-    admission), or None where it takes no cluster: the cooperative form
-    runs. Needs the card for a scene a cluster holds."""
-    return pick_ctas("cfd_jacobi_batch_cluster_admit", batch, ny, nx, device)
-
-
 @traced("cfd.kernel.jacobi_batch")
 def jacobi_batch(pp0, rhs, dx: float, dy: float, omega: float, tol: float,
                  iters: int, done=None, form: str | None = None,
@@ -77,12 +63,9 @@ def jacobi_batch(pp0, rhs, dx: float, dy: float, omega: float, tol: float,
     (B, ny, nx) BC-consistent ``pp0`` and ``rhs``. Returns (p' (B, ny,
     nx), err (B,), sweeps run (B,) int32); max(1, iters) sweeps at
     most. The scenes a (B,) bool ``done`` marks are not swept: p' = pp0,
-    err inf, 0 sweeps. ``form`` None takes the cluster form where
-    :func:`jacobi_batch_ctas` picks a cluster and the cooperative form
-    elsewhere; "cluster" and "cooperative" take that form (to hold the
-    two against each other), "cluster" raising where it picks none.
-    ``ctas`` forces the cluster form's CTAs a scene (one of
-    kernels.cluster.CTAS that ``slab_plan`` splits the scene over)."""
+    err inf, 0 sweeps. ``form`` ("cluster" or "cooperative") and
+    ``ctas`` override kernels.cluster ``plan``'s choice of form, to hold
+    the two against each other."""
     if pp0.dim() != 3:
         raise ValueError(f"jacobi_batch takes (B, ny, nx) fields, got {tuple(pp0.shape)}")
     B, ny, nx = pp0.shape
@@ -94,7 +77,7 @@ def jacobi_batch(pp0, rhs, dx: float, dy: float, omega: float, tol: float,
         raise ValueError(f"jacobi_batch: done must be a contiguous ({B},) bool "
                          f"tensor on {pp0.device}, got {done.dtype} "
                          f"{tuple(done.shape)} on {done.device}")
-    check_route("jacobi_batch", form, "cluster", "cooperative", ny, nx, ctas)
+    route = plan("jacobi_batch", B, ny, nx, pp0.device, form=form, ctas=ctas)
     if on_cpu("jacobi_batch", {"pp0": (pp0, (B, ny, nx)), "rhs": (rhs, (B, ny, nx))}):
         return jacobi_batch_plain(pp0, rhs, dx, dy, omega, tol, iters, done)
     lib = load()
@@ -103,14 +86,12 @@ def jacobi_batch(pp0, rhs, dx: float, dy: float, omega: float, tol: float,
     n = torch.empty(B, dtype=torch.int32, device=pp0.device)
     done_ptr = None if done is None else done.data_ptr()
     mult = _multipliers(dx, dy, omega)
-    c = route_ctas("jacobi_batch", form, "cooperative", B, ny, nx, ctas,
-                   "cfd_jacobi_batch_cluster_admit", pp0.device)
     with torch.cuda.device(pp0.device):
-        if c is not None:
+        if route.form == "cluster":
             check(lib.cfd_jacobi_batch_cluster(
                 pp0.data_ptr(), rhs.data_ptr(), done_ptr, out.data_ptr(), err.data_ptr(),
-                n.data_ptr(), B, ny, nx, iters, tol, *mult, c, stream_of(pp0)),
-                f"jacobi_batch (cluster form, {c} CTAs a scene)")
+                n.data_ptr(), B, ny, nx, iters, tol, *mult, route.ctas, stream_of(pp0)),
+                f"jacobi_batch (cluster form, {route.ctas} CTAs a scene)")
         else:
             tmp = torch.empty_like(pp0)
             slots = torch.empty(3 * B, dtype=torch.float32, device=pp0.device)
@@ -119,7 +100,7 @@ def jacobi_batch(pp0, rhs, dx: float, dy: float, omega: float, tol: float,
                 slots.data_ptr(), err.data_ptr(), n.data_ptr(), B, ny, nx, iters, tol,
                 *mult, stream_of(pp0)), "jacobi_batch")
     jacobi_batch.launches += 1
-    jacobi_batch.cluster_launches += c is not None
+    jacobi_batch.cluster_launches += route.form == "cluster"
     return out, err, n
 
 

@@ -19,48 +19,21 @@ scene that is about a hundred sweeps per step, and each sweep needs a
 barrier across the whole field and a global max.
 
 What bounds it on the H100 is the barrier a sweep and the global max,
-and the sweep's own work: where p' stays on chip, the sweep's
-instructions; where it is swept from L2, L2's bandwidth (a 1024² field
-is 4 MB, read six times a sweep). The kernel has three forms, chosen
-before the launch by shape (:func:`rounds_form`), never by a failure,
-with the same bits and counts:
-
-- **The cluster form** (``rounds_cluster_kernel``): one thread-block
-  cluster of C CTAs of 1024 threads keeps p' on chip, C and the slabs
-  from csrc/cluster.cuh's ``slab_plan`` and kernels.cluster's pick on
-  the card's admission (:func:`rounds_ctas`; the same plan as the
-  batched kernels 12 and 20: 14 CTAs of 20 rows at 800x264, 14 of 10
-  at the JS twin's 400x132). Each CTA owns a slab of rows, p'
-  ping-ponged in its shared memory with two halo rows and ar * rhs
-  there too; a thread keeps 4 columns of a strip of rows in registers,
-  and a row of interior cells runs no test a cell (the folds at column
-  0 and the outlet are invariants of the stored values). A sweep ends
-  with the CTA's max (a warp reduction and one shared atomic) and
-  ``st.async`` stores into the other CTAs' shared memory (its max to
-  all, its edge rows to the slabs beside it) that complete a
-  transaction count on the receiver's mbarrier: no cluster-wide barrier
-  a sweep. u, v and p stay in device memory. It is bound by the sweep's
-  instructions on C SMs and the max's round trip between them. If the
-  card refuses a cluster that the pick chose, the call raises.
-- **The slab form** (``rounds_slab_kernel``) takes the grids no cluster
-  holds up to 1024 columns (1024², 1024x512): the cluster form's slabs,
-  strips, folds and arithmetic spread over the whole card, a
-  cooperative launch of one block of 1024 threads an SM
-  (kernels.cluster ``grid_slab_plan`` on the card's SM count, read once:
-  128 blocks of 8 rows at 1024² on an H100; :func:`rounds_slab_plan`).
-  A sweep's edge rows go through device memory to the slabs beside it
-  and its max through a rotating slot, across one grid-wide barrier;
-  the p' BCs also run on each slab's halo rows, so a solve needs no
-  other exchange. It is bound by that barrier and slot, a fixed cost a
-  sweep, then the strip's rows.
-- **The cooperative form** (``rounds_kernel``) takes the rest (more
-  than 1024 columns, or more rows than 6-row strips cover on the card):
-  persistent and cooperative, one block of 1024 threads per SM, all
-  resident, looping over the field from L2, with a grid-wide barrier
-  (``grid.sync``) between phases and a rotating three-slot
-  ``atomicMax`` for each sweep's max, one barrier a sweep across 132
-  SMs. A single-block form (one SM doing all the work) measured 30x
-  slower; PERF.md has both times.
+and the sweep's own work. The kernel has three forms, with the same bits
+and counts; kernels.cluster ``plan`` chooses one before each launch
+(never after a failure). The cluster form (``rounds_cluster_kernel``)
+keeps p' in the shared memory of one thread-block cluster of C CTAs
+(csrc/cluster.cuh's slabs, a thread's 4-column strip of rows in
+registers, each sweep's max and edge rows pushed by ``st.async`` onto
+the receivers' mbarriers: 14 CTAs at 800x264); the slab form
+(``rounds_slab_kernel``) lays the same slabs over the whole card, one
+block of 1024 threads an SM, the edge rows through device memory and
+its max through a rotating slot across one grid barrier a sweep (128
+blocks of 8 rows at 1024²); the cooperative form (``rounds_kernel``)
+takes the rest (more than 1024 columns, or more rows than 6-row strips
+cover on the card), sweeping p' from L2 with a grid-wide barrier and a
+rotating three-slot ``atomicMax`` a sweep. PERF.md has their times, and
+a single-block form's, 30x slower.
 
 In every form the exits are decided on the device with no host read.
 ``solve_correct_rounds.launches`` counts launches of any form,
@@ -84,7 +57,7 @@ from ..ops.poisson import jacobi, pprime_bc_fn
 from .. import trace
 from ..trace import traced
 from ._build import check, device_scalars, load, mask_ptrs, on_cpu, stream_of
-from .cluster import check_route, grid_slab_plan, pick_ctas, route_ctas, sm_count
+from .cluster import plan
 from .jacobi import _multipliers
 from .substep import inlet_args
 
@@ -121,38 +94,6 @@ def solve_correct_rounds_plain(u_star, v_star, p, pp0, rhs, dt_sub, inlet,
     return u, v, p, pp, err, counts
 
 
-def rounds_ctas(ny: int, nx: int, device, cavity: bool = False):
-    """The CTAs of the cluster the rounds kernel takes for an (ny, nx)
-    grid on ``device`` (kernels.cluster pick_ctas for one scene on the
-    card's admission of the channel or, with ``cavity``, the CAVITY
-    instance: 14 at 800x264 on an H100), or None where it takes no
-    cluster: the slab or the cooperative form runs (:func:`rounds_form`).
-    Needs the card for a grid a cluster holds."""
-    return pick_ctas("cfd_rounds_cluster_admit", 1, ny, nx, device, int(cavity))
-
-
-def rounds_slab_plan(ny: int, nx: int, device):
-    """The slab form's plan for an (ny, nx) grid on ``device``'s card
-    (kernels.cluster grid_slab_plan at the card's SM count: 128 blocks of
-    8 rows at 1024² on an H100), or None where the form cannot take it.
-    Needs the card."""
-    return grid_slab_plan(ny, nx, sm_count(device))
-
-
-def rounds_form(ny: int, nx: int, ctas, sms: int) -> str:
-    """The form the route gives an (ny, nx) grid, on shapes alone:
-    "cluster" where the pick found ``ctas`` (:func:`rounds_ctas`), else
-    "slab" where kernels.cluster grid_slab_plan takes the grid on ``sms``
-    SMs, else "cooperative" (more than 1024 columns, or more rows than
-    6-row strips cover on the card)."""
-    if ctas is not None:
-        return "cluster"
-    return "slab" if grid_slab_plan(ny, nx, sms) is not None else "cooperative"
-
-
-FORMS = (None, "cluster", "slab", "cooperative")
-
-
 @traced("cfd.kernel.solve_correct_rounds")
 def solve_correct_rounds(u_star, v_star, p, pp0, rhs, dt_sub, inlet, scene,
                          form: str | None = None, ctas: int | None = None):
@@ -160,38 +101,18 @@ def solve_correct_rounds(u_star, v_star, p, pp0, rhs, dt_sub, inlet, scene,
     ``u_star`` (ny, nx+1); ``v_star``, ``p``, ``pp0`` (BC-consistent),
     ``rhs`` (ny, nx). Returns (u, v, p, p_prime, err, counts), where
     ``counts`` is an int32 (2,) tensor: outer rounds run, Jacobi sweeps
-    run. ``form`` None takes the cluster form where :func:`rounds_ctas`
-    picks a cluster, else the slab form where :func:`rounds_slab_plan`
-    fits the card, else the cooperative form; "cluster", "slab" and
-    "cooperative" take that form (to hold them against each other), the
-    first two raising where they cannot take the grid. ``ctas`` forces
-    the cluster's CTAs (one of kernels.cluster.CTAS that ``slab_plan``
-    splits the grid over)."""
+    run. ``form`` ("cluster", "slab" or "cooperative") and ``ctas``
+    override kernels.cluster ``plan``'s choice of form, to hold the forms
+    against each other."""
     g, opts = scene.grid, scene.opts
     cavity = scene.params.flow_case == FlowCase.CAVITY
     ny, nx = g.ny, g.nx
-    if form not in FORMS:
-        raise ValueError(f"form must be one of {FORMS}, got {form!r}")
-    slab = form == "slab"
-    if slab and (ctas is not None or grid_slab_plan(ny, nx, ny) is None):
-        raise ValueError(f"solve_correct_rounds: the slab form cannot take a {ny}x{nx} "
-                         f"grid{' with ctas' if ctas is not None else ''} "
-                         f"(kernels.cluster.grid_slab_plan)")
-    if not slab:
-        check_route("solve_correct_rounds", form, "cluster", "cooperative", ny, nx, ctas)
+    route = plan("rounds", 1, ny, nx, p.device, cavity=cavity, form=form, ctas=ctas)
     shapes = {"u_star": (u_star, (ny, nx + 1)), "v_star": (v_star, (ny, nx)),
               "p": (p, (ny, nx)), "pp0": (pp0, (ny, nx)), "rhs": (rhs, (ny, nx))}
     if on_cpu("solve_correct_rounds", shapes):
         return solve_correct_rounds_plain(u_star, v_star, p, pp0, rhs, dt_sub,
                                           inlet, scene)
-    c = None if slab else route_ctas("solve_correct_rounds", form, "cooperative", 1, ny, nx,
-                                     ctas, "cfd_rounds_cluster_admit", p.device, int(cavity))
-    if form is None:
-        form = rounds_form(ny, nx, c, sm_count(p.device))
-    plan = rounds_slab_plan(ny, nx, p.device) if form == "slab" else None
-    if form == "slab" and plan is None:
-        raise ValueError(f"solve_correct_rounds: the slab form cannot take a {ny}x{nx} grid "
-                         f"on {sm_count(p.device)} SMs (kernels.cluster.grid_slab_plan)")
     lib = load()
     u, v = torch.empty_like(u_star), torch.empty_like(v_star)
     p_out, pp, pp_tmp, rhs_w = (torch.empty_like(p) for _ in range(4))
@@ -211,21 +132,21 @@ def solve_correct_rounds(u_star, v_star, p, pp0, rhs, dt_sub, inlet, scene,
             opts.outer_corrector_tol,
             *inlet_args(g, scene.params.inlet_profile, scene.params.flow_case), int(cavity))
     with torch.cuda.device(p.device):
-        if form == "cluster":
-            check(lib.cfd_rounds_cluster(*args, c, stream_of(p)),
-                  f"solve_correct_rounds (cluster form, {c} CTAs)")
-        elif form == "slab":
+        if route.form == "cluster":
+            check(lib.cfd_rounds_cluster(*args, route.ctas, stream_of(p)),
+                  f"solve_correct_rounds (cluster form, {route.ctas} CTAs)")
+        elif route.form == "slab":
             # each block's bottom and top rows, by sweep parity
-            halo = torch.empty(4 * plan[2] * 4 * -(-nx // 4), dtype=torch.float32,
+            halo = torch.empty(4 * route.slab[2] * 4 * -(-nx // 4), dtype=torch.float32,
                                device=p.device)
-            check(lib.cfd_rounds_slab(*args, sm_count(p.device), halo.data_ptr(),
-                                      halo.numel(), stream_of(p)),
-                  f"solve_correct_rounds (slab form, {plan[2]} blocks)")
+            check(lib.cfd_rounds_slab(*args, route.sms, halo.data_ptr(), halo.numel(),
+                                      stream_of(p)),
+                  f"solve_correct_rounds (slab form, {route.slab[2]} blocks)")
         else:
             check(lib.cfd_rounds(*args, stream_of(p)), "solve_correct_rounds")
     solve_correct_rounds.launches += 1
-    solve_correct_rounds.cluster_launches += form == "cluster"
-    solve_correct_rounds.slab_launches += form == "slab"
+    solve_correct_rounds.cluster_launches += route.form == "cluster"
+    solve_correct_rounds.slab_launches += route.form == "slab"
     solve_correct_rounds.cavity_launches += cavity
     return u, v, p_out, pp, err, counts
 

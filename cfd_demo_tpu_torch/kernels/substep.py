@@ -7,7 +7,7 @@ RHS: 22 bytes per cell, about 92 MB a call at 2048², 0.028 ms of memory
 time on the H100. Its faces are arithmetic-heavy (four IEEE divisions
 each, which stay divisions: the plain version and the Pallas kernel
 divide), so the kernel is bound by the instructions it issues. The
-tiled form (the main path): a CTA of 256 threads owns a tile of 31 rows
+kernel tiles the field: a CTA of 256 threads owns a tile of 31 rows
 by 32 columns of cells (:data:`PREDICT_TILE`; :func:`predict_tile_plan`
 gives the launch its grid and its interior tiles). It stages u and v
 over the tile's faces and a halo of the scheme's reach (1 for FIRST, 2
@@ -24,13 +24,11 @@ CTA-uniform branch). A zero dividend skips its division (common.cuh
 ``div_rn``: IEEE gives the zero itself), which spares the division's
 slow path over the zeros of a flow that starts from rest. The face
 functions (predict.cuh ``ustar_at``/``vstar_at``) take the loader as a
-template parameter and keep every expression's operand order, so the
-tiled form gives the pointwise form's bits under ``-fmad=false``.
-``form="pointwise"`` keeps the parent kernel (one thread a face of the
-(ny, nx+1) space, u*(j, i+1) and v*(j+1, i) recomputed) to hold the
-tiled form against. Each upwind scheme (FIRST, SECOND, QUICK: template
+template parameter and keep every expression's operand order, so under
+``-fmad=false`` the kernel gives the plain version's bits as the CPU
+computes them. Each upwind scheme (FIRST, SECOND, QUICK: template
 parameters) and either semantics (JS averages the convecting v) is an
-instance of both forms. The obstacle masks are the scene's
+instance. The obstacle masks are the scene's
 ``masks_traced`` tensors, one byte a face, so the kernels hold no
 obstacle geometry and take any number of cylinders.
 
@@ -44,9 +42,9 @@ the corrected u[:, nx-1] it copies. In CAVITY flow (a template flag of
 the one-launch kernel) the BCs are ops/bc.py's cavity branch: the lid,
 UNIFORM or the parabola along x evaluated per face (csrc/common.cuh
 ``lid_at``), the floor and the side walls. res_u, res_v and max|vel|
-(model.rs:333-348, :877-889) are reduced in the same pass. The
-one-launch form (the main path; :data:`CORRECT_STRIP`,
-:func:`correct_strip_plan`): CTAs of 32x8 threads, each thread a column
+(model.rs:333-348, :877-889) are reduced in the same pass, in one
+launch (:data:`CORRECT_STRIP`, :func:`correct_strip_plan`): CTAs of
+32x8 threads, each thread a column
 strip of 16 rows that loads the next row's inputs before it stores this
 row's outputs and carries p'[j-1] in a register for v; the three maxima
 are reduced together (one shuffle pass over three registers, one
@@ -55,10 +53,8 @@ ticket (an atomic counter after a ``__threadfence``) reduces the
 partials into three device scalars and sets the counter back to 0. The
 partials and the counter are allocated once per device, stream and
 shape. The maxima use ``pmax``, which keeps a NaN as ``torch.amax``
-does (no float ``atomicMax``), and are order-free, so both forms give
-the same bits. ``form="pointwise"`` keeps the parent: one thread a face,
-three block-wide maxima, 3 partials a 256-face block and a second
-launch that reduces them in one CTA. No host read in either.
+does (no float ``atomicMax``), and are order-free: the plain version's
+bits as the CPU computes them. No host read.
 
 ``correct_div`` replaces ``correct_div_pallas`` (substep_pallas.py:541,
 body ``_kernel_round`` :497), csrc/correct_div.cu: one launch per Rust
@@ -69,7 +65,7 @@ bytes per cell, bandwidth-bound (134 MB, 0.040 ms at 2048²). rhs(j, i)
 needs the corrected u(j, i+1) and v(j+1, i): the thread recomputes them
 in registers.
 
-Both forms of ``predict_div`` and ``correct_bc`` also take a row block
+``predict_div`` and ``correct_bc`` also take a row block
 of a sharded field (the sharded step, shard/step_shmap.py):
 ``row_offset`` is the global row of the block's row 0, which may be
 negative (shard 0's halo lies below the grid), and ``correct_bc``'s
@@ -80,14 +76,12 @@ rows; loads past the block read 0, as the Pallas window's zero-filled
 rolls do, so the halo rows' outputs are stale and the caller discards
 them. The kernels read the whole grid's masks at global rows; the plain
 versions take the block's window of them (``masks_traced(...,
-row_offset, rows)``). Without an offset the arguments are those of the
-whole field, and every launch computes what it computed before.
+row_offset, rows)``), so the two agree on the rows the caller keeps.
+Without an offset the arguments are those of the whole field.
 
 On CPU tensors each wrapper runs its plain version, built from the
 ported ops; on CUDA tensors it launches the kernel or raises. Each
-wrapper's ``launches`` counts its launches of either form;
-``predict_div.tiled_launches`` and ``correct_bc.fused_launches`` those
-of the main path's form.
+wrapper's ``launches`` counts its launches.
 """
 from __future__ import annotations
 
@@ -226,11 +220,6 @@ def correct_strips(plan: dict, ny: int, nx: int):
                         yield by * gx + bx, i, range(j0, min(j0 + cr, ny))
 
 
-def _check_form(what: str, form, *forms) -> None:
-    if form not in (None, *forms):
-        raise ValueError(f"{what}: form must be None or one of {forms}, got {form!r}")
-
-
 def predict_div_plain(u, v, dt_sub, nu, grid: Grid, scheme: VelocityScheme,
                       semantics: Semantics, row_offset=None):
     """ops.predictor.predict + ops.divergence.divergence_rhs."""
@@ -244,14 +233,11 @@ def predict_div_plain(u, v, dt_sub, nu, grid: Grid, scheme: VelocityScheme,
 
 @traced("cfd.kernel.predict_div")
 def predict_div(u, v, dt_sub, nu, grid: Grid, scheme: VelocityScheme,
-                semantics: Semantics, row_offset=None, form=None):
+                semantics: Semantics, row_offset=None):
     """Fused predictor + divergence: returns (u_star, v_star, rhs) in the
     storage shapes (ny, nx+1), (ny, nx), (ny, nx), ny the block's rows
     when ``row_offset`` (an int) places u and v in the grid. ``dt_sub``
-    and ``nu`` are floats or 0-d tensors on the fields' device. ``form``:
-    None or "tiled" launches the tiled kernel, "pointwise" the parent
-    kernel (the same bits)."""
-    _check_form("predict_div", form, "tiled", "pointwise")
+    and ``nu`` are floats or 0-d tensors on the fields' device."""
     ny, nx = _block_rows(grid, u, row_offset), grid.nx
     if on_cpu("predict_div", {"u": (u, (ny, nx + 1)), "v": (v, (ny, nx))}):
         return predict_div_plain(u, v, dt_sub, nu, grid, scheme, semantics,
@@ -265,21 +251,15 @@ def predict_div(u, v, dt_sub, nu, grid: Grid, scheme: VelocityScheme,
             v_star.data_ptr(), rhs.data_ptr(), mask_u, mask_v, ny, nx, row_offset or 0,
             grid.ny, _f32(grid.dx), _f32(grid.dy), _f32(grid.dx * grid.dx),
             _f32(grid.dy * grid.dy), _SCHEME[scheme], int(semantics == Semantics.JS))
-    tiled = form != "pointwise"
+    plan = predict_tile_plan(ny, nx, scheme, row_offset or 0, grid.ny)
     with torch.cuda.device(u.device):
-        if tiled:
-            plan = predict_tile_plan(ny, nx, scheme, row_offset or 0, grid.ny)
-            check(lib.cfd_predict_div_tiled(*args, *plan["tile"], *plan["fast"],
-                                            stream_of(u)), "predict_div (tiled)")
-        else:
-            check(lib.cfd_predict_div(*args, stream_of(u)), "predict_div (pointwise)")
+        check(lib.cfd_predict_div_tiled(*args, *plan["tile"], *plan["fast"], stream_of(u)),
+              "predict_div")
     predict_div.launches += 1
-    predict_div.tiled_launches += tiled
     return u_star, v_star, rhs
 
 
 predict_div.launches = 0
-predict_div.tiled_launches = 0
 
 
 def correct_bc_plain(u_star, v_star, p, p_prime, u_entry, v_entry, dt_sub,
@@ -319,19 +299,14 @@ def _strip_scratch(device, stream: int, ctas: int):
 @traced("cfd.kernel.correct_bc")
 def correct_bc(u_star, v_star, p, p_prime, u_entry, v_entry, dt_sub, inlet,
                grid: Grid, profile: InletProfile, flow_case: FlowCase,
-               semantics: Semantics, row_offset=None, own_rows=None, form=None):
+               semantics: Semantics, row_offset=None, own_rows=None):
     """Fused corrector + BCs + step reductions. Returns
     (u, v, p, res_u, res_v, max_vel), the last three 0-d tensors:
     res_* = max|field - entry| (model.rs:333-348) and max_vel feeds the
     CFL controller. With ``row_offset`` (an int) the arrays are a row
     block of the grid and the maxima count the local rows ``own_rows`` =
-    (lo, hi) only (all rows when None). ``form``: None or "fused"
-    launches the one-launch kernel, "pointwise" the parent's two
-    launches (the same bits; CHANNEL flow only)."""
-    _check_form("correct_bc", form, "fused", "pointwise")
+    (lo, hi) only (all rows when None)."""
     cavity = flow_case == FlowCase.CAVITY
-    if cavity and form == "pointwise":
-        raise ValueError("correct_bc: the pointwise form takes CHANNEL flow only")
     ny, nx = _block_rows(grid, u_star, row_offset), grid.nx
     own_lo, own_hi = own_rows or (0, ny)
     if not 0 <= own_lo < own_hi <= ny:
@@ -355,28 +330,18 @@ def correct_bc(u_star, v_star, p, p_prime, u_entry, v_entry, dt_sub, inlet,
            v.data_ptr(), p_new.data_ptr())
     rest = (ny, nx, row_offset or 0, grid.ny, own_lo, own_hi, _f32(grid.dx),
             _f32(grid.dy), *inlet_args(grid, profile, flow_case))
-    fused = form != "pointwise"
     with torch.cuda.device(dev):
         stream = stream_of(u_star)
-        if fused:
-            partials, ticket = _strip_scratch(dev, stream,
-                                              correct_strip_plan(ny, nx)["partials"])
-            check(lib.cfd_correct_bc_fused(
-                *ins, partials.data_ptr(), ticket.data_ptr(), red.data_ptr(), mask_u_bc,
-                mask_v_bc, *rest, int(cavity), stream), "correct_bc (fused)")
-        else:
-            partials = torch.empty(3 * lib.cfd_correct_bc_partials(ny, nx),
-                                   dtype=torch.float32, device=dev)
-            check(lib.cfd_correct_bc(*ins, partials.data_ptr(), red.data_ptr(), mask_u_bc,
-                                     mask_v_bc, *rest, stream), "correct_bc (pointwise)")
+        partials, ticket = _strip_scratch(dev, stream, correct_strip_plan(ny, nx)["partials"])
+        check(lib.cfd_correct_bc_fused(
+            *ins, partials.data_ptr(), ticket.data_ptr(), red.data_ptr(), mask_u_bc,
+            mask_v_bc, *rest, int(cavity), stream), "correct_bc")
     correct_bc.launches += 1
-    correct_bc.fused_launches += fused
     correct_bc.cavity_launches += cavity
     return u, v, p_new, red[0], red[1], red[2]
 
 
 correct_bc.launches = 0
-correct_bc.fused_launches = 0
 correct_bc.cavity_launches = 0
 
 

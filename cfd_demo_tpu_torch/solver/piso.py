@@ -34,11 +34,11 @@ MG_PRODUCTION below 2M cells, or "jnp")         ``_solve_pressure``, corrector,
                                                 ``_outer_rounds``, BCs
 a batch (B, ny, *), substep_impl and            ``substep_batch`` kernel (the SOR form:
 pressure_impl in ("auto", "pallas"), that       ``substep_batch_sor``): the whole
-``substep_batch_takes``: JACOBI or red/black    substep of every scene in one launch, a
-SOR in one block's shared memory                thread-block cluster a scene where the
-(``substep_batch_fits``: the app's 256x96),     card admits one
-or JACOBI that a cluster holds on a card that
-admits it (``cluster_fits``: up to 1024
+``substep_batch_takes`` (kernels.cluster        substep of every scene in one launch, a
+``plan`` gives it a form): JACOBI or            thread-block cluster a scene where the
+red/black SOR in one block's shared memory      card admits one
+(the app's 256x96), or JACOBI that a cluster
+holds on a card that admits it (up to 1024
 columns, the 800x264 ensemble)
 another batch, JACOBI or SOR (wider than 1024   ``_substep_jnp``: plain predictor and
 columns, a card that admits no such cluster,    divergence, ``_solve_pressure`` (the
@@ -328,6 +328,23 @@ def _use_fused_substep(scene: Scene) -> bool:
     return impl == "pallas"
 
 
+def _whole_kernels(opts: SolverOptions) -> bool:
+    """Whether a substep may hand its projection to one kernel (the rounds
+    kernel, or kernel 20 for a batch): pressure_impl and substep_impl
+    "auto" or "pallas"."""
+    return (opts.pressure_impl in ("auto", "pallas")
+            and opts.substep_impl in ("auto", "pallas"))
+
+
+def _pressure_impl(scene: Scene) -> str:
+    """pressure_impl, with "auto" resolved: "pallas" at >= 2M cells or
+    jacobi_tol == 0, else "jnp"."""
+    g, opts = scene.grid, scene.opts
+    if opts.pressure_impl != "auto":
+        return opts.pressure_impl
+    return "pallas" if g.nx * g.ny >= FUSED_MIN_CELLS or opts.jacobi_tol == 0.0 else "jnp"
+
+
 def resolve_fuse_k(opts: SolverOptions, divide: int = 0) -> int:
     """Sweeps per Jacobi-chain launch: pallas_fuse_k, or 16 when 0 (the
     JAX package's auto value, piso.py:184-212). Not yet tuned for the
@@ -355,11 +372,7 @@ def _solve_sor(scene: Scene, pp0, rhs, done=None):
                                  early_exit=opts.early_exit and not batch, done=done)
     if batch:
         return sor(pp0, rhs, *args, early_exit=False, done=done)
-    impl = opts.pressure_impl
-    if impl == "auto":
-        impl = ("pallas" if (g.nx * g.ny >= FUSED_MIN_CELLS
-                             or opts.jacobi_tol == 0.0) else "jnp")
-    if impl == "pallas":
+    if _pressure_impl(scene) == "pallas":
         k = max(resolve_fuse_k(opts) // 2, 1)  # the halo spans 2k rows
         chain = (sor_chain_rb2 if g.nx * g.ny >= FUSED_MIN_CELLS and g.nx % 2 == 0
                  else sor_chain)
@@ -410,11 +423,7 @@ def _solve_pressure(scene: Scene, pp0, rhs, dt_sub, done=None):
         solve = jacobi_batch if opts.pressure_impl in ("auto", "pallas") else jacobi_batch_plain
         return solve(pp0, rhs, g.dx, g.dy, opts.jacobi_omega, opts.jacobi_tol,
                      opts.jacobi_iters, done=done)
-    impl = opts.pressure_impl
-    if impl == "auto":
-        impl = ("pallas" if (g.nx * g.ny >= FUSED_MIN_CELLS
-                             or opts.jacobi_tol == 0.0) else "jnp")
-    if impl == "pallas":
+    if _pressure_impl(scene) == "pallas":
         return jacobi_chain(pp0, rhs, g.dx, g.dy, opts.jacobi_omega,
                             opts.jacobi_tol, opts.jacobi_iters,
                             k=resolve_fuse_k(opts),
@@ -492,8 +501,7 @@ def _substep_jnp(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet):
         rhs = divergence_rhs(u_star, v_star, dt_sub, g.dx, g.dy)
     pp0 = _warm_start(opts, p_prime)
     if (u.dim() == 2 and scene.params.pressure_solver == PressureSolver.JACOBI
-            and opts.pressure_impl in ("auto", "pallas")
-            and opts.substep_impl in ("auto", "pallas")):
+            and _whole_kernels(opts)):
         with span("cfd.solve"):
             out = solve_correct_rounds(u_star, v_star, p, pp0, rhs, dt_sub,
                                        inlet, scene)
@@ -526,9 +534,7 @@ def _substep_batched(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet):
         raise unported(f"a batched {solver.value}{scheme} scene", BATCHES)
     if solver not in (PressureSolver.JACOBI, PressureSolver.SOR):
         raise unported(f"a batched {solver.value} scene", OTHER_SOLVERS)
-    if (opts.pressure_impl in ("auto", "pallas")
-            and opts.substep_impl in ("auto", "pallas")
-            and substep_batch_takes(scene, u.shape[0], u.device)):
+    if _whole_kernels(opts) and substep_batch_takes(scene, u.shape[0], u.device):
         return substep_batch(u, v, p, p_prime, dt_sub, nu, inlet, scene)
     return _substep_jnp(scene, u, v, p, p_prime, dt_sub, nu, inlet)
 

@@ -58,13 +58,9 @@ Phases, one line each; any failure raises and exits non-zero:
    (544 rows: 512 owned, a 16-row halo) through jacobi_fused_k_shard at
    k = 10 and sor_fused_k_shard at k = 5, and each once on a column
    block, owned rows against the plain twins; predict_div and correct_bc
-   on a shard's 8-row-haloed block at a nonzero row offset; wherever
-   predict_div and correct_bc are checked (the 2048^2 fast state, the JS
-   QUICK state's four predictor forms and two inlets, the row-offset
-   block), their main-path forms (the tiled predict_div, the one-launch
-   correct_bc) also against their pointwise forms bit for bit, both
-   timed; the CAVITY instances of kernels 2, 3 and 4 (the lid-driven
-   cavity, BASELINE config 2): jacobi_fused_k and correct_bc (UNIFORM and
+   on a shard's 8-row-haloed block at a nonzero row offset; the CAVITY
+   instances of kernels 2, 3 and 4 (the lid-driven cavity, BASELINE
+   config 2): jacobi_fused_k and correct_bc (UNIFORM and
    parabolic lids) on the 2048^2 cavity fast state after 3 steps, kernel
    2 also bit for bit against the whole field's folded twin, each beside
    its channel instance's time on the same inputs; the rounds kernel's
@@ -141,11 +137,9 @@ Phases, one line each; any failure raises and exits non-zero:
    2048^2 cavity fast shape, 3 steps on CUDA and on the CPU path; the
    512^2 cavity production runs, aligned (3 steps) and legacy (2);
 8. require every kernel of each path to have launched in that path's
-   run (counts set to 0 just before it, read just after), predict_div
-   and correct_bc in their tiled and one-launch forms on every path that
-   launches them, the rounds kernel in its cluster form on the 800x264
-   and 400x132 JS runs, kernels 2-4, 6-9, 18 and 19 in their CAVITY
-   instances on every cavity path and never on another (kernel 4's
+   run (counts set to 0 just before it, read just after), the rounds
+   kernel in its cluster form on the 800x264 and 400x132 JS runs,
+   kernels 2-4, 6-9, 18 and 19 in their CAVITY instances on every cavity path and never on another (kernel 4's
    cluster form at 512^2, 128^2 and 64^2, its slab form at 1024^2), and
    kernel 20 in its cluster form on the three ensemble runs (printing the
    CTAs a scene each took), the 8x800x264 run launching no other kernel.
@@ -186,17 +180,15 @@ from cfd_demo_tpu_torch.kernels import _build
 from cfd_demo_tpu_torch.kernels import mg as kmg
 from cfd_demo_tpu_torch.kernels import mgp
 from cfd_demo_tpu_torch.kernels import sor as ksor
-from cfd_demo_tpu_torch.kernels.ensemble import (substep_batch, substep_batch_ctas,
-                                                 substep_batch_plain, substep_batch_sor)
+from cfd_demo_tpu_torch.kernels.cluster import plan
+from cfd_demo_tpu_torch.kernels.ensemble import (substep_batch, substep_batch_plain,
+                                                 substep_batch_sor)
 from cfd_demo_tpu_torch.kernels.jacobi import (jacobi_fused_k, jacobi_fused_k_folded,
                                                jacobi_fused_k_plain,
                                                jacobi_fused_k_shard,
                                                jacobi_fused_k_shard_plain, jacobi_tile)
-from cfd_demo_tpu_torch.kernels.jacobi_batch import (jacobi_batch, jacobi_batch_ctas,
-                                                     jacobi_batch_plain)
-from cfd_demo_tpu_torch.kernels.rounds import (rounds_ctas, rounds_slab_plan,
-                                               solve_correct_rounds,
-                                               solve_correct_rounds_plain)
+from cfd_demo_tpu_torch.kernels.jacobi_batch import jacobi_batch, jacobi_batch_plain
+from cfd_demo_tpu_torch.kernels.rounds import solve_correct_rounds, solve_correct_rounds_plain
 from cfd_demo_tpu_torch.kernels.substep import (correct_bc, correct_bc_plain,
                                                 correct_div, correct_div_plain,
                                                 predict_div, predict_div_plain)
@@ -284,8 +276,6 @@ VERTEX = ("mg_residual_restrict", "mg_prolong_add")
 # The rounds kernel's launches in its cluster and slab forms (of its
 # "launches").
 CLUSTER, SLAB = "rounds_cluster", "rounds_slab"
-# Kernels 1 and 3's launches in their main-path forms (of their "launches").
-TILED, FUSED = "predict_div_tiled", "correct_bc_fused"
 # The launches of kernels 2-4, 6-9, 18 and 19's CAVITY instances (of their
 # "launches"; kernel 9's is its east_dirichlet=False form, kernel 18's its
 # cavity ring).
@@ -303,7 +293,7 @@ CAVITY_LINES = {
     "mg_prolong_add cavity": ("mg_prolong_add", CAV_LEG),
     "mgp_smooth cavity": ("mgp_smooth", CAV_LEG),
 }
-FORM_OF = {TILED: "predict_div", FUSED: "correct_bc", SLAB: "rounds",
+FORM_OF = {SLAB: "rounds",
            **{form: kernel for kernel, form in CAVITY_OF.items()}}
 # The batched kernels' launches in their cluster form (of their "launches").
 BATCH_CLUSTER = {"substep_batch": "substep_batch_cluster",
@@ -475,28 +465,6 @@ def compare(name, pairs, results, timing, bnd):
                      **bnd, "library_ms": None}
 
 
-def require_pointwise_bits(name, got, ref) -> None:
-    """Every output of a kernel's form equal to its pointwise form's."""
-    for k, (a, b) in enumerate(zip(got, ref)):
-        require(bool(torch.equal(a, b)), f"{name}: output {k} differs from the pointwise "
-                f"form by {max_abs(a, b)}")
-
-
-def check_forms(name, call, entry, main, n=20):
-    """Kernels 1 and 3's main-path form (``main``: "tiled" or "fused")
-    against their pointwise form on the same inputs, bit for bit, and
-    both timed in turns (main, pointwise, pointwise, main), the means
-    recorded in ``entry`` as "<form>_ms"."""
-    require_pointwise_bits(name, call(main), call("pointwise"))
-    t = {main: [], "pointwise": []}
-    for form in (main, "pointwise", "pointwise", main):
-        t[form].append(time_ms(lambda: call(form), n))
-    entry.update({f"{f}_ms": sum(v) / len(v) for f, v in t.items()})
-    print(f"[3] {name}: the {main} form equals the pointwise form bit for bit; "
-          f"{main} {entry[main + '_ms']:.4f} ms, pointwise {entry['pointwise_ms']:.4f} ms",
-          flush=True)
-
-
 def check_kernels(dev, results):
     # 2048^2 kernels on the state after 3 steps of the fast shape.
     scene = fast_scene()
@@ -519,8 +487,6 @@ def check_kernels(dev, results):
         (time_ms(lambda: predict_div(u, v, dt, nu, g, sch, sem), 20),
          time_ms(lambda: predict_div_plain(u, v, dt, nu, g, sch, sem), 20)),
         bound(nbytes(u, v, *got, *masks_traced(g, sem, dev)[:2]), PREDICT * g.nx * g.ny))
-    check_forms("predict_div", lambda form: predict_div(u, v, dt, nu, g, sch, sem, form=form),
-                results["predict_div"].setdefault("forms", {}), "tiled")
     u_star, v_star, rhs = got
 
     k = 16
@@ -566,8 +532,6 @@ def check_kernels(dev, results):
          time_ms(lambda: correct_bc_plain(*args), 20)),
         bound(nbytes(*args[:6], *got[:3], *masks_traced(g, sem, dev)[2:]),
               20 * g.nx * g.ny))
-    check_forms("correct_bc", lambda form: correct_bc(*args, form=form),
-                results["correct_bc"].setdefault("forms", {}), "fused")
 
     # The rounds kernel at 800x264 on the state phase 4 ends at (55 steps),
     # where every step runs all its outer rounds, fed what the main path
@@ -625,8 +589,8 @@ def check_rounds_refused(dev, results):
     mean difference removed; and against the cooperative form, the same
     bits and counts, both timed."""
     grid = tc.Grid(nx=1024, ny=512, lx=8.0, ly=4.0, obstacles=(tc.Cylinder(2.0, 2.0, 0.3),))
-    require(rounds_ctas(grid.ny, grid.nx, dev) is None,
-            "rounds: the plan takes the cluster form at 1024x512")
+    require(plan("rounds", 1, grid.ny, grid.nx, dev).form == "slab",
+            "rounds: the plan takes another form than the slab form at 1024x512")
     scene = tc.make_scene(grid, tc.SimulationParams(dt=0.002, viscosity=1e-4),
                           tc.solver_options_for(tc.Semantics.RUST, jacobi_iters=40,
                                                 outer_corrector_rounds=3))
@@ -678,11 +642,17 @@ def check_rounds_forms(args, got, label, results):
     timed."""
     g = args[-1].grid
     dev = args[0].device
-    ctas = rounds_ctas(g.ny, g.nx, dev, args[-1].params.flow_case == tc.FlowCase.CAVITY)
-    slab = rounds_slab_plan(g.ny, g.nx, dev) is not None
-    rule = "cluster" if ctas is not None else "slab" if slab else "cooperative"
-    forms = [f for f, ok in (("cluster", ctas is not None), ("slab", slab),
-                             ("cooperative", True)) if ok]
+    cavity = args[-1].params.flow_case == tc.FlowCase.CAVITY
+
+    def takes(form):
+        try:
+            return plan("rounds", 1, g.ny, g.nx, dev, cavity=cavity, form=form)
+        except ValueError:  # the form does not take the grid
+            return None
+
+    route = takes(None)
+    rule, ctas = route.form, route.ctas
+    forms = [f for f in ("cluster", "slab", "cooperative") if takes(f)]
     for form in forms:
         alt = solve_correct_rounds(*args, form=form)
         require(alt[5].tolist() == got[5].tolist(),
@@ -736,15 +706,12 @@ def check_js_kernels(dev, results):
             got, ref = call(), plain()
             uv_scale = max(1.0, float(ref[0].abs().max()), float(ref[1].abs().max()))
             rhs_tol = 4 * EPS32 * uv_scale * (1 / g.dx + 1 / g.dy) / h
-            entry = record(results, "predict_div", f"{sem.value} {sch.value}", [
+            record(results, "predict_div", f"{sem.value} {sch.value}", [
                 ("u*", got[0], ref[0], scaled(ref[0], 1e-6)),
                 ("v*", got[1], ref[1], scaled(ref[1], 1e-6)),
                 ("rhs", got[2], ref[2], rhs_tol)], call, plain,
                 bound(nbytes(u, v, *got, *masks[:2]),
                       PREDICT_BY_SCHEME[sch.name] * cells))
-            check_forms(f"predict_div {sem.value} {sch.value}",
-                        lambda form: predict_div(u, v, dt, nu, g, sch, sem, form=form),
-                        entry, "tiled")
 
     js = tc.Semantics.JS
     u_star, v_star, _ = predict_div(u, v, dt, nu, g, scene.params.velocity_scheme, js)
@@ -752,14 +719,12 @@ def check_js_kernels(dev, results):
         args = (u_star, v_star, state.p, state.p_prime, u, v, dt, inlet, g, prof,
                 tc.FlowCase.CHANNEL, js)
         got, ref = correct_bc(*args), correct_bc_plain(*args)
-        entry = record(results, "correct_bc", f"js {prof.value}", [
+        record(results, "correct_bc", f"js {prof.value}", [
             (lb, a, b, scaled(b, 1e-6))
             for lb, a, b in zip(("u", "v", "p", "res_u", "res_v", "max_vel"), got, ref)],
             lambda: correct_bc(*args), lambda: correct_bc_plain(*args),
             bound(nbytes(*args[:6], *got[:3], *masks_traced(g, js, dev)[2:]),
                   20 * cells))
-        check_forms(f"correct_bc js {prof.value}",
-                    lambda form: correct_bc(*args, form=form), entry, "fused")
 
     # The rounds kernel's JS form on the JS twin's grid with QUICK faces and
     # the PARABOLIC inlet, fed what the rounds route feeds it.
@@ -872,9 +837,9 @@ def check_cavity_kernels(dev, results):
         scene = cavity_scene(n)
         state, _ = tc.make_run(scene, steps)(scene.init_state(dev))
         args = rounds_args(scene, state)
-        fits = rounds_ctas(n, n, dev, True) is not None
-        require(fits == (form == "cluster"), f"rounds cavity {n}^2: the plan takes the "
-                f"{'cluster' if fits else 'slab'} form, expected the {form} form")
+        taken = plan("rounds", 1, n, n, dev, cavity=True).form
+        require(taken == form, f"rounds cavity {n}^2: the plan takes the {taken} form, "
+                f"expected the {form} form")
         n_cluster, n_slab = (solve_correct_rounds.cluster_launches,
                              solve_correct_rounds.slab_launches)
         got, ref = solve_correct_rounds(*args), solve_correct_rounds_plain(*args)
@@ -1152,7 +1117,7 @@ def check_ensemble_kernels(dev, results):
     results["substep_batch"]["rounds_per_scene"] = counts[:, 0].tolist()
     check_parent_form("substep_batch", "64x256x96", got,
                       substep_batch(*args, form="block"),
-                      substep_batch_ctas(64, g.ny, g.nx, dev),
+                      plan("substep_batch", 64, g.ny, g.nx, dev).ctas,
                       (results["substep_batch"]["ms"],
                        time_ms(lambda: substep_batch(*args, form="block"), 5, warmup=1)),
                       results)
@@ -1181,7 +1146,7 @@ def check_ensemble_kernels(dev, results):
     results["jacobi_batch"]["sweeps_per_scene"] = n.tolist()
     coop = lambda **kw: jacobi_batch(*jargs, form="cooperative", **kw)
     check_parent_form("jacobi_batch", "8x800x264", got, coop(),
-                      jacobi_batch_ctas(8, g.ny, g.nx, dev),
+                      plan("jacobi_batch", 8, g.ny, g.nx, dev).ctas,
                       (results["jacobi_batch"]["ms"], time_ms(coop, 10)), results)
     # As a masked outer round calls it: the scenes flagged done are not
     # swept, and with all of them flagged the launch sweeps nothing.
@@ -1225,8 +1190,9 @@ def check_ensemble_kernels(dev, results):
     # the sweeps one a solve apart at most (ROADMAP.md section 3's knife
     # edge), the fields at the 64x256x96 check's bounds; both timed.
     args = ensemble_args(scene, state)
-    ctas = substep_batch_ctas(8, g.ny, g.nx, dev)
-    require(ctas is not None, "substep_batch: the card admits no cluster for 8x800x264")
+    route = plan("substep_batch", 8, g.ny, g.nx, dev)
+    require(route is not None, "substep_batch: the card admits no cluster for 8x800x264")
+    ctas = route.ctas
     got = substep_batch(*args)
     old = _substep_jnp(scene, *args[:7])
     n, n_old = got[5].cpu(), old[5].cpu()
@@ -1351,7 +1317,7 @@ def check_sor_ensemble(dev, report):
         ms = time_ms(lambda: substep_batch_sor(*args), 5, warmup=1)
         block_ms = time_ms(lambda: substep_batch_sor(*args, form="block"), 5, warmup=1)
         plain_ms = time_ms(lambda: substep_batch_plain(*args), 2, warmup=1)
-        ctas = substep_batch_ctas(B, g.ny, g.nx, dev, sor=True)
+        ctas = plan("substep_batch", B, g.ny, g.nx, dev, sor=True).ctas
         timing[B] = {"ms": ms, "plain_ms": plain_ms, "block_ms": block_ms, "ctas": ctas}
         rounds, iters = (int(x) for x in counts.sum(dim=0))
         print(f"[3] substep_batch_sor {B}x256x96 after 20 steps: the same exits on "
@@ -2353,9 +2319,6 @@ def check_shard_kernels(dev, results, report):
          time_ms(lambda: predict_div_plain(ue, ve, dt, nu, g, sch, sem, row_offset=off),
                  5)),
         bound(nbytes(ue, ve, *got), PREDICT * ue.numel()))
-    check_forms("predict_div row_offset",
-                lambda form: predict_div(ue, ve, dt, nu, g, sch, sem, row_offset=off, form=form),
-                report["predict_div row_offset"].setdefault("forms", {}), "tiled")
     us, vs, rhs = got
     pad = lambda x: torch.nn.functional.pad(x[s * loc:(s + 1) * loc], (0, 0, loc_h, loc_h))
     ppe = shard_blocks(state.p_prime, shards, loc_h)[s]
@@ -2371,8 +2334,6 @@ def check_shard_kernels(dev, results, report):
         (time_ms(lambda: correct_bc(*args, **kw), 20),
          time_ms(lambda: correct_bc_plain(*args, **kw), 5)),
         bound(nbytes(*args[:6], *got[:3]), 20 * us.numel()))
-    check_forms("correct_bc row_offset", lambda form: correct_bc(*args, **kw, form=form),
-                report["correct_bc row_offset"].setdefault("forms", {}), "fused")
 
 
 def sharded_run(scene, state, shards, steps, no_sync):
@@ -2497,8 +2458,6 @@ def reset_counts():
     for wrapper in (solve_correct_rounds, substep_batch, jacobi_batch, substep_batch_sor):
         wrapper.cluster_launches = 0
     solve_correct_rounds.slab_launches = 0
-    predict_div.tiled_launches = 0
-    correct_bc.fused_launches = 0
     for kernel in CAVITY_OF:
         KERNELS[kernel][0].cavity_launches = 0
 
@@ -2509,8 +2468,6 @@ def read_counts():
     counts[SLAB] = solve_correct_rounds.slab_launches
     for name, key in BATCH_CLUSTER.items():
         counts[key] = KERNELS[name][0].cluster_launches
-    counts[TILED] = predict_div.tiled_launches
-    counts[FUSED] = correct_bc.fused_launches
     for kernel, key in CAVITY_OF.items():
         counts[key] = KERNELS[kernel][0].cavity_launches
     return counts
@@ -2735,7 +2692,7 @@ def main() -> int:
     # The rounds kernel takes its cluster form on both scenes that launch
     # it: the default 800x264 scene and the JS twin's 400x132.
     for path, g in ((REF, tc.default_grid()), (JS_DEF, tc.default_js_grid())):
-        require(rounds_ctas(g.ny, g.nx, dev) is not None,
+        require(plan("rounds", 1, g.ny, g.nx, dev).form == "cluster",
                 f"kernels.cluster's plan gives the {path} grid no cluster")
         want = launches[path]["rounds"]
         require(launches[path][CLUSTER] == want,
@@ -2753,7 +2710,7 @@ def main() -> int:
                     f"{n} times of {launches[path][kernel]}, expected {want}")
     for path, n in ((CAV512, 512), (CAV1024, 1024), (CAV_JS, 128), (GHIA, 64)):
         cluster = path != CAV1024
-        require((rounds_ctas(n, n, dev, True) is not None) == cluster,
+        require((plan("rounds", 1, n, n, dev, cavity=True).form == "cluster") == cluster,
                 f"the plan gives the {path} grid the wrong form")
         want = launches[path]["rounds"] if cluster else 0
         require(launches[path][CLUSTER] == want, f"the {path} run launched the rounds "
@@ -2765,15 +2722,6 @@ def main() -> int:
           f"instances only, kernel 4 in its cluster form at 512^2, 128^2 and 64^2 and its "
           f"slab form at 1024^2; no channel path launched a CAVITY instance",
           flush=True)
-    # Kernels 1 and 3 take their tiled and one-launch forms on every path
-    # that launches them.
-    for path in PATHS:
-        for kernel, key in (("predict_div", TILED), ("correct_bc", FUSED)):
-            n = launches[path][kernel]
-            require(launches[path][key] == n, f"the {path} run launched {kernel}'s "
-                    f"{key.split('_')[-1]} form {launches[path][key]} times of {n}")
-    print(f"[8] every path's predict_div and correct_bc launches took the tiled and "
-          f"one-launch forms", flush=True)
     # The ensembles take kernel 20's cluster form on all three paths, the
     # 8x800x264 one (beyond the block form's gate) and never kernel 12.
     for path, kernel, (batch, ny, nx) in (
@@ -2782,7 +2730,8 @@ def main() -> int:
         n, n_cluster = launches[path][kernel], launches[path][BATCH_CLUSTER[kernel]]
         require(n_cluster == n, f"the {path} run launched {kernel}'s cluster form "
                 f"{n_cluster} times of {n}")
-        ctas = substep_batch_ctas(batch, ny, nx, dev, kernel == "substep_batch_sor")
+        ctas = plan("substep_batch", batch, ny, nx, dev,
+                    sor=kernel == "substep_batch_sor").ctas
         print(f"[8] the {path} run took {kernel}'s cluster form, {n} launches, "
               f"{ctas} CTAs a scene", flush=True)
     report["launches"] = launches

@@ -234,12 +234,22 @@ def test_correct_bc_cavity_matches_pallas(semantics, profile):
         assert_close(r, g)
 
 
-def test_correct_bc_pointwise_form_refuses_cavity():
-    _, tg = cavity_grids()
-    args = tuple(map(T, fields(1, tg))) + tuple(map(T, fields(2, tg)[:2]))
-    with pytest.raises(ValueError, match="CHANNEL"):
-        tsub.correct_bc(*args, DT, INLET, tg, tcfg.InletProfile.UNIFORM, CAVITY_T,
-                        tcfg.Semantics.RUST, form="pointwise")
+def test_correct_bc_on_a_cavity_state_is_the_plain_cavity_branch():
+    """On a CAVITY state correct_bc is correct_bc_plain's cavity branch bit
+    for bit: the lid's row at the lid's speed, the floor and the side walls
+    at rest, and the three maxima over those fields."""
+    _, tg = cavity_grids(cylinder=False)
+    args = (*map(T, fields(1, tg)), *map(T, fields(2, tg)[:2]), DT, INLET, tg,
+            tcfg.InletProfile.UNIFORM, CAVITY_T, tcfg.Semantics.RUST)
+    got, ref = tsub.correct_bc(*args), tsub.correct_bc_plain(*args)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    u, v = got[:2]
+    assert bool((u[-1, 1:-1] == INLET).all())
+    assert not u[0].any() and not u[:, 0].any() and not u[:, -1].any()
+    assert not v[0].any() and not v[:, 0].any() and not v[:, -1].any()
+    assert torch.equal(got[3], (u - args[4]).abs().max())
+    assert torch.equal(got[5], torch.maximum(u.abs().max(), v.abs().max()))
 
 
 def _rounds_case(seed, nx, profile="UNIFORM", semantics="RUST"):

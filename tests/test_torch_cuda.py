@@ -1080,7 +1080,7 @@ def test_rounds_cluster_equals_cooperative(cuda, which):
     c = krounds.solve_correct_rounds(*args)
     assert krounds.solve_correct_rounds.cluster_launches == n_cluster + 1
     assert torch.equal(c[3], b[3])
-    assert krounds.rounds_ctas(g.ny, g.nx, cuda) in kcl.candidates(g.ny, g.nx)
+    assert kcl.plan("rounds", 1, g.ny, g.nx, cuda).ctas in kcl.candidates(g.ny, g.nx)
 
 
 def test_rounds_cooperative_where_the_rule_refuses(cuda):
@@ -1089,7 +1089,7 @@ def test_rounds_cooperative_where_the_rule_refuses(cuda):
     form against the cooperative form bit for bit."""
     grid = tc.Grid(nx=1024, ny=512, lx=8.0, ly=4.0,
                    obstacles=(tc.Cylinder(2.0, 2.0, 0.3),))
-    assert krounds.rounds_ctas(grid.ny, grid.nx, cuda) is None
+    assert kcl.plan("rounds", 1, grid.ny, grid.nx, cuda).form == "slab"
     scene = tc.make_scene(grid, tc.SimulationParams(dt=0.002, viscosity=1e-4),
                           tc.solver_options_for(RUST, jacobi_iters=40,
                                                 outer_corrector_rounds=3))
@@ -1139,8 +1139,9 @@ def test_rounds_slab_equals_cooperative(cuda, which):
     slab = which == "1024^2 cavity"
     assert launches() == (before[0] + (not slab), before[1] + slab)
     assert torch.equal(c[3], b[3])
-    assert (krounds.rounds_ctas(g.ny, g.nx, cuda, slab) is None) is slab
-    assert krounds.rounds_slab_plan(g.ny, g.nx, cuda) is not None
+    assert kcl.plan("rounds", 1, g.ny, g.nx, cuda, cavity=slab).form == (
+        "slab" if slab else "cluster")
+    assert kcl.plan("rounds", 1, g.ny, g.nx, cuda, form="slab").slab is not None
 
 
 @pytest.mark.parametrize("cavity", [False, True], ids=["channel", "cavity"])
@@ -1157,7 +1158,7 @@ def test_rounds_slab_plans(cuda, cavity, ny, nx):
     on chip, and a short last slab: bit for bit the cooperative form,
     the same counts, every solve at its 40 sweeps and all 3 outer rounds
     (both tolerances 0)."""
-    plan = krounds.rounds_slab_plan(ny, nx, cuda)
+    plan = kcl.plan("rounds", 1, ny, nx, cuda, cavity=cavity, form="slab").slab
     assert plan is not None
     opts = dict(jacobi_iters=40, outer_corrector_rounds=3, jacobi_tol=0.0,
                 outer_corrector_tol=0.0)
@@ -1196,7 +1197,7 @@ def test_rounds_slab_refused(cuda):
 
 
 # ---------------------------------------------------------------------------
-# Kernels 1 and 3's main-path forms against their pointwise forms
+# Kernels 1 and 3 against their plain versions bit for bit
 # ---------------------------------------------------------------------------
 
 # (nx, ny): odd and even, a one-tile grid, tiles straddling every edge,
@@ -1213,46 +1214,47 @@ def _tile_grid(nx, ny, six=False):
     return tc.Grid(nx=nx, ny=ny, lx=lx, ly=ly, obstacles=obstacles)
 
 
-def _predict_forms(u, v, grid, scheme, semantics, **kw):
-    args = (DT, NU, grid, tc.VelocityScheme[scheme], tc.Semantics[semantics])
-    before = (ksub.predict_div.launches, ksub.predict_div.tiled_launches)
-    tiled = ksub.predict_div(u, v, *args, **kw)
-    pointwise = ksub.predict_div(u, v, *args, form="pointwise", **kw)
-    assert (ksub.predict_div.launches, ksub.predict_div.tiled_launches) == (
-        before[0] + 2, before[1] + 1)
-    return tiled, pointwise
+def _cpu(args):
+    return [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+
+
+def _predict_bits(u, v, grid, scheme, semantics, what, **kw):
+    """predict_div on the card, one launch, and the bits of predict_div_plain
+    on the CPU (the kernel keeps the plain version's operand order under
+    -fmad=false; PyTorch's CUDA ops do not give those bits)."""
+    args = (u, v, DT, NU, grid, tc.VelocityScheme[scheme], tc.Semantics[semantics])
+    n = ksub.predict_div.launches
+    got = ksub.predict_div(*args, **kw)
+    assert ksub.predict_div.launches == n + 1
+    _same_bits([x.cpu() for x in got], ksub.predict_div_plain(*_cpu(args), **kw), what)
 
 
 @pytest.mark.parametrize("scheme,semantics", SIX_INSTANCES)
 @pytest.mark.parametrize("nx,ny", TILE_SHAPES)
-def test_predict_div_tiled_is_pointwise(cuda, nx, ny, scheme, semantics):
-    """The tiled predict_div gives the pointwise form's bits on every
-    instance, one cylinder and six; and stays within the plain version's
-    tolerance."""
+def test_predict_div_is_plain_bit_for_bit(cuda, nx, ny, scheme, semantics):
+    """The tiled predict_div gives the plain version's bits on every
+    instance, one cylinder and six, and on a flow at rest."""
     for six in (False, True):
         grid = _tile_grid(nx, ny, six)
         u, v, _, _ = fields(50 + nx + ny, grid, cuda)
-        tiled, pointwise = _predict_forms(u, v, grid, scheme, semantics)
-        _same_bits(tiled, pointwise, f"predict_div {nx}x{ny} six={six}")
-    ref = ksub.predict_div_plain(u.cpu(), v.cpu(), DT, NU, grid, tc.VelocityScheme[scheme],
-                                 tc.Semantics[semantics])
-    assert_close(tiled[0], ref[0])
-    assert_close(tiled[1], ref[1])
-    assert_close(tiled[2], ref[2], rtol=1e-6 / (grid.dx * DT))
+        _predict_bits(u, v, grid, scheme, semantics, f"predict_div {nx}x{ny} six={six}")
+        _predict_bits(torch.zeros_like(u), torch.zeros_like(v), grid, scheme, semantics,
+                      f"predict_div {nx}x{ny} six={six} at rest")
 
 
 @pytest.mark.parametrize("scheme,semantics", SIX_INSTANCES)
 @pytest.mark.parametrize("off", [-16, 16, 61, 88])
-def test_predict_div_tiled_row_offset(cuda, off, scheme, semantics):
+def test_predict_div_row_offset_bit_for_bit(cuda, off, scheme, semantics):
     """Row blocks of a 200x160 grid at negative and positive offsets (the
-    top one past the grid), 96 rows: interior tiles at an offset."""
+    top one past the grid), 96 rows: interior tiles at an offset, the
+    whole block the plain version's bits."""
     grid = _tile_grid(200, 160)
     rows = 96
     u, v, _, _ = fields(60 + off, grid, "cpu")
     u, v = (torch.nn.functional.pad(x, (0, 0, 16, 16))[off + 16:off + 16 + rows]
             .contiguous().to(cuda) for x in (u, v))
-    tiled, pointwise = _predict_forms(u, v, grid, scheme, semantics, row_offset=off)
-    _same_bits(tiled, pointwise, f"predict_div row_offset {off}")
+    _predict_bits(u, v, grid, scheme, semantics, f"predict_div row_offset {off}",
+                  row_offset=off)
     plan = ksub.predict_tile_plan(rows, grid.nx, tc.VelocityScheme[scheme], off, grid.ny)
     assert plan["fast"][1] > plan["fast"][0]
 
@@ -1261,30 +1263,26 @@ def _correct_inputs(seed, grid, device):
     return fields(seed, grid, device) + fields(seed + 1, grid, device)[:2]
 
 
-def _correct_forms(args, rest, **kw):
-    before = (ksub.correct_bc.launches, ksub.correct_bc.fused_launches)
-    fused = ksub.correct_bc(*args, *rest, **kw)
-    pointwise = ksub.correct_bc(*args, *rest, form="pointwise", **kw)
-    assert (ksub.correct_bc.launches, ksub.correct_bc.fused_launches) == (
-        before[0] + 2, before[1] + 1)
-    return fused, pointwise
+def _correct_bits(args, rest, what, **kw):
+    """correct_bc on the card, one launch, and the bits of correct_bc_plain
+    on the CPU: u, v, p and the three maxima."""
+    n = ksub.correct_bc.launches
+    got = ksub.correct_bc(*args, *rest, **kw)
+    assert ksub.correct_bc.launches == n + 1
+    _same_bits([x.cpu() for x in got], ksub.correct_bc_plain(*_cpu(args), *rest, **kw), what)
+    return got
 
 
 @pytest.mark.parametrize("semantics", ["RUST", "JS"])
 @pytest.mark.parametrize("profile", ["UNIFORM", "PARABOLIC", "PARABOLIC_UPPER"])
 @pytest.mark.parametrize("nx,ny", TILE_SHAPES)
-def test_correct_bc_fused_is_pointwise(cuda, nx, ny, profile, semantics):
-    """The one-launch correct_bc gives the pointwise form's bits on u, v,
-    p and the three maxima, and the plan's CTA count is the kernel's."""
+def test_correct_bc_is_plain_bit_for_bit(cuda, nx, ny, profile, semantics):
+    """The one-launch correct_bc gives the plain version's bits on u, v, p
+    and the three maxima, and the plan's CTA count is the kernel's."""
     grid = _tile_grid(nx, ny, six=True)
-    args = _correct_inputs(70 + nx, grid, cuda)
     rest = (DT, INLET, grid, tc.InletProfile[profile], tc.FlowCase.CHANNEL,
             tc.Semantics[semantics])
-    fused, pointwise = _correct_forms(args, rest)
-    _same_bits(fused, pointwise, f"correct_bc {nx}x{ny} {profile}")
-    ref = ksub.correct_bc_plain(*(a.cpu() for a in args), *rest)
-    for a, b in zip(fused, ref):
-        assert_close(a, b)
+    _correct_bits(_correct_inputs(70 + nx, grid, cuda), rest, f"correct_bc {nx}x{ny}")
     lib = ksub.load()
     assert (lib.cfd_correct_bc_fused_partials(ny, nx)
             == ksub.correct_strip_plan(ny, nx)["partials"])
@@ -1292,34 +1290,45 @@ def test_correct_bc_fused_is_pointwise(cuda, nx, ny, profile, semantics):
 
 @pytest.mark.parametrize("own", [(16, 80), (0, 96), (1, 2), (63, 95)])
 @pytest.mark.parametrize("off", [-16, 40, 80])
-def test_correct_bc_fused_owned_rows(cuda, off, own):
-    """Owned-row windows of a row block: only they enter the maxima, as
-    in the pointwise form (the same bits)."""
+def test_correct_bc_owned_rows_bit_for_bit(cuda, off, own):
+    """Owned-row windows of a row block: only they enter the maxima. The
+    rows the sharded step keeps (in the grid, past the block's first row,
+    whose v reads a p' row from beyond the block) are the plain version's
+    bits; the maxima are those of the kernel's own fields over the owned
+    rows, and the plain version's where those rows lie in the grid."""
     grid = _tile_grid(200, 160)
     rows = 96
     args = tuple(torch.nn.functional.pad(x, (0, 0, 16, 16))[off + 16:off + 16 + rows]
                  .contiguous().to(cuda) for x in _correct_inputs(80 + off, grid, "cpu"))
     rest = (DT, INLET, grid, tc.InletProfile.PARABOLIC, tc.FlowCase.CHANNEL, RUST)
     kw = dict(row_offset=off, own_rows=own)
-    fused, pointwise = _correct_forms(args, rest, **kw)
-    _same_bits(fused, pointwise, f"correct_bc row_offset {off} own {own}")
-    ref = ksub.correct_bc_plain(*(a.cpu() for a in args), *rest, **kw)
-    for a, b in zip(fused[3:], ref[3:]):
-        assert_close(a, b)
+    got = [x.cpu() for x in ksub.correct_bc(*args, *rest, **kw)]
+    ref = ksub.correct_bc_plain(*_cpu(args), *rest, **kw)
+    kept = slice(max(1, -off), min(rows, grid.ny - off))
+    _same_bits([a[kept] for a in got[:3]], [b[kept] for b in ref[:3]], f"rows {kept}")
+    lo, hi = own
+    ue, ve = (a.cpu()[lo:hi] for a in args[4:6])
+    u, v = got[0][lo:hi], got[1][lo:hi]
+    _same_bits(got[3:], [(u - ue).abs().max(), (v - ve).abs().max(),
+                         torch.maximum(u.abs().max(), v.abs().max())], "own maxima")
+    if lo + off >= 0 and hi + off <= grid.ny:
+        _same_bits(got[3:], ref[3:], f"maxima row_offset {off} own {own}")
 
 
-@pytest.mark.parametrize("form", ["fused", "pointwise"])
-def test_correct_bc_nan_comes_out(cuda, form):
-    """A NaN in u* comes out in res_u and max_vel, as pmax (and
-    torch.amax) give it, not in res_v."""
+@pytest.mark.parametrize("field", ["u_star", "v_star"])
+def test_correct_bc_nan_comes_out(cuda, field):
+    """A NaN in u* comes out in res_u and max_vel, one in v* in res_v and
+    max_vel, as pmax (and torch.amax) give it; the other residual stays a
+    number."""
     grid = _tile_grid(200, 160)
     args = list(_correct_inputs(90, grid, cuda))
-    args[0][77, 101] = float("nan")
+    k = ("u_star", "v_star").index(field)
+    args[k][77, 101] = float("nan")
     rest = (DT, INLET, grid, tc.InletProfile.UNIFORM, tc.FlowCase.CHANNEL, RUST)
-    got = ksub.correct_bc(*args, *rest, form=form)
-    assert torch.isnan(got[3]) and torch.isnan(got[5]) and not torch.isnan(got[4])
-    ref = ksub.correct_bc_plain(*(a.cpu() for a in args), *rest)
-    assert torch.isnan(ref[3]) and torch.isnan(ref[5])
+    got = ksub.correct_bc(*args, *rest)
+    assert torch.isnan(got[3 + k]) and torch.isnan(got[5]) and not torch.isnan(got[4 - k])
+    ref = ksub.correct_bc_plain(*_cpu(args), *rest)
+    assert torch.isnan(ref[3 + k]) and torch.isnan(ref[5]) and not torch.isnan(ref[4 - k])
 
 
 def test_correct_bc_ticket_resets(cuda):
@@ -1333,8 +1342,7 @@ def test_correct_bc_ticket_resets(cuda):
     first = ksub.correct_bc(*big, *rest)
     second = ksub.correct_bc(*big, *rest)
     _same_bits(first, second, "two calls")
-    third = ksub.correct_bc(*small, *rest)
-    _same_bits(third, ksub.correct_bc(*small, *rest, form="pointwise"), "after a larger")
+    third = _correct_bits(small, rest, "after a larger")
     assert float(third[5]) < float(first[5])
 
 
@@ -1396,10 +1404,7 @@ def test_correct_bc_cavity(cuda, shape, cylinders, profile, semantics):
     got = ksub.correct_bc(*args, *rest)
     assert ksub.correct_bc.cavity_launches == n + 1
     ref = ksub.correct_bc_plain(*(a.cpu() for a in args), *rest)
-    for a, b in zip(got, ref):
-        assert_close(a, b)
-    with pytest.raises(ValueError, match="CHANNEL"):
-        ksub.correct_bc(*args, *rest, form="pointwise")
+    _same_bits([x.cpu() for x in got], ref, f"correct_bc cavity {shape} {profile}")
 
 
 def _cavity_rounds_scene(ny, nx, cylinders=1, **opts):

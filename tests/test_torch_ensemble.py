@@ -27,6 +27,7 @@ import cfd_demo_tpu_torch as tc
 from cfd_demo_tpu_torch import cells
 from cfd_demo_tpu_torch.apps import common as tcommon
 from cfd_demo_tpu_torch.apps import ensemble as tapp
+from cfd_demo_tpu_torch.kernels import cluster as kcl
 from cfd_demo_tpu_torch.kernels import ensemble as kens
 from cfd_demo_tpu_torch.kernels import jacobi_batch as kjb
 from cfd_demo_tpu_torch.kernels._build import scene_scalars
@@ -317,7 +318,7 @@ def test_batched_route_table(monkeypatch, route):
 # case -> (nx, ny, solver, whether kernel 20 takes the batch on a card
 # that admits its cluster, on one that admits none, whether the card is
 # asked)
-ROUTES = {"block": (256, 96, "JACOBI", True, True, False),
+ROUTES = {"block": (256, 96, "JACOBI", True, True, True),
           "cluster": (800, 264, "JACOBI", True, False, True),
           "wide": (1100, 30, "JACOBI", False, False, False),
           "sor-beyond-block": (800, 264, "SOR", False, False, False)}
@@ -330,9 +331,9 @@ def test_kernel20_route_test(monkeypatch, case):
     Jacobi scene beyond it that a cluster holds (800x264) where the card
     admits that cluster; a scene wider than 1024 columns and a SOR scene
     beyond the gate keep the plain batched substep (kernel 12, the masked
-    sor). The card's admission is stubbed, and asked only beyond the
-    block gate of a Jacobi scene a cluster holds. A step on the CPU takes
-    the route the shape gives."""
+    sor). The card's pick (kernels.cluster.pick_ctas) is stubbed, and
+    asked only where a cluster holds the scene and the gate lets the
+    solver through. A step on the CPU takes the route the shape gives."""
     nx, ny, solver, admits, refuses, asks = ROUTES[case]
     grid = tc.Grid(nx=nx, ny=ny, lx=30.0, ly=10.0, obstacles=(tc.Cylinder(7.5, 5.0, 0.75),))
     scene = tc.make_scene(
@@ -343,14 +344,16 @@ def test_kernel20_route_test(monkeypatch, case):
     for ctas, want in ((14, admits), (None, refuses)):
         asked = []
 
-        def admission(batch, ny, nx, device, sor=False):
+        def pick(entry, batch, ny, nx, device, *extra):
             asked.append((batch, ny, nx, device))
             return ctas
 
-        monkeypatch.setattr(kens, "substep_batch_ctas", admission)
+        monkeypatch.setattr(kcl, "pick_ctas", pick)
+        kcl.plan.cache_clear()
         assert kens.substep_batch_takes(scene, 8, card) is want
         assert asked == ([(8, ny, nx, card)] if asks else [])
         assert kens.substep_batch_takes(scene, 8, "cpu") is admits
+    kcl.plan.cache_clear()
     calls, inside = [], []
     for name in ("substep_batch", "_substep_jnp", "jacobi_batch", "sor"):
         _spy(monkeypatch, name, calls, inside)

@@ -212,7 +212,7 @@ def test_every_ensemble_scene_the_gate_takes_has_a_cluster_up_to_1024_columns():
     """substep_batch_fits (two p' buffers in one block) admits no scene
     up to 1024 columns that 16 CTAs cannot split."""
     for nx in (3, 4, 17, 64, 256, 511, 800, 1024):
-        ny = (kens.SMEM_OPTIN_BYTES - kens._SMEM_STATIC) // (8 * nx)
+        ny = (kcl.SMEM_OPTIN_BYTES - kcl.BLOCK_SMEM_STATIC) // (8 * nx)
         grid = tc.Grid(nx=nx, ny=ny, lx=1.0, ly=1.0, obstacles=())
         assert kens.substep_batch_fits(grid)
         assert kcl.cluster_fits(ny, nx)
@@ -306,3 +306,103 @@ def test_a_wide_ensemble_scene_takes_the_block_form():
     assert not kcl.cluster_fits(12, 1100)
     with pytest.raises(ValueError, match="no cluster holds"):
         kens.substep_batch(*args, form="cluster")
+
+
+# The planner's choices, as the route helpers it replaced made them,
+# for each shape under each column's (kernel, batch, admission, SMs): "cC"
+# the cluster form at C CTAs a scene, "sRT.RP.BLOCKS.RHS" kernel 4's slab
+# form with that grid_slab_plan, "co" the cooperative form, "bl" kernel
+# 20's block form, "-" no form (the wrapper raises).
+NO_14_16 = {**H100_LIKE, 14: 0, 16: 0}
+NONE = {}
+ONE_EACH = {c: 1 for c in kcl.CTAS}
+PLAN_COLUMNS = (
+    [("rounds", 1, a, s) for a, s in (("H100_LIKE", 132), ("THE_CARD", 132), ("NONE", 132),
+                                      ("NO_14_16", 132), ("ONE_EACH", 114), ("NONE", 114))]
+    + [(k, b, a, 132) for k in ("jacobi_batch", "substep_batch")
+       for b, a in ((1, "H100_LIKE"), (8, "THE_CARD"), (64, "H100_LIKE"), (64, "SMALLER"),
+                    (256, "SIXTEEN_BY_8"), (8, "NONE"))]
+    + [("substep_batch_sor", b, a, 132) for b, a in ((16, "THE_CARD"), (8, "NONE"))])
+PLAN_TABLE = """
+   3    3          c1          c1    s1.1.3.1          c1          c1    s1.1.3.1  c1  c1  c1  c1  c1 co  c1  c1  c1  c1  c1 bl c1 bl
+   3   40          c1          c1    s1.1.3.1          c1          c1    s1.1.3.1  c1  c1  c1  c1  c1 co  c1  c1  c1  c1  c1 bl c1 bl
+  24   40          c1          c1   s1.1.24.1          c1          c1   s1.1.24.1  c1  c1  c1  c1  c1 co  c1  c1  c1  c1  c1 bl c1 bl
+  37   53          c1          c1   s1.1.37.1          c1          c1   s1.1.37.1  c1  c1  c1  c1  c1 co  c1  c1  c1  c1  c1 bl c1 bl
+  96  256          c6          c6   s1.1.96.1          c6          c6   s1.1.96.1  c6  c6  c2  c3  c2 co  c6  c6  c2  c3  c2 bl c6 bl
+ 120  241          c8          c8  s1.1.120.1          c8          c8   s1.2.60.1  c8  c8  c2  c3  c2 co  c8  c8  c2  c3  c2 bl c4 bl
+ 120  242          c8          c8  s1.1.120.1          c8          c8   s1.2.60.1  c8  c8  c2  c3  c2 co  c8  c8  c2  c3  c2  -  -  -
+ 132  400         c14         c14  s1.1.132.1         c15         c14   s1.2.66.1 c14  c7  c5  c5  c4 co c14  c7  c5  c5  c4  -  -  -
+ 165  500         c11         c11   s1.2.83.1         c11         c11   s1.2.83.1 c11  c7  c7  c5  c7 co c11  c7  c7  c5  c7  -  -  -
+ 198  600         c11         c11   s1.2.99.1         c11         c11   s1.2.99.1 c11  c9  c7  c7  c7 co c11  c9  c7  c7  c7  -  -  -
+ 231  700         c16         c16  s1.2.116.1         c12         c16   s1.3.77.1 c16 c16 c12 c12 c16 co c16 c16 c12 c12 c16  -  -  -
+ 264  800         c14         c14  s1.2.132.1  s1.2.132.1         c14   s1.3.88.1 c14 c14 c14 c14 c14 co c14 c14 c14 c14 c14  -  -  -
+ 320  800         c16         c16  s1.3.107.1  s1.3.107.1         c16  s1.3.107.1 c16 c16 c16 c16 c16 co c16 c16 c16 c16 c16  -  -  -
+ 321  800  s1.3.107.1  s1.3.107.1  s1.3.107.1  s1.3.107.1  s1.3.107.1  s1.3.107.1  co  co  co  co  co co   -   -   -   -   -  -  -  -
+ 700  800  s2.6.117.1  s2.6.117.1  s2.6.117.1  s2.6.117.1   s2.8.88.1   s2.8.88.1  co  co  co  co  co co   -   -   -   -   -  -  -  -
+  16 1024          c4          c4   s1.1.16.1          c4          c4   s1.1.16.1  c4  c4  c2  c1  c1 co  c4  c4  c2  c1  c1 bl c4 bl
+  28 1024          c7          c7   s1.1.28.1          c7          c7   s1.1.28.1  c7  c7  c2  c3  c2 co  c7  c7  c2  c3  c2 bl c4 bl
+ 256 1024         c16         c16  s1.2.128.1  s1.2.128.1         c16   s1.3.86.1 c16 c16 c16 c16 c16 co c16 c16 c16 c16 c16  -  -  -
+ 257 1024  s1.2.129.1  s1.2.129.1  s1.2.129.1  s1.2.129.1   s1.3.86.1   s1.3.86.1  co  co  co  co  co co   -   -   -   -   -  -  -  -
+ 512  512         c16         c16  s1.4.128.1         c15         c16  s1.5.103.1 c16 c16 c16 c16 c16 co c16 c16 c16 c16 c16  -  -  -
+ 512 1024  s1.4.128.1  s1.4.128.1  s1.4.128.1  s1.4.128.1   s2.6.86.1   s2.6.86.1  co  co  co  co  co co   -   -   -   -   -  -  -  -
+1001 1024  s2.8.126.1  s2.8.126.1  s2.8.126.1  s2.8.126.1  s3.9.112.1  s3.9.112.1  co  co  co  co  co co   -   -   -   -   -  -  -  -
+1024 1024  s2.8.128.1  s2.8.128.1  s2.8.128.1  s2.8.128.1  s3.9.114.1  s3.9.114.1  co  co  co  co  co co   -   -   -   -   -  -  -  -
+1320 1024 s3.12.110.1 s3.12.110.1 s3.12.110.1 s3.12.110.1 s3.12.110.1 s3.12.110.1  co  co  co  co  co co   -   -   -   -   -  -  -  -
+2000 1024 s4.16.125.1 s4.16.125.1 s4.16.125.1 s4.16.125.1 s6.18.112.0 s6.18.112.0  co  co  co  co  co co   -   -   -   -   -  -  -  -
+3000 1024 s6.24.125.0 s6.24.125.0 s6.24.125.0 s6.24.125.0          co          co  co  co  co  co  co co   -   -   -   -   -  -  -  -
+3169 1024          co          co          co          co          co          co  co  co  co  co  co co   -   -   -   -   -  -  -  -
+9000    3          c9          c9 s1.69.131.1          c9          c9 s1.79.114.1  c9  c9  c2  c3  c2 co  c9  c9  c2  c3  c2 bl c5 bl
+  12 1100          co          co          co          co          co          co  co  co  co  co  co co  bl  bl  bl  bl  bl bl bl bl
+  30 1100          co          co          co          co          co          co  co  co  co  co  co co   -   -   -   -   -  -  -  -
+ 512 1100          co          co          co          co          co          co  co  co  co  co  co co   -   -   -   -   -  -  -  -
+  24 2048          co          co          co          co          co          co  co  co  co  co  co co   -   -   -   -   -  -  -  -
+2048 2048          co          co          co          co          co          co  co  co  co  co  co co   -   -   -   -   -  -  -  -
+"""
+
+
+def _token(route):
+    """A Plan as PLAN_TABLE writes it."""
+    if route is None:
+        return "-"
+    if route.form == "slab":
+        return "s" + ".".join(str(int(x)) for x in route.slab)
+    return {"cluster": f"c{route.ctas}", "cooperative": "co", "block": "bl"}[route.form]
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """kernels.cluster asking a made-up card: ``set(admitted, sms)`` makes
+    its admission ``admitted`` (a dict, as gpc_admission gives) and its SM
+    count ``sms``; the plan's cache is cleared around each."""
+    def set_card(admitted, sms):
+        kcl.plan.cache_clear()
+        monkeypatch.setattr(kcl, "admitted_clusters", lambda entry, device, ny, nx, *extra: {
+            c: admitted.get(c, 0) for c in kcl.candidates(ny, nx)})
+        monkeypatch.setattr(kcl, "sm_count", lambda device: sms)
+    yield set_card
+    kcl.plan.cache_clear()
+
+
+CARD = torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("line", PLAN_TABLE.strip().splitlines(),
+                         ids=lambda line: "x".join(line.split()[:2]))
+def test_plan_table(fake_card, line):
+    """kernels.cluster.plan chooses for every shape, kernel, batch,
+    admission and SM count what the route helpers it replaced chose
+    (kernel 4's choice for its CAVITY instance too), the benchmark's
+    shapes among them: 264x800 the cluster form at 14 CTAs for one scene
+    and for 8, 1024x1024 the slab form of 8-row blocks, wider than 1024
+    columns the cooperative form."""
+    ny, nx, *want = line.split()
+    ny, nx = int(ny), int(nx)
+    got, cavity_got = [], []
+    for kernel, batch, admitted, sms in PLAN_COLUMNS:
+        fake_card(globals()[admitted], sms)
+        sor = kernel == "substep_batch_sor"
+        got.append(_token(kcl.plan(kernel.removesuffix("_sor"), batch, ny, nx, CARD, sor=sor)))
+        if kernel == "rounds":
+            cavity_got.append(_token(kcl.plan(kernel, 1, ny, nx, CARD, cavity=True)))
+    assert got == want
+    assert cavity_got == want[:len(cavity_got)]

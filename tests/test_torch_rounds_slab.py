@@ -6,7 +6,7 @@ cluster form's slabs in shared memory spread over the whole card, one
 block an SM, the edge rows through device memory and one grid barrier a
 sweep. How it splits a grid is ``grid_slab_plan``, a pure function of
 (ny, nx, SMs) that kernels/cluster.py mirrors; which form a grid takes
-is kernels/rounds.py ``rounds_form``, on shapes alone. Both are held
+is kernels/cluster.py ``plan``'s, here on a made-up card. Both are held
 here; the kernel itself is held to the cooperative form bit for bit by
 tests/test_torch_cuda.py on the card.
 """
@@ -19,6 +19,7 @@ import torch
 import cfd_demo_tpu_torch as tc
 from cfd_demo_tpu_torch.kernels import cluster as kcl
 from cfd_demo_tpu_torch.kernels import rounds as krounds
+from test_torch_ensemble_plan import CARD, fake_card  # noqa: F401 (a fixture)
 
 H100_SMS = 132
 # every cluster size admitted: the pick then takes any C the plan offers
@@ -95,7 +96,7 @@ def test_plan_mirrors_the_source():
     entry = (csrc / "rounds.cu").read_text()
     assert "halo_n < 4LL * pl.blocks * ((nx + 3) & ~3)" in entry
     wrapper = Path(krounds.__file__).read_text()
-    assert "torch.empty(4 * plan[2] * 4 * -(-nx // 4)" in wrapper
+    assert "torch.empty(4 * route.slab[2] * 4 * -(-nx // 4)" in wrapper
 
 
 @pytest.mark.parametrize("ny,nx,form", [
@@ -110,20 +111,24 @@ def test_plan_mirrors_the_source():
     (512, 1100, "cooperative"),   # past 1024 columns
     (24, 2048, "cooperative"),
 ])
-def test_route_on_shapes_alone(ny, nx, form):
+def test_route_on_shapes_alone(fake_card, ny, nx, form):
     """The cluster form where the pick finds a cluster, else the slab form
     where its plan takes the grid on the card's SMs, else the cooperative
-    form."""
-    ctas = kcl.cluster_ctas(1, ny, nx, ANY_CLUSTER)
-    assert krounds.rounds_form(ny, nx, ctas, H100_SMS) == form
+    form (kernels.cluster.plan, on a card that admits every cluster)."""
+    fake_card(ANY_CLUSTER, H100_SMS)
+    assert kcl.plan("rounds", 1, ny, nx, CARD).form == form
 
 
-def test_route_follows_the_card():
+@pytest.mark.parametrize("ny,nx,admitted,sms,form", [
+    (264, 800, {}, H100_SMS, "slab"),
+    (3000, 1024, {}, H100_SMS, "slab"),
+    (3000, 1024, {}, 114, "cooperative"),
+])
+def test_route_follows_the_card(fake_card, ny, nx, admitted, sms, form):
     """A card that admits no cluster sends a grid a cluster holds to the
     slab form; fewer SMs send a tall grid to the cooperative form."""
-    assert krounds.rounds_form(264, 800, kcl.cluster_ctas(1, 264, 800, {}), H100_SMS) == "slab"
-    assert krounds.rounds_form(3000, 1024, None, H100_SMS) == "slab"
-    assert krounds.rounds_form(3000, 1024, None, 114) == "cooperative"
+    fake_card(admitted, sms)
+    assert kcl.plan("rounds", 1, ny, nx, CARD).form == form
 
 
 def _scene(ny, nx, cavity=False):

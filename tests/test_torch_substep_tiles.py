@@ -13,8 +13,8 @@ version has no near-wall form), and emulate the schedules with the
 plain versions: ``predict_div_plain`` on each row tile's window at its
 global row offset gives the whole field's bits, and the strips' per-CTA
 maxima reduce to ``correct_bc_plain``'s. The CUDA kernels are held to
-their pointwise forms bit for bit by tests/test_torch_cuda.py on the
-card. The last tests add the row-offset forms the Pallas parity tests
+the plain versions bit for bit by tests/test_torch_cuda.py on the card.
+The last tests add the row-offset forms the Pallas parity tests
 of tests/test_torch_shard_kernels.py leave out (JS FIRST and SECOND,
 PARABOLIC_UPPER) against the Pallas kernels in interpret mode.
 """
