@@ -90,7 +90,7 @@ from .kernels import mg, mgp
 from .kernels.ensemble import substep_batch, substep_batch_sor
 from .kernels.jacobi_batch import jacobi_batch
 from .kernels.rounds import solve_correct_rounds
-from .kernels.substep import correct_bc, correct_div, predict_div, predict_div_plain
+from .kernels.substep import correct_bc, correct_div, predict_div
 from .shard import make_mesh, make_run_shmap, make_step_shmap, shard_state
 from .solver.piso import (_substep_batched, _use_fused_substep, _warm_start,
                           make_run, make_scene, make_step, ramped_inlet)
@@ -229,12 +229,12 @@ def sor_ensemble_scene(nx: int = 256, ny: int = 96):
 
 def rounds_args(scene, state):
     """What the rounds route feeds the rounds kernel in the next (first)
-    substep from ``state``: the plain predictor's u*, v* and rhs of the
+    substep from ``state``: ``predict_div``'s u*, v* and rhs of the
     state's fields (JS's extrapolation aside), with p, the warm start
     (zero in JS), dt over the substep count and the inlet."""
     g = scene.grid
     dt_sub = state.dt / state.substeps.to(state.dt.dtype)
-    u_star, v_star, rhs = predict_div_plain(
+    u_star, v_star, rhs = predict_div(
         state.u, state.v, dt_sub, state.nu, g,
         scene.params.velocity_scheme, scene.opts.semantics)
     return (u_star, v_star, state.p, _warm_start(scene.opts, state.p_prime),

@@ -26,8 +26,8 @@ cells (bench.py's 2048² shapes)                 ``_solve_pressure`` -> with no 
                                                 res_v, max|vel| reduced in-pass); with
                                                 rounds, plain correct -> ``_outer_rounds``
                                                 -> plain apply_bcs
-otherwise, JACOBI with substep_impl and         ``_substep_jnp``: plain predictor and
-pressure_impl in ("auto", "pallas") (the        divergence, then the ``rounds`` kernel
+otherwise, JACOBI with substep_impl and         ``_substep_jnp``: ``predict_div``
+pressure_impl in ("auto", "pallas") (the        kernel, then the ``rounds`` kernel
 800x264 default scene)                          (solve + corrector + rounds + BCs)
 otherwise (SOR, FDM, MULTIGRID or               plain predictor, divergence,
 MG_PRODUCTION below 2M cells, or "jnp")         ``_solve_pressure``, corrector,
@@ -484,14 +484,26 @@ def _warm_start(opts: SolverOptions, p_prime):
 
 
 def _substep_jnp(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet):
-    """Plain predictor and divergence, then for one JACOBI scene the
-    rounds kernel, or else (another solver, substep_impl or pressure_impl
-    "jnp", or a batch) the plain projection: ``_solve_pressure``,
-    corrector, ``_outer_rounds``, BCs. Returns (u, v, p, pp, err,
-    counts): int32 counts (..., 2) of the outer rounds and solver
-    iterations run, (B, 2) on a batch; a single scene's are kept in
-    ``trace.rounds`` while a profiler records."""
+    """For one JACOBI scene the ``predict_div`` kernel, then the rounds
+    kernel; or else (another solver, substep_impl or pressure_impl
+    "jnp", or a batch) the plain predictor and divergence, then the
+    plain projection: ``_solve_pressure``, corrector, ``_outer_rounds``,
+    BCs. Returns (u, v, p, pp, err, counts): int32 counts (..., 2) of the
+    outer rounds and solver iterations run, (B, 2) on a batch; a single
+    scene's are kept in ``trace.rounds`` while a profiler records."""
     g, opts = scene.grid, scene.opts
+    if (u.dim() == 2 and scene.params.pressure_solver == PressureSolver.JACOBI
+            and _whole_kernels(opts)):
+        with span("cfd.predict"):
+            u_star, v_star, rhs = predict_div(u, v, dt_sub, nu, g,
+                                              scene.params.velocity_scheme,
+                                              opts.semantics)
+        pp0 = _warm_start(opts, p_prime)
+        with span("cfd.solve"):
+            out = solve_correct_rounds(u_star, v_star, p, pp0, rhs, dt_sub,
+                                       inlet, scene)
+        trace.keep_rounds(out[-1])
+        return out
     mask_u, mask_v, mask_u_bc, mask_v_bc = masks_traced(g, opts.semantics,
                                                         u.device)
     with span("cfd.predict"):
@@ -500,13 +512,6 @@ def _substep_jnp(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet):
                                  opts.semantics == Semantics.JS, mask_u, mask_v)
         rhs = divergence_rhs(u_star, v_star, dt_sub, g.dx, g.dy)
     pp0 = _warm_start(opts, p_prime)
-    if (u.dim() == 2 and scene.params.pressure_solver == PressureSolver.JACOBI
-            and _whole_kernels(opts)):
-        with span("cfd.solve"):
-            out = solve_correct_rounds(u_star, v_star, p, pp0, rhs, dt_sub,
-                                       inlet, scene)
-        trace.keep_rounds(out[-1])
-        return out
     pp, err, n = _solve_pressure(scene, pp0, rhs, dt_sub)
     with span("cfd.correct"):
         u, v, p = correct(u_star, v_star, p, pp, dt_sub, g.dx, g.dy)

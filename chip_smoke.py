@@ -14,7 +14,9 @@ Phases, one line each; any failure raises and exits non-zero:
    whole field's jacobi_fused_k_shard_plain at k = 16 and at a k its
    sweeps a launch do not divide); 800x264 for the rounds kernel, on the
    state phase 4 ends at, where every step runs all its outer rounds, with
-   the same count of rounds and sweeps required, and its cluster, slab
+   the same count of rounds and sweeps required, fed kernel 1's output
+   (predict_div first held against its plain version there, as at each
+   shape below where the rounds route runs it), and its cluster, slab
    and cooperative forms against each other there and on the 400x132 JS
    state (the same counts and bits), and the slab form, which the rule
    gives a 1024x512 grid, against the plain version there (the same
@@ -50,7 +52,7 @@ Phases, one line each; any failure raises and exits non-zero:
    and correct_bc with the PARABOLIC and PARABOLIC_UPPER inlets under the
    JS masks, on the 2048^2 JS QUICK state after 3 steps, and the rounds
    kernel on a 400x132 JS QUICK PARABOLIC state (the same sweeps
-   required); correct_div on the 2048^2 reference-mode state after 3
+   required, predict_div against its plain version there first); correct_div on the 2048^2 reference-mode state after 3
    steps; one MULTIGRID solve from the same (p'0, rhs) on the card and
    the CPU at 2048^2, p' held to the summed tolerances of its launches;
    the row-sharded tier's kernels: on the 2048^2 fast and SOR states
@@ -65,7 +67,8 @@ Phases, one line each; any failure raises and exits non-zero:
    2 also bit for bit against the whole field's folded twin, each beside
    its channel instance's time on the same inputs; the rounds kernel's
    cluster form on the 512^2 cavity after 20 steps and its slab form on
-   the 1024^2 cavity after 20, the same rounds and sweeps as the plain
+   the 1024^2 cavity after 20 (predict_div against its plain version on
+   each state first), the same rounds and sweeps as the plain
    version required, each against the other forms that take the grid;
    kernel 3's CAVITY instance's device time a launch (torch.profiler);
    the CAVITY instances of kernels 6-9, 18 and 19 (MG_PRODUCTION under
@@ -135,10 +138,14 @@ Phases, one line each; any failure raises and exits non-zero:
    and 3 on the CPU path (the 800x264 one sharded on the CPU, its
    solves exiting k sweeps apart at most); the 512^2 cavity and the
    2048^2 cavity fast shape, 3 steps on CUDA and on the CPU path; the
+   1024^2 cavity at Re = 1000 and dt 1e-4 (the cavity_1024 cell's
+   constants), 3 steps after 30 on the card from rest; the
    512^2 cavity production runs, aligned (3 steps) and legacy (2);
 8. require every kernel of each path to have launched in that path's
-   run (counts set to 0 just before it, read just after), the rounds
-   kernel in its cluster form on the 800x264 and 400x132 JS runs,
+   run (counts set to 0 just before it, read just after), one predict_div
+   launch for each rounds-kernel launch on every path that launches the
+   rounds kernel, the rounds kernel in its cluster form on the 800x264
+   and 400x132 JS runs,
    kernels 2-4, 6-9, 18 and 19 in their CAVITY instances on every cavity path and never on another (kernel 4's
    cluster form at 512^2, 128^2 and 64^2, its slab form at 1024^2), and
    kernel 20 in its cluster form on the three ensemble runs (printing the
@@ -218,6 +225,7 @@ JS_DEF, JS_QUICK = "400x132 js default", "2048^2 js quick"
 REF_CD = "2048^2 reference correct_div"
 FAST_SH, SOR_SH, REF_SH, FDM_SH = SHARDED  # the sharded paths, cells.py
 CAV512, CAV1024, CAV2048 = "512^2 cavity", "1024^2 cavity", "2048^2 cavity"
+CAV1024_RE1000 = "1024^2 cavity Re 1000"
 CAV_FAST, CAV_JS, GHIA = "2048^2 cavity fast", "128^2 js cavity", "64^2 ghia cavity"
 CAV_MGP512, CAV_MGP, CAV_MGP_ODD = ("512^2 cavity production", "2048^2 cavity production",
                                     "2047^2 cavity production")
@@ -301,7 +309,7 @@ BATCH_CLUSTER = {"substep_batch": "substep_batch_cluster",
                  "substep_batch_sor": "substep_batch_sor_cluster"}
 # The kernels each path must launch.
 PATHS = {
-    REF: ("rounds", CLUSTER),
+    REF: ("predict_div", "rounds", CLUSTER),
     FAST: ("predict_div", "jacobi_fused_k", "correct_bc"),
     PROD: ("predict_div", "correct_bc", "jacobi_fused_k_restrict",
            "jacobi_fused_k_corr", "cc_sweeps"),
@@ -318,24 +326,24 @@ PATHS = {
     REF_MG: ("mg_smooth", *VERTEX),
     LEG: ("predict_div", "correct_bc", "mgp_smooth", *VERTEX),
     REF_LEG: ("mgp_smooth", *VERTEX),
-    JS_DEF: ("rounds", CLUSTER),
+    JS_DEF: ("predict_div", "rounds", CLUSTER),
     JS_QUICK: ("predict_div", "jacobi_fused_k", "correct_bc"),
     REF_CD: ("predict_div", "jacobi_fused_k", "correct_div"),
     FAST_SH: ("predict_div", "jacobi_fused_k_shard", "correct_bc"),
     SOR_SH: ("predict_div", "sor_fused_k_shard", "correct_bc"),
     REF_SH: ("predict_div", "jacobi_fused_k_shard"),
     FDM_SH: ("predict_div", "correct_bc"),
-    # the cavity (BASELINE config 2): kernel 4 below 2M cells (the cluster
-    # form at 512^2, 128^2 and 64^2, the slab form at 1024^2), kernels 1
-    # and 2 on the fused route with outer rounds at 2048^2, and 1-3 on the
-    # fast shape, each of 2-4 in its CAVITY instance
-    CAV512: ("rounds", CLUSTER, CAVITY_OF["rounds"]),
-    CAV1024: ("rounds", SLAB, CAVITY_OF["rounds"]),
+    # the cavity (BASELINE config 2): kernels 1 and 4 below 2M cells (4's
+    # cluster form at 512^2, 128^2 and 64^2, its slab form at 1024^2),
+    # kernels 1 and 2 on the fused route with outer rounds at 2048^2, and
+    # 1-3 on the fast shape, each of 2-4 in its CAVITY instance
+    CAV512: ("predict_div", "rounds", CLUSTER, CAVITY_OF["rounds"]),
+    CAV1024: ("predict_div", "rounds", SLAB, CAVITY_OF["rounds"]),
     CAV2048: ("predict_div", "jacobi_fused_k", CAVITY_OF["jacobi_fused_k"]),
     CAV_FAST: ("predict_div", "jacobi_fused_k", "correct_bc",
                CAVITY_OF["jacobi_fused_k"], CAVITY_OF["correct_bc"]),
-    CAV_JS: ("rounds", CLUSTER, CAVITY_OF["rounds"]),
-    GHIA: ("rounds", CLUSTER, CAVITY_OF["rounds"]),
+    CAV_JS: ("predict_div", "rounds", CLUSTER, CAVITY_OF["rounds"]),
+    GHIA: ("predict_div", "rounds", CLUSTER, CAVITY_OF["rounds"]),
     # the cavity with MG_PRODUCTION (Rust defaults: outer rounds, so the
     # fused route at 2048^2 and 2047^2 runs kernel 1 and the plain
     # corrector): the aligned cycle's kernels (6 on the odd grid, 7 and 8
@@ -535,11 +543,13 @@ def check_kernels(dev, results):
 
     # The rounds kernel at 800x264 on the state phase 4 ends at (55 steps),
     # where every step runs all its outer rounds, fed what the main path
-    # feeds it: the plain predictor's u*, v*, rhs. The exits are exact on
-    # both sides, so both must run the same rounds and sweeps.
+    # feeds it: kernel 1's u*, v*, rhs, kernel 1 first held against its
+    # plain version there. The exits are exact on both sides, so both
+    # must run the same rounds and sweeps.
     scene = reference_scene()
     g = scene.grid
     state, _ = tc.make_run(scene, 55)(scene.init_state(dev))
+    check_rounds_predict(scene, state, "800x264 rounds route", results)
     args = rounds_args(scene, state)
     got = solve_correct_rounds(*args)
     ref = solve_correct_rounds_plain(*args)
@@ -681,6 +691,27 @@ def record(results, name, label, pairs, call, plain, bnd, n=20, n_plain=5):
     return entry
 
 
+def check_rounds_predict(scene, state, label, results):
+    """Kernel 1 where the rounds route launches it: on what rounds_args
+    gives it (the state's fields, dt over the substep count), against
+    predict_div_plain at the 2048^2 check's tolerances, under
+    predict_div's "variants"."""
+    g, sem, sch = scene.grid, scene.opts.semantics, scene.params.velocity_scheme
+    u, v, nu = state.u, state.v, state.nu
+    dt = state.dt / state.substeps.to(state.dt.dtype)
+    call = lambda: predict_div(u, v, dt, nu, g, sch, sem)
+    plain = lambda: predict_div_plain(u, v, dt, nu, g, sch, sem)
+    got, ref = call(), plain()
+    uv_scale = max(1.0, float(ref[0].abs().max()), float(ref[1].abs().max()))
+    rhs_tol = 4 * EPS32 * uv_scale * (1 / g.dx + 1 / g.dy) / float(dt)
+    record(results, "predict_div", label, [
+        ("u*", got[0], ref[0], scaled(ref[0], 1e-6)),
+        ("v*", got[1], ref[1], scaled(ref[1], 1e-6)),
+        ("rhs", got[2], ref[2], rhs_tol)], call, plain,
+        bound(nbytes(u, v, *got, *masks_traced(g, sem, u.device)[:2]),
+              PREDICT_BY_SCHEME[sch.name] * g.nx * g.ny))
+
+
 def check_js_kernels(dev, results):
     """Kernels 1, 3 and 4's new forms and kernel 5 on their paths' states.
     On the 2048^2 JS QUICK PARABOLIC state after 3 steps: predict_div with
@@ -735,6 +766,7 @@ def check_js_kernels(dev, results):
     init = scene.init_state(dev)
     init.step.fill_(500)  # the inlet ramp half way up (1000 steps)
     state_j, _ = tc.make_run(scene, 20)(init)
+    check_rounds_predict(scene, state_j, "400x132 js quick rounds route", results)
     args = rounds_args(scene, state_j)
     got, ref = solve_correct_rounds(*args), solve_correct_rounds_plain(*args)
     counts, ref_counts = got[5].tolist(), ref[5].tolist()
@@ -786,9 +818,10 @@ def check_cavity_kernels(dev, results):
     and at a k its sweeps a launch do not divide; kernel 3 with the
     UNIFORM and the parabolic lid. Kernel 4's cluster form on the 512^2
     cavity (BASELINE config 2) after 20 steps, its slab form on the
-    1024^2 one after 20, each fed what the rounds route feeds it, the
-    same rounds and sweeps as the plain version required, and the forms
-    against each other where more than one applies."""
+    1024^2 one after 20, each fed what the rounds route feeds it (kernel
+    1's output, kernel 1 first held against its plain version on the same
+    state), the same rounds and sweeps as the plain version required, and
+    the forms against each other where more than one applies."""
     scene = cavity_fast_scene()
     g, opts = scene.grid, scene.opts
     state, _ = tc.make_run(scene, 3)(scene.init_state(dev))
@@ -836,6 +869,7 @@ def check_cavity_kernels(dev, results):
     for n, steps, form in ((512, 20, "cluster"), (1024, 20, "slab")):
         scene = cavity_scene(n)
         state, _ = tc.make_run(scene, steps)(scene.init_state(dev))
+        check_rounds_predict(scene, state, f"cavity {n}^2 rounds route", results)
         args = rounds_args(scene, state)
         taken = plan("rounds", 1, n, n, dev, cavity=True).form
         require(taken == form, f"rounds cavity {n}^2: the plan takes the {taken} form, "
@@ -1640,6 +1674,19 @@ def compare_runs(scene, run_a, run_b, label, steps, knife_edge=False,
     for k, (x, t) in out.items():
         require(x <= t, f"{label}: {what} {k} L2 {x} > {t}")
     return {k: x for k, (x, _) in out.items()}
+
+
+def compare_cavity_re1000(dev):
+    """The 1024^2 cavity at Re = 1000 and dt 1e-4 (the cavity_1024 cell's
+    constants, a flow the explicit step holds, unlike the app's at this
+    size): 30 steps from rest on the card, then compare_with_cpu's 3 on
+    the rounds route (kernel 1, then kernel 4's slab form), whose solves
+    exit at a live tolerance."""
+    scene = tc.make_scene(tc.cavity_grid(1024), tc.SimulationParams(
+        dt=1e-4, viscosity=1e-3, target_inlet_velocity=1.0, flow_case=tc.FlowCase.CAVITY),
+        tc.solver_options_for(tc.Semantics.RUST))
+    state, _ = tc.make_run(scene, 30)(scene.init_state(dev))
+    return compare_with_cpu(scene, state, CAV1024_RE1000, knife_edge=True)
 
 
 def take_scenes(state, idx):
@@ -2676,6 +2723,7 @@ def main() -> int:
         report["cpu_compare"][label] = compare_sharded(scene, state, shards, label)
     for scene, state, label in cavity_runs:
         report["cpu_compare"][label] = compare_with_cpu(scene, state, label)
+    report["cpu_compare"][CAV1024_RE1000] = compare_cavity_re1000(dev)
     # the legacy cycle's 21 solves a step run 630 V-cycles on the CPU too
     for (scene, state, label), steps in zip(cavity_mgp_runs, (3, 2)):
         report["cpu_compare"][label] = compare_with_cpu(scene, state, label, steps)
@@ -2689,6 +2737,11 @@ def main() -> int:
             others = {k: c for k, c in launches[path].items()
                       if c and k not in names and FORM_OF.get(k) not in names}
             require(not others, f"the {path} run launched {others} as well")
+        # the rounds route feeds each launch of kernel 4 one of kernel 1
+        if "rounds" in names:
+            require(launches[path]["predict_div"] == launches[path]["rounds"],
+                    f"the {path} run launched predict_div {launches[path]['predict_div']} "
+                    f"times for {launches[path]['rounds']} rounds-kernel launches")
     # The rounds kernel takes its cluster form on both scenes that launch
     # it: the default 800x264 scene and the JS twin's 400x132.
     for path, g in ((REF, tc.default_grid()), (JS_DEF, tc.default_js_grid())):

@@ -773,10 +773,13 @@ def test_correct_div(cuda, nx, ny):
     assert_close(got[3], ref[3], rtol=1e-6 / (min(grid.dx, grid.dy) * DT))
 
 
-def _steps_match(scene, cuda, n, rtol=1e-5):
+def _steps_match(scene, cuda, n, rtol=1e-5, start=0):
     run = tc.make_run(scene, n)
-    a, da = run(scene.init_state(cuda))
-    b, db = run(scene.init_state("cpu"))
+    inits = [scene.init_state(d) for d in (cuda, "cpu")]
+    for init in inits:
+        init.step.fill_(start)
+    a, da = run(inits[0])
+    b, db = run(inits[1])
     for f in ("u", "v"):
         assert_close(getattr(a, f), getattr(b, f), rtol=rtol)
     d = (a.p.cpu() - b.p).double()
@@ -784,17 +787,52 @@ def _steps_match(scene, cuda, n, rtol=1e-5):
     assert da.substeps.tolist() == db.substeps.tolist()
 
 
-@pytest.mark.parametrize("route", ["rounds", "fused"])
-def test_six_cylinders_step_like_cpu(cuda, route):
+def _rounds_steps_match(monkeypatch, scene, cuda, n, start=0):
+    """``_steps_match`` on the rounds route: besides the fields, kernel 1
+    launched once a substep on the card, and each substep's outer rounds
+    and sweeps the CPU path's, or at a float knife edge (ROADMAP queue 3)
+    the rounds one apart and the sweeps one a solve apart, plus the
+    extra round's solve (at most ``jacobi_iters`` sweeps) where the
+    rounds differ. Each solve exits at a tolerance of its own, so each
+    may meet its own knife edge: one sweep a solve is the least that
+    allows that."""
+    iters = scene.opts.jacobi_iters
+    counts = {"cuda": [], "cpu": []}
+    inner = tpiso._substep_jnp
+
+    def kept(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        counts[out[0].device.type].append(out[-1].tolist())
+        return out
+
+    monkeypatch.setattr(tpiso, "_substep_jnp", kept)
+    before = ksub.predict_div.launches
+    _steps_match(scene, cuda, n, start=start)
+    assert len(counts["cuda"]) == len(counts["cpu"]) == ksub.predict_div.launches - before >= n
+    for (ra, sa), (rb, sb) in zip(counts["cuda"], counts["cpu"]):
+        assert abs(ra - rb) <= 1, counts
+        assert abs(sa - sb) <= max(ra, rb) + 1 + abs(ra - rb) * iters, counts
+    return counts["cpu"]
+
+
+@pytest.mark.parametrize("route", ["rounds", "rounds-from-step-20", "fused"])
+def test_six_cylinders_step_like_cpu(cuda, route, monkeypatch):
     """Six cylinders, which the kernels' old per-scene cap (four) refused:
-    the rounds route and the fused route match the CPU path."""
+    the rounds route (kernel 1, then kernel 4) and the fused route match
+    the CPU path; from step 20 of the inlet ramp every substep after the
+    first runs all 20 outer rounds."""
     opts = tc.solver_options_for(RUST)
     if route == "fused":
         opts = dataclasses.replace(opts, substep_impl="pallas", jacobi_tol=0.0,
                                    outer_corrector_rounds=0, early_exit=False)
     scene = tc.make_scene(SIX, tc.SimulationParams(dt=0.002, viscosity=1e-4), opts)
     before = (krounds.solve_correct_rounds.launches, ksub.correct_bc.launches)
-    _steps_match(scene, cuda, 5)
+    if route == "fused":
+        _steps_match(scene, cuda, 5)
+    else:
+        start = 20 if route == "rounds-from-step-20" else 0
+        counts = _rounds_steps_match(monkeypatch, scene, cuda, 5, start)
+        assert (max(r for r, _ in counts) == 20) == (start == 20), counts
     after = (krounds.solve_correct_rounds.launches, ksub.correct_bc.launches)
     assert after[route == "fused"] > before[route == "fused"]
 
@@ -1472,6 +1510,21 @@ def test_cavity_steps_match_cpu_path(cuda, route):
     if route != "multigrid":
         d = (a.p.cpu() - b.p).double()
         assert float((d - d.mean()).abs().max()) <= 1e-5 * max(1.0, float(b.p.abs().max()))
+
+
+def test_cavity_slab_rounds_route_like_cpu(cuda, monkeypatch):
+    """The rounds route on a cavity that kernel 4's slab form takes
+    (1024x512, Re = 1000 at cavity_1024's dt): kernel 1, then the slab
+    form, five steps from step 50 of the lid's ramp like the CPU path."""
+    grid = _cavity_grid(512, 1024, cylinders=0)
+    assert kcl.plan("rounds", 1, grid.ny, grid.nx, cuda, cavity=True).form == "slab"
+    scene = tc.make_scene(grid, tc.SimulationParams(dt=1e-4, viscosity=1e-3,
+                                                    flow_case=CAVITY),
+                          tc.solver_options_for(RUST))
+    n_slab = krounds.solve_correct_rounds.slab_launches
+    counts = _rounds_steps_match(monkeypatch, scene, cuda, 5, start=50)
+    assert krounds.solve_correct_rounds.slab_launches == n_slab + 5
+    assert max(r for r, _ in counts) > 0, counts  # an outer round ran
 
 
 def test_cavity_ghia_re100_on_the_card(cuda):

@@ -163,7 +163,7 @@ def test_route_table(monkeypatch, route):
     production = dict(pressure_solver=tc.PressureSolver.MG_PRODUCTION)
     if route == "rounds":
         _, scene, _ = golden_setup()
-        want = {"solve_correct_rounds"}
+        want = {"predict_div", "solve_correct_rounds"}
     elif route == "plain":
         _, scene, _ = golden_setup(substep_impl="jnp")
         want = {"jacobi"}
@@ -187,6 +187,113 @@ def test_route_table(monkeypatch, route):
             want = {"predict_div", "multigrid_production", "correct_bc"}
     tc.make_step(scene)(scene.init_state(device="cpu"))
     assert set(calls) == want
+
+
+def _predictor_scene(case):
+    """A small scene of each route that reaches ``_substep_jnp``, a few
+    steps into the inlet ramp."""
+    cyl = tc.Cylinder(center_x=1.0, center_y=0.75, radius=0.3)
+    grid = tc.Grid(nx=24, ny=16, lx=4.0, ly=1.5, obstacles=(cyl,))
+    params = tc.SimulationParams(dt=0.004, viscosity=1e-4, target_inlet_velocity=1.0)
+    semantics, opts = tc.Semantics.RUST, {"ramp_up_steps": 4}
+    if case == "rounds-js":
+        semantics = tc.Semantics.JS
+        params = dataclasses.replace(params, velocity_scheme=tc.VelocityScheme.QUICK,
+                                     inlet_profile=tc.InletProfile.PARABOLIC)
+    elif case == "rounds-cavity":
+        grid = tc.cavity_grid(20)
+        params = tc.SimulationParams(dt=0.002, viscosity=1e-2,
+                                     flow_case=tc.FlowCase.CAVITY)
+    elif case in ("sor", "fdm", "multigrid", "mg_production"):
+        params = dataclasses.replace(
+            params, pressure_solver=tc.PressureSolver[case.upper()])
+    elif case in ("substep-jnp", "batch-substep-jnp"):
+        opts["substep_impl"] = "jnp"
+    elif case == "pressure-jnp":
+        opts["pressure_impl"] = "jnp"
+    return tc.make_scene(grid, params, tc.solver_options_for(semantics, **opts))
+
+
+@pytest.mark.parametrize("case", ["rounds", "rounds-js", "rounds-cavity", "batch",
+                                  "batch-substep-jnp", "sor", "fdm", "multigrid",
+                                  "mg_production", "substep-jnp", "pressure-jnp"])
+def test_rounds_route_predicts_with_kernel_1(monkeypatch, case):
+    """The single-scene JACOBI rounds route computes u*, v* and rhs with
+    one ``predict_div`` call a substep and never the plain predictor;
+    every other caller of ``_substep_jnp`` keeps the plain predictor and
+    never calls ``predict_div``."""
+    calls = []
+    for name in ("predict_div", "predict"):
+        _spy(monkeypatch, name, calls)
+    scene = _predictor_scene(case)
+    state = scene.init_state(device="cpu")
+    if case.startswith("batch"):
+        # a batch that kernel 20 does not take reaches _substep_jnp
+        monkeypatch.setattr(tpiso, "substep_batch_takes", lambda *a: False)
+        state = tc.batch_state(state, 2, nu=torch.tensor([1e-4, 1e-2]))
+    step, substeps = tc.make_step(scene), 0
+    for _ in range(3):
+        state, diag = step(state)
+        substeps += int(diag.substeps.max())
+    if case.startswith("rounds"):
+        assert calls == ["predict_div"] * substeps
+    else:
+        assert "predict_div" not in calls and calls.count("predict") >= 3
+    assert bool(torch.isfinite(state.u).all()) and float(state.u.abs().max()) > 0
+
+
+def _parent_predictor(u, v, dt_sub, nu, grid, scheme, semantics):
+    """The plain predictor and divergence as the rounds route composed
+    them before it called ``predict_div``."""
+    mask_u, mask_v, _, _ = tpiso.masks_traced(grid, semantics, u.device)
+    u_star, v_star = tpiso.predict(u, v, dt_sub, nu, grid.dx, grid.dy, grid.nx,
+                                   grid.ny, scheme, semantics == tc.Semantics.JS,
+                                   mask_u, mask_v)
+    return u_star, v_star, tpiso.divergence_rhs(u_star, v_star, dt_sub, grid.dx, grid.dy)
+
+
+def _rounds_bits_scene(case):
+    if case == "800x264 at 80x27":
+        # the app's default scene and parameters on a tenth of its cells
+        grid = tc.Grid(nx=80, ny=27, lx=30.0, ly=10.0,
+                       obstacles=(tc.Cylinder(center_x=7.5, center_y=5.0, radius=0.75),))
+        return tc.make_scene(grid), 50
+    if case == "cavity 32x32":
+        return tc.make_scene(tc.cavity_grid(32), tc.SimulationParams(
+            dt=0.002, viscosity=1e-2, flow_case=tc.FlowCase.CAVITY)), 0
+    if case == "golden":
+        return golden_setup(ramp_up_steps=4)[1], 0
+    return _predictor_scene("rounds-js"), 0
+
+
+@pytest.mark.parametrize("case", ["golden", "800x264 at 80x27", "cavity 32x32", "js quick"])
+def test_rounds_route_fields_are_the_plain_predictors(monkeypatch, case):
+    """On the CPU, ``predict_div`` runs the plain composition: steps of the
+    rounds route give, bit for bit, the fields of the same steps with the
+    plain predictor and divergence called directly."""
+    scene, start = _rounds_bits_scene(case)
+    init = scene.init_state(device="cpu")
+    init = dataclasses.replace(init, step=torch.tensor(start, dtype=torch.int32))
+    step = tc.make_step(scene)
+    parent_calls = []
+
+    def parent(*args):
+        parent_calls.append(args)
+        return _parent_predictor(*args)
+
+    states = []
+    for predictor in (tpiso.predict_div, parent):
+        monkeypatch.setattr(tpiso, "predict_div", predictor)
+        state = init
+        for _ in range(3):
+            state, _ = step(state)
+        states.append(state)
+    got, want = states
+    assert len(parent_calls) >= 3 and float(got.u.abs().max()) > 0
+    for f in dataclasses.fields(got):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b), f.name
 
 
 def test_reference_shaped_production_scene_skips_the_rounds_kernel(monkeypatch):

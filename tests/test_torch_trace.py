@@ -37,7 +37,7 @@ ROUTES = {
                                rounds_impl="pallas", outer_corrector_rounds=2), None, PHASES,
                           {"predict_div", "jacobi_fused_k", "correct_div"}),
     # the rounds kernel corrects inside cfd.solve
-    "rounds": ({}, None, PHASES[:2], {"solve_correct_rounds"}),
+    "rounds": ({}, None, PHASES[:2], {"predict_div", "solve_correct_rounds"}),
     "batch": (dict(substep_impl="jnp", early_exit=False), 2, PHASES, {"jacobi_batch"}),
 }
 
