@@ -57,7 +57,7 @@ import torch
 
 from ..ops.poisson import _sor_sweep
 from .. import trace
-from ..trace import traced
+from ..trace import span, traced
 from ._build import check, load, on_cpu, stream_of
 from .jacobi import block_indices, block_masks, block_pprime_bcs, folded_neighbours, shard_block
 
@@ -114,7 +114,8 @@ sor_fused_k.launches = 0
 def sor_chain(pp0, rhs, dx: float, dy: float, omega: float, tol: float,
               iters: int, k: int = 8, early_exit: bool = True):
     """Returns (p', last error, iterations run), exactly ``iters``
-    iterations when no early exit fires. With ``early_exit`` and tol > 0
+    iterations when no early exit fires; the iterations are also added to
+    ``trace.sor_iterations``. With ``early_exit`` and tol > 0
     the error is read on the host once per k-launch (K-granularity
     exit); with tol == 0 the chain never reads back."""
     n_full, rem = divmod(iters, k)
@@ -129,6 +130,7 @@ def sor_chain(pp0, rhs, dx: float, dy: float, omega: float, tol: float,
     if rem:
         pp, err = sor_fused_k(pp, rhs, dx, dy, omega, rem)
         n_run += rem
+    trace.sor_iterations += n_run
     return pp, err, n_run
 
 
@@ -268,14 +270,17 @@ sor_fused_k_rb2.launches = 0
 def sor_chain_rb2(pp0, rhs, dx: float, dy: float, omega: float, tol: float,
                   iters: int, k: int = 8, early_exit: bool = True):
     """ops.poisson.sor through the colour-split chain: split p' and rhs
-    once, iters // k launches of k, then the remainder, and join once.
-    Returns (p', last error, iterations run). On the fixed schedule (no
+    once, iters // k launches of k, then the remainder, and join once
+    (the split and the join each inside a ``cfd.sor.layout`` span).
+    Returns (p', last error, iterations run), the iterations also added
+    to ``trace.sor_iterations``. On the fixed schedule (no
     live tolerance) the remainder folds into the last launch, [k, ..., k,
     k + iters % k]: the same iterations, one launch fewer. With
     ``early_exit`` and tol > 0 the launches stay uniform-k plus the
     remainder, and the error is read on the host once per k-launch."""
-    pr, pb = sor_compress(pp0)
-    rr, rb = sor_compress(rhs)
+    with span("cfd.sor.layout"):
+        pr, pb = sor_compress(pp0)
+        rr, rb = sor_compress(rhs)
     n_full, rem = divmod(iters, k)
     adaptive = early_exit and tol > 0.0 and n_full > 0
     sizes = [k] * n_full
@@ -291,4 +296,7 @@ def sor_chain_rb2(pp0, rhs, dx: float, dy: float, omega: float, tol: float,
     if rem:
         pr, pb, err = sor_fused_k_rb2(pr, pb, rr, rb, dx, dy, omega, rem)
         n_run += rem
-    return sor_decompress(pr, pb), err, n_run
+    trace.sor_iterations += n_run
+    with span("cfd.sor.layout"):
+        pp = sor_decompress(pr, pb)
+    return pp, err, n_run

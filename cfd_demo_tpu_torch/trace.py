@@ -6,10 +6,16 @@ the ranges land in the profiler's Chrome trace (category
 ``user_annotation``) on the clock of the device's operations, and cost
 nothing else. ``traced(name)`` wraps a function in one. The step's spans
 are ``cfd.step``, its phases ``cfd.predict``, ``cfd.solve`` and
-``cfd.correct``, and each kernel wrapper's ``cfd.kernel.<function>``.
+``cfd.correct``, and each kernel wrapper's ``cfd.kernel.<function>``;
+inside ``cfd.solve``, ``cfd.sor.layout`` marks the colour-split SOR
+chain's split of p' and rhs and its join.
 
 ``host_reads`` counts the program's reads of CUDA tensors back to the
 host (:func:`read_host`); ``vcycles`` the multigrid V-cycles run;
+``sor_iterations`` the red/black iterations the SOR kernel chains ran
+(``kernels/sor.py`` ``sor_chain``, ``sor_chain_rb2``: a host int they
+already keep, added with no read; the plain ``ops.poisson.sor`` counts
+its iterations on the device and is not counted here);
 ``rounds`` keeps, while a profiler records, the (outer rounds, sweeps)
 count tensor each single-scene ``piso._substep_jnp`` returns
 (:func:`keep_rounds`); a reader takes its window's out of the list and
@@ -26,6 +32,7 @@ import torch.autograd.profiler as _profiler
 _NULL = contextlib.nullcontext()
 host_reads = 0
 vcycles = 0
+sor_iterations = 0
 rounds: list = []
 
 
