@@ -1,6 +1,6 @@
 """The port's measured shapes, and where their device time goes.
 
-Fourteen cells, each at full size, from the JAX package's own defaults:
+Fifteen cells, each at full size, from the JAX package's own defaults:
 
 - :func:`reference_scene`: the README quick start, the Rust app's
   800x264 cylinder channel with default parameters and solver options
@@ -39,8 +39,11 @@ Fourteen cells, each at full size, from the JAX package's own defaults:
 - :func:`cavity_scene` at 1024²: ``python -m cfd_demo_tpu.apps.cavity
   --n 1024`` (BASELINE config 2, the lid-driven cavity with the app's
   dt 0.002, viscosity 1e-2 and lid 1.0, Rust defaults: up to 20 outer
-  rounds; the rounds kernel's CAVITY instance in its cooperative form,
-  since no cluster holds 1024 columns);
+  rounds; the rounds kernel's CAVITY instance in its slab form, since no
+  cluster holds 1024 columns);
+- :func:`ghia_cavity_scene` at 1024²: the benchmark's ``cavity_1024``
+  configuration (Ghia's Re = 1000: viscosity 1e-3, dt 1e-4, Rust
+  defaults), from rest, measured after 3000 steps as its traced run is;
 - :func:`cavity_production_scene` at 2048²: ``python -m
   cfd_demo_tpu.apps.cavity --n 2048 --solver mg-production`` (the same
   scene with the production projection: the fused route, aligned
@@ -68,8 +71,10 @@ rate, the device time per step by kernel and the device's busy share of
 the unprofiled wall time. For the 800x264 scene it also prints how many
 outer rounds and Jacobi sweeps the rounds kernel ran in a step, for the
 ensembles the mean and the most of those over their scenes in the first
-profiled step, and for the production scenes how many V-cycles a step
-ran. An ensemble's cell-updates count every scene's cells.
+profiled step, for the production scenes how many V-cycles a step
+ran, and where the rounds kernel's slab form ran, the speculative sweeps
+it dropped over the solves of the profiled steps (``trace.dropped`` and
+``trace.rounds``). An ensemble's cell-updates count every scene's cells.
 """
 from __future__ import annotations
 
@@ -158,6 +163,14 @@ def cavity_scene(n: int = 1024, **opts):
     return make_scene(cavity_grid(n), SimulationParams(
         dt=0.002, viscosity=1e-2, target_inlet_velocity=1.0, flow_case=FlowCase.CAVITY),
         solver_options_for(Semantics.RUST, **opts))
+
+
+def ghia_cavity_scene(n: int = 1024):
+    """The benchmark's cavity_1024 configuration: cavity_grid(n), Ghia's
+    Re = 1000 (lid 1.0, viscosity 1e-3) at dt 1e-4, Rust defaults."""
+    return make_scene(cavity_grid(n), SimulationParams(
+        dt=1e-4, viscosity=1e-3, target_inlet_velocity=1.0, flow_case=FlowCase.CAVITY),
+        solver_options_for(Semantics.RUST))
 
 
 def cavity_production_scene(n: int = 2048, **opts):
@@ -289,6 +302,7 @@ CELLS = {
     "400x132 js default": (js_default_scene, 100, 50, None),
     "2048^2 js quick": (js_quick_scene, 5, 100, None),
     "1024^2 cavity": (cavity_scene, 5, 20, None),
+    "1024^2 cavity Re 1000": (ghia_cavity_scene, 3000, 200, None),
     # the app's dt grows the 2048^2 flow without bound within ~13 steps
     "2048^2 cavity production": (cavity_production_scene, 2, 5, None),
 }
@@ -435,7 +449,14 @@ def measure(name, make, warmup, timed, batch, dev, shards=None):
         counts = ensemble_counts(scene, state).double()
         out["rounds_per_step"], out["sweeps_per_step"] = counts.mean(dim=0).tolist()
         out["max_rounds"], out["max_sweeps"] = counts.max(dim=0).values.tolist()
+    kept = len(trace.rounds), len(trace.dropped)
     busy_us, rows = device_breakdown(step, state, PROFILED_STEPS)
+    rounds_kept, dropped_kept = trace.rounds[kept[0]:], trace.dropped[kept[1]:]
+    del trace.rounds[kept[0]:], trace.dropped[kept[1]:]
+    if dropped_kept:  # the slab form ran: each launch runs 1 + its outer rounds solves
+        out["solves"] = len(rounds_kept) + trace.rounds_total(rounds_kept)[0]
+        out["dropped_sweeps"] = trace.dropped_total(dropped_kept)
+        out["dropped_share_of_solves"] = out["dropped_sweeps"] / out["solves"]
     wall_us = 1e6 * sec / timed
     out["wall_us_per_step"] = wall_us
     out["device_busy_us_per_step"] = busy_us
@@ -453,7 +474,9 @@ def measure(name, make, warmup, timed, batch, dev, shards=None):
           + (f"; {out['vcycles_per_step']} V-cycles per step"
              if "vcycles_per_step" in out else "")
           + (f"; {out['substeps_per_step']:g} substeps per step (rounds and "
-             f"sweeps: per substep)" if "substeps_per_step" in out else ""),
+             f"sweeps: per substep)" if "substeps_per_step" in out else "")
+          + (f"; {out['dropped_sweeps']} sweeps dropped in {out['solves']} solves"
+             if "solves" in out else ""),
           flush=True)
     for n, us, c in rows[:8]:
         print(f"    {us:10.1f} us/step {100 * us / busy_us:5.1f}%  x{c:g}  {n[:90]}",

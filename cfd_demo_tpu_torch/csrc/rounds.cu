@@ -34,10 +34,13 @@
 // and folds spread over the whole card, one block of 1024 threads an SM
 // in a cooperative launch (grid_slab_plan: 128 blocks of 8 rows at 1024^2
 // on 132 SMs). p' stays in shared memory; a sweep's edge rows go through
-// device memory (L2) to the neighbouring slabs and its max through the
-// rotating slot, across one grid-wide barrier (grid.sync). The p' BCs run
-// on each slab's halo rows too, so a solve needs no further exchange.
-// What bounds it: the grid barrier and the max's slot, a fixed cost a
+// device memory (L2) to the neighbouring slabs, each block waiting only
+// on its two neighbours' flags, and its max through the rotating slot
+// and an arrival count, read one sweep late: the next sweep runs on
+// speculation and is dropped where the max says the solve had ended. No
+// grid-wide barrier a sweep (slab_solve). The p' BCs run on each slab's
+// halo rows too, so a solve needs no further exchange. What bounds it:
+// the handoff's round trip through L2 between neighbours, a fixed cost a
 // sweep, then the strip's rows (PERF.md).
 //
 // The cooperative form (rounds_kernel) takes the rest (more than 1024
@@ -373,36 +376,97 @@ inline GridSlabPlan grid_slab_plan(int ny, int nx, int sms) {
     return none;
 }
 
-// Block b's edge row of a sweep in the halo buffer, [2 parities][blocks]
-// [bottom, top] rows of P floats: sweep s writes parity s & 1 before its
-// grid barrier and reads it after, and s + 1 writes the other, so a
-// parity is written again only after the barrier that ends its readers.
+// Block b's edge row of an exchange (a sweep, dropped ones included) in
+// the halo buffer, [2 parities][blocks][bottom, top] rows of P: exchange
+// x writes parity x & 1, read by the neighbours once its flag says so.
 __device__ __forceinline__ float4* halo_at(float* halo, int par, int blocks, int b, int top,
                                            int P, int gi0) {
     return reinterpret_cast<float4*>(halo + ((size_t)(par * blocks + b) * 2 + top) * P + gi0);
 }
 
-// The max of a sweep over the grid, by the bits of floats >= 0 (or +NaN)
-// in A.slots as grid_max rotates them: slot s % 3 collects the blocks'
-// maxima, slot (s + 1) % 3 is cleared for the next sweep.
-__device__ __forceinline__ unsigned* slot_bits(const RoundsArgs& A, int s) {
-    return reinterpret_cast<unsigned*>(A.slots) + s % 3;
+// GPU-scope accesses of the PTX memory model for the slab form's flags
+// and arrival counts: an acquiring load, a relaxed store, a releasing
+// add, and the fence that releases what the block wrote before it.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+    return v;
 }
+
+__device__ __forceinline__ void st_relaxed(int* p, int v) {
+    asm volatile("st.relaxed.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void red_release_add(int* p, int v) {
+    asm volatile("red.release.gpu.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void fence_acq_rel() {
+    asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+// The slab form's handoff state in device memory (the int32 `sync`
+// buffer), each piece on a 128-byte line of its own, so that no block's
+// polls and stores queue behind another's at L2: lines 0-2 the rotating
+// max slots, each an arrival count and the max's bits; then block b's
+// two edge flags, line 3 + 2b its bottom row's and 4 + 2b its top's,
+// each the number of the last exchange published plus one.
+constexpr int kLineInts = 32;
+
+__host__ __device__ constexpr long long handoff_ints(int blocks) {
+    return (long long)kLineInts * (3 + 2 * blocks);
+}
+
+struct Handoff {
+    int* base;
+    __device__ int* arrive(int x) const { return base + kLineInts * (x % 3); }
+    __device__ unsigned* slot(int x) const {
+        return reinterpret_cast<unsigned*>(base + kLineInts * (x % 3) + 1);
+    }
+    __device__ int* flag(int b, int top) const { return base + kLineInts * (3 + 2 * b + top); }
+};
 
 // cluster_solve (Jacobi, the exact exit) on block S.rank's slab of S.C
 // blocks, the same strip, folds, invariants and arithmetic; what differs
-// is how a sweep ends. Its edge rows go to the halo buffer in device
-// memory and the block's max (a warp reduction and one shared atomic,
-// one __syncthreads) into the rotating slot, then one grid-wide barrier;
-// after it every thread reads the sweep's max, and the threads at the
-// slab's edges the neighbours' edge rows (__ldcg) into the next buffer's
-// halo rows. The halo rows of cur hold the rows beside the slab when the
-// solve starts. The p' BCs then run on the slab's rows and its two halo
-// rows, from interior values only, so the halo rows hold what the
-// neighbours' BCs give their edge rows and no exchange follows.
+// is how a sweep ends, with no grid-wide barrier:
+//
+// - Neighbour handoffs. The threads at the slab's edges write its edge
+//   rows to the halo buffer; after the block's __syncthreads one thread
+//   (tc) releases them (fence.acq_rel) under both edge flags, set to the
+//   exchange x plus one. A thread at an edge waits (ld.acquire) only on
+//   the neighbour's flag for that edge, then reads the row (__ldcg) into
+//   the next buffer's halo row, which only it reads in the next sweep.
+//   Reusing a parity is safe: block b writes parity x & 1 again at
+//   exchange x + 2, which it starts only after acquiring its neighbour
+//   n's flag of exchange x + 1; n set that flag after (program order, its
+//   __syncthreads, the release) its own read of b's rows of exchange x.
+//   The one exchange after which nothing is read, a dropped sweep, ends
+//   a solve, and slab_correct's grid barrier follows.
+// - A split-phase exit max. tc then adds the block's max to slot x % 3
+//   (an exact atomicMax on the bits, in any order) and, releasing it, 1
+//   to the slot's arrival count, and the block goes straight on to sweep
+//   x + 1. tc reads the max of sweep x one sweep later, once the count
+//   reaches the blocks (ld.acquire), before that sweep's __syncthreads,
+//   which hands it to every thread. Sweep x + 1 is thus
+//   speculative: where sweep x met the tolerance, every block sees the
+//   same complete max and drops it: its buffer is not swapped, and the
+//   strip's rows that live only in registers were also stored there as
+//   sweep x left them, so p', err and the sweeps are those of the
+//   do-while loop (`dropped` counts the drops, one a solve at most). No sweep runs past A.iters: after the last one the block
+//   waits for its max. Block 0 clears slot (x + 1) % 3 and its count at
+//   exchange x, after the count of x - 1 showed every block past its
+//   read of x - 2 (or, a solve's first exchange, after a grid barrier),
+//   and before its own release of x, which every block acquires before
+//   it adds to exchange x + 1.
+//
+// The halo rows of cur hold the rows beside the slab when the solve
+// starts. The p' BCs then run on the slab's rows and its two halo rows,
+// from interior values only, so the halo rows hold what the neighbours'
+// BCs give their edge rows and no exchange follows.
 template <int RT, bool RHS_SMEM, bool CAVITY>
-__device__ float slab_solve(const RoundsArgs& A, Slab& S, cg::grid_group& grid, unsigned* cmax,
-                            float* halo, const float* arr, float*& cur, float*& other) {
+__device__ float slab_solve(const RoundsArgs& A, Slab& S, unsigned* cmax, float* errsh,
+                            float* halo, const Handoff& H, int& dropped, const float* arr,
+                            float*& cur, float*& other) {
     const int ny = A.ny, nx = A.nx, P = S.P, n4 = P / 4, nrow = S.nrow;
     const int t = threadIdx.x, lane = t & 31, g = t % n4, lr0 = RT * (t / n4);
     const int gi0 = 4 * g;
@@ -447,11 +511,20 @@ __device__ float slab_solve(const RoundsArgs& A, Slab& S, cg::grid_group& grid, 
     __syncthreads();
 
     const unsigned lanes = __ballot_sync(0xffffffffu, act);
+    // the thread that publishes the block's flags and max and reads the
+    // grid's: the last, where it is idle, else the first of the second
+    // row group's first whole warp, so that its waits and fence hold up no
+    // warp of the slab's bottom edge (or, with more than two row groups,
+    // of either edge)
+    const bool last_idle = !(kCThreads - 1 < n4 * (kCThreads / n4) &&
+                             RT * ((kCThreads - 1) / n4) < nrow);
+    const int tc = last_idle ? kCThreads - 1 : 32 * ((n4 + 31) / 32);
     float err;
     int it = 0;
-    do {
-        const int s = S.sweep, par = s & 1, s3 = s % 3;
-        if (t == 0) cmax[(s + 1) % 3] = 0u;
+    bool drop = false;
+    for (;;) {
+        const int x = S.sweep, par = x & 1, s3 = x % 3;
+        if (t == 0) cmax[(x + 1) % 3] = 0u;
         uint32_t mbits = 0;
         if (act) {
             float4 Sv = *reinterpret_cast<const float4*>(row_of(S, cur, lr0 - 1) + gi0);
@@ -516,31 +589,61 @@ __device__ float slab_solve(const RoundsArgs& A, Slab& S, cg::grid_group& grid, 
                 val[r] = out;
                 if (r == 0 || r == RT - 1 || shared_cols)
                     *reinterpret_cast<float4*>(row_of(S, other, lr) + gi0) = out;
+                else  // a row only this thread reads: its old value where a drop finds it
+                    *reinterpret_cast<float4*>(row_of(S, cur, lr) + gi0) = C;
             }
             if (dn_edge) __stcg(halo_at(halo, par, S.C, S.rank, 0, P, gi0), val[0]);
             if (up_edge) __stcg(halo_at(halo, par, S.C, S.rank, 1, P, gi0), val[RT - 1]);
         }
         mbits = __reduce_max_sync(0xffffffffu, mbits);
         if (lane == 0) atomicMax(cmax + s3, mbits);
-        __syncthreads();
-        if (t == 0) {
-            atomicMax(slot_bits(A, s), cmax[s3]);
-            if (S.rank == 0) *slot_bits(A, s + 1) = 0u;
+        if (t == tc && it > 0) {  // the previous sweep's max, complete
+            while (ld_acquire(H.arrive(x - 1)) < S.C) {}
+            errsh[(x - 1) & 1] = __uint_as_float(__ldcg(H.slot(x - 1)));
         }
-        grid.sync();  // also publishes the edge rows
-        err = __uint_as_float(__ldcg(slot_bits(A, s)));
-        if (dn_edge)
+        __syncthreads();
+        if (t == tc) {
+            if (S.rank == 0) {
+                *H.slot(x + 1) = 0u;
+                *H.arrive(x + 1) = 0;
+            }
+            fence_acq_rel();  // the edge rows and the clears, before the flags
+            st_relaxed(H.flag(S.rank, 0), x + 1);
+            st_relaxed(H.flag(S.rank, 1), x + 1);
+            atomicMax(H.slot(x), cmax[s3]);  // after the flags: the slot's queue is not theirs
+            red_release_add(H.arrive(x), 1);  // the max, before its count
+        }
+        ++S.sweep;
+        if (it > 0 && !(errsh[(x - 1) & 1] >= A.tol)) {
+            // sweep it - 1 ended the solve: drop this one, cur already whole
+            err = errsh[(x - 1) & 1];
+            drop = true;
+            ++dropped;
+            break;
+        }
+        if (dn_edge) {
+            while (ld_acquire(H.flag(S.rank - 1, 1)) <= x) {}
             *reinterpret_cast<float4*>(row_of(S, other, -1) + gi0) =
                 __ldcg(halo_at(halo, par, S.C, S.rank - 1, 1, P, gi0));
-        if (up_edge)
+        }
+        if (up_edge) {
+            while (ld_acquire(H.flag(S.rank + 1, 0)) <= x) {}
             *reinterpret_cast<float4*>(row_of(S, other, nrow) + gi0) =
                 __ldcg(halo_at(halo, par, S.C, S.rank + 1, 0, P, gi0));
-        ++S.sweep;
+        }
         float* tmp = cur; cur = other; other = tmp;
-        ++it;
-    } while (it < A.iters && err >= A.tol);
+        if (++it >= A.iters) {  // the cap: this sweep's max, waited for
+            if (t == tc) {
+                while (ld_acquire(H.arrive(x)) < S.C) {}
+                errsh[x & 1] = __uint_as_float(__ldcg(H.slot(x)));
+            }
+            __syncthreads();
+            err = errsh[x & 1];
+            break;
+        }
+    }
     // the strip whole into the last sweep's buffer
-    if (act) {
+    if (act && !drop) {
 #pragma unroll
         for (int r = 0; r < RT; ++r)
             if (r != 0 && r != RT - 1 && !shared_cols && lr0 + r < nrow)
@@ -594,13 +697,18 @@ __device__ void slab_correct(const RoundsArgs& A, const Slab& S, cg::grid_group&
 // rows from b RP. Its Slab holds rank b of C = the blocks, so
 // cluster.cuh's divergence and BCs, which read only the slab's rows,
 // run on it; its cluster handle is never used. `halo`: 4 * blocks * P
-// floats (halo_at).
+// floats (halo_at); `sync`: handoff_ints(blocks) ints (Handoff); `dropped_out`:
+// the speculative sweeps dropped, one for each solve that met its
+// tolerance before A.iters sweeps.
 template <int RT, bool RHS_SMEM, bool CAVITY>
 __global__ void __launch_bounds__(kCThreads, 1) rounds_slab_kernel(RoundsArgs A, int RP,
-                                                                   float* halo) {
+                                                                   float* halo, int* sync,
+                                                                   int* dropped_out) {
     extern __shared__ __align__(16) float smem[];
     __shared__ unsigned cmax[3];  // the block's max a sweep, in rotation
+    __shared__ float errsh[2];    // a sweep's grid max, by the parity of its exchange
     cg::grid_group grid = cg::this_grid();
+    const Handoff H{sync};
     const int ny = A.ny, nx = A.nx, tid = threadIdx.x, P = (nx + 3) & ~3;
     const size_t buf = (size_t)(RP + 2) * P;
     float* cur = smem;
@@ -633,16 +741,21 @@ __global__ void __launch_bounds__(kCThreads, 1) rounds_slab_kernel(RoundsArgs A,
         row_of(S, cur, r)[i] = (j >= 0 && j < ny && i < nx) ? A.pp0[(size_t)j * nx + i] : 0.0f;
     }
     if (tid < 3) cmax[tid] = 0u;
-    if (blockIdx.x == 0 && tid < 3) A.slots[tid] = 0.0f;
-    grid.sync();  // the slots cleared before any block's first max
-    float err = slab_solve<RT, RHS_SMEM, CAVITY>(A, S, grid, cmax, halo,
+    if (tid < 2) *H.flag(blockIdx.x, tid) = 0;
+    if (blockIdx.x == 0 && tid < 3) {
+        *H.arrive(tid) = 0;
+        *H.slot(tid) = 0u;
+    }
+    grid.sync();  // the slots, counts and flags cleared before any block's first sweep
+    int dropped = 0;
+    float err = slab_solve<RT, RHS_SMEM, CAVITY>(A, S, cmax, errsh, halo, H, dropped,
                                                  RHS_SMEM ? rb : A.rhs0, cur, other);
     slab_correct(A, S, grid, cur, dt);
     int rounds_run = 0;
     for (; rounds_run < A.rounds && err >= A.outer_tol; ++rounds_run) {
         cluster_divergence<RHS_SMEM>(A, S, 0, rb, dt);
         __syncthreads();  // the rhs, before another thread's sweep reads it
-        err = slab_solve<RT, RHS_SMEM, CAVITY>(A, S, grid, cmax, halo,
+        err = slab_solve<RT, RHS_SMEM, CAVITY>(A, S, cmax, errsh, halo, H, dropped,
                                                RHS_SMEM ? rb : A.rhs_w, cur, other);
         slab_correct(A, S, grid, cur, dt);
     }
@@ -654,11 +767,12 @@ __global__ void __launch_bounds__(kCThreads, 1) rounds_slab_kernel(RoundsArgs A,
     if (blockIdx.x == 0 && tid == 0) {
         A.err_out[0] = err;
         A.counts[0] = rounds_run;
-        A.counts[1] = S.sweep;
+        A.counts[1] = S.sweep - dropped;
+        *dropped_out = dropped;
     }
 }
 
-using SlabFn = void (*)(RoundsArgs, int, float*);
+using SlabFn = void (*)(RoundsArgs, int, float*, int*, int*);
 
 template <bool CAVITY>
 SlabFn rounds_slab_instance(const GridSlabPlan& pl) {
@@ -743,12 +857,12 @@ extern "C" int cfd_rounds_cluster(const float* us, const float* vs, const float*
     return (int)cudaGetLastError();
 }
 
-// The slab form (the same arguments, then the card's SM count and the
-// halo buffer of halo_n floats): grid_slab_plan's blocks in one
-// cooperative launch (kernels/rounds.py routes here where no cluster
-// holds the grid and the plan fits). Fails (never falls back) if the
-// plan does not take the grid, the halo buffer is short or the card
-// refuses the launch.
+// The slab form (the same arguments, then the card's SM count, the halo
+// buffer of halo_n floats, the handoff buffer of sync_n ints and the
+// dropped sweeps' int): grid_slab_plan's blocks in one cooperative
+// launch (kernels/rounds.py routes here where no cluster holds the grid
+// and the plan fits). Fails (never falls back) if the plan does not
+// take the grid, a buffer is short or the card refuses the launch.
 extern "C" int cfd_rounds_slab(const float* us, const float* vs, const float* p_in,
                                const float* pp0, const float* rhs0, const float* scal,
                                float* u, float* v, float* p, float* pp, float* pp_tmp,
@@ -758,20 +872,21 @@ extern "C" int cfd_rounds_slab(const float* us, const float* vs, const float* p_
                                float ar, float ac, int iters, float tol, int rounds,
                                float outer_tol, int parabolic, float center, float radius,
                                int cavity, int sms, float* halo, long long halo_n,
-                               void* stream) {
+                               int* sync, int sync_n, int* dropped, void* stream) {
     RoundsArgs A{us, vs, p_in, pp0, rhs0, scal, u, v, p, pp, pp_tmp, rhs_w, slots,
                  err_out, counts, ny, nx, dx, dy, ax, ay, ar, ac, iters, tol, rounds,
                  outer_tol, mask_u_bc, mask_v_bc,
                  Inlet{parabolic, cavity ? dx : dy, center, radius}};
     const GridSlabPlan pl = grid_slab_plan(ny, nx, sms);
-    if (pl.rt == 0 || halo_n < 4LL * pl.blocks * ((nx + 3) & ~3))
+    if (pl.rt == 0 || halo_n < 4LL * pl.blocks * ((nx + 3) & ~3) ||
+        sync_n < handoff_ints(pl.blocks))
         return (int)cudaErrorInvalidValue;
     const SlabFn fn = cavity ? rounds_slab_instance<true>(pl) : rounds_slab_instance<false>(pl);
     cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kSmemMax);
     if (e != cudaSuccess) return (int)e;
     int rp = pl.rp;
-    void* args[] = {&A, &rp, &halo};
+    void* args[] = {&A, &rp, &halo, &sync, &dropped};
     e = cudaLaunchCooperativeKernel((const void*)fn, dim3(pl.blocks), dim3(kCThreads), args,
                                     pl.smem, (cudaStream_t)stream);
     if (e != cudaSuccess) return (int)e;

@@ -59,7 +59,7 @@ _SIGNATURES = {
     "cfd_rounds": _ROUNDS,
     "cfd_rounds_cluster": _ROUNDS[:-1] + [I, P],
     "cfd_rounds_cluster_admit": [I, I, I, I],
-    "cfd_rounds_slab": _ROUNDS[:-1] + [I, P, ctypes.c_longlong, P],
+    "cfd_rounds_slab": _ROUNDS[:-1] + [I, P, ctypes.c_longlong, P, I, P, P],
     "cfd_mgp_res": [P] * 7 + [I] * 3 + [F] * 7 + [I, P],
     "cfd_mgp_restrict": [P] * 7 + [I] * 3 + [F] * 7 + [I, P],
     "cfd_mgp_corr": [P] * 9 + [I] * 3 + [F] * 7 + [I, P],

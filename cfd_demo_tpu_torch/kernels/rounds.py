@@ -27,9 +27,11 @@ keeps p' in the shared memory of one thread-block cluster of C CTAs
 registers, each sweep's max and edge rows pushed by ``st.async`` onto
 the receivers' mbarriers: 14 CTAs at 800x264); the slab form
 (``rounds_slab_kernel``) lays the same slabs over the whole card, one
-block of 1024 threads an SM, the edge rows through device memory and
-its max through a rotating slot across one grid barrier a sweep (128
-blocks of 8 rows at 1024²); the cooperative form (``rounds_kernel``)
+block of 1024 threads an SM (128 blocks of 8 rows at 1024²), with no
+grid barrier a sweep: the edge rows go through device memory, each
+block waiting only on its neighbours' flags, and the max through a
+rotating slot read one sweep late, the sweep run meanwhile dropped
+where the solve had ended; the cooperative form (``rounds_kernel``)
 takes the rest (more than 1024 columns, or more rows than 6-row strips
 cover on the card), sweeping p' from L2 with a grid-wide barrier and a
 rotating three-slot ``atomicMax`` a sweep. PERF.md has their times, and
@@ -38,7 +40,10 @@ a single-block form's, 30x slower.
 In every form the exits are decided on the device with no host read.
 ``solve_correct_rounds.launches`` counts launches of any form,
 ``.cluster_launches`` and ``.slab_launches`` those of the cluster and
-slab forms, ``.cavity_launches`` those of a CAVITY instance.
+slab forms, ``.cavity_launches`` those of a CAVITY instance. While a
+profiler records, ``trace.dropped`` keeps each slab launch's count of
+dropped speculative sweeps (an int32 (1,) tensor the kernel writes: one
+for each solve that met its tolerance before ``jacobi_iters`` sweeps).
 
 Both versions also return how many outer rounds and Jacobi sweeps ran,
 so a check can hold the kernel's exits against the plain version's.
@@ -136,12 +141,19 @@ def solve_correct_rounds(u_star, v_star, p, pp0, rhs, dt_sub, inlet, scene,
             check(lib.cfd_rounds_cluster(*args, route.ctas, stream_of(p)),
                   f"solve_correct_rounds (cluster form, {route.ctas} CTAs)")
         elif route.form == "slab":
-            # each block's bottom and top rows, by sweep parity
+            # each block's bottom and top rows, by sweep parity; the max
+            # slots and each block's two edge flags, a 128-byte line each;
+            # the speculative sweeps the kernel dropped
             halo = torch.empty(4 * route.slab[2] * 4 * -(-nx // 4), dtype=torch.float32,
                                device=p.device)
+            sync = torch.empty(32 * (3 + 2 * route.slab[2]), dtype=torch.int32,
+                               device=p.device)
+            dropped = torch.empty(1, dtype=torch.int32, device=p.device)
             check(lib.cfd_rounds_slab(*args, route.sms, halo.data_ptr(), halo.numel(),
+                                      sync.data_ptr(), sync.numel(), dropped.data_ptr(),
                                       stream_of(p)),
                   f"solve_correct_rounds (slab form, {route.slab[2]} blocks)")
+            trace.keep_dropped(dropped)
         else:
             check(lib.cfd_rounds(*args, stream_of(p)), "solve_correct_rounds")
     solve_correct_rounds.launches += 1

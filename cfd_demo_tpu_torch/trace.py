@@ -19,7 +19,10 @@ its iterations on the device and is not counted here);
 ``rounds`` keeps, while a profiler records, the (outer rounds, sweeps)
 count tensor each single-scene ``piso._substep_jnp`` returns
 (:func:`keep_rounds`); a reader takes its window's out of the list and
-sums them after the window (:func:`rounds_total`).
+sums them after the window (:func:`rounds_total`). ``dropped`` keeps
+the same way the count of speculative sweeps each launch of the rounds
+kernel's slab form dropped, an int32 (1,) tensor the kernel writes
+(:func:`keep_dropped`, :func:`dropped_total`); ``counts`` leaves them out.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ host_reads = 0
 vcycles = 0
 sor_iterations = 0
 rounds: list = []
+dropped: list = []
 
 
 def span(name: str):
@@ -82,3 +86,21 @@ def rounds_total(kept) -> tuple:
     if not kept:
         return 0, 0
     return tuple(torch.stack(list(kept)).to(torch.int64).sum(dim=0).tolist())
+
+
+def keep_dropped(count: torch.Tensor):
+    """Keep ``count`` (an int32 (1,) tensor: the speculative sweeps a
+    launch of the rounds kernel's slab form dropped) in ``dropped``
+    while a profiler records: a reference, no device operation and no
+    read."""
+    if _profiler._is_profiler_enabled:
+        dropped.append(count)
+
+
+def dropped_total(kept) -> int:
+    """The dropped sweeps summed over the count tensors ``kept`` (a
+    slice of ``dropped``): one read of the device, made by the caller
+    after its window; 0 for none."""
+    if not kept:
+        return 0
+    return int(torch.cat(list(kept)).to(torch.int64).sum())

@@ -1234,6 +1234,120 @@ def test_rounds_slab_refused(cuda):
     assert krounds.solve_correct_rounds.launches == n
 
 
+def _slab_edge_args(cuda, ny, nx, cavity, **opts):
+    """Seeded inputs and a scene for the slab form's speculation tests:
+    the cavity from a seeded p' (``_cavity_rounds_scene``), the channel
+    from rest, an rhs that takes every solve past its first sweeps."""
+    if cavity:
+        scene = _cavity_rounds_scene(ny, nx, 2, **opts)
+    else:
+        grid = tc.Grid(nx=nx, ny=ny, lx=3.0 * nx / ny, ly=3.0,
+                       obstacles=(tc.Cylinder(1.0, 1.5, 0.3),))
+        scene = tc.make_scene(grid, tc.SimulationParams(dt=0.002, viscosity=1e-4),
+                              tc.solver_options_for(RUST, **opts))
+    u, v, p, rhs = fields(ny + nx + 7, scene.grid, cuda, scale=0.1)
+    pp0 = 0.01 * _cavity_pp(5, (ny, nx))[0].to(cuda) if cavity else torch.zeros_like(p)
+    return (u, v, p, pp0, 1000 * rhs, 0.002, 1.0, scene)
+
+
+def _slab_dropped(args, monkeypatch, **kw):
+    """The slab form's outputs and the sweeps it dropped, the count the
+    wrapper keeps in ``trace.dropped`` while a profiler records."""
+    from torch.profiler import ProfilerActivity, profile
+    from cfd_demo_tpu_torch import trace
+    monkeypatch.setattr(trace, "dropped", [])
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = krounds.solve_correct_rounds(*args, form="slab", **kw)
+    assert len(trace.dropped) == 1 and trace.dropped[0].dtype == torch.int32
+    return out, trace.dropped_total(trace.dropped)
+
+
+def _first_solve_errs(args, iters):
+    """err after k = 1 .. iters sweeps of the first solve alone (no outer
+    round, tolerance 0), from the cooperative form."""
+    scene = args[-1]
+    errs = []
+    for k in range(1, iters + 1):
+        s = dataclasses.replace(scene, opts=dataclasses.replace(
+            scene.opts, jacobi_iters=k, jacobi_tol=0.0, outer_corrector_rounds=0))
+        errs.append(float(krounds.solve_correct_rounds(*args[:-1], s, form="cooperative")[4]))
+    return errs
+
+
+# case: (solver options, outer rounds run, sweeps of each solve or None,
+# dropped sweeps or None); "tol" is picked from the first solve's errs
+SLAB_EDGES = {
+    "tol met at the first sweep": (
+        dict(jacobi_iters=12, jacobi_tol=1e30, outer_corrector_rounds=3,
+             outer_corrector_tol=0.0), 3, 1, 4),
+    "cap in every solve": (
+        dict(jacobi_iters=12, jacobi_tol=0.0, outer_corrector_rounds=3,
+             outer_corrector_tol=0.0), 3, 12, 0),
+    "one sweep a solve": (
+        dict(jacobi_iters=1, jacobi_tol=1e30, outer_corrector_rounds=2,
+             outer_corrector_tol=0.0), 2, 1, 0),
+    "exit at sweep iters - 2": (
+        dict(jacobi_iters=12, jacobi_tol="tol", outer_corrector_rounds=0), 0, 11, 1),
+    "exit at sweep iters - 1": (
+        dict(jacobi_iters=12, jacobi_tol="tol", outer_corrector_rounds=0), 0, 12, 0),
+    "0 outer rounds": (dict(outer_corrector_rounds=0), 0, None, None),
+}
+
+
+@pytest.mark.parametrize("case", list(SLAB_EDGES))
+@pytest.mark.parametrize("ny,nx,cavity", [
+    (1024, 1024, True),    # the cavity cell's plan: 2-row strips
+    (1001, 1024, False),   # a last slab of one row
+    (1320, 1024, True),    # 3-row strips: a row only registers hold
+    (3000, 1024, False),   # 6-row strips, rhs from L2
+], ids=["1024^2 cavity", "1001x1024 channel", "1320x1024 cavity", "3000x1024 channel"])
+def test_rounds_slab_speculation_edges(cuda, monkeypatch, case, ny, nx, cavity):
+    """The slab form's exits at the edges of its speculation (the sweep
+    after the one that meets the tolerance runs before that sweep's max is
+    known, and is dropped): bit for bit the cooperative form in u, v, p,
+    p' and err, the same counts, and the dropped-sweep counter: one for
+    each solve that met its tolerance before the cap, none for a solve
+    that hit it."""
+    opts, rounds, sweeps, dropped = SLAB_EDGES[case]
+    opts = dict(opts)
+    if opts.get("jacobi_tol") == "tol":
+        # a tolerance the first solve's err crosses after exactly `sweeps` sweeps
+        errs = _first_solve_errs(_slab_edge_args(cuda, ny, nx, cavity), opts["jacobi_iters"])
+        assert errs[sweeps - 1] < min(errs[:sweeps - 1]), errs
+        opts["jacobi_tol"] = min(errs[:sweeps - 1])
+    args = _slab_edge_args(cuda, ny, nx, cavity, **opts)
+    assert kcl.plan("rounds", 1, ny, nx, cuda, cavity=cavity, form="slab").slab is not None
+    b = krounds.solve_correct_rounds(*args, form="cooperative")
+    a, n_dropped = _slab_dropped(args, monkeypatch)
+    assert a[5].tolist() == b[5].tolist(), (a[5].tolist(), b[5].tolist())
+    for name, x, y in zip(("u", "v", "p", "pp", "err"), a, b):
+        assert torch.equal(x, y), (name, float((x - y).abs().max()))
+    got_rounds, got_sweeps = b[5].tolist()
+    assert got_rounds == rounds
+    iters = args[-1].opts.jacobi_iters
+    if sweeps is not None:
+        assert got_sweeps == (rounds + 1) * sweeps
+        assert n_dropped == dropped
+    else:  # one solve: it drops a sweep exactly where it exits before the cap
+        assert n_dropped == int(got_sweeps < iters)
+
+
+def test_rounds_slab_repeats_its_bits(cuda):
+    """The slab form launched 200 times on one 1024^2 cavity state: the
+    same bits in every output each time (a race in the handoffs or the
+    split-phase max would show as a launch that differs)."""
+    args = _rounds_state("1024^2 cavity", cuda)
+    first = krounds.solve_correct_rounds(*args, form="slab")
+    assert first[5].tolist()[1] > 100  # many solves, many exits
+    differ = []
+    for k in range(200):
+        again = krounds.solve_correct_rounds(*args, form="slab")
+        same = all(bool(torch.equal(x, y)) for x, y in zip(again, first))
+        if not same:
+            differ.append(k)
+    assert differ == []
+
+
 # ---------------------------------------------------------------------------
 # Kernels 1 and 3 against their plain versions bit for bit
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 Where no thread-block cluster holds a grid (1024², 1024x512), the rounds
 kernel runs its slab form (csrc/rounds.cu ``rounds_slab_kernel``): the
 cluster form's slabs in shared memory spread over the whole card, one
-block an SM, the edge rows through device memory and one grid barrier a
+block an SM, the edge rows through device memory under each block's
+edge flags and the max read one sweep late, with no grid barrier a
 sweep. How it splits a grid is ``grid_slab_plan``, a pure function of
 (ny, nx, SMs) that kernels/cluster.py mirrors; which form a grid takes
 is kernels/cluster.py ``plan``'s, here on a made-up card. Both are held
@@ -84,7 +85,8 @@ def test_plan_mirrors_the_source():
     """kernels/cluster.py grid_slab_plan mirrors csrc/rounds.cu's: the
     same constants (cluster.cuh's, which test_plan_constants_match_the_source
     holds to kernels/cluster.py), the same shared-memory sums, and the
-    wrapper's halo buffer is the size the entry point requires."""
+    wrapper's halo and handoff buffers are the sizes the entry point
+    requires."""
     csrc = Path(kcl.__file__).parent.parent / "csrc"
     body = re.sub(r"\s+", " ", _function((csrc / "rounds.cu").read_text(), "grid_slab_plan"))
     for name in ("kMaxCols", "kCThreads", "kSlabStrips", "kSmemMax"):
@@ -97,6 +99,10 @@ def test_plan_mirrors_the_source():
     assert "halo_n < 4LL * pl.blocks * ((nx + 3) & ~3)" in entry
     wrapper = Path(krounds.__file__).read_text()
     assert "torch.empty(4 * route.slab[2] * 4 * -(-nx // 4)" in wrapper
+    assert "sync_n < handoff_ints(pl.blocks)" in entry
+    assert "(long long)kLineInts * (3 + 2 * blocks)" in entry
+    assert "constexpr int kLineInts = 32;" in entry
+    assert "torch.empty(32 * (3 + 2 * route.slab[2]), dtype=torch.int32" in wrapper
 
 
 @pytest.mark.parametrize("ny,nx,form", [

@@ -7,14 +7,22 @@ the very tensor, on the rounds route (the rounds kernel's wrapper, its
 plain version here) and on the plain projection, and nothing of a
 batch's substep. With the profiler off nothing is kept. Keeping a count
 reads nothing and computes nothing; ``rounds_total`` sums the kept
-counts when asked.
+counts when asked. The rounds kernel's slab form keeps its count of
+dropped speculative sweeps in ``trace.dropped`` the same way: the very
+tensor the kernel writes, only while a profiler records, with no read
+and no operation added to the step (here against a stand-in for the
+kernel library, which the CPU cannot run).
 """
+import contextlib
+
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 import cfd_demo_tpu_torch as tc
 from cfd_demo_tpu_torch import trace
+from cfd_demo_tpu_torch.kernels import cluster as kcl
+from cfd_demo_tpu_torch.kernels import rounds as krounds
 from cfd_demo_tpu_torch.solver import piso
 
 torch.set_num_threads(1)
@@ -138,3 +146,78 @@ def test_rounds_total_sums_in_int64():
     kept = [torch.tensor([20, 2**30], dtype=torch.int32)] * 4
     assert trace.rounds_total(kept) == (80, 2**32)
     assert trace.rounds_total(kept[:1]) == (20, 2**30)
+
+
+def test_keeping_dropped_reads_and_computes_nothing(monkeypatch):
+    monkeypatch.setattr(trace, "dropped", [])
+    reads = trace.host_reads
+    count = _Untouchable()
+    trace.keep_dropped(count)
+    assert trace.dropped == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        trace.keep_dropped(count)
+    assert len(trace.dropped) == 1 and trace.dropped[0] is count
+    assert trace.host_reads == reads
+
+
+def test_dropped_total_sums_in_int64():
+    kept = [torch.tensor([2**30], dtype=torch.int32)] * 4
+    assert trace.dropped_total(kept) == 2**32
+    assert trace.dropped_total(kept[:1]) == 2**30
+    assert trace.dropped_total([]) == 0
+
+
+class _SlabLibrary:
+    """A stand-in for the kernel library: records each call of the slab
+    form's entry point and launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def cfd_rounds_slab(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def _slab_route_on_the_cpu(monkeypatch, ny=16, nx=24):
+    """The rounds wrapper's slab branch on CPU tensors, against the
+    stand-in library: (the library, the wrapper's arguments)."""
+    lib = _SlabLibrary()
+    route = kcl.Plan("slab", sms=132, slab=kcl.grid_slab_plan(ny, nx, 132))
+    monkeypatch.setattr(krounds, "on_cpu", lambda *a: False)
+    monkeypatch.setattr(krounds, "load", lambda: lib)
+    monkeypatch.setattr(krounds, "plan", lambda *a, **k: route)
+    monkeypatch.setattr(krounds, "stream_of", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    grid = tc.Grid(nx=nx, ny=ny, lx=4.0, ly=1.5,
+                   obstacles=(tc.Cylinder(center_x=1.0, center_y=0.75, radius=0.3),))
+    scene = tc.make_scene(grid, tc.SimulationParams(dt=0.004, viscosity=1e-4),
+                          tc.solver_options_for(tc.Semantics.RUST))
+    g = torch.Generator().manual_seed(11)
+    mk = lambda *shape: 0.1 * torch.randn(*shape, generator=g)
+    args = (mk(ny, nx + 1), mk(ny, nx), mk(ny, nx), torch.zeros(ny, nx), mk(ny, nx),
+            0.004, 1.0, scene)
+    return lib, args
+
+
+def test_the_slab_launch_keeps_the_count_the_kernel_writes(monkeypatch):
+    lib, args = _slab_route_on_the_cpu(monkeypatch)
+    monkeypatch.setattr(trace, "dropped", [])
+    reads = trace.host_reads
+    krounds.solve_correct_rounds(*args)
+    assert len(lib.calls) == 1 and trace.dropped == []
+    with profile(activities=[ProfilerActivity.CPU]) as on:
+        krounds.solve_correct_rounds(*args)
+    assert len(lib.calls) == 2 and len(trace.dropped) == 1
+    kept = trace.dropped[0]
+    # ..., sms, halo, halo_n, sync, sync_n, dropped, stream
+    assert kept.dtype == torch.int32 and kept.shape == (1,)
+    assert kept.data_ptr() == lib.calls[-1][-2]
+    assert trace.host_reads == reads
+    # keeping it adds no operation: the same ops with the keep a no-op
+    monkeypatch.setattr(trace, "keep_dropped", lambda count: None)
+    with profile(activities=[ProfilerActivity.CPU]) as off:
+        krounds.solve_correct_rounds(*args)
+    ops = lambda prof: [e.name for e in prof.events() if e.name.startswith("aten::")]
+    assert ops(on) == ops(off) and ops(on)
+    assert len(trace.dropped) == 1
