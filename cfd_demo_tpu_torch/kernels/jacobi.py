@@ -127,25 +127,40 @@ def jacobi_chain(pp0, rhs, dx: float, dy: float, omega: float, tol: float,
                  iters: int, k: int = 16, early_exit: bool = True,
                  cavity: bool = False):
     """Returns (p', last error, iterations run), exactly ``iters``
-    iterations when no early exit fires.
+    iterations when no early exit fires; the iterations are also added
+    to ``trace.chain_sweeps``.
 
     With ``early_exit`` and tol > 0 the error is read on the host once
-    per k-launch (K-granularity exit, jacobi_pallas.py:28-30). Moving
-    that test onto the device (a device-side loop or a CUDA graph) is
-    later work; with tol == 0 the chain never reads back. ``cavity``
+    per k-launch (K-granularity exit, jacobi_pallas.py:28-30). The next
+    launch (after the last k-launch, the remainder, which runs whatever
+    the test reads) is queued before the host waits for the read, so the
+    device sweeps on through it; a k-launch queued past the exit is
+    dropped, and the fields are those of the loop that tests first.
+    Moving the test onto the device (a device-side loop or a CUDA graph)
+    is later work; with tol == 0 the chain never reads back. ``cavity``
     takes the CAVITY p' BCs."""
     n_full, rem = divmod(iters, k)
+    test = early_exit and tol > 0.0
     pp = pp0
     err = torch.full((), float("inf"), dtype=torch.float32, device=pp0.device)
     n_run = 0
-    for _ in range(n_full):
-        pp, err = jacobi_fused_k(pp, rhs, dx, dy, omega, k, cavity)
+    ahead = jacobi_fused_k(pp, rhs, dx, dy, omega, k, cavity) if n_full else None
+    for i in range(n_full):
+        pp, err = ahead
         n_run += k
-        if early_exit and tol > 0.0 and not trace.read_host(err >= tol):
+        go = trace.read_soon(err, at_least=tol) if test else None
+        last = i + 1 == n_full
+        ahead = (jacobi_fused_k(pp, rhs, dx, dy, omega, rem if last else k, cavity)
+                 if rem or not last else None)
+        if go is not None and not trace.read_host(go):
+            if not last:
+                ahead = None
             break
     if rem:
-        pp, err = jacobi_fused_k(pp, rhs, dx, dy, omega, rem, cavity)
+        pp, err = ahead if ahead is not None else jacobi_fused_k(
+            pp, rhs, dx, dy, omega, rem, cavity)
         n_run += rem
+    trace.chain_sweeps += n_run
     return pp, err, n_run
 
 

@@ -164,7 +164,11 @@ the outer rounds' error                         once per round, the fused route 
 
 The fixed schedules, MULTIGRID, the rounds kernel and the batch routes
 read nothing. Every read goes through ``trace.read_host``, which counts
-it.
+it; the chain's and the round loops' reads are started
+(``trace.read_soon``) before the next launch is queued. On a CUDA card
+the host-read round loop replays its plain corrector and divergence as
+two CUDA graphs (``_RoundGlue``), the same kernels for the host's one
+call each.
 
 Spans (``trace.span``, profiler ranges while a profiler records):
 ``cfd.step`` over ``step_fn``; in each substep ``cfd.predict`` (the
@@ -177,7 +181,10 @@ no phase is the step's own control: the inlet ramp, the residual maxima,
 the substep count and the dt control. While a profiler records,
 ``trace.rounds`` keeps the (outer rounds, sweeps) counts each
 single-scene ``_substep_jnp`` returns: the rounds kernel's own, or the
-plain projection's (the fused route's rounds are not kept).
+plain projection's (the fused route's rounds are not kept there).
+``trace.chain_sweeps`` counts the Jacobi chain's sweeps and
+``trace.outer_rounds`` the host-read round loops' rounds, on every
+call; each host read is a ``cfd.read`` span.
 
 CAVITY flow (the lid-driven cavity, BASELINE config 2) takes the same
 routes with JACOBI, FDM, MULTIGRID and MG_PRODUCTION: the Jacobi chain,
@@ -219,7 +226,7 @@ from ..kernels.rounds import solve_correct_rounds
 from ..kernels.sor import sor_chain, sor_chain_rb2
 from ..kernels.substep import correct_bc, correct_div, predict_div
 from ..ops.bc import apply_bcs
-from ..ops.corrector import correct
+from ..ops.corrector import correct, correct_velocities_
 from ..ops.divergence import divergence_rhs
 from ..ops.fdm import fdm_solve_interior
 from ..ops.poisson import (_mg_residual, check_mgp_scheme, jacobi, multigrid,
@@ -433,6 +440,65 @@ def _solve_pressure(scene: Scene, pp0, rhs, dt_sub, done=None):
                   bc=pprime_bc_fn(scene.params.flow_case))
 
 
+class _RoundGlue:
+    """The plain glue of ``_outer_rounds``' host-read loop on a CUDA card
+    as two CUDA graphs over static fields: ``correct`` (the corrector,
+    u, v and p updated in place from the p' copied into ``pp``) and
+    ``divergence`` (``rhs`` from u and v). The graphs replay the plain
+    ops' own kernels in the same order, so the fields are the plain
+    calls' bit for bit; a replay costs the host one call where the plain
+    corrector and divergence issue ~25 operations (at 2048² on an H100,
+    0.15 and 0.10 ms of host time a round against 0.19 and 0.10 ms of
+    device time: the loop was paced by the host)."""
+
+    def __init__(self, u, v, p, pp, dt_sub, dx: float, dy: float):
+        self.u, self.v, self.p, self.pp, self.dt = (
+            t.clone() for t in (u, v, p, pp, dt_sub))
+        self.dx, self.dy = dx, dy
+        main = torch.cuda.current_stream(u.device)
+        side = torch.cuda.Stream(u.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):  # a first, uncaptured call of each
+            self._correct()
+            self._divergence()
+        main.wait_stream(side)
+        self.correct, self.divergence = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.correct):
+            self._correct()
+        with torch.cuda.graph(self.divergence, pool=self.correct.pool()):
+            self.rhs = self._divergence()
+
+    def _correct(self):
+        correct_velocities_(self.u, self.v, self.pp, self.dt, self.dx, self.dy)
+        self.p.add_(self.pp)
+
+    def _divergence(self):
+        return divergence_rhs(self.u, self.v, self.dt, self.dx, self.dy)
+
+
+# (device, dtype, the fields' shapes, dx, dy) -> _RoundGlue
+_GLUE: dict = {}
+
+
+def _round_glue(u, v, p, pp, dt_sub, dx: float, dy: float):
+    """The cached ``_RoundGlue`` of these fields, loaded with u, v, p and
+    dt_sub (the step's 0-d tensor); None off a CUDA card, or where it
+    would first be captured while a profiler records or a capture runs."""
+    if not u.is_cuda:
+        return None
+    key = (u.device, u.dtype, dt_sub.dtype, tuple(u.shape), tuple(v.shape),
+           tuple(p.shape), tuple(pp.shape), dx, dy)
+    glue = _GLUE.get(key)
+    if glue is None:
+        if trace.profiling() or torch.cuda.is_current_stream_capturing():
+            return None
+        with torch.cuda.device(u.device):
+            glue = _GLUE[key] = _RoundGlue(u, v, p, pp, dt_sub, dx, dy)
+    for static, t in ((glue.u, u), (glue.v, v), (glue.p, p), (glue.dt, dt_sub)):
+        static.copy_(t)
+    return glue
+
+
 def _outer_rounds(scene: Scene, u, v, p, pp, err, dt_sub):
     """Rust outer corrector rounds (model.rs:696-724): repeat
     div -> solve -> correct until the pressure residual drops below
@@ -449,11 +515,33 @@ def _outer_rounds(scene: Scene, u, v, p, pp, err, dt_sub):
         return u, v, p, pp, err, n
 
     if opts.early_exit and err.dim() == 0:
-        # One host read of err per round; a device-side loop is later work.
+        # One host read of err per round, started before the corrector is
+        # queued, so the device corrects while the host waits. On a CUDA
+        # card the corrector and divergence replay as graphs (_RoundGlue),
+        # whose fields are copied out at the end. A device-side loop is
+        # later work.
         it = iters = 0
-        while it < rounds and trace.read_host(err >= tol):
-            u, v, p, pp, err, n = round_body(u, v, p, pp)
+        glue = None
+        go = trace.read_soon(err, at_least=tol) if rounds else None
+        while go is not None and trace.read_host(go):
+            if it == 0:
+                glue = _round_glue(u, v, p, pp, dt_sub, g.dx, g.dy)
+            if glue is None:
+                rhs = divergence_rhs(u, v, dt_sub, g.dx, g.dy)
+            else:
+                glue.divergence.replay()
+                rhs = glue.rhs
+            pp, err, n = _solve_pressure(scene, pp, rhs, dt_sub)
             it, iters = it + 1, iters + n
+            go = trace.read_soon(err, at_least=tol) if it < rounds else None
+            if glue is None:
+                u, v, p = correct(u, v, p, pp, dt_sub, g.dx, g.dy)
+            else:
+                glue.pp.copy_(pp)
+                glue.correct.replay()
+        if glue is not None:
+            u, v, p = glue.u.clone(), glue.v.clone(), glue.p.clone()
+        trace.outer_rounds += it
         return u, v, p, pp, err, it, iters
     # Masked fixed trip count: the rounds after a scene converges are
     # discarded, the same fields as the exact exit with no host read. A
@@ -575,14 +663,18 @@ def piso_substep(scene: Scene, u, v, p, p_prime, dt_sub, nu, inlet,
         if rounds > 0 and opts.early_exit and opts.rounds_impl == "pallas":
             # JAX piso.py:725-756: each round is the solve plus one
             # correct_div launch, whose divergence feeds the next round's
-            # solve; the exit reads err on the host once a round, as
-            # _outer_rounds does.
+            # solve; the exit reads err on the host once a round, started
+            # before correct_div is queued, as _outer_rounds does.
+            tol = opts.outer_corrector_tol
+            go = trace.read_soon(err, at_least=tol)
             u, v, p, rhs = correct_div(u_star, v_star, p, pp, dt_sub, g)
             it = 0
-            while it < rounds and trace.read_host(err >= opts.outer_corrector_tol):
+            while go is not None and trace.read_host(go):
                 pp, err, _ = _solve_pressure(scene, pp, rhs, dt_sub)
-                u, v, p, rhs = correct_div(u, v, p, pp, dt_sub, g)
                 it += 1
+                go = trace.read_soon(err, at_least=tol) if it < rounds else None
+                u, v, p, rhs = correct_div(u, v, p, pp, dt_sub, g)
+            trace.outer_rounds += it
         else:
             u, v, p = correct(u_star, v_star, p, pp, dt_sub, g.dx, g.dy)
             u, v, p, pp, err = _outer_rounds(scene, u, v, p, pp, err, dt_sub)[:5]

@@ -1080,6 +1080,75 @@ def test_jacobi_chain_tiled_bit_for_bit(cuda, shape):
     assert torch.equal(got[1].cpu(), ref[1])
 
 
+@pytest.mark.parametrize("tol", [1e9, 1e-9, "second"])
+def test_jacobi_chain_reads_ahead_as_the_loop_that_reads_first(cuda, tol):
+    """Under a tolerance the chain starts each chunk's read, queues the
+    next launch and then waits (trace.read_soon): the p', error and
+    sweeps of the loop that reads with .item() before it launches, at
+    an exit after the first chunk, after the second and at the cap, and
+    one host read a chunk run; a started read gives .item()'s value."""
+    from cfd_demo_tpu_torch import trace
+    ny, nx = 258, 130
+    pp, rhs = _tiled_inputs(7, (ny, nx))
+    pp, rhs = pp.to(cuda), rhs.to(cuda)
+    dx, dy = 1 / nx, 1 / ny
+    errs, want = [], pp
+    for _ in range(3):
+        want, e = kjac.jacobi_fused_k(want, rhs, dx, dy, 0.75, 16)
+        errs.append(e.item())
+    if tol == "second":
+        assert errs[1] < errs[0]
+        tol = (errs[0] + errs[1]) / 2
+    want, chunks = pp, 0
+    for _ in range(3):
+        want, werr = kjac.jacobi_fused_k(want, rhs, dx, dy, 0.75, 16)
+        chunks += 1
+        if not (werr >= tol).item():
+            break
+    want, werr = kjac.jacobi_fused_k(want, rhs, dx, dy, 0.75, 2)
+    before = trace.host_reads
+    got, err, n = kjac.jacobi_chain(pp, rhs, dx, dy, 0.75, tol, 50)
+    assert trace.host_reads - before == chunks
+    assert n == 16 * chunks + 2
+    assert torch.equal(got, want) and torch.equal(err, werr)
+    for value in (True, False):
+        started = trace.read_soon(torch.tensor(value, device=cuda))
+        assert isinstance(started, trace.Soon)
+        assert trace.read_host(started) is value
+
+
+@pytest.mark.parametrize("n", [256, 512])
+def test_round_glue_graphs_equal_the_plain_glue(cuda, n, monkeypatch):
+    """bench.py --mode reference's schedule on the fused route at n^2:
+    the host-read round loop with its corrector and divergence replayed
+    as CUDA graphs (piso._RoundGlue) and with the plain calls give the
+    same bits in every field over 12 steps from rest, the rounds
+    running; a step's fields are copies, which later steps leave as they
+    were."""
+    from cfd_demo_tpu_torch.cells import reference_mode_scene
+    scene = reference_mode_scene(n)
+    scene = dataclasses.replace(scene, opts=dataclasses.replace(
+        scene.opts, substep_impl="pallas"))
+    init = scene.init_state(cuda)
+    step = tc.make_step(scene)
+    from cfd_demo_tpu_torch import trace
+    rounds0 = trace.outer_rounds
+    graphs, kept = [], []
+    state = init
+    for _ in range(12):
+        state, _ = step(state)
+        graphs.append(state)
+        kept.append(state.u.clone())
+    assert tpiso._GLUE and trace.outer_rounds > rounds0
+    monkeypatch.setattr(tpiso, "_round_glue", lambda *a: None)
+    state = init
+    for i in range(12):
+        state, _ = step(state)
+        for f in ("u", "v", "p", "p_prime", "dt", "res_p"):
+            assert torch.equal(getattr(graphs[i], f), getattr(state, f)), (i, f)
+        assert torch.equal(graphs[i].u, kept[i])
+
+
 def _rounds_state(which, cuda):
     from cfd_demo_tpu_torch.cells import cavity_scene, reference_scene, rounds_args
     if which == "800x264":

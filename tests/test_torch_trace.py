@@ -8,6 +8,7 @@ profiler; on or off, the step's bits are the same. ``host_reads``
 counts the tolerance exits' reads of device values, ``vcycles`` every
 V-cycle run, and the wrappers keep their launch counters.
 """
+import contextlib
 import dataclasses
 import json
 
@@ -182,6 +183,64 @@ def test_host_reads(case, monkeypatch):
         assert len(calls) == trace.vcycles - cycles == solved >= 2
     assert all(isinstance(t, torch.Tensor) and t.dim() == 0 for t in calls)
     assert trace.host_reads == before  # CPU tensors
+
+
+class _Event:
+    """An event that records when it is waited on."""
+
+    def __init__(self, log):
+        self.log = log
+
+    def synchronize(self):
+        self.log.append("wait")
+
+
+@pytest.mark.parametrize("value", [True, False])
+def test_read_soon_reads_after_its_event(value, monkeypatch):
+    """A CPU tensor's read is not started: ``read_soon`` gives the
+    tensor back and ``read_host`` of it counts nothing. A started read
+    (``trace.Soon``: the pinned copy and the event after it) waits on
+    its event inside the ``cfd.read`` span, then gives the copy's value,
+    counted in ``host_reads``."""
+    t = torch.tensor(value)
+    assert trace.read_soon(t) is t
+    before, log = trace.host_reads, []
+    assert trace.read_host(trace.read_soon(t)) is value
+    assert trace.host_reads == before
+
+    @contextlib.contextmanager
+    def span(name):
+        log.append(("open", name))
+        yield
+        log.append(("close", name))
+
+    monkeypatch.setattr(trace, "span", span)
+    del log[:]
+    pool = []
+    host = torch.tensor(value)
+    assert trace.read_host(trace.Soon(host, _Event(log), pool=pool)) is value
+    assert log == [("open", "cfd.read"), "wait", ("close", "cfd.read")]
+    assert trace.host_reads == before + 1
+    assert len(pool) == 1 and pool[0][0] is host  # the copy goes back once read
+
+
+_TOL = 1e-4
+_TOL32 = torch.tensor(_TOL, dtype=torch.float32).item()  # below 1e-4 in float32
+
+
+@pytest.mark.parametrize("err", [_TOL32, torch.nextafter(torch.tensor(_TOL32),
+                                                         torch.tensor(0.0)).item(),
+                                 1.0, 0.0, float("nan"), float("inf")])
+def test_read_soon_tests_its_threshold_as_the_device_compares(err):
+    """``read_soon(t, at_least=tol)`` reads ``t >= tol`` as the tensor
+    comparison gives it, tol rounded to t's dtype (float32 1e-4 lies
+    below 1e-4; NaN is never at least tol): on a CPU tensor the
+    comparison itself, and a started read compares its copy on the host."""
+    t = torch.tensor(err, dtype=torch.float32)
+    want = bool(t >= _TOL)
+    assert bool(trace.read_host(trace.read_soon(t, at_least=_TOL))) is want
+    started = trace.Soon(t.clone(), _Event([]), at_least=trace._rounded(_TOL, t.dtype))
+    assert trace.read_host(started) is want
 
 
 def _mg_opts(**kw):
